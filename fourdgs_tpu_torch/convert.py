@@ -1,0 +1,82 @@
+"""Parameters between the JAX package's layout (numpy arrays) and the
+port's modules.
+
+  * `gaussians_from_numpy`: the fields of a `GaussianParams` (any mapping
+    of field name -> array) -> the port's GaussianParams.
+  * `deformation_from_flat`: the flat dict that `deformation.npz` holds
+    (and that the JAX checkpoint module's `_flatten(params["deform"])`
+    returns), with keys such as `grid/l0_p0`, `mlp/pos/h0/w` and
+    `mlp/feature_out/fo0/b` -> a `Deformation` module.
+  * `deformation_to_flat`: the inverse, for writing snapshots.
+
+The JAX package stores a weight `w` as (fan_in, fan_out) and applies
+`x @ w + b`; `nn.Linear` keeps (fan_out, fan_in), so weights are
+transposed on the way in and out.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from fourdgs_tpu_torch.models.deformation import DeformConfig, Deformation
+from fourdgs_tpu_torch.models.gaussians import GaussianParams
+from fourdgs_tpu_torch.utils.device import resolve_device
+
+_GAUSS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
+                 "rotation", "opacity")
+
+
+def gaussians_from_numpy(fields: Mapping[str, np.ndarray],
+                         device: str | torch.device | None = None
+                         ) -> GaussianParams:
+    """On `device` (None: cuda, which raises without a card)."""
+    dev = resolve_device(device)
+    return GaussianParams(**{
+        k: torch.from_numpy(np.array(fields[k], np.float32)).to(dev)
+        for k in _GAUSS_FIELDS})
+
+
+def _module_key(flat_key: str) -> tuple[str, bool]:
+    """'grid/l0_p0' -> ('grid.planes.l0_p0', False);
+    'mlp/pos/h0/w' -> ('pos.h0.weight', True)."""
+    parts = flat_key.split("/")
+    if parts[0] == "grid":
+        return "grid.planes." + "/".join(parts[1:]), False
+    if parts[0] != "mlp" or parts[-1] not in ("w", "b"):
+        raise KeyError(f"unknown deformation parameter {flat_key!r}")
+    leaf = "weight" if parts[-1] == "w" else "bias"
+    return ".".join(parts[1:-1] + [leaf]), parts[-1] == "w"
+
+
+def deformation_from_flat(flat: Mapping[str, np.ndarray], cfg: DeformConfig,
+                          device: str | torch.device | None = None
+                          ) -> Deformation:
+    """A Deformation holding exactly the parameters of `flat` (strict: a
+    missing or extra key raises), on `device` (None: cuda)."""
+    dev = resolve_device(device)
+    state = {}
+    for key, arr in flat.items():
+        name, transpose = _module_key(key)
+        t = torch.from_numpy(np.array(arr, np.float32))
+        state[name] = t.T.contiguous() if transpose else t
+    module = Deformation(cfg)
+    module.load_state_dict(state, strict=True)
+    return module.to(dev)
+
+
+def deformation_to_flat(module: Deformation) -> dict[str, np.ndarray]:
+    """Inverse of deformation_from_flat: the deformation.npz layout."""
+    flat = {}
+    for name, p in module.state_dict().items():
+        arr = p.detach().cpu().numpy()
+        if name.startswith("grid.planes."):
+            flat["grid/" + name[len("grid.planes."):]] = arr
+            continue
+        *path, leaf = name.split(".")
+        if leaf == "weight":
+            flat["mlp/" + "/".join(path) + "/w"] = np.ascontiguousarray(arr.T)
+        else:
+            flat["mlp/" + "/".join(path) + "/b"] = arr
+    return flat

@@ -1,0 +1,114 @@
+"""Builds the package's CUDA sources (csrc/*.cu) with `nvcc` at first use
+and loads them with ctypes (the role of fourdgs_tpu/native/build.py).
+
+One shared library with a plain C interface holds every kernel. It is
+written to build/fourdgs_tpu_torch/ at the checkout's root, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing file. Importing this module touches
+neither `nvcc` nor the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fourdgs_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build reported: seconds, ptxas lines, library path
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfourdgs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists. Prints
+    ptxas' registers and spills per kernel when `verbose`."""
+    out = _library_path()
+    if out.exists():
+        if build_info.get("path") != str(out):  # not built by this process
+            build_info.update(seconds=0.0, ptxas=[], path=str(out),
+                              cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "ptxas" in ln and ("registers" in ln or "spill" in ln
+                                   or "Compiling" in ln)]
+    build_info.update(seconds=seconds, ptxas=ptxas, path=str(out),
+                      cached=False)
+    if verbose:
+        print(f"built {out.name} in {seconds:.1f} s")
+        for ln in ptxas:
+            print(ln)
+    return out
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """ctypes signatures: every pointer and the stream as c_void_p, so that
+    no 64-bit address is cut to 32 bits."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
+                                     vp, vp, vp, vp]
+    lib.blend_fwd_launch.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """The kernels' library, built on first use. Raises when CUDA is not
+    available: there is nothing to fall back to here."""
+    global _lib
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; the plain "
+                           "versions run only for CPU tensors")
+    with _lock:
+        if _lib is None:
+            _lib = _declare(ctypes.CDLL(str(build(verbose))))
+    return _lib

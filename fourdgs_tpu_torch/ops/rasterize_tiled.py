@@ -1,0 +1,218 @@
+"""Tile-binned Gaussian rasterizer, forward only
+(counterpart: fourdgs_tpu/ops/rasterize_tiled.py).
+
+  1. project_gaussians     — EWA projection (ops/projection.py)
+  2. bin_gaussians_count   — per-tile fixed-capacity index lists
+     (num_tiles, tile_cap) in depth order, with the JAX package's global
+     pair budget and exact corner cull
+  3. blend_forward         — front-to-back compositing over the lists
+     (ops/blend.py: a CUDA kernel on the card, the plain torch recurrence
+     on the CPU)
+
+Blending numerics follow the spec in ops/rasterize_ref.py.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.ops.blend import blend_forward, pack_attr_table
+from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
+from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
+
+# corner-cull distance clamp: 2 * 23000^2 stays below the 2^30 no-cull
+# sentinel, as in the JAX binner
+_CULL_CLAMP = 23000
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterConfig:
+    """Static rasterizer configuration."""
+    img_width: int
+    img_height: int
+    tile_size: int = 16
+    tile_cap: int = 1024       # max gaussians composited per tile
+    chunk: int = 32            # gaussians per compositing step
+    bin_chunk: int = 4096      # gaussians per pair-budget unit
+    bin_pairs_per_chunk: int = 32768  # pair slots per bin_chunk gaussians
+
+    @property
+    def grid_x(self) -> int:
+        return -(-self.img_width // self.tile_size)
+
+    @property
+    def grid_y(self) -> int:
+        return -(-self.img_height // self.tile_size)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.grid_x * self.grid_y
+
+    @property
+    def pixels_per_tile(self) -> int:
+        return self.tile_size * self.tile_size
+
+
+class BinnedTiles(NamedTuple):
+    gidx: torch.Tensor           # (num_tiles, tile_cap) int32, -1 padded
+    counts: torch.Tensor         # (num_tiles,) int32
+    num_pairs: torch.Tensor      # () int32 total pairs before capping
+    dropped_pairs: torch.Tensor  # () int32 pairs beyond the pair budget
+    dropped_tile: torch.Tensor   # () int32 pairs beyond per-tile cap
+    overflow: torch.Tensor       # (num_tiles,) int32 per-tile cap excess
+
+
+def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
+    """Per-tile depth-ordered gaussian index lists, with the contract of
+    the JAX package's counting binner.
+
+    Pair budget: depth-ordered gaussians take contiguous slot runs in one
+    budget of `ceil(n / bin_chunk) * bin_pairs_per_chunk` slots, each run
+    in row-major order over the gaussian's tile rect; the first
+    `total_slots` pairs of that expansion are kept, including the partial
+    run of the gaussian that straddles the budget. The exact corner cull
+    then drops kept pairs whose whole tile lies beyond the gate radius.
+
+    The mechanism differs from the JAX package's (whose rank scan works
+    around TPU costs): pairs are expanded with `repeat_interleave` (one
+    host sync for the output size) and a stable sort by tile id over the
+    depth-ordered pairs gives each pair its in-tile rank."""
+    dev = proj.depth.device
+    n = proj.depth.shape[0]
+    nt = cfg.num_tiles
+    ts = cfg.tile_size
+    total_slots = -(-n // cfg.bin_chunk) * cfg.bin_pairs_per_chunk
+
+    visible = proj.tiles_touched > 0
+    inf = torch.full_like(proj.depth, float("inf"))
+    order = torch.sort(torch.where(visible, proj.depth, inf),
+                       stable=True).indices
+    touched_s = proj.tiles_touched[order].long()
+    off = torch.cumsum(touched_s, 0)
+    start = off - touched_s
+    total = off[-1] if n else torch.zeros((), dtype=torch.long, device=dev)
+    alloc = torch.clamp(torch.minimum(touched_s, total_slots - start), min=0)
+
+    # ---- pair expansion (depth-major, row-major within each rect) ----
+    rank_g = torch.arange(n, device=dev)
+    owner = torch.repeat_interleave(rank_g, alloc)      # depth rank per pair
+    local = torch.arange(owner.shape[0], device=dev) - start[owner]
+    gid = order[owner]
+    rmin = proj.rect_min[gid].long()
+    sx = torch.clamp(proj.rect_max[gid, 0].long() - rmin[:, 0], min=1)
+    dy = torch.div(local, sx, rounding_mode="floor")
+    tx = rmin[:, 0] + (local - dy * sx)
+    ty = rmin[:, 1] + dy
+
+    # ---- exact corner cull (the -1 absorbs qpix rounding) ----
+    qpix = torch.round(torch.clamp(proj.pix[gid], -(1 << 20), 1 << 20)).long()
+    lox, loy = tx * ts, ty * ts
+    ddx = torch.clamp(torch.maximum(lox - qpix[:, 0],
+                                    qpix[:, 0] - (lox + ts - 1)) - 1,
+                      0, _CULL_CLAMP)
+    ddy = torch.clamp(torch.maximum(loy - qpix[:, 1],
+                                    qpix[:, 1] - (loy + ts - 1)) - 1,
+                      0, _CULL_CLAMP)
+    keep = ddx * ddx + ddy * ddy <= proj.cull_r2[gid].long()
+    tile_id = (ty * cfg.grid_x + tx)[keep]
+    gid = gid[keep]
+
+    # ---- in-tile rank: stable sort by tile keeps depth order ----
+    tile_sorted, perm = torch.sort(tile_id, stable=True)
+    counter = torch.bincount(tile_id, minlength=nt)
+    tile_start = torch.cumsum(counter, 0) - counter
+    rank = torch.arange(tile_sorted.shape[0], device=dev) \
+        - tile_start[tile_sorted]
+    ok = rank < cfg.tile_cap
+    gidx = torch.full((nt * cfg.tile_cap,), -1, dtype=torch.int32,
+                      device=dev)
+    gidx[(tile_sorted * cfg.tile_cap + rank)[ok]] = \
+        gid[perm][ok].to(torch.int32)
+
+    overflow = torch.clamp(counter - cfg.tile_cap, min=0).to(torch.int32)
+    return BinnedTiles(
+        gidx=gidx.reshape(nt, cfg.tile_cap),
+        counts=torch.clamp(counter, max=cfg.tile_cap).to(torch.int32),
+        num_pairs=proj.tiles_touched.sum().to(torch.int32),
+        dropped_pairs=torch.clamp(total - total_slots, min=0).to(torch.int32),
+        dropped_tile=overflow.sum().to(torch.int32),
+        overflow=overflow,
+    )
+
+
+def _untile(x: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """(num_tiles, P, ...) -> (H, W, ...) crop."""
+    t = cfg.tile_size
+    ch = tuple(x.shape[2:])
+    x = x.reshape((cfg.grid_y, cfg.grid_x, t, t) + ch)
+    x = x.transpose(1, 2)  # (gy, t, gx, t, ...)
+    x = x.reshape((cfg.grid_y * t, cfg.grid_x * t) + ch)
+    return x[: cfg.img_height, : cfg.img_width]
+
+
+def prepare_blend(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,     # (N,) activated
+    colors: torch.Tensor,        # (N, 3) precomputed RGB
+    camera: Camera,
+    cfg: RasterConfig,
+    alive: torch.Tensor | None = None,
+    scale_modifier: float = 1.0,
+) -> tuple[Projected, BinnedTiles, torch.Tensor]:
+    """Projection, binning and the packed attribute table: everything
+    `blend_forward` takes. Returns (proj, binned, table)."""
+    with record_function("raster.project"):
+        proj = project_gaussians(
+            means3d, scales, quats, camera, cfg.img_width, cfg.img_height,
+            cfg.tile_size, alive=alive, scale_modifier=scale_modifier,
+            opacities=opacities)
+    with record_function("raster.bin"):
+        binned = bin_gaussians_count(proj, cfg)
+    with record_function("raster.pack"):
+        table = pack_attr_table(proj.pix, proj.conic, colors, opacities,
+                                proj.depth)
+    return proj, binned, table
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,     # (N,) activated
+    colors: torch.Tensor,        # (N, 3) precomputed RGB
+    camera: Camera,
+    bg: torch.Tensor,            # (3,)
+    cfg: RasterConfig,
+    alive: torch.Tensor | None = None,
+    scale_modifier: float = 1.0,
+) -> RenderOutput:
+    """Render one camera (forward only)."""
+    proj, binned, table = prepare_blend(means3d, scales, quats, opacities,
+                                        colors, camera, cfg, alive,
+                                        scale_modifier)
+    with record_function("raster.blend"):
+        color_t, depth_t, t_t = blend_forward(binned.gidx, binned.counts,
+                                              table, cfg)
+    with record_function("raster.compose"):
+        t_img = _untile(t_t, cfg)
+        color = _untile(color_t, cfg) + t_img[..., None] * bg
+        # Effective tile-cap drops: a tile's excess counts only where some
+        # pixel is still unsaturated. Dropped pairs sit behind every
+        # composited one, so in a saturated tile they could not
+        # contribute.
+        unsat = (t_t > T_MIN).any(dim=1)
+        dropped_tile = (binned.overflow * unsat).sum().to(torch.int32)
+        tile_peak = (binned.counts + binned.overflow).max()
+        return RenderOutput(color=color, depth=_untile(depth_t, cfg),
+                            alpha=1.0 - t_img, radii=proj.radius,
+                            visibility=proj.radius > 0,
+                            dropped_pairs=binned.dropped_pairs,
+                            dropped_tile=dropped_tile,
+                            num_pairs=binned.num_pairs,
+                            tile_peak=tile_peak)

@@ -1,0 +1,78 @@
+"""render(): deformation -> activation -> SH -> rasterize
+(counterpart: fourdgs_tpu/render/render.py).
+
+Raw params are deformed in the "fine" stage at the camera's timestamp,
+then activated (exp / normalize / sigmoid); colors come from SH evaluated
+toward the camera, and everything goes through the tiled rasterizer.
+Forward only: this runs under torch.no_grad().
+"""
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.models.deformation import Deformation
+from fourdgs_tpu_torch.models.gaussians import GaussianParams
+from fourdgs_tpu_torch.ops import sh as sh_ops
+from fourdgs_tpu_torch.ops import transforms
+from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
+from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, rasterize
+
+
+@torch.no_grad()
+def splats_at(
+    gauss: GaussianParams,
+    deform: Deformation,
+    camera: Camera,
+    aabb: torch.Tensor,
+    active_sh_degree: int,
+    stage: str = "fine",
+    override_color: torch.Tensor | None = None,
+):
+    """The rasterizer's inputs at the camera's timestamp:
+    (means3d, scales, quats, opacities, colors)."""
+    shs = gauss.features()
+    if stage == "coarse":
+        xyz, scaling, rotation, opacity, shs_f = (
+            gauss.xyz, gauss.scaling, gauss.rotation, gauss.opacity, shs)
+    elif stage == "fine":
+        xyz, scaling, rotation, opacity, shs_f = deform(
+            aabb, gauss.xyz, gauss.scaling, gauss.rotation, gauss.opacity,
+            shs, camera.time)
+    else:
+        raise NotImplementedError(stage)
+
+    scales = transforms.safe_exp_scales(scaling)
+    quats = transforms.quat_normalize(rotation)
+    opacities = torch.sigmoid(opacity[:, 0])
+
+    if override_color is None:
+        dirs = xyz - camera.cam_center
+        dirs = dirs / torch.clamp(
+            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-8)
+        colors = sh_ops.sh_to_rgb(int(active_sh_degree), shs_f, dirs)
+    else:
+        colors = override_color
+    return xyz, scales, quats, opacities, colors
+
+
+@torch.no_grad()
+def render(
+    gauss: GaussianParams,
+    deform: Deformation,
+    camera: Camera,
+    bg: torch.Tensor,
+    raster_cfg: RasterConfig,
+    aabb: torch.Tensor,
+    alive: torch.Tensor,
+    active_sh_degree: int,
+    stage: str = "fine",
+    scale_modifier: float = 1.0,
+    override_color: torch.Tensor | None = None,
+) -> RenderOutput:
+    with record_function("render.splats"):
+        splats = splats_at(gauss, deform, camera, aabb, active_sh_degree,
+                           stage, override_color)
+    return rasterize(*splats, camera, bg, raster_cfg, alive=alive,
+                     scale_modifier=scale_modifier)

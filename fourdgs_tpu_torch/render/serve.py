@@ -1,0 +1,180 @@
+"""Serving a trained snapshot: load once, render cameras on demand
+(counterpart: the snapshot-loading and cap-probe part of the JAX package's
+scripts/render.py).
+
+    renderer = Renderer.from_snapshot("output/scene")     # on cuda
+    out = renderer.render(camera)                          # RenderOutput
+
+CLI: render a look-at orbit over t in [0, 1] and print frame count,
+seconds and FPS:
+
+    python -m fourdgs_tpu_torch.render.serve -m output/scene --frames 30
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from fourdgs_tpu_torch.data.camera import Camera, look_at_camera
+from fourdgs_tpu_torch.models.deformation import Deformation
+from fourdgs_tpu_torch.models.gaussians import GaussianParams
+from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
+from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
+from fourdgs_tpu_torch.render.render import render
+from fourdgs_tpu_torch.train import checkpoint
+from fourdgs_tpu_torch.train import config as config_mod
+from fourdgs_tpu_torch.utils.device import resolve_device
+
+# cap probe bounds (as in the JAX render CLI)
+_PROBE_ROUNDS = 5
+_TILE_CAP_MAX = 8192
+_PAIRS_PER_CHUNK_MAX = 1 << 18
+
+
+def _full_float32():
+    # The deformation MLP heads must run in full float32 for parity with
+    # the reference: TF32 matmuls keep about three decimal digits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class Renderer:
+    gauss: GaussianParams
+    alive: torch.Tensor
+    deform: Deformation
+    aabb: torch.Tensor
+    bg: torch.Tensor
+    raster_cfg: RasterConfig
+    sh_degree: int
+    device: torch.device
+    iteration: int = -1
+    probe_renders: int = 0   # renders the cap probe made
+
+    @classmethod
+    def from_snapshot(cls, model_path: str, iteration: int = -1,
+                      device: str | torch.device | None = None,
+                      width: int = 800, height: int = 800,
+                      configs: str = "") -> "Renderer":
+        """Load the newest (or the given) snapshot under `model_path`, with
+        configs from its `cfg_args.json` (plus an optional config file),
+        and run the cap probe on the look-at camera."""
+        dev = resolve_device(device)
+        _full_float32()
+        cfg_path = os.path.join(model_path, "cfg_args.json")
+        cfg = (config_mod.load_cfg(cfg_path) if os.path.exists(cfg_path)
+               else config_mod.Config())
+        if configs:
+            cfg = config_mod.apply_config_file(cfg, configs)
+        snap_dir, it = checkpoint.find_latest_snapshot(model_path, iteration)
+        gauss, alive, flat, aabb = checkpoint.restore_gaussians_from_snapshot(
+            snap_dir, cap=1, max_sh_degree=cfg.model.sh_degree, device=dev)
+        deform = checkpoint.deform_params_from_flat(
+            flat, config_mod.deform_config_from(cfg), dev).eval()
+        bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                          else [0.0, 0.0, 0.0], device=dev)
+        renderer = cls(gauss=gauss, alive=alive, deform=deform,
+                       aabb=torch.as_tensor(aabb, device=dev), bg=bg,
+                       raster_cfg=config_mod.raster_config_from(
+                           cfg, width, height),
+                       sh_degree=cfg.model.sh_degree, device=dev,
+                       iteration=it)
+        renderer.probe_caps(look_at_camera(device=dev))
+        return renderer
+
+    def probe_caps(self, camera: Camera) -> None:
+        """The snapshot may hold far more gaussians than the saved binner
+        caps were sized for: render one view and double the overflowing
+        cap until the render is drop-free."""
+        for _ in range(_PROBE_ROUNDS):
+            out = self.render(camera)
+            self.probe_renders += 1
+            dp, dt = int(out.dropped_pairs), int(out.dropped_tile)
+            dt_thresh = max(64, int(out.num_pairs) // 200)
+            if not (dp or dt > dt_thresh):
+                return
+            rc = self.raster_cfg
+            changes = {}
+            if dt > dt_thresh and rc.tile_cap < _TILE_CAP_MAX:
+                changes["tile_cap"] = rc.tile_cap * 2
+            if dp and rc.bin_pairs_per_chunk < _PAIRS_PER_CHUNK_MAX:
+                changes["bin_pairs_per_chunk"] = rc.bin_pairs_per_chunk * 2
+            if not changes:
+                return
+            print(f"binner overflow at saved caps ({dp} pairs/{dt} tile): "
+                  f"growing {changes}")
+            self.raster_cfg = dataclasses.replace(rc, **changes)
+
+    def render(self, camera: Camera, stage: str = "fine") -> RenderOutput:
+        return render(self.gauss, self.deform, camera.to(self.device),
+                      self.bg, self.raster_cfg, self.aabb, self.alive,
+                      self.sh_degree, stage=stage)
+
+
+def orbit_cameras(frames: int, device) -> list[Camera]:
+    """A look-at orbit: frame i at angle 2*pi*i/frames and t = i/(frames-1),
+    so t spans [0, 1]."""
+    return [look_at_camera(theta=2 * math.pi * i / frames,
+                           time=i / max(frames - 1, 1), device=device)
+            for i in range(frames)]
+
+
+def _write_png(path: str, img: np.ndarray) -> bool:
+    try:
+        from PIL import Image
+    except ImportError:
+        return False
+    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+    return True
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="render a snapshot orbit")
+    parser.add_argument("-m", "--model_path", required=True)
+    parser.add_argument("--iteration", type=int, default=-1)
+    parser.add_argument("--frames", type=int, default=30)
+    parser.add_argument("--width", type=int, default=800)
+    parser.add_argument("--height", type=int, default=800)
+    parser.add_argument("--device", default=None,
+                        help="default cuda; 'cpu' runs the plain path")
+    parser.add_argument("--configs", default="")
+    parser.add_argument("--out", default="",
+                        help="output dir (default: <model_path>/serve)")
+    args = parser.parse_args(argv)
+
+    renderer = Renderer.from_snapshot(args.model_path, args.iteration,
+                                      args.device, args.width, args.height,
+                                      configs=args.configs)
+    dev = renderer.device
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    cams = orbit_cameras(args.frames, dev)
+    renderer.render(cams[0])                     # warm-up, untimed
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    frames = [renderer.render(c).color for c in cams]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    print(f"device: {name}; frames: {len(frames)}; seconds: {seconds:.3f}; "
+          f"FPS: {len(frames) / seconds:.2f}")
+
+    out_dir = args.out or os.path.join(args.model_path, "serve")
+    os.makedirs(out_dir, exist_ok=True)
+    pngs = 0
+    for i, f in enumerate(frames):
+        img = f.cpu().numpy()
+        np.save(os.path.join(out_dir, f"{i:05d}.npy"), img)
+        pngs += _write_png(os.path.join(out_dir, f"{i:05d}.png"), img)
+    print(f"wrote {len(frames)} .npy frames ({pngs} .png) to {out_dir}")
+
+
+if __name__ == "__main__":
+    main()

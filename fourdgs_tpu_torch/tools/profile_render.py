@@ -1,0 +1,158 @@
+"""Where a served frame's time goes on the card: render a snapshot's
+look-at orbit once untimed, once timed, and once under torch.profiler,
+and print the device's busy share, the launches and CUDA runtime calls
+per frame, each render span's host and kernel time, and the kernels that
+take the most device time.
+
+    python -m fourdgs_tpu_torch.tools.profile_render -m output/scene \
+        --frames 24
+
+The spans are the `record_function` ranges that render/render.py and
+ops/rasterize_tiled.py open. The last line is the report as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import math
+import time
+
+import torch
+
+from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.render.serve import Renderer, orbit_cameras
+
+
+# the render path's profiler spans (render/render.py, ops/rasterize_tiled.py)
+SPANS = ("render.splats", "raster.project", "raster.bin", "raster.pack",
+         "raster.blend", "raster.compose")
+# CUDA runtime calls counted per frame: a stream synchronize is a host wait
+# on the device (a `.item()`, a boolean mask's size, `repeat_interleave`)
+_RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaMemcpyAsync", "cudaLaunchKernel", "cuLaunchKernel",
+                  "cuLaunchKernelEx")
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_frames(renderer: Renderer, cams: list[Camera],
+                   top: int = 12) -> dict:
+    """Render `cams` under torch.profiler on the card and print, per
+    frame: the device's busy share of the wall time, the kernel launches
+    and CUDA runtime calls, each span's host time, device range (first to
+    last kernel, gaps included) and kernel time, and the kernels that take
+    the most device time. The profiler's own cost inflates the host
+    times; the unprofiled ms/frame is `main`'s timed run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = renderer.device
+    if dev.type != "cuda":
+        raise RuntimeError("profile_frames measures the card; the renderer "
+                           f"is on {dev}")
+    n = len(cams)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in cams:
+            renderer.render(c)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device-side copies of the spans (user annotations) are not kernels
+    kernels = sorted((e for e in on_dev if e.name not in SPANS),
+                     key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kernels]
+    busy_us = _busy_us((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+
+    def kernel_us_in(r) -> float:
+        i = bisect.bisect_left(starts, r.start)
+        j = bisect.bisect_right(starts, r.end)
+        return sum(min(e.time_range.end, r.end) - e.time_range.start
+                   for e in kernels[i:j])
+
+    spans = {}
+    for name in SPANS:
+        host = [e.time_range for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+        rng = [e.time_range for e in on_dev if e.name == name]
+        spans[name] = {
+            "host_ms": sum(r.elapsed_us() for r in host) / n / 1e3,
+            "device_range_ms": sum(r.elapsed_us() for r in rng) / n / 1e3,
+            "kernel_ms": sum(map(kernel_us_in, rng)) / n / 1e3}
+    calls = {c: sum(e.name == c for e in events) / n for c in _RUNTIME_CALLS}
+    by_kernel: dict[str, list[float]] = {}
+    for e in kernels:
+        by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    report = {
+        "frames": n,
+        "wall_ms_per_frame": wall_us / n / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "kernel_ms_per_frame": sum(map(sum, by_kernel.values())) / n / 1e3,
+        "kernel_launches_per_frame": len(kernels) / n,
+        "runtime_calls_per_frame": {c: v for c, v in calls.items() if v},
+        "spans": spans,
+        "top_kernels": [
+            {"name": name[:90], "ms_per_frame": sum(d) / n / 1e3,
+             "calls_per_frame": len(d) / n}
+            for name, d in sorted(by_kernel.items(),
+                                  key=lambda kv: -sum(kv[1]))[:top]],
+    }
+    print(f"profile: {n} frames, {report['wall_ms_per_frame']:.3f} ms/frame "
+          f"under the profiler; device busy "
+          f"{100 * report['device_busy_share']:.1f}%; kernels "
+          f"{report['kernel_ms_per_frame']:.3f} ms/frame in "
+          f"{report['kernel_launches_per_frame']:.1f} launches; runtime "
+          f"calls per frame {report['runtime_calls_per_frame']}")
+    for k, v in spans.items():
+        print(f"  span {k:16s} host {v['host_ms']:8.3f} ms  device range "
+              f"{v['device_range_ms']:8.3f} ms  kernels "
+              f"{v['kernel_ms']:8.3f} ms")
+    for k in report["top_kernels"]:
+        print(f"  kernel {k['ms_per_frame']:8.4f} ms x"
+              f"{k['calls_per_frame']:6.1f}  {k['name']}")
+    print("profile json: " + json.dumps(report))
+    return report
+
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("-m", "--model_path", required=True)
+    parser.add_argument("--iteration", type=int, default=-1)
+    parser.add_argument("--frames", type=int, default=24)
+    parser.add_argument("--width", type=int, default=800)
+    parser.add_argument("--height", type=int, default=800)
+    args = parser.parse_args(argv)
+
+    renderer = Renderer.from_snapshot(args.model_path, args.iteration,
+                                      width=args.width, height=args.height)
+    dev = renderer.device
+    cams = orbit_cameras(args.frames, dev)
+    for c in cams:                               # warm-up, untimed
+        renderer.render(c)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for c in cams:
+        renderer.render(c)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    print(f"device: {torch.cuda.get_device_name(dev)}; frames: {len(cams)}; "
+          f"{1e3 * seconds / len(cams):.3f} ms/frame unprofiled")
+    return profile_frames(renderer, cams)
+
+
+if __name__ == "__main__":
+    main()

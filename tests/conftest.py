@@ -36,3 +36,6 @@ def pytest_configure(config):
         "slow: long-running tier (CLI subprocess trainings, e2e optimization"
         " loops, multi-process clusters); run `pytest -m 'not slow'` for the"
         " fast default tier")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; a fixture skips it when there is none")
