@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (fourdgs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--frames 24]
+    python3 chip_smoke.py [--seed 0] [--frames 24] [--steps 30]
 
 Phases, each of which raises on failure (so the exit code is nonzero):
   1. device: the card's name and power limit;
@@ -12,9 +12,19 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              the kernels' launch counts read around that run, and checks
              of the images against the plain blend on the card and the
              CPU path on a small image;
-  4. kernel: every kernel of the render path against its plain PyTorch
-             version, on the inputs that one of phase 3's frames gives it
-             (the caps after the cap probe), with CUDA-event times.
+  4. kernel: K1 (blend forward) against its plain PyTorch version, on the
+             inputs that one of phase 3's frames gives it (the caps after
+             the cap probe), with CUDA-event times;
+  5. train:  a TrainState of the same scene (capacity 1<<17, the first
+             100,000 slots alive) takes --steps fine train_steps at
+             800x800 toward four targets that eval_step rendered before
+             seeded noise moved its colors and opacities, with the launch
+             counts read around those steps; the loss must fall, and one
+             step's gradients with K2 must equal those with the plain
+             backward on the card;
+  6. kernel: K2 (blend backward) against its plain version on the step
+             input of the trained state's frame at t = 0.5 (its
+             cotangents, its caps), with CUDA-event times.
 The second-to-last line of stdout is the kernels JSON, the last line the
 result JSON. It imports nothing of JAX or the JAX package.
 """
@@ -40,6 +50,16 @@ RASTER = dict(tile_size=32, tile_cap=768, chunk=32, bin_chunk=4096,
               bin_pairs_per_chunk=18432)
 KERNEL_CHECK_FRAME = 0.5       # the main-path frame at t = 0.5
 TOL = {"color": 1e-5, "depth": 1e-4, "t": 1e-5}
+GRAD_TOL = 1e-4                # gradients, normalised by their max |.|
+TRAIN_CAPACITY = 1 << 17
+TRAIN_TIMES = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
+UNTIMED_STEPS = 3
+PROFILED_STEPS = 4             # after the checked run, under torch.profiler
+SPATIAL_LR_SCALE = 1.0
+# seeded noise on the trained fields, in raw units (SH DC, opacity logit)
+NOISE_DC, NOISE_OPACITY = 0.3, 1.0
+GRAD_COLUMNS = ("pix_x", "pix_y", "conic_a", "conic_b", "conic_c", "red",
+                "green", "blue", "opacity", "depth")
 FRAME_TOL = 1e-4               # one frame: kernel blend vs plain blend
 MEAN_ALPHA_FLOOR = 0.1
 # a small image rendered on the card and on the CPU (plain path): the two
@@ -66,6 +86,14 @@ MUFU_OP_S = 16 * 132 * 1.98e9
 #   used (alpha >= 1/255, entering T > 1e-4): T x cp and its test (2),
 #     the weight (1), four fused sums (4), 1 - alpha and cp (2)
 BLEND_FP32_INSTR = {"eval": 12, "exp": 9, "used": 9}
+# FP32-pipe instructions of csrc/blend_bwd.cu's loop body per pixel x slot
+# evaluation, as its sm_90a SASS has them: the replay up to the alpha test
+# is K1's (12 and 9); a used slot runs T x cp and its test (2), the
+# gradient chain and the two IEEE divisions (each MUFU.RCP, FCHK and five
+# FFMA), 53 in all. The bound adds the 10 additions per used pixel x slot
+# that any sum into the per-gaussian rows needs, and counts one MUFU.EX2
+# per expf and two MUFU.RCP per used slot.
+BLEND_BWD_FP32_INSTR = {"eval": 12, "exp": 9, "used": 53}
 
 
 def log(msg: str) -> None:
@@ -156,15 +184,16 @@ def make_scene(torch, seed: int, device):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_blend():
-    """Route rasterize through the plain blend (for one comparison)."""
-    from fourdgs_tpu_torch.ops import blend, rasterize_tiled
-    saved = rasterize_tiled.blend_forward
-    rasterize_tiled.blend_forward = blend.blend_forward_plain
+def plain_version(name: str):
+    """Route the differentiable blend through the plain version of
+    `name` ("blend_forward" or "blend_backward") for one comparison."""
+    from fourdgs_tpu_torch.ops import blend
+    saved = getattr(blend, name)
+    setattr(blend, name, getattr(blend, name + "_plain"))
     try:
         yield
     finally:
-        rasterize_tiled.blend_forward = saved
+        setattr(blend, name, saved)
 
 
 def phase_slice(torch, scene, device, frames: int, work: Path):
@@ -220,7 +249,7 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
         f"max diff {float((outs[0].color - outs[-1].color).abs().max()):.4f}")
 
     # ---- frame 0 through the plain blend on the card ----
-    with plain_blend():
+    with plain_version("blend_forward"):
         ref = renderer.render(cams[0])
     diff = float((outs[0].color - ref.color).abs().max())
     log(f"slice: frame 0, kernel vs plain blend: color max abs err "
@@ -278,17 +307,19 @@ def time_pair(torch, kernel, plain, launches: int = 50):
 
 def blend_work(torch, gidx, counts, table, cfg) -> dict:
     """This input's pixel x slot evaluations, by how far each gets in the
-    kernel's loop body: all evaluated, past the power test (an expf), and
-    used. A pixel evaluates every slot of its tile's list (up to the
-    count) while its entering transmittance is above T_MIN. Walks the
-    plain recurrence."""
+    kernels' loop bodies: all evaluated, past the power test (an expf),
+    and used; and the slots some pixel of a warp used (a warp reduction in
+    K2) and some pixel of a tile used (a flush of ten values in K2). A
+    pixel evaluates every slot of its tile's list (up to the count) while
+    its entering transmittance is above T_MIN. Walks the plain
+    recurrence."""
     from fourdgs_tpu_torch.ops.blend import tile_pixel_coords
     from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
     k = cfg.chunk
     px, py = tile_pixel_coords(cfg, table.device)
     idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
     t = torch.ones_like(px)
-    work = {"eval": 0, "exp": 0, "used": 0}
+    work = {"eval": 0, "exp": 0, "used": 0, "warp_slots": 0, "tile_slots": 0}
     for j in range(-(-int(counts.max()) // k)):
         rows = table[idx[:, j * k:(j + 1) * k]]
         dx = rows[:, :, 0:1] - px[:, None, :]
@@ -304,9 +335,14 @@ def blend_work(torch, gidx, counts, table, cfg) -> dict:
         live = torch.arange(j * k, (j + 1) * k, device=table.device)[None, :] \
             < counts[:, None]
         ev = (t_pref > T_MIN) & live[:, :, None]
+        used = ev & (g > 0)
         work["eval"] += int(ev.sum())
         work["exp"] += int((ev & (power <= 0)).sum())
-        work["used"] += int((ev & (g > 0)).sum())
+        work["used"] += int(used.sum())
+        nt, kk, p = used.shape
+        work["warp_slots"] += int(used.reshape(nt, kk, p // 32, 32)
+                                  .any(-1).sum())
+        work["tile_slots"] += int(used.any(-1).sum())
         use = (g > 0) & (t_pref > T_MIN)
         t = t * torch.where(use, cp, torch.ones_like(cp)).amin(dim=1)
     return work
@@ -348,7 +384,7 @@ def phase_kernels(torch, renderer, cam):
         torch, lambda: blend.blend_forward(gidx, counts, table, rc),
         lambda: blend.blend_forward_plain(gidx, counts, table, rc))
     work = blend_work(torch, gidx, counts, table, rc)
-    instr = sum(BLEND_FP32_INSTR[k] * work[k] for k in work)
+    instr = sum(BLEND_FP32_INSTR[k] * work[k] for k in BLEND_FP32_INSTR)
     n_rows = int(torch.unique(gidx[gidx >= 0]).numel())
     nbytes = (4 * rc.num_tiles + 4 * int(counts.sum()) + 48 * n_rows
               + 5 * 4 * rc.num_tiles * rc.pixels_per_tile)
@@ -381,11 +417,232 @@ def phase_kernels(torch, renderer, cam):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+
+def make_train_state(torch, scene, device):
+    """The scene's gaussians in a capacity-TRAIN_CAPACITY buffer with the
+    first N_GAUSS slots alive, and a copy of its deformation."""
+    from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
+    from fourdgs_tpu_torch.train.state import create_state
+
+    cfg, gauss, _, deform, aabb = scene
+    cfg = copy.deepcopy(cfg)
+    cfg.raster.capacity = TRAIN_CAPACITY
+
+    def pad(x, fill=0.0):
+        out = torch.full((TRAIN_CAPACITY,) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=device)
+        out[:N_GAUSS] = x
+        return out
+
+    padded = GaussianParams(**{f: pad(getattr(gauss, f)) for f in FIELDS})
+    padded.rotation[N_GAUSS:, 0] = 1.0
+    alive = pad(torch.ones(N_GAUSS, dtype=torch.bool, device=device), False)
+    state = create_state(cfg, None, None, SPATIAL_LR_SCALE, aabb=aabb,
+                         deform=copy.deepcopy(deform), gauss=padded,
+                         alive=alive, device=device)
+    return cfg, state
+
+
+def grads_agree(a, b) -> float:
+    """Largest normalised difference of two gradients of one leaf, the
+    difference divided by the leaf's largest |b| (b the reference), as
+    the JAX package's gradient tests normalise."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_train(torch, scene, renderer, device, steps: int, seed: int):
+    """Fine train_steps at 800x800 on the scene, with the caps the cap
+    probe found; returns what phase 6 needs."""
+    from fourdgs_tpu_torch.data.camera import look_at_camera
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.tools.profile_render import (TRAIN_SPANS,
+                                                        profile_calls)
+    from fourdgs_tpu_torch.train import loop, optim
+
+    cfg, state = make_train_state(torch, scene, device)
+    rc, bg, sh = renderer.raster_cfg, renderer.bg, cfg.model.sh_degree
+    cams = [look_at_camera(theta=0.3 + 0.2 * i, time=t, device=device)
+            for i, t in enumerate(TRAIN_TIMES)]
+    check_cam = look_at_camera(time=KERNEL_CHECK_FRAME, device=device)
+    gts = [loop.eval_step(state, c, bg, stage="fine", active_sh=sh,
+                          raster_cfg=rc).color for c in cams + [check_cam]]
+    rng = np.random.default_rng(seed + 1)
+    g = state.params["gauss"]
+    with torch.no_grad():
+        g.features_dc[:N_GAUSS] += torch.from_numpy(rng.normal(
+            0.0, NOISE_DC, (N_GAUSS, 1, 3)).astype(np.float32)).to(device)
+        g.opacity[:N_GAUSS] += torch.from_numpy(rng.normal(
+            0.0, NOISE_OPACITY, (N_GAUSS, 1)).astype(np.float32)).to(device)
+    tx = optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE)
+    reg = (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
+           cfg.hidden.plane_tv_weight)
+    kw = dict(stage="fine", raster_cfg=rc, lambda_dssim=cfg.opt.lambda_dssim,
+              reg_weights=reg)
+
+    def step(i):
+        return loop.train_step(state, [cams[i % len(cams)]],
+                               gts[i % len(cams)][None], bg, sh, tx=tx, **kw)
+
+    # ---- the main path, with the launch counts read around it ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend.blend_forward.launches = 0
+    blend.blend_backward.launches = 0
+    auxes = []
+    for i in range(steps):
+        if i == UNTIMED_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        auxes.append(step(i)[1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"blend_fwd": blend.blend_forward.launches,
+                "blend_bwd": blend.blend_backward.launches}
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * seconds / (steps - UNTIMED_STEPS)
+    losses = [float(a.loss) for a in auxes]
+    log(f"train: {steps} fine steps at {SIZE}x{SIZE}, {N_GAUSS} gaussians "
+        f"in capacity {TRAIN_CAPACITY}, caps {rc}; {ms:.3f} ms/step over "
+        f"the last {steps - UNTIMED_STEPS} = "
+        f"{SIZE * SIZE / (ms / 1e3):.0f} rays/s; peak memory "
+        f"{peak / 2**20:.1f} MiB; launches {launches}")
+    log(f"train: loss first {losses[0]:.6f}, last-5 mean "
+        f"{np.mean(losses[-5:]):.6f}, psnr first {float(auxes[0].psnr):.3f}"
+        f" last {float(auxes[-1].psnr):.3f}; max dropped_pairs "
+        f"{max(int(a.dropped_pairs) for a in auxes)}, max dropped_tile "
+        f"{max(int(a.dropped_tile) for a in auxes)}; num_pairs "
+        f"{int(auxes[0].num_pairs)}")
+    if launches != {"blend_fwd": steps, "blend_bwd": steps}:
+        raise AssertionError(f"launches {launches} for {steps} steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    nan = sum(int(torch.isnan(p).sum()) for p in optim.param_leaves(
+        state.params))
+    if nan:
+        raise AssertionError(f"{nan} NaN parameter values")
+
+    it = iter(range(PROFILED_STEPS))
+    prof = profile_calls(lambda: step(next(it)), PROFILED_STEPS,
+                         spans=TRAIN_SPANS, label="step")
+    calls = prof["runtime_calls_per_step"]
+
+    # ---- one step's gradients with K2 and with the plain backward ----
+    def grads():
+        sg = loop.step_gradients(state, [cams[0]], gts[0][None], bg, sh, **kw)
+        return [x for x in sg.grads + [sg.ndc_grad] if x is not None]
+
+    with_k2 = grads()
+    with plain_version("blend_backward"):
+        plain = grads()
+    err = max(grads_agree(a, b) for a, b in zip(with_k2, plain))
+    log(f"train: one step's gradients, K2 vs plain backward on the card: "
+        f"{len(plain)} leaves, normalised max abs err {err:.3g} "
+        f"(tol {GRAD_TOL:g})")
+    if not err <= GRAD_TOL:
+        raise AssertionError(f"K2 step gradients disagree: {err}")
+    return state, rc, bg, sh, check_cam, gts[-1], launches, {
+        "ms_per_step": ms, "rays_per_s": SIZE * SIZE / (ms / 1e3),
+        "peak_mib": peak / 2**20, "loss_first": losses[0],
+        "loss_last5": float(np.mean(losses[-5:])),
+        "runtime_calls_per_step": calls,
+        "device_busy_share": prof["device_busy_share"],
+        "kernel_ms_per_step": prof["kernel_ms_per_step"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
+    """K2 on the step input of the trained state's frame at `cam`: K1's
+    outputs and the cotangents that the step's L1 loss gives them."""
+    from fourdgs_tpu_torch.ops import blend, losses
+    from fourdgs_tpu_torch.ops.rasterize_tiled import _untile, prepare_blend
+    from fourdgs_tpu_torch.render.render import splats_at
+
+    g = state.params["gauss"]
+    with torch.no_grad():
+        splats = splats_at(g, state.params["deform"], cam, state.aabb, sh)
+        _, binned, table = prepare_blend(*splats, cam, rc, state.alive)
+        out = blend.blend_forward(binned.gidx, binned.counts, table, rc)
+    leaves = [o.clone().requires_grad_(True) for o in out]
+    color = _untile(leaves[0], rc) + _untile(leaves[2], rc)[..., None] * bg
+    loss = losses.l1_loss(color[None], gt[None])
+    cot = torch.autograd.grad(loss, leaves, allow_unused=True)
+    cot = [torch.zeros_like(o) if c is None else c.contiguous()
+           for o, c in zip(out, cot)]
+    gidx, counts = binned.gidx, binned.counts
+    args = (gidx, counts, table, *out, *cot, rc)
+    got = blend.blend_backward(*args)
+    ref = blend.blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    col_err = ((got - ref).abs() / scale).amax(dim=0).tolist()
+    abs_err = float((got - ref).abs().max())
+    log(f"kernel input: frame at t={float(cam.time):g}, caps tile_cap "
+        f"{rc.tile_cap}; {int(counts.sum())} pairs, "
+        f"{int(binned.overflow.sum())} past tile_cap")
+    log("kernel blend_bwd vs plain: normalised max abs err per column " +
+        ", ".join(f"{n} {e:.3g}" for n, e in zip(GRAD_COLUMNS, col_err)) +
+        f" (tol {GRAD_TOL:g}); max abs err {abs_err:.3g}")
+    if not max(col_err) <= GRAD_TOL:
+        raise AssertionError(f"blend_bwd disagrees with plain: {col_err}")
+
+    ms, plain_ms = time_pair(torch, lambda: blend.blend_backward(*args),
+                             lambda: blend.blend_backward_plain(*args),
+                             launches=20)
+    work = blend_work(torch, gidx, counts, table, rc)
+    instr = (sum(BLEND_BWD_FP32_INSTR[k] * work[k]
+                 for k in BLEND_BWD_FP32_INSTR) + 10 * work["used"])
+    mufu = work["exp"] + 2 * work["used"]
+    n_rows = int(torch.unique(gidx[gidx >= 0]).numel())
+    pixels = rc.num_tiles * rc.pixels_per_tile
+    nbytes = (4 * rc.num_tiles + 4 * int(counts.sum()) + 48 * n_rows
+              + 10 * 4 * pixels + 10 * 4 * table.shape[0])
+    bounds = {"hbm bytes": nbytes / HBM_BYTES_S,
+              "fp32 issue": instr / FP32_ISSUE_S,
+              "mufu (expf, 2 rcp)": mufu / MUFU_OP_S}
+    resource = max(bounds, key=bounds.get)
+    atomics = {"shared": 10 * work["warp_slots"],
+               "global": 10 * work["tile_slots"]}
+    log(f"blend_bwd: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms; pixel x "
+        f"slot work {work}; atomics (at most) {atomics}; {instr} FP32 "
+        f"instructions, {mufu} MUFU, {nbytes} bytes; bounds " +
+        ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in bounds.items()) +
+        f"; bound by {resource}")
+    return {
+        "name": "blend_bwd",
+        "route": "cuda",
+        "source": "fourdgs_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "fourdgs_tpu/ops/pallas/blend.py:197",
+        "tpu_kernel": "fourdgs_tpu/ops/pallas/blend.py:_bwd_fused_kernel",
+        "max_abs_err": abs_err,
+        "max_normalised_err": max(col_err),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bounds[resource] * 1e3,
+        "bound_by": "bytes" if resource == "hbm bytes" else "operations",
+        "bound_resource": resource,
+        "library_ms": None,   # no single PyTorch call computes it
+        "evaluations": work,
+        "atomics": atomics,
+        "ok": True,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=24)
+    parser.add_argument("--steps", type=int, default=30)
     args = parser.parse_args(argv)
+    if args.steps <= UNTIMED_STEPS + 5:
+        parser.error(f"--steps must exceed {UNTIMED_STEPS + 5}")
 
     import torch
     name = phase_device(torch)
@@ -406,10 +663,18 @@ def main(argv=None) -> int:
     renderer, cams, launches, renders = phase_slice(
         torch, scene, device, args.frames, work)
     cam = cams[round(KERNEL_CHECK_FRAME * args.frames)]
-    kernels = [phase_kernels(torch, renderer, cam)]
+    k1 = phase_kernels(torch, renderer, cam)
+    k1["launches"] = launches["blend_fwd"]
+    k1["launches_per_frame"] = launches["blend_fwd"] / renders
+    state, rc, bg, sh, check_cam, gt, train_launches, train = phase_train(
+        torch, scene, renderer, device, args.steps, args.seed)
+    k1["launches_train"] = train_launches["blend_fwd"]
+    k2 = phase_kernels_bwd(torch, state, rc, bg, sh, check_cam, gt)
+    k2["launches"] = train_launches["blend_bwd"]
+    k2["launches_per_step"] = train_launches["blend_bwd"] / args.steps
+    k2["train"] = train
+    kernels = [k1, k2]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_frame"] = launches[k["name"]] / renders
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the 4DGS renderer.
+"""PyTorch + CUDA port of the 4DGS renderer and its training step.
 
 Mirrors the module layout of the JAX package `fourdgs_tpu` (which stays the
 reference) so each module's counterpart has the same relative path. This

@@ -8,6 +8,11 @@ port's modules.
     returns), with keys such as `grid/l0_p0`, `mlp/pos/h0/w` and
     `mlp/feature_out/fo0/b` -> a `Deformation` module.
   * `deformation_to_flat`: the inverse, for writing snapshots.
+  * `train_state_from_numpy`: a whole JAX `TrainState` in the flat layout
+    of the JAX checkpoint (`_flatten(state._asdict())`, keys such as
+    `params/gauss/xyz`, `opt_state/mu/deform/mlp/pos/h0/w`,
+    `opt_state/count`, `alive`, `step`) -> the port's `TrainState`, Adam
+    moments included, so that both packages can start from one state.
 
 The JAX package stores a weight `w` as (fan_in, fan_out) and applies
 `x @ w + b`; `nn.Linear` keeps (fan_out, fan_in), so weights are
@@ -16,6 +21,7 @@ transposed on the way in and out.
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -23,6 +29,9 @@ import torch
 from fourdgs_tpu_torch.models.deformation import DeformConfig, Deformation
 from fourdgs_tpu_torch.models.gaussians import GaussianParams
 from fourdgs_tpu_torch.utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from fourdgs_tpu_torch.train.state import TrainState
 
 _GAUSS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                  "rotation", "opacity")
@@ -80,3 +89,56 @@ def deformation_to_flat(module: Deformation) -> dict[str, np.ndarray]:
         else:
             flat["mlp/" + "/".join(path) + "/b"] = arr
     return flat
+
+
+def _subtree(flat: Mapping[str, np.ndarray], prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def train_state_from_numpy(flat: Mapping[str, np.ndarray],
+                           cfg: DeformConfig,
+                           device: str | torch.device | None = None
+                           ) -> "TrainState":
+    """The port's TrainState from a JAX TrainState flattened as the JAX
+    checkpoint flattens it, on `device` (None: cuda). The moments take the
+    parameters' tree: the gaussian fields, and the deformation's
+    parameters by module name with the MLP weights transposed."""
+    from fourdgs_tpu_torch.train import optim
+    from fourdgs_tpu_torch.train.state import TrainState, make_trainable
+    dev = resolve_device(device)
+
+    def tensor(x, dtype=torch.float32):
+        return torch.from_numpy(np.array(x)).to(dtype=dtype, device=dev)
+
+    def moments(prefix):
+        deform = {}
+        for key, arr in _subtree(flat, prefix + "deform/").items():
+            name, transpose = _module_key(key)
+            t = tensor(arr)
+            deform[name] = t.T.contiguous() if transpose else t
+        return {"gauss": GaussianParams(**{
+                    f: tensor(flat[f"{prefix}gauss/{f}"])
+                    for f in _GAUSS_FIELDS}),
+                "deform": deform}
+
+    gauss = gaussians_from_numpy(_subtree(flat, "params/gauss/"), dev)
+    deform = deformation_from_flat(_subtree(flat, "params/deform/"), cfg, dev)
+    params = {"gauss": make_trainable(gauss), "deform": deform}
+    mu, nu = moments("opt_state/mu/"), moments("opt_state/nu/")
+    names = [name for name, _ in deform.named_parameters()]
+    for tree in (mu, nu):
+        if sorted(tree["deform"]) != sorted(names):
+            raise KeyError("the deformation's moments do not match its "
+                           "parameters")
+        tree["deform"] = {name: tree["deform"][name] for name in names}
+    return TrainState(
+        params=params,
+        opt_state=optim.AdamGroupState(
+            count=tensor(flat["opt_state/count"], torch.int32), mu=mu, nu=nu),
+        alive=tensor(flat["alive"], torch.bool),
+        aabb=tensor(flat["aabb"]),
+        xyz_gradient_accum=tensor(flat["xyz_gradient_accum"]),
+        denom=tensor(flat["denom"]),
+        max_radii2d=tensor(flat["max_radii2d"]),
+        step=tensor(flat["step"], torch.int32))

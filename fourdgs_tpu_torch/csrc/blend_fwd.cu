@@ -3,12 +3,11 @@
 // Replaces the TPU kernel fourdgs_tpu/ops/pallas/blend.py:_fwd_kernel (K1).
 // Semantics: the spec in fourdgs_tpu_torch/ops/rasterize_ref.py. Plain
 // version: fourdgs_tpu_torch/ops/blend.py:blend_forward_plain. Every value
-// that feeds a gate (power, alpha, the entering transmittance T * cp, and
-// the chunk's product carried to the next chunk) is computed with
-// round-to-nearest intrinsics in the plain version's order of operations,
-// so that no FMA contraction can flip a gate: a flipped T > 1e-4 or
-// alpha >= 1/255 decision would move a pixel by up to alpha * T, far above
-// the comparison's tolerance. Only the color and depth sums differ in
+// that feeds a gate is computed by blend_common.cuh, in the plain version's
+// order of operations with round-to-nearest intrinsics, so that no FMA
+// contraction can flip a gate: a flipped T > 1e-4 or alpha >= 1/255
+// decision would move a pixel by up to alpha * T, far above the
+// comparison's tolerance. Only the color and depth sums differ in
 // association.
 //
 // Design. One block per tile, one thread per pixel (256 threads at
@@ -42,15 +41,12 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = (float)(1.0 / 255.0);
-constexpr float kTMin = 1e-4f;
+using namespace fourdgs;
 
-// Packed row of the per-gaussian table (16 floats): the kernel reads the
-// first three float4s: [pix_x, pix_y, A, B], [C, r, g, b], [opacity, depth,
-// 0, 0].
 __global__ void __launch_bounds__(1024)
 blend_fwd_kernel(const int* __restrict__ gidx,
                  const int* __restrict__ counts,
@@ -70,12 +66,7 @@ blend_fwd_kernel(const int* __restrict__ gidx,
     float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, d = 0.0f;
     for (int base = 0; base < count; base += chunk) {
         const int nk = min(chunk, count - base);
-        for (int i = p; i < nk * 3; i += n_pix) {
-            const int slot = i / 3;
-            int g = tile_gidx[base + slot];
-            g = (g < 0 || g > n_gauss) ? n_gauss : g;  // sentinel zero row
-            s_rows[i] = table[(size_t)g * 4 + (i - slot * 3)];
-        }
+        gather_rows(s_rows, tile_gidx, table, base, nk, n_gauss);
         __syncthreads();
         if (T > kTMin) {
             // cp: product of (1 - alpha) over the chunk's gated slots so
@@ -85,17 +76,11 @@ blend_fwd_kernel(const int* __restrict__ gidx,
                 const float4 a = s_rows[3 * k];
                 const float4 b = s_rows[3 * k + 1];
                 const float4 c = s_rows[3 * k + 2];
-                const float dx = __fsub_rn(a.x, px);
-                const float dy = __fsub_rn(a.y, py);
-                const float qa = __fmul_rn(__fmul_rn(a.z, dx), dx);  // A dx^2
-                const float qc = __fmul_rn(__fmul_rn(b.x, dy), dy);  // C dy^2
-                const float qb = __fmul_rn(__fmul_rn(a.w, dx), dy);  // B dx dy
-                const float power =
-                    __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
+                float dx, dy;
+                const float power = splat_power(a, b, px, py, dx, dy);
                 if (power > 0.0f) continue;
-                const float alpha = fminf(__fmul_rn(c.x, expf(power)),
-                                          kAlphaMax);
-                if (alpha < kAlphaMin) continue;
+                const float alpha = splat_alpha(splat_alpha_u(c.x, power));
+                if (!(alpha >= kAlphaMin)) continue;  // NaN skips too
                 const float t_pref = __fmul_rn(T, cp);
                 if (t_pref <= kTMin) break;  // entering transmittance test
                 const float w = __fmul_rn(alpha, t_pref);

@@ -10,7 +10,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from fourdgs_tpu_torch.ops import knn, sh, transforms
+from fourdgs_tpu_torch.utils.device import resolve_device
+
+FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+          "opacity")
 
 
 @dataclasses.dataclass
@@ -34,3 +41,36 @@ class GaussianParams:
     def to(self, device) -> "GaussianParams":
         return GaussianParams(**{f.name: getattr(self, f.name).to(device)
                                  for f in dataclasses.fields(self)})
+
+
+def create_from_points(points: np.ndarray, colors: np.ndarray, cap: int,
+                       max_sh_degree: int = 3,
+                       device: str | torch.device | None = None
+                       ) -> tuple[GaussianParams, torch.Tensor]:
+    """Initialise from a colored point cloud: SH DC from RGB, log-scale
+    from the square root of the mean 3-NN squared distance, identity
+    rotations, opacity 0.1, in a capacity-`cap` buffer on `device` (None:
+    cuda, which raises without a card). Returns (params, alive) with
+    `alive` marking the first n slots."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    if n > cap:
+        raise ValueError(f"point cloud ({n}) exceeds capacity ({cap})")
+    k = (max_sh_degree + 1) ** 2
+    xyz = torch.zeros((cap, 3), device=dev)
+    xyz[:n] = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
+    dc = torch.zeros((cap, 1, 3), device=dev)
+    dc[:n, 0] = sh.rgb_to_sh(
+        torch.from_numpy(np.asarray(colors, np.float32)).to(dev))
+    scaling = torch.zeros((cap, 3), device=dev)
+    scaling[:n] = torch.log(torch.sqrt(knn.dist2_init(points, dev)))[:, None]
+    rotation = torch.zeros((cap, 4), device=dev)
+    rotation[:, 0] = 1.0
+    opacity = torch.full((cap, 1), float(transforms.inverse_sigmoid(
+        torch.tensor(0.1, dtype=torch.float32))), device=dev)
+    alive = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    alive[:n] = True
+    return GaussianParams(
+        xyz=xyz, features_dc=dc,
+        features_rest=torch.zeros((cap, k - 1, 3), device=dev),
+        scaling=scaling, rotation=rotation, opacity=opacity), alive

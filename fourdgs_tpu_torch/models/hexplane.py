@@ -53,19 +53,33 @@ def _axis_coord(u: torch.Tensor, size: int):
     return x0.long(), x - x0
 
 
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] by `index_select`: its backward is an atomic `index_add_`,
+    where advanced indexing's (`index_put_` with accumulate) sorts the
+    indices and walks each run of duplicates serially, which costs
+    hundreds of milliseconds when 100k points gather from a few thousand
+    plane cells."""
+    return table.index_select(0, idx)
+
+
 def bilinear_sample(plane: torch.Tensor, u: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Sample a (H, W, C) plane at u (width) and v (height) coords in
     [-1, 1]. Returns (N, C)."""
-    h, w, _ = plane.shape
+    h, w, c = plane.shape
     x0, fx = _axis_coord(u, w)
     y0, fy = _axis_coord(v, h)
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
     fx = fx[:, None]
     fy = fy[:, None]
-    top = plane[y0, x0] * (1 - fx) + plane[y0, x1] * fx
-    bot = plane[y1, x0] * (1 - fx) + plane[y1, x1] * fx
+    flat = plane.reshape(h * w, c)
+
+    def at(y, x):
+        return _gather_rows(flat, y * w + x)
+
+    top = at(y0, x0) * (1 - fx) + at(y0, x1) * fx
+    bot = at(y1, x0) * (1 - fx) + at(y1, x1) * fx
     return top * (1 - fy) + bot * fy
 
 
@@ -88,7 +102,8 @@ def bilinear_sample_const_v(plane: torch.Tensor, u: torch.Tensor,
     x0, fx = _axis_coord(u, w)
     x1 = torch.clamp(x0 + 1, max=w - 1)
     fx = fx[:, None]
-    return row[x0] * (1.0 - fx) + row[x1] * fx
+    return (_gather_rows(row, x0) * (1.0 - fx)
+            + _gather_rows(row, x1) * fx)
 
 
 class HexPlaneField(nn.Module):

@@ -1,11 +1,13 @@
 """Builds the package's CUDA sources (csrc/*.cu) with `nvcc` at first use
 and loads them with ctypes (the role of fourdgs_tpu/native/build.py).
 
-One shared library with a plain C interface holds every kernel. It is
-written to build/fourdgs_tpu_torch/ at the checkout's root, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file. Importing this module touches
-neither `nvcc` nor the card.
+One shared library with a plain C interface holds every kernel. Each
+source compiles to an object in its own `nvcc` process, all started
+together, and one more links them. The library is written to
+build/fourdgs_tpu_torch/ at the checkout's root, named by a hash of the
+sources, headers and flags, so an edited source rebuilds and an unchanged
+one loads the existing file. Importing this module touches neither `nvcc`
+nor the card.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fourdgs_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,7 +52,7 @@ def _sources() -> list[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfourdgs_kernels_{h.hexdigest()[:16]}.so"
@@ -66,18 +68,30 @@ def build(verbose: bool = False) -> Path:
                               cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(proc.args)}\n{log}")
+        tmp = os.path.join(tmp_dir, out.name)
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    ptxas = [ln.strip() for log in logs for ln in log.splitlines()
              if "ptxas" in ln and ("registers" in ln or "spill" in ln
                                    or "Compiling" in ln)]
     build_info.update(seconds=seconds, ptxas=ptxas, path=str(out),
@@ -96,6 +110,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
                                      vp, vp, vp, vp]
     lib.blend_fwd_launch.restype = i
+    lib.blend_bwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
+                                     vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.blend_bwd_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

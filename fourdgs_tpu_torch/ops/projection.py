@@ -53,11 +53,11 @@ def project_gaussians(
     img_width: int,
     img_height: int,
     tile_size: int,
+    ndc_offset: torch.Tensor | None = None,   # (N, 2) zero grad-carrier
     alive: torch.Tensor | None = None,        # (N,) bool
     scale_modifier: float = 1.0,
     opacities: torch.Tensor | None = None,    # (N,) activated, optional
 ) -> Projected:
-    n = means3d.shape[0]
     W = camera.world_view
 
     # --- view transform + frustum cull ---
@@ -75,6 +75,8 @@ def project_gaussians(
     pw = means3d @ P[3, :3] + P[3, 3]
     rw = 1.0 / torch.where(in_front, pw + 1e-7, torch.ones_like(pw))
     ndc_xy = ph[:, :2] * rw[:, None]
+    if ndc_offset is not None:
+        ndc_xy = ndc_xy + ndc_offset
     pix = torch.stack([
         ((ndc_xy[:, 0] + 1.0) * img_width - 1.0) * 0.5,
         ((ndc_xy[:, 1] + 1.0) * img_height - 1.0) * 0.5], dim=-1)
@@ -115,12 +117,27 @@ def project_gaussians(
 
     det = cov00 * cov11 - cov01 * cov01
     det_ok = det > 0.0
-    # the floor keeps inv_det finite for denormal dets
-    inv_det = torch.where(det_ok, 1.0 / torch.clamp(det, min=1e-30),
+    # the floor keeps inv_det finite for denormal dets; the inner where
+    # keeps a culled det out of the reciprocal's backward
+    det_safe = torch.where(det_ok, det, torch.ones_like(det))
+    inv_det = torch.where(det_ok, 1.0 / torch.clamp(det_safe, min=1e-30),
                           torch.zeros_like(det))
     conic = torch.stack([cov11 * inv_det, -cov01 * inv_det, cov00 * inv_det],
                         dim=-1)
+    with torch.no_grad():
+        radius, rect_min, rect_max, tiles_touched, cull_r2 = _footprint(
+            pix, cov00, cov11, det, det_ok, in_front, alive, opacities,
+            img_width, img_height, tile_size)
+    return Projected(pix=pix, depth=tz, conic=conic, radius=radius,
+                     rect_min=rect_min, rect_max=rect_max,
+                     tiles_touched=tiles_touched, cull_r2=cull_r2)
 
+
+def _footprint(pix, cov00, cov11, det, det_ok, in_front, alive, opacities,
+               img_width, img_height, tile_size):
+    """The integer outputs: radius, tile rects, tiles touched and the
+    corner-cull radius. Binning decisions carry no gradient."""
+    n = pix.shape[0]
     mid = 0.5 * (cov00 + cov11)
     lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius_f = torch.ceil(RADIUS_SIGMA * torch.sqrt(lam1))
@@ -141,7 +158,7 @@ def project_gaussians(
     grid_y = (img_height + tile_size - 1) // tile_size
     rf = radius.to(torch.float32)
     cull_r2 = torch.full((n,), NO_CULL_R2, dtype=torch.int32,
-                         device=means3d.device)
+                         device=pix.device)
     if opacities is not None:
         op = opacities
         op_ok = op > ALPHA_MIN
@@ -170,7 +187,4 @@ def project_gaussians(
                                 torch.zeros_like(radius))
     # zero the rect span for untouched gaussians so binning is clean
     rect_max = torch.where((tiles_touched > 0)[:, None], rect_max, rect_min)
-
-    return Projected(pix=pix, depth=tz, conic=conic, radius=radius,
-                     rect_min=rect_min, rect_max=rect_max,
-                     tiles_touched=tiles_touched, cull_r2=cull_r2)
+    return radius, rect_min, rect_max, tiles_touched, cull_r2

@@ -1,13 +1,14 @@
-"""Tile-binned Gaussian rasterizer, forward only
+"""Tile-binned Gaussian rasterizer, differentiable
 (counterpart: fourdgs_tpu/ops/rasterize_tiled.py).
 
   1. project_gaussians     — EWA projection (ops/projection.py)
   2. bin_gaussians_count   — per-tile fixed-capacity index lists
      (num_tiles, tile_cap) in depth order, with the JAX package's global
-     pair budget and exact corner cull
-  3. blend_forward         — front-to-back compositing over the lists
-     (ops/blend.py: a CUDA kernel on the card, the plain torch recurrence
-     on the CPU)
+     pair budget and exact corner cull; runs without autograd, as the
+     JAX package stops the gradient into the binner
+  3. blend                 — front-to-back compositing over the lists and
+     its backward (ops/blend.py: CUDA kernels K1 and K2 on the card, the
+     plain torch versions on the CPU)
 
 Blending numerics follow the spec in ops/rasterize_ref.py.
 """
@@ -20,7 +21,7 @@ import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
-from fourdgs_tpu_torch.ops.blend import blend_forward, pack_attr_table
+from fourdgs_tpu_torch.ops.blend import blend, pack_attr_table
 from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
 from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
 
@@ -154,6 +155,28 @@ def _untile(x: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
     return x[: cfg.img_height, : cfg.img_width]
 
 
+def project_and_bin(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,     # (N,) activated
+    camera: Camera,
+    cfg: RasterConfig,
+    ndc_offset: torch.Tensor | None = None,
+    alive: torch.Tensor | None = None,
+    scale_modifier: float = 1.0,
+) -> tuple[Projected, BinnedTiles]:
+    """Projection (differentiable) and binning (on detached values)."""
+    with record_function("raster.project"):
+        proj = project_gaussians(
+            means3d, scales, quats, camera, cfg.img_width, cfg.img_height,
+            cfg.tile_size, ndc_offset=ndc_offset, alive=alive,
+            scale_modifier=scale_modifier, opacities=opacities)
+    with record_function("raster.bin"), torch.no_grad():
+        binned = bin_gaussians_count(proj, cfg)
+    return proj, binned
+
+
 def prepare_blend(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -166,15 +189,12 @@ def prepare_blend(
     scale_modifier: float = 1.0,
 ) -> tuple[Projected, BinnedTiles, torch.Tensor]:
     """Projection, binning and the packed attribute table: everything
-    `blend_forward` takes. Returns (proj, binned, table)."""
-    with record_function("raster.project"):
-        proj = project_gaussians(
-            means3d, scales, quats, camera, cfg.img_width, cfg.img_height,
-            cfg.tile_size, alive=alive, scale_modifier=scale_modifier,
-            opacities=opacities)
-    with record_function("raster.bin"):
-        binned = bin_gaussians_count(proj, cfg)
-    with record_function("raster.pack"):
+    the blend kernels take, for checking them on a render's input.
+    Returns (proj, binned, table)."""
+    proj, binned = project_and_bin(means3d, scales, quats, opacities, camera,
+                                   cfg, alive=alive,
+                                   scale_modifier=scale_modifier)
+    with torch.no_grad():
         table = pack_attr_table(proj.pix, proj.conic, colors, opacities,
                                 proj.depth)
     return proj, binned, table
@@ -189,16 +209,19 @@ def rasterize(
     camera: Camera,
     bg: torch.Tensor,            # (3,)
     cfg: RasterConfig,
+    ndc_offset: torch.Tensor | None = None,   # (N, 2) zero grad-carrier
     alive: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
 ) -> RenderOutput:
-    """Render one camera (forward only)."""
-    proj, binned, table = prepare_blend(means3d, scales, quats, opacities,
-                                        colors, camera, cfg, alive,
-                                        scale_modifier)
+    """Differentiable render of one camera, in the means, scales, quats,
+    opacities, colors and `ndc_offset` (whose gradient is the densify
+    statistic)."""
+    proj, binned = project_and_bin(means3d, scales, quats, opacities, camera,
+                                   cfg, ndc_offset, alive, scale_modifier)
     with record_function("raster.blend"):
-        color_t, depth_t, t_t = blend_forward(binned.gidx, binned.counts,
-                                              table, cfg)
+        color_t, depth_t, t_t = blend(binned.gidx, binned.counts, proj.pix,
+                                      proj.conic, colors, opacities,
+                                      proj.depth, cfg)
     with record_function("raster.compose"):
         t_img = _untile(t_t, cfg)
         color = _untile(color_t, cfg) + t_img[..., None] * bg

@@ -4,7 +4,14 @@
 Raw params are deformed in the "fine" stage at the camera's timestamp,
 then activated (exp / normalize / sigmoid); colors come from SH evaluated
 toward the camera, and everything goes through the tiled rasterizer.
-Forward only: this runs under torch.no_grad().
+Differentiable; a zero `ndc_offset` input is the screen-space gradient
+carrier for the densify statistics. Serving wraps it in torch.no_grad()
+(render/serve.py).
+
+The SH degree is a Python int: the JAX step passes a traced degree to
+`sh_to_rgb_dynamic` so that its jit never recompiles during the SH ramp;
+PyTorch runs eagerly and needs no such thing. Bands above the active
+degree get a zero gradient in both.
 """
 from __future__ import annotations
 
@@ -20,7 +27,6 @@ from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, rasterize
 
 
-@torch.no_grad()
 def splats_at(
     gauss: GaussianParams,
     deform: Deformation,
@@ -57,7 +63,6 @@ def splats_at(
     return xyz, scales, quats, opacities, colors
 
 
-@torch.no_grad()
 def render(
     gauss: GaussianParams,
     deform: Deformation,
@@ -68,11 +73,12 @@ def render(
     alive: torch.Tensor,
     active_sh_degree: int,
     stage: str = "fine",
+    ndc_offset: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
     override_color: torch.Tensor | None = None,
 ) -> RenderOutput:
     with record_function("render.splats"):
         splats = splats_at(gauss, deform, camera, aabb, active_sh_degree,
                            stage, override_color)
-    return rasterize(*splats, camera, bg, raster_cfg, alive=alive,
-                     scale_modifier=scale_modifier)
+    return rasterize(*splats, camera, bg, raster_cfg, ndc_offset=ndc_offset,
+                     alive=alive, scale_modifier=scale_modifier)

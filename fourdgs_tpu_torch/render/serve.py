@@ -111,6 +111,7 @@ class Renderer:
                   f"growing {changes}")
             self.raster_cfg = dataclasses.replace(rc, **changes)
 
+    @torch.no_grad()
     def render(self, camera: Camera, stage: str = "fine") -> RenderOutput:
         return render(self.gauss, self.deform, camera.to(self.device),
                       self.bg, self.raster_cfg, self.aabb, self.alive,

@@ -2,7 +2,8 @@
 look-at orbit once untimed, once timed, and once under torch.profiler,
 and print the device's busy share, the launches and CUDA runtime calls
 per frame, each render span's host and kernel time, and the kernels that
-take the most device time.
+take the most device time. `profile_calls` does the same for any call
+(chip_smoke.py profiles training steps with it).
 
     python -m fourdgs_tpu_torch.tools.profile_render -m output/scene \
         --frames 24
@@ -24,9 +25,14 @@ from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.render.serve import Renderer, orbit_cameras
 
 
-# the render path's profiler spans (render/render.py, ops/rasterize_tiled.py)
+# the render path's profiler spans (render/render.py, ops/rasterize_tiled.py;
+# raster.pack opens inside raster.blend, in ops/blend.py)
 SPANS = ("render.splats", "raster.project", "raster.bin", "raster.pack",
          "raster.blend", "raster.compose")
+# the training step's (train/loop.py; the blend's backward in ops/blend.py
+# runs inside train.backward)
+TRAIN_SPANS = SPANS + ("train.forward", "train.backward",
+                       "raster.blend_backward", "train.adam", "train.stats")
 # CUDA runtime calls counted per frame: a stream synchronize is a host wait
 # on the device (a `.item()`, a boolean mask's size, `repeat_interleave`)
 _RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -44,34 +50,29 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_frames(renderer: Renderer, cams: list[Camera],
-                   top: int = 12) -> dict:
-    """Render `cams` under torch.profiler on the card and print, per
-    frame: the device's busy share of the wall time, the kernel launches
+def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
+                  label: str = "frame") -> dict:
+    """Run `fn` n times under torch.profiler on the card and print, per
+    call: the device's busy share of the wall time, the kernel launches
     and CUDA runtime calls, each span's host time, device range (first to
     last kernel, gaps included) and kernel time, and the kernels that take
     the most device time. The profiler's own cost inflates the host
-    times; the unprofiled ms/frame is `main`'s timed run."""
+    times; compare the unprofiled time of the same calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    dev = renderer.device
-    if dev.type != "cuda":
-        raise RuntimeError("profile_frames measures the card; the renderer "
-                           f"is on {dev}")
-    n = len(cams)
-    torch.cuda.synchronize(dev)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for c in cams:
-            renderer.render(c)
-        torch.cuda.synchronize(dev)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
     # device-side copies of the spans (user annotations) are not kernels
-    kernels = sorted((e for e in on_dev if e.name not in SPANS),
+    kernels = sorted((e for e in on_dev if e.name not in spans),
                      key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in kernels]
     busy_us = _busy_us((e.time_range.start, e.time_range.end)
@@ -83,12 +84,12 @@ def profile_frames(renderer: Renderer, cams: list[Camera],
         return sum(min(e.time_range.end, r.end) - e.time_range.start
                    for e in kernels[i:j])
 
-    spans = {}
-    for name in SPANS:
+    span_report = {}
+    for name in spans:
         host = [e.time_range for e in events
                 if e.name == name and e.device_type == DeviceType.CPU]
         rng = [e.time_range for e in on_dev if e.name == name]
-        spans[name] = {
+        span_report[name] = {
             "host_ms": sum(r.elapsed_us() for r in host) / n / 1e3,
             "device_range_ms": sum(r.elapsed_us() for r in rng) / n / 1e3,
             "kernel_ms": sum(map(kernel_us_in, rng)) / n / 1e3}
@@ -97,35 +98,45 @@ def profile_frames(renderer: Renderer, cams: list[Camera],
     for e in kernels:
         by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
     report = {
-        "frames": n,
-        "wall_ms_per_frame": wall_us / n / 1e3,
+        label + "s": n,
+        f"wall_ms_per_{label}": wall_us / n / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "kernel_ms_per_frame": sum(map(sum, by_kernel.values())) / n / 1e3,
-        "kernel_launches_per_frame": len(kernels) / n,
-        "runtime_calls_per_frame": {c: v for c, v in calls.items() if v},
-        "spans": spans,
+        f"kernel_ms_per_{label}": sum(map(sum, by_kernel.values())) / n / 1e3,
+        f"kernel_launches_per_{label}": len(kernels) / n,
+        f"runtime_calls_per_{label}": {c: v for c, v in calls.items() if v},
+        "spans": span_report,
         "top_kernels": [
-            {"name": name[:90], "ms_per_frame": sum(d) / n / 1e3,
-             "calls_per_frame": len(d) / n}
+            {"name": name[:90], f"ms_per_{label}": sum(d) / n / 1e3,
+             f"calls_per_{label}": len(d) / n}
             for name, d in sorted(by_kernel.items(),
                                   key=lambda kv: -sum(kv[1]))[:top]],
     }
-    print(f"profile: {n} frames, {report['wall_ms_per_frame']:.3f} ms/frame "
-          f"under the profiler; device busy "
+    print(f"profile: {n} {label}s, {report[f'wall_ms_per_{label}']:.3f} "
+          f"ms/{label} under the profiler; device busy "
           f"{100 * report['device_busy_share']:.1f}%; kernels "
-          f"{report['kernel_ms_per_frame']:.3f} ms/frame in "
-          f"{report['kernel_launches_per_frame']:.1f} launches; runtime "
-          f"calls per frame {report['runtime_calls_per_frame']}")
-    for k, v in spans.items():
-        print(f"  span {k:16s} host {v['host_ms']:8.3f} ms  device range "
+          f"{report[f'kernel_ms_per_{label}']:.3f} ms/{label} in "
+          f"{report[f'kernel_launches_per_{label}']:.1f} launches; runtime "
+          f"calls per {label} {report[f'runtime_calls_per_{label}']}")
+    for k, v in span_report.items():
+        print(f"  span {k:22s} host {v['host_ms']:8.3f} ms  device range "
               f"{v['device_range_ms']:8.3f} ms  kernels "
               f"{v['kernel_ms']:8.3f} ms")
     for k in report["top_kernels"]:
-        print(f"  kernel {k['ms_per_frame']:8.4f} ms x"
-              f"{k['calls_per_frame']:6.1f}  {k['name']}")
+        print(f"  kernel {k[f'ms_per_{label}']:8.4f} ms x"
+              f"{k[f'calls_per_{label}']:6.1f}  {k['name']}")
     print("profile json: " + json.dumps(report))
     return report
 
+
+def profile_frames(renderer: Renderer, cams: list[Camera],
+                   top: int = 12) -> dict:
+    """`profile_calls` over one render of each of `cams`."""
+    if renderer.device.type != "cuda":
+        raise RuntimeError("profile_frames measures the card; the renderer "
+                           f"is on {renderer.device}")
+    it = iter(cams)
+    return profile_calls(lambda: renderer.render(next(it)), len(cams),
+                         top=top)
 
 
 def main(argv=None) -> dict:

@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
 chip_smoke.py imports jax, jaxlib or the JAX package, and importing the
-serving module leaves jax out of sys.modules."""
+serving and training modules leaves jax out of sys.modules."""
 import ast
 import subprocess
 import sys
@@ -37,7 +37,11 @@ def test_no_jax_imports(path):
 
 def test_serve_import_leaves_jax_out():
     code = ("import sys, fourdgs_tpu_torch.render.serve, "
-            "fourdgs_tpu_torch.ops._build; "
+            "fourdgs_tpu_torch.ops._build, fourdgs_tpu_torch.train.loop, "
+            "fourdgs_tpu_torch.train.state, fourdgs_tpu_torch.convert, "
+            "fourdgs_tpu_torch.ops.rasterize_ref, "
+            "fourdgs_tpu_torch.ops.knn, "
+            "fourdgs_tpu_torch.tools.profile_render; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fourdgs_tpu')]; "
             "assert not bad, bad")

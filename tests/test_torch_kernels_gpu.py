@@ -10,6 +10,10 @@ tests. Run them on a machine with an H100:
 Tolerances are those the blend is held to everywhere: color 1e-5, depth
 1e-4, transmittance 1e-5. The kernel and the plain version take the same
 gate decisions and differ only in the order of the color and depth sums.
+The backward kernel (K2) sums with atomics, in an order that changes from
+run to run, so its gradients are held to the JAX tests' normalised
+tolerance: each column group divided by its largest magnitude, atol 1e-4
+(tests/test_pallas_blend.py).
 """
 import numpy as np
 import pytest
@@ -21,6 +25,9 @@ from fourdgs_tpu_torch.models.gaussians import GaussianParams
 from fourdgs_tpu_torch.ops import blend
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, prepare_blend
 from fourdgs_tpu_torch.render.render import splats_at
+from fourdgs_tpu_torch.train import config as tconfig
+from fourdgs_tpu_torch.train import loop, optim
+from fourdgs_tpu_torch.train.state import create_state
 
 TOL = {"color": 1e-5, "depth": 1e-4, "t": 1e-5}
 W, H = 96, 80
@@ -99,6 +106,18 @@ def test_blend_kernel_caps_and_chunks(cuda, tile_cap, chunk):
 
 
 @pytest.mark.gpu
+def test_blend_kernel_skips_a_nan_splat(cuda):
+    """A NaN conic fails the alpha gate in the kernel as in the plain
+    version (a NaN-dropping min would have let it through at 0.99)."""
+    binned, table, cfg = _inputs(cuda, "random", 16)
+    table[int(binned.gidx[binned.counts > 0][0, 0]), 2:5] = float("nan")
+    out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
+                                                 table, cfg))
+
+
+@pytest.mark.gpu
 def test_blend_kernel_refuses_what_it_cannot_take(cuda):
     before = blend.blend_forward.launches
     binned, table, cfg = _inputs(cuda, "random", 8)
@@ -134,3 +153,156 @@ def test_fine_splats_wait_on_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+GROUPS = {"pix": (0, 2), "conic": (2, 5), "color": (5, 8), "opacity": (8, 9),
+          "depth": (9, 10)}
+GRAD_TOL = 1e-4
+
+
+def _normalised_close(port, ref, name):
+    assert port.shape == ref.shape, name
+    assert bool(torch.isfinite(port).all()), name
+    scale = float(ref.abs().max()) + 1e-12
+    err = float((port - ref).abs().max()) / scale
+    assert err <= GRAD_TOL, f"{name}: normalised max abs err {err}"
+
+
+def _backward_inputs(dev, binned, table, cfg, seed=0):
+    """Forward outputs by K1 and seeded cotangents."""
+    out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+    cot = [torch.randn(shape, generator=gen).to(dev)
+           for shape in ((nt, p, 3), (nt, p), (nt, p))]
+    return out, cot
+
+
+def _check_backward(dev, binned, table, cfg):
+    out, cot = _backward_inputs(dev, binned, table, cfg)
+    before = blend.blend_backward.launches
+    g = blend.blend_backward(binned.gidx, binned.counts, table, *out, *cot,
+                             cfg)
+    torch.cuda.synchronize()
+    assert blend.blend_backward.launches == before + 1
+    ref = blend.blend_backward_plain(binned.gidx, binned.counts, table, *out,
+                                     *cot, cfg)
+    assert g.shape == ref.shape == (table.shape[0] - 1, blend.GRAD_W)
+    assert float(ref.abs().max()) > 0
+    for name, (a, b) in GROUPS.items():
+        _normalised_close(g[:, a:b], ref[:, a:b], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_blend_backward_kernel_matches_plain(cuda, kind, ts):
+    binned, table, cfg = _inputs(cuda, kind, ts)
+    assert int(binned.counts.max()) > cfg.chunk     # several chunks
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_cap,chunk", [(16, 8), (64, 32), (96, 32),
+                                            (512, 512)])
+def test_blend_backward_kernel_caps_and_chunks(cuda, tile_cap, chunk):
+    """Full tiles (tile overflow), counts that end inside a chunk, and the
+    largest chunk the shared accumulator takes."""
+    binned, table, cfg = _inputs(cuda, "random", 16, tile_cap, chunk, n=900,
+                                 seed=1)
+    if tile_cap == 16:
+        assert int(binned.overflow.sum()) > 0
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+def test_blend_backward_kernel_refuses_what_it_cannot_take(cuda):
+    before = blend.blend_backward.launches
+    binned, table, cfg = _inputs(cuda, "random", 16, 1024, 1024)
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    with pytest.raises(ValueError, match="chunk 1024"):
+        blend.blend_backward(binned.gidx, binned.counts, table, *out, *cot,
+                             cfg)
+    binned, table, cfg = _inputs(cuda, "random", 16)
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    with pytest.raises(ValueError, match="cotangent depth"):
+        blend.blend_backward(binned.gidx, binned.counts, table, *out,
+                             cot[0], cot[1].cpu(), cot[2], cfg)
+    with pytest.raises(ValueError, match="cotangent color"):
+        blend.blend_backward(binned.gidx, binned.counts, table, *out,
+                             cot[0].transpose(0, 1).contiguous()
+                             .transpose(0, 1), *cot[1:], cfg)
+    cfg8 = RasterConfig(img_width=W, img_height=H, tile_size=8,
+                        tile_cap=128, chunk=8)
+    binned, table, _ = _inputs(cuda, "random", 8)
+    out = blend.blend_forward_plain(binned.gidx, binned.counts, table, cfg8)
+    cot = [torch.zeros_like(x) for x in out]
+    with pytest.raises(ValueError, match="tile_size 16 or 32"):
+        blend.blend_backward(binned.gidx, binned.counts, table, *out, *cot,
+                             cfg8)
+    assert blend.blend_backward.launches == before
+
+
+def _small_train_state(device):
+    cfg = tconfig.Config()
+    cfg.model.sh_degree = 1
+    cfg.raster = tconfig.RasterParams(capacity=512, tile_size=16,
+                                      tile_cap=256, chunk=8)
+    cfg.hidden.kplanes_config["resolution"] = [8, 8, 8, 4]
+    cfg.hidden.kplanes_config["output_coordinate_dim"] = 8
+    cfg.hidden.multires = [1, 2]
+    cfg.hidden.net_width = 32
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    st = create_state(cfg, pts, cols, 1.0, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = st.params["gauss"]
+        g.opacity.add_(torch.from_numpy(
+            rng.normal(1.5, 1.0, g.opacity.shape).astype(np.float32)))
+        g.scaling.add_(torch.from_numpy(
+            rng.normal(0.5, 0.3, g.scaling.shape).astype(np.float32)))
+    return cfg, st.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["fine", "coarse"])
+def test_train_step_on_card_matches_cpu(cuda, stage):
+    """One train_step on the card (K1 and K2) against the same step on the
+    CPU (the plain versions), from one state: loss 1e-5 relative, every
+    gradient leaf (mu after step 1) normalised 1e-4, the densify
+    statistics."""
+    cfg, cpu_state = _small_train_state("cpu")
+    gpu_state = cpu_state.to(cuda)
+    rc = tconfig.raster_config_from(cfg, 96, 80)
+    target = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (1, 80, 96, 3)).astype(np.float32))
+    reg = (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
+           cfg.hidden.plane_tv_weight)
+    tx = optim.build_optimizer(cfg.opt, 1.0)
+    auxes = []
+    before = blend.blend_backward.launches
+    for st in (cpu_state, gpu_state):
+        dev = st.alive.device
+        cam = look_at_camera(time=0.4, device=dev)
+        _, aux = loop.train_step(
+            st, [cam], target.to(dev), torch.ones(3, device=dev), 1,
+            stage=stage, raster_cfg=rc, tx=tx, lambda_dssim=0.2,
+            reg_weights=reg)
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    assert blend.blend_backward.launches == before + 1
+    a, b = (float(x.loss) for x in auxes)
+    assert abs(a - b) <= 1e-5 * abs(a), (a, b)
+    assert float(auxes[0].max_alpha) > 0.5
+    for which in ("mu", "nu"):
+        ta, tb = (getattr(s.opt_state, which) for s in (cpu_state, gpu_state))
+        for leaf_a, leaf_b, name in zip(
+                optim.moment_leaves(ta), optim.moment_leaves(tb),
+                [f"{which} {i}" for i in range(100)]):
+            _normalised_close(leaf_b.cpu(), leaf_a, name)
+    _normalised_close(gpu_state.xyz_gradient_accum.cpu(),
+                      cpu_state.xyz_gradient_accum, "xyz_gradient_accum")
+    assert torch.equal(gpu_state.denom.cpu(), cpu_state.denom)
+    assert torch.equal(gpu_state.max_radii2d.cpu(), cpu_state.max_radii2d)

@@ -171,9 +171,10 @@ def test_render_options_match_jax(snapshot, renderer, option):
                    _look_at(0.3, jax_make_camera)(0.6), jnp.ones(3), jrc,
                    jstate.deform_config_from(cfg), st.aabb, st.alive,
                    **kw)
-    b = port_render(renderer.gauss, renderer.deform,
-                    _look_at(0.3, cpu_camera)(0.6), renderer.bg, rc,
-                    renderer.aabb, renderer.alive, **tkw)
+    with torch.no_grad():
+        b = port_render(renderer.gauss, renderer.deform,
+                        _look_at(0.3, cpu_camera)(0.6), renderer.bg, rc,
+                        renderer.aabb, renderer.alive, **tkw)
     np.testing.assert_allclose(b.color.numpy(), np.asarray(a.color),
                                atol=TOL_C)
     np.testing.assert_allclose(b.alpha.numpy(), np.asarray(a.alpha),
