@@ -12,7 +12,11 @@ port's modules.
     of the JAX checkpoint (`_flatten(state._asdict())`, keys such as
     `params/gauss/xyz`, `opt_state/mu/deform/mlp/pos/h0/w`,
     `opt_state/count`, `alive`, `step`) -> the port's `TrainState`, Adam
-    moments included, so that both packages can start from one state.
+    moments included, so that both packages can start from one state (a
+    fresh one, or one after a densify or a resize: the layout holds any
+    capacity);
+  * `train_state_to_numpy`: the inverse, the flat dict of a JAX
+    checkpoint, which the port's checkpoints store.
 
 The JAX package stores a weight `w` as (fan_in, fan_out) and applies
 `x @ w + b`; `nn.Linear` keeps (fan_out, fan_in), so weights are
@@ -75,20 +79,30 @@ def deformation_from_flat(flat: Mapping[str, np.ndarray], cfg: DeformConfig,
     return module.to(dev)
 
 
+def _named_to_flat(named) -> dict[str, np.ndarray]:
+    flat = {}
+    for name, p in named:
+        key, transpose = _flat_key(name)
+        arr = p.detach().cpu().numpy()
+        flat[key] = np.ascontiguousarray(arr.T) if transpose else arr
+    return flat
+
+
 def deformation_to_flat(module: Deformation) -> dict[str, np.ndarray]:
     """Inverse of deformation_from_flat: the deformation.npz layout."""
-    flat = {}
-    for name, p in module.state_dict().items():
-        arr = p.detach().cpu().numpy()
-        if name.startswith("grid.planes."):
-            flat["grid/" + name[len("grid.planes."):]] = arr
-            continue
-        *path, leaf = name.split(".")
-        if leaf == "weight":
-            flat["mlp/" + "/".join(path) + "/w"] = np.ascontiguousarray(arr.T)
-        else:
-            flat["mlp/" + "/".join(path) + "/b"] = arr
-    return flat
+    return _named_to_flat(module.state_dict().items())
+
+
+def _flat_key(name: str) -> tuple[str, bool]:
+    """Inverse of _module_key: 'grid.planes.l0_p0' -> ('grid/l0_p0',
+    False); 'pos.h0.weight' -> ('mlp/pos/h0/w', True)."""
+    if name.startswith("grid.planes."):
+        return "grid/" + name[len("grid.planes."):], False
+    *path, leaf = name.split(".")
+    if leaf not in ("weight", "bias"):
+        raise KeyError(f"unknown deformation parameter {name!r}")
+    return "mlp/" + "/".join(path) + ("/w" if leaf == "weight" else "/b"), \
+        leaf == "weight"
 
 
 def _subtree(flat: Mapping[str, np.ndarray], prefix: str) -> dict:
@@ -142,3 +156,28 @@ def train_state_from_numpy(flat: Mapping[str, np.ndarray],
         denom=tensor(flat["denom"]),
         max_radii2d=tensor(flat["max_radii2d"]),
         step=tensor(flat["step"], torch.int32))
+
+
+def train_state_to_numpy(state: "TrainState") -> dict[str, np.ndarray]:
+    """Inverse of train_state_from_numpy: the flat dict of the JAX
+    checkpoint layout, every array on the host."""
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    flat = {}
+    for prefix, tree in (("params/", {"gauss": state.params["gauss"]}),
+                         ("opt_state/mu/", state.opt_state.mu),
+                         ("opt_state/nu/", state.opt_state.nu)):
+        for f in _GAUSS_FIELDS:
+            flat[f"{prefix}gauss/{f}"] = host(getattr(tree["gauss"], f))
+    for k, v in deformation_to_flat(state.params["deform"]).items():
+        flat["params/deform/" + k] = v
+    for which in ("mu", "nu"):
+        moments = getattr(state.opt_state, which)["deform"]
+        for k, v in _named_to_flat(moments.items()).items():
+            flat[f"opt_state/{which}/deform/" + k] = v
+    flat["opt_state/count"] = host(state.opt_state.count)
+    for name in ("alive", "aabb", "xyz_gradient_accum", "denom",
+                 "max_radii2d", "step"):
+        flat[name] = host(getattr(state, name))
+    return flat

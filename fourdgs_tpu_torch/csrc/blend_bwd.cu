@@ -60,15 +60,6 @@ namespace {
 
 using namespace fourdgs;
 
-constexpr int kGradW = 10;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(kFull, v, off);
-    return v;
-}
-
 __global__ void __launch_bounds__(1024)
 blend_bwd_kernel(const int* __restrict__ gidx,
                  const int* __restrict__ counts,
@@ -87,20 +78,12 @@ blend_bwd_kernel(const int* __restrict__ gidx,
     const int p = threadIdx.x;
     const int n_pix = blockDim.x;
     const int lane = p & 31;
-    const float px = (float)((tile % grid_x) * tile_size + p % tile_size);
-    const float py = (float)((tile / grid_x) * tile_size + p / tile_size);
     const int count = counts[tile];
     const int* tile_gidx = gidx + (size_t)tile * tile_cap;
-
-    const size_t o = (size_t)tile * n_pix + p;
-    const float gc0 = g_color[3 * o];
-    const float gc1 = g_color[3 * o + 1];
-    const float gc2 = g_color[3 * o + 2];
-    const float gd = g_depth[o];
-    const float rc = out_color[3 * o] * gc0 + out_color[3 * o + 1] * gc1
-                     + out_color[3 * o + 2] * gc2;
-    const float rd = out_depth[o] * gd;
-    const float rt = g_t[o] * out_t[o];
+    const BwdPixel q = load_bwd_pixel(tile, p, grid_x, tile_size,
+                                      (size_t)tile * n_pix + p, out_color,
+                                      out_depth, out_t, g_color, g_depth,
+                                      g_t);
 
     float T = 1.0f, after_cg = 0.0f, after_dg = 0.0f;
     for (int base = 0; base < count; base += chunk) {
@@ -109,62 +92,18 @@ blend_bwd_kernel(const int* __restrict__ gidx,
         for (int i = p; i < nk * kGradW; i += n_pix) s_acc[i] = 0.0f;
         __syncthreads();
         const bool live = T > kTMin;
-        if (__any_sync(kFull, live)) {
-            float cp = 1.0f, cp_used = 1.0f;
+        if (__any_sync(kFullMask, live)) {
+            float cp = 1.0f;
             bool stop = !live;
             for (int k = 0; k < nk; ++k) {
                 float v[kGradW];
 #pragma unroll
                 for (int i = 0; i < kGradW; ++i) v[i] = 0.0f;
-                bool used = false;
-                if (!stop) {
-                    const float4 a = s_rows[3 * k];
-                    const float4 b = s_rows[3 * k + 1];
-                    const float4 c = s_rows[3 * k + 2];
-                    float dx, dy;
-                    const float power = splat_power(a, b, px, py, dx, dy);
-                    if (!(power > 0.0f)) {  // K1's `continue` test
-                        const float alpha_u = splat_alpha_u(c.x, power);
-                        const float alpha = splat_alpha(alpha_u);
-                        if (alpha >= kAlphaMin) {
-                            const float t_pref = __fmul_rn(T, cp);
-                            if (t_pref <= kTMin) {
-                                stop = true;  // entering transmittance test
-                            } else {
-                                used = true;
-                                const float w = alpha * t_pref;
-                                const float cg = b.y * gc0 + b.z * gc1
-                                                 + b.w * gc2;
-                                const float dg = c.y * gd;
-                                after_cg += w * cg;
-                                after_dg += w * dg;
-                                const float one_m_a =
-                                    fmaxf(1.0f - alpha, 1.0f - kAlphaMax);
-                                const float da =
-                                    t_pref * (cg + dg)
-                                    - (rc - after_cg + rd - after_dg + rt)
-                                          / one_m_a;
-                                const float d_pow = da * alpha_u;
-                                v[0] = d_pow * -(a.z * dx + a.w * dy);
-                                v[1] = d_pow * -(b.x * dy + a.w * dx);
-                                v[2] = -0.5f * d_pow * dx * dx;
-                                v[3] = -d_pow * dx * dy;
-                                v[4] = -0.5f * d_pow * dy * dy;
-                                v[5] = w * gc0;
-                                v[6] = w * gc1;
-                                v[7] = w * gc2;
-                                v[8] = c.x > 0.0f
-                                           ? da * (alpha_u
-                                                   / fmaxf(c.x, 1e-20f))
-                                           : 0.0f;
-                                v[9] = w * gd;
-                                cp = __fmul_rn(cp, __fsub_rn(1.0f, alpha));
-                                cp_used = cp;
-                            }
-                        }
-                    }
-                }
-                if (__any_sync(kFull, used)) {
+                const bool used =
+                    !stop && slot_grads(s_rows[3 * k], s_rows[3 * k + 1],
+                                        s_rows[3 * k + 2], q, T, cp,
+                                        after_cg, after_dg, stop, v);
+                if (__any_sync(kFullMask, used)) {
 #pragma unroll
                     for (int i = 0; i < kGradW; ++i) v[i] = warp_sum(v[i]);
                     if (lane == 0) {
@@ -174,9 +113,9 @@ blend_bwd_kernel(const int* __restrict__ gidx,
                                 atomicAdd(&s_acc[k * kGradW + i], v[i]);
                     }
                 }
-                if (__all_sync(kFull, stop)) break;
+                if (__all_sync(kFullMask, stop)) break;
             }
-            if (live) T = __fmul_rn(T, cp_used);
+            if (live) T = __fmul_rn(T, cp);
         }
         __syncthreads();
         // flush the chunk's sums: one global atomic per nonzero value
@@ -212,7 +151,7 @@ int blend_bwd_launch(const void* gidx, const void* counts, const void* table,
                      const void* g_t, void* grads, void* stream) {
     const int n_pix = tile_size * tile_size;
     const size_t smem = (size_t)chunk * (3 * sizeof(float4)
-                                         + kGradW * sizeof(float));
+                                         + fourdgs::kGradW * sizeof(float));
     blend_bwd_kernel<<<num_tiles, n_pix, smem, (cudaStream_t)stream>>>(
         (const int*)gidx, (const int*)counts, (const float4*)table, n_gauss,
         tile_cap, grid_x, tile_size, chunk, (const float*)out_color,

@@ -151,3 +151,17 @@ def load_gaussians(path: str, max_sh_degree: int = 3) -> dict:
         scaling=scaling,
         rotation=rotation,
     )
+
+
+def fetch_point_cloud(path: str):
+    """Returns (points (N,3), colors (N,3) in [0,1], normals (N,3))."""
+    ply = read_ply(path)
+    d = ply.data
+    pts = np.stack([d["x"], d["y"], d["z"]], -1).astype(np.float32)
+    cols = np.stack([d["red"], d["green"], d["blue"]], -1).astype(np.float32)
+    cols = cols / 255.0
+    if "nx" in ply.names:
+        normals = np.stack([d["nx"], d["ny"], d["nz"]], -1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, cols, normals

@@ -20,9 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 
 import torch
 from torch import nn
+
+from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))
 
@@ -53,13 +56,38 @@ def _axis_coord(u: torch.Tensor, size: int):
     return x0.long(), x - x0
 
 
+class _GatherRows(torch.autograd.Function):
+    """table[idx] with a swappable backward (JAX: the custom VJP of
+    hexplane.py:_gather_rows). The backward is an atomic `index_add_` by
+    default, and K4 (`ops/scatter.py:scatter_add_rows`) under the JAX
+    package's FOURDGS_HEX_BWD=pallas, read at call time. The JAX package
+    takes its kernel only for 128-wide rows whose table fits VMEM; the
+    port's K4 takes any rows. (Advanced indexing's backward,
+    `index_put_` with accumulate, sorts the indices and walks each run of
+    duplicates serially, which costs hundreds of milliseconds when 100k
+    points gather from a few thousand plane cells.)"""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.contiguous()
+        if os.environ.get("FOURDGS_HEX_BWD") == "pallas":
+            return scatter_add_rows(idx.to(torch.int32), g,
+                                    n_out=ctx.n_rows), None
+        out = torch.zeros((ctx.n_rows, g.shape[1]), dtype=g.dtype,
+                          device=g.device)
+        return out.index_add_(0, idx, g), None
+
+
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] by `index_select`: its backward is an atomic `index_add_`,
-    where advanced indexing's (`index_put_` with accumulate) sorts the
-    indices and walks each run of duplicates serially, which costs
-    hundreds of milliseconds when 100k points gather from a few thousand
-    plane cells."""
-    return table.index_select(0, idx)
+    """table[idx] for (rows, C) tables and (N,) int64 indices."""
+    return _GatherRows.apply(table, idx)
 
 
 def bilinear_sample(plane: torch.Tensor, u: torch.Tensor,

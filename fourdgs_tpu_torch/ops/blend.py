@@ -1,16 +1,20 @@
 """Per-tile alpha-compositing blend, forward and backward
-(counterpart: fourdgs_tpu/ops/pallas/blend.py, `_fwd_kernel` and
-`_bwd_fused_kernel`, and the XLA recurrence and custom VJP
-`_chunk_weights`/`_blend_fwd_scan`/`_make_blend` of
+(counterpart: fourdgs_tpu/ops/pallas/blend.py, `_fwd_kernel`,
+`_bwd_fused_kernel` and `_bwd_kernel`, and the XLA recurrence and custom
+VJP `_chunk_weights`/`_blend_fwd_scan`/`_make_blend` of
 fourdgs_tpu/ops/rasterize_tiled.py).
 
 `blend_forward` launches the CUDA kernel of csrc/blend_fwd.cu (K1) for
 tensors on the card, and runs `blend_forward_plain` for tensors on the
 CPU; `blend_backward` does the same with csrc/blend_bwd.cu (K2) and
-`blend_backward_plain`. Neither swaps one for the other: a CUDA tensor
-that a kernel cannot take raises. `blend_forward.launches` and
-`blend_backward.launches` count kernel launches. `blend` is the
-differentiable blend (the role of the JAX package's custom VJP) over both.
+`blend_backward_plain`, and `blend_backward_slots` (the per-slot table,
+unreduced) with csrc/blend_bwd_slots.cu (K3) and
+`blend_backward_slots_plain`. None swaps one for the other: a CUDA tensor
+that a kernel cannot take raises. `.launches` on each wrapper counts
+kernel launches. `blend` is the differentiable blend (the role of the JAX
+package's custom VJP) over them; its backward takes K2, or K3 and a
+per-gaussian reduction under the JAX package's switches
+(`_Blend.backward`).
 
 Inputs (every version):
   gidx   (num_tiles, tile_cap) int32, depth-ordered gaussian ids, -1 padded
@@ -25,15 +29,19 @@ rows [pix(2), conic(3), color(3), opacity, depth].
 """
 from __future__ import annotations
 
+import os
+
 import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
+from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
 
 ATTR_W = 16
 GRAD_W = 10        # [pix(2), conic(3), color(3), opacity, depth]
 _MAX_CHUNK = 1024  # K1's shared memory holds chunk * 48 bytes (<= 48 KB)
 _MAX_CHUNK_BWD = 512  # K2's holds chunk * (48 + 40) bytes (< 48 KB)
+_MAX_SMEM = 232_448   # the dynamic shared memory a block can take (K3)
 
 
 def pack_attr_table(pix, conic, color, opacity, depth) -> torch.Tensor:
@@ -246,13 +254,11 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
 blend_backward.launches = 0
 
 
-def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
-                         table: torch.Tensor, color: torch.Tensor,
-                         depth: torch.Tensor, trans: torch.Tensor,
-                         g_color: torch.Tensor, g_depth: torch.Tensor,
-                         g_t: torch.Tensor, cfg) -> torch.Tensor:
-    """The torch suffix-identity backward (JAX: rasterize_tiled.py
-    `_make_blend.blend_bwd`), replaying `_chunk_math` chunk by chunk.
+def _backward_chunks(gidx, counts, table, color, depth, trans, g_color,
+                     g_depth, g_t, cfg):
+    """Yield (j, cols) per occupied chunk j of the plain backward: cols
+    (nt, chunk, GRAD_W) are the chunk's per-slot gradients summed over
+    each tile's pixels.
 
     With rc = c_final . g_c and rd = d_final * g_d per pixel, and the
     running prefix sums after_cg = sum w (c . g_c), after_dg = sum w z g_d
@@ -262,9 +268,7 @@ def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
           - (rc - after_cg + rd - after_dg + g_t T_final) / max(1 - a, 0.01)
     (straight through the 0.99 clamp), chained to opacity (alpha_u / op)
     and to the power (da * alpha_u), then to pix and the conic; color and
-    depth gradients are w g_c and w g_d. The per-gaussian sum is one
-    `index_add_` per chunk."""
-    _check_inputs(gidx, counts, table, cfg)
+    depth gradients are w g_c and w g_d."""
     nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
     dev = table.device
     px, py = tile_pixel_coords(cfg, dev)
@@ -274,14 +278,12 @@ def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
     rd = depth * g_depth
     rt = g_t * trans
     gc = g_color.permute(0, 2, 1)[:, None]               # (nt, 1, 3, P)
-    grads = torch.zeros((n + 1, GRAD_W), dtype=torch.float32, device=dev)
     t = torch.ones((nt, p), dtype=torch.float32, device=dev)
     acc_cg = torch.zeros((nt, p), dtype=torch.float32, device=dev)
     acc_dg = torch.zeros((nt, p), dtype=torch.float32, device=dev)
     n_live = -(-int(counts.max()) // k) if nt else 0
     for j in range(n_live):
-        slot_idx = idx[:, j * k:(j + 1) * k]
-        rows = table[slot_idx]                               # (nt, K, 16)
+        rows = table[idx[:, j * k:(j + 1) * k]]              # (nt, K, 16)
         dx, dy, alpha_u, alpha, use, t_pref, w, t = _chunk_math(
             rows, px, py, t)
         cg = (rows[:, :, 5:6] * gc[:, :, 0] + rows[:, :, 6:7] * gc[:, :, 1]
@@ -301,7 +303,7 @@ def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
                                  torch.zeros_like(alpha_u))).sum(-1)
         d_pow = da * alpha_u
         a, b, c = rows[:, :, 2:3], rows[:, :, 3:4], rows[:, :, 4:5]
-        cols = torch.stack([
+        yield j, torch.stack([
             (d_pow * -(a * dx + b * dy)).sum(-1),
             (d_pow * -(c * dy + b * dx)).sum(-1),
             (-0.5 * d_pow * dx * dx).sum(-1),
@@ -312,10 +314,108 @@ def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
             (w * gc[:, :, 2]).sum(-1),
             d_op,
             (w * g_depth[:, None, :]).sum(-1)], dim=-1)      # (nt, K, 10)
-        grads.index_add_(0, slot_idx.reshape(-1), cols.reshape(-1, GRAD_W))
         acc_cg = after_cg[:, -1]
         acc_dg = after_dg[:, -1]
+
+
+def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
+                         table: torch.Tensor, color: torch.Tensor,
+                         depth: torch.Tensor, trans: torch.Tensor,
+                         g_color: torch.Tensor, g_depth: torch.Tensor,
+                         g_t: torch.Tensor, cfg) -> torch.Tensor:
+    """The torch suffix-identity backward (JAX: rasterize_tiled.py
+    `_make_blend.blend_bwd`), replaying `_chunk_math` chunk by chunk
+    (`_backward_chunks`); the per-gaussian sum is one `index_add_` per
+    chunk."""
+    _check_inputs(gidx, counts, table, cfg)
+    n, k = table.shape[0] - 1, cfg.chunk
+    idx = torch.where(gidx >= 0, gidx, n).long()
+    grads = torch.zeros((n + 1, GRAD_W), dtype=torch.float32,
+                        device=table.device)
+    for j, cols in _backward_chunks(gidx, counts, table, color, depth, trans,
+                                    g_color, g_depth, g_t, cfg):
+        grads.index_add_(0, idx[:, j * k:(j + 1) * k].reshape(-1),
+                         cols.reshape(-1, GRAD_W))
     return grads[:n]
+
+
+def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
+                         table: torch.Tensor, color: torch.Tensor,
+                         depth: torch.Tensor, trans: torch.Tensor,
+                         g_color: torch.Tensor, g_depth: torch.Tensor,
+                         g_t: torch.Tensor, cfg) -> torch.Tensor:
+    """The per-slot gradients (num_tiles, tile_cap, GRAD_W) of the blend,
+    unreduced: row (t, s) sums slot s's gradient over tile t's pixels.
+    Rows of occupied chunks past the count, and of chunks after a tile
+    saturated, are zero; rows past a tile's occupied chunks hold nothing
+    defined on the card, and a reduction must send their gidx (-1) to a
+    sacrificial row. CUDA tensors launch K3 (no atomics: the same result
+    from run to run); CPU tensors run the plain version."""
+    _check_inputs(gidx, counts, table, cfg)
+    _check_outputs(table, color, depth, trans, cfg, "output")
+    _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
+    if table.device.type == "cpu":
+        return blend_backward_slots_plain(gidx, counts, table, color, depth,
+                                          trans, g_color, g_depth, g_t, cfg)
+    _check_kernel(table, cfg, cfg.tile_cap)
+    from fourdgs_tpu_torch.ops._build import load_library
+    lib = load_library()
+    smem = lib.blend_bwd_slots_smem(cfg.tile_size, cfg.chunk)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"chunk {cfg.chunk} needs {smem} bytes of shared "
+                         f"memory in blend_bwd_slots (at most {_MAX_SMEM})")
+    n = table.shape[0] - 1
+    with torch.cuda.device(table.device):
+        slots = torch.empty((cfg.num_tiles, cfg.tile_cap, GRAD_W),
+                            dtype=torch.float32, device=table.device)
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.blend_bwd_slots_launch(
+            gidx.data_ptr(), counts.data_ptr(), table.data_ptr(), n,
+            cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
+            cfg.chunk, color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
+            g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
+            slots.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd_slots launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    blend_backward_slots.launches += 1
+    return slots
+
+
+blend_backward_slots.launches = 0
+
+
+def blend_backward_slots_plain(gidx: torch.Tensor, counts: torch.Tensor,
+                               table: torch.Tensor, color: torch.Tensor,
+                               depth: torch.Tensor, trans: torch.Tensor,
+                               g_color: torch.Tensor, g_depth: torch.Tensor,
+                               g_t: torch.Tensor, cfg) -> torch.Tensor:
+    """The per-slot table of the plain backward (`_backward_chunks`),
+    zeros past each tile's occupancy."""
+    _check_inputs(gidx, counts, table, cfg)
+    k = cfg.chunk
+    slots = torch.zeros((cfg.num_tiles, cfg.tile_cap, GRAD_W),
+                        dtype=torch.float32, device=table.device)
+    for j, cols in _backward_chunks(gidx, counts, table, color, depth, trans,
+                                    g_color, g_depth, g_t, cfg):
+        slots[:, j * k:(j + 1) * k] = cols
+    return slots
+
+
+def reduce_slots(gidx: torch.Tensor, slots: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """The per-gaussian sum (n, GRAD_W) of a per-slot table, with -1 slots
+    sent to a sacrificial row (JAX: blend.py:588-619). K4
+    (`scatter_add_rows`) under FOURDGS_PALLAS_GRAD_SCATTER, else
+    `index_add_`, which stands in for the JAX package's XLA reduction."""
+    flat = gidx.reshape(-1)
+    idx = torch.where(flat >= 0, flat, n).to(torch.int32)
+    rows = slots.reshape(-1, GRAD_W)
+    if os.environ.get("FOURDGS_PALLAS_GRAD_SCATTER"):
+        return scatter_add_rows(idx, rows, n_out=n + 1)[:n]
+    acc = torch.zeros((n + 1, GRAD_W), dtype=torch.float32,
+                      device=slots.device)
+    return acc.index_add_(0, idx.long(), rows)[:n]
 
 
 class _Blend(torch.autograd.Function):
@@ -334,10 +434,20 @@ class _Blend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_depth, g_t):
         gidx, counts, table, color, depth, trans = ctx.saved_tensors
+        args = (gidx, counts, table, color, depth, trans,
+                g_color.contiguous(), g_depth.contiguous(), g_t.contiguous(),
+                ctx.cfg)
         with record_function("raster.blend_backward"):
-            grads = blend_backward(gidx, counts, table, color, depth, trans,
-                                   g_color.contiguous(), g_depth.contiguous(),
-                                   g_t.contiguous(), ctx.cfg)
+            # The JAX package takes its per-slot kernel (K3) when the fused
+            # kernel's lane-packed accumulator would not fit 12 MiB of VMEM
+            # (blend.py:578-580) or FOURDGS_PALLAS_NO_FUSED_BWD is set. K2's
+            # accumulator lives in device memory here (about 5 MB at 131k
+            # slots), so only the switch selects K3.
+            if os.environ.get("FOURDGS_PALLAS_NO_FUSED_BWD"):
+                grads = reduce_slots(gidx, blend_backward_slots(*args),
+                                     table.shape[0] - 1)
+            else:
+                grads = blend_backward(*args)
         return (None, None, None, grads[:, 0:2], grads[:, 2:5],
                 grads[:, 5:8], grads[:, 8], grads[:, 9])
 

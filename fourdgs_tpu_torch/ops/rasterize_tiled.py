@@ -7,14 +7,16 @@
      pair budget and exact corner cull; runs without autograd, as the
      JAX package stops the gradient into the binner
   3. blend                 — front-to-back compositing over the lists and
-     its backward (ops/blend.py: CUDA kernels K1 and K2 on the card, the
-     plain torch versions on the CPU)
+     its backward (ops/blend.py: CUDA kernels K1 and K2, or K3 under
+     FOURDGS_PALLAS_NO_FUSED_BWD, on the card; the plain torch versions
+     on the CPU)
 
 Blending numerics follow the spec in ops/rasterize_ref.py.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
@@ -24,6 +26,7 @@ from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.ops.blend import blend, pack_attr_table
 from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
 from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
+from fourdgs_tpu_torch.ops.scatter import scatter_set_scalars
 
 # corner-cull distance clamp: 2 * 23000^2 stays below the 2^30 no-cull
 # sentinel, as in the JAX binner
@@ -129,10 +132,18 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     rank = torch.arange(tile_sorted.shape[0], device=dev) \
         - tile_start[tile_sorted]
     ok = rank < cfg.tile_cap
-    gidx = torch.full((nt * cfg.tile_cap,), -1, dtype=torch.int32,
-                      device=dev)
-    gidx[(tile_sorted * cfg.tile_cap + rank)[ok]] = \
-        gid[perm][ok].to(torch.int32)
+    if os.environ.get("FOURDGS_BIN_SCATTER") == "pallas":
+        # the JAX package's switch (rasterize_tiled.py:383-393): K5, with
+        # the pairs past tile_cap sent to index n_out, which it drops
+        n_out = nt * cfg.tile_cap
+        dest = torch.where(ok, tile_sorted * cfg.tile_cap + rank, n_out)
+        gidx = scatter_set_scalars(dest.to(torch.int32),
+                                   gid[perm].to(torch.int32), n_out=n_out)
+    else:
+        gidx = torch.full((nt * cfg.tile_cap,), -1, dtype=torch.int32,
+                          device=dev)
+        gidx[(tile_sorted * cfg.tile_cap + rank)[ok]] = \
+            gid[perm][ok].to(torch.int32)
 
     overflow = torch.clamp(counter - cfg.tile_cap, min=0).to(torch.int32)
     return BinnedTiles(

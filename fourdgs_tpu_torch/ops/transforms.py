@@ -119,3 +119,11 @@ def projection_matrix(znear: float, zfar: float, fovx: float,
     P[2, 3] = -(zfar * znear) / (zfar - znear)
     P[3, 2] = 1.0
     return np.float32(P)
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))

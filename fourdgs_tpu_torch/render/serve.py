@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from fourdgs_tpu_torch.data.camera import Camera, look_at_camera
+from fourdgs_tpu_torch.data.png import write_png
 from fourdgs_tpu_torch.models.deformation import Deformation
 from fourdgs_tpu_torch.models.gaussians import GaussianParams
 from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
@@ -126,15 +127,6 @@ def orbit_cameras(frames: int, device) -> list[Camera]:
             for i in range(frames)]
 
 
-def _write_png(path: str, img: np.ndarray) -> bool:
-    try:
-        from PIL import Image
-    except ImportError:
-        return False
-    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
-    return True
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description="render a snapshot orbit")
     parser.add_argument("-m", "--model_path", required=True)
@@ -169,12 +161,12 @@ def main(argv=None):
 
     out_dir = args.out or os.path.join(args.model_path, "serve")
     os.makedirs(out_dir, exist_ok=True)
-    pngs = 0
     for i, f in enumerate(frames):
         img = f.cpu().numpy()
         np.save(os.path.join(out_dir, f"{i:05d}.npy"), img)
-        pngs += _write_png(os.path.join(out_dir, f"{i:05d}.png"), img)
-    print(f"wrote {len(frames)} .npy frames ({pngs} .png) to {out_dir}")
+        write_png(os.path.join(out_dir, f"{i:05d}.png"),
+                  (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    print(f"wrote {len(frames)} frames (.npy and .png) to {out_dir}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,16 @@
-"""Model snapshots for rendering, the read side
-(counterpart: fourdgs_tpu/train/checkpoint.py, snapshot subset).
+"""Model snapshots and training checkpoints
+(counterpart: fourdgs_tpu/train/checkpoint.py).
 
 A snapshot is point_cloud/{stage_}iteration_N/ holding point_cloud.ply
 (3DGS layout, alive points only) and deformation.npz (the flattened
 deformation parameters plus `__aabb__`), as the JAX package writes it.
 `save_snapshot` writes the same layout from the port's objects.
+
+A checkpoint chkpnt_{stage}_{iter}.npz holds every leaf of the training
+state under the JAX package's dotted keys (`params/gauss/xyz`,
+`opt_state/mu/deform/mlp/pos/h0/w`, `alive`, ...) plus `__iteration__`,
+`__stage__` and `__active_sh__`, so that each package resumes from the
+other's file.
 """
 from __future__ import annotations
 
@@ -90,9 +96,12 @@ def deform_params_from_flat(flat: dict, cfg: DeformConfig,
 
 def save_snapshot(model_path: str, iteration: int, gauss: GaussianParams,
                   alive: torch.Tensor, deform: Deformation,
-                  aabb: np.ndarray) -> str:
-    """Write a fine-stage snapshot of the alive points."""
-    out_dir = os.path.join(model_path, "point_cloud", f"iteration_{iteration}")
+                  aabb: np.ndarray, stage: str = "") -> str:
+    """Write a snapshot of the alive points: iteration_N for the fine
+    stage (or no stage), {stage}_iteration_N for another."""
+    tag = (f"{stage}_iteration_{iteration}" if stage and stage != "fine"
+           else f"iteration_{iteration}")
+    out_dir = os.path.join(model_path, "point_cloud", tag)
     os.makedirs(out_dir, exist_ok=True)
     keep = alive.cpu().numpy()
 
@@ -107,3 +116,32 @@ def save_snapshot(model_path: str, iteration: int, gauss: GaussianParams,
     flat["__aabb__"] = np.asarray(aabb, np.float32)
     np.savez(os.path.join(out_dir, "deformation.npz"), **flat)
     return out_dir
+
+
+def save_checkpoint(state, path: str, iteration: int, stage: str,
+                    active_sh: int = 0):
+    """Write every leaf of the training state (JAX: checkpoint.py:154)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    flat = convert.train_state_to_numpy(state)
+    flat["__iteration__"] = np.asarray(iteration)
+    flat["__stage__"] = np.frombuffer(stage.encode(), dtype=np.uint8)
+    flat["__active_sh__"] = np.asarray(active_sh)
+    np.savez(path, **flat)
+
+
+def load_checkpoint(path: str, deform_cfg: DeformConfig,
+                    device: str | torch.device | None = None):
+    """-> (state, iteration, stage, active_sh), the state on `device`
+    (None: cuda). The JAX package rebuilds its pytree from a template
+    state; the port needs only the deformation's config. active_sh falls
+    back to one degree per 1000 iterations for files without it."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    iteration = int(flat.pop("__iteration__"))
+    stage = flat.pop("__stage__").tobytes().decode()
+    if "__active_sh__" in flat:
+        active_sh = int(flat.pop("__active_sh__"))
+    else:
+        active_sh = min(iteration // 1000, 3)
+    state = convert.train_state_from_numpy(flat, deform_cfg, device)
+    return state, iteration, stage, active_sh

@@ -2,6 +2,7 @@
 rasterizer group, as plain dataclasses with the same fields and defaults
 (counterpart: fourdgs_tpu/train/config.py), with:
   * python config files with `_base_` inheritance, loaded by exec;
+  * argparse wiring: every scalar field becomes a --flag;
   * `cfg_args.json` dump and load for the post-train tools;
   * the two builders of static configs that the JAX package keeps in
     train/state.py (`deform_config_from`) and train/loop.py
@@ -9,6 +10,7 @@ rasterizer group, as plain dataclasses with the same fields and defaults
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -200,6 +202,41 @@ def apply_config_file(cfg: Config, path: str) -> Config:
         for k, v in overrides.items():
             if hasattr(group, k):
                 setattr(group, k, v)
+    return cfg
+
+
+def add_args(parser: argparse.ArgumentParser, cfg: Config):
+    """Expose every scalar group field as a --flag (lists and dicts are
+    left to config files)."""
+    seen = set()
+    for attr in _GROUPS.values():
+        group = getattr(cfg, attr)
+        for f in dataclasses.fields(group):
+            if f.name in seen:
+                continue
+            seen.add(f.name)
+            default = getattr(group, f.name)
+            try:
+                if isinstance(default, bool):
+                    parser.add_argument(f"--{f.name}", default=None,
+                                        action="store_true")
+                elif isinstance(default, (dict, list)) or default is None:
+                    continue
+                else:
+                    parser.add_argument(f"--{f.name}", default=None,
+                                        type=type(default))
+            except argparse.ArgumentError:
+                pass  # flag already defined by the CLI itself
+    return parser
+
+
+def apply_args(cfg: Config, args: argparse.Namespace) -> Config:
+    for attr in _GROUPS.values():
+        group = getattr(cfg, attr)
+        for f in dataclasses.fields(group):
+            v = getattr(args, f.name, None)
+            if v is not None:
+                setattr(group, f.name, v)
     return cfg
 
 

@@ -1,5 +1,6 @@
-"""The training step and the eval render
-(counterpart: fourdgs_tpu/train/loop.py, `train_step` and `eval_step`).
+"""The training step, the eval render and the stage driver
+(counterpart: fourdgs_tpu/train/loop.py: `train_step`, `eval_step`,
+`pick_bucket`, `compact_and_resize` and `run_stage`).
 
 One step: render the batch's cameras (sequential renders, as the JAX
 step unrolls batches of 1-3; larger batches stay a loop here), the loss
@@ -14,20 +15,31 @@ from recompiling; PyTorch has no jit to keep).
 """
 from __future__ import annotations
 
-from collections.abc import Sequence
+import dataclasses
+import math
+import time
+from collections.abc import Callable, Sequence
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
 from fourdgs_tpu_torch.models.regularization import compute_regulation
 from fourdgs_tpu_torch.ops import losses
 from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.render.render import render
+from fourdgs_tpu_torch.train import densify as densify_mod
 from fourdgs_tpu_torch.train import optim
-from fourdgs_tpu_torch.train.state import TrainState
+from fourdgs_tpu_torch.train.config import Config, raster_config_from
+from fourdgs_tpu_torch.train.state import TrainState, make_trainable
+
+__all__ = ["StepAux", "StepGrads", "StageResult", "step_gradients",
+           "train_step", "eval_step", "pick_bucket", "compact_and_resize",
+           "run_stage", "raster_config_from"]
 
 
 class StepAux(NamedTuple):
@@ -139,3 +151,373 @@ def eval_step(state: TrainState, camera: Camera, bg: torch.Tensor, *,
     return render(state.params["gauss"], state.params["deform"], camera, bg,
                   raster_cfg, state.aabb, state.alive, active_sh,
                   stage=stage)
+
+
+# ---------------------------------------------------------------------------
+# Bucketed capacity (host side)
+# ---------------------------------------------------------------------------
+
+def pick_bucket(n_alive: int, max_cap: int, min_bucket: int = 4096,
+                headroom: float = 2.0) -> int:
+    """Smallest capacity bucket >= n_alive * headroom, clamped to max_cap:
+    powers of two up to 64k and multiples of 64k above (JAX: loop.py:218)."""
+    want = max(min_bucket, int(n_alive * headroom))
+    if want <= 65536:
+        b = 1 << (want - 1).bit_length()
+    else:
+        b = -(-want // 65536) * 65536
+    return min(b, max_cap)
+
+
+@torch.no_grad()
+def compact_and_resize(state: TrainState, new_cap: int) -> TrainState:
+    """Move the alive slots to the front (stable) and pad or trim every
+    per-point buffer (parameters, their Adam moments, the densify
+    statistics, `alive`) to new_cap. Padded parameter rotations get w = 1
+    so that they normalise; the moments never do (a mu of 1 over a tiny nu
+    makes a 1e14 step). The deformation, its moments and the Adam count
+    stay as they are. Reads the alive count to the host."""
+    alive = state.alive
+    n_alive = int(alive.sum())
+    if n_alive > new_cap:
+        raise ValueError(f"{n_alive} alive gaussians do not fit {new_cap}")
+    order = torch.argsort((~alive).to(torch.uint8), stable=True)
+
+    def fix(x):
+        x = x.detach()[order]
+        if new_cap <= x.shape[0]:
+            return x[:new_cap].contiguous()
+        return torch.cat([x, x.new_zeros((new_cap - x.shape[0],)
+                                         + x.shape[1:])])
+
+    def fix_gauss(g: GaussianParams) -> GaussianParams:
+        return GaussianParams(**{f: fix(getattr(g, f)) for f in FIELDS})
+
+    gauss = fix_gauss(state.params["gauss"])
+    if new_cap > n_alive:
+        dead = gauss.rotation.abs().sum(dim=1) == 0
+        gauss.rotation[:, 0] = torch.where(dead, 1.0, gauss.rotation[:, 0])
+    opt = state.opt_state
+    state.params["gauss"] = make_trainable(gauss)
+    state.opt_state = opt._replace(
+        mu={**opt.mu, "gauss": fix_gauss(opt.mu["gauss"])},
+        nu={**opt.nu, "gauss": fix_gauss(opt.nu["gauss"])})
+    state.alive = fix(alive)
+    state.xyz_gradient_accum = fix(state.xyz_gradient_accum)
+    state.denom = fix(state.denom)
+    state.max_radii2d = fix(state.max_radii2d)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Stage driver
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StageResult:
+    state: TrainState
+    history: list
+    wall_time: float
+    active_sh: int = 0
+    # the live raster config at the stage's end: the binner's caps may
+    # have grown or shrunk; the next stage and the evals take this one
+    raster_cfg: Any = None
+    # what the driver did to the buffer, in order: dicts with `iter`,
+    # `kind` (densify, prune, grow, reset_opacity, resize, rollback,
+    # tile_cap, bin_pairs_per_chunk), `points` and `capacity` after it
+    events: list = dataclasses.field(default_factory=list)
+
+
+def _nan_count(state: TrainState) -> torch.Tensor:
+    """NaN values over every parameter (a NaN-poisoned model culls every
+    gaussian, so the loss alone stays finite)."""
+    return sum(torch.isnan(p).sum() for p in optim.param_leaves(state.params))
+
+
+def _grid_absmax(state: TrainState) -> torch.Tensor:
+    return torch.stack([p.detach().abs().max() for p in
+                        state.params["deform"].grid.planes.values()]).max()
+
+
+def run_stage(
+    cfg: Config,
+    state: TrainState,
+    stage: str,
+    iterations: int,
+    cameras: Sequence[Camera],        # one Camera per training view
+    images,                           # (n_views, H, W, 3) on the device
+    tx: optim.GroupedAdam,
+    raster_cfg: RasterConfig,
+    rng: np.random.Generator,
+    generator: torch.Generator | None = None,
+    log_every: int = 100,
+    log_fn: Callable[[dict], None] | None = None,
+    zerostamp_view_mask: np.ndarray | None = None,
+    cameras_extent: float = 1.0,
+    test_iterations: tuple = (),
+    save_iterations: tuple = (),
+    checkpoint_iterations: tuple = (),
+    on_test: Callable | None = None,
+    on_save: Callable | None = None,
+    on_checkpoint: Callable | None = None,
+    epoch_order_fn: Callable | None = None,
+    mesh=None,
+    on_iteration: Callable | None = None,
+    start_iteration: int = 0,
+    initial_active_sh: int = 0,
+) -> StageResult:
+    """One training stage (JAX: loop.py:355): batches drawn from epoch
+    permutations of `rng`, `train_step`, the NaN guard with rollback every
+    25 iterations, the binner caps' growth and shrink, the densify, prune,
+    grow and opacity-reset schedule with capacity buckets, the SH ramp
+    every 1000 iterations, the callbacks, and a log record every
+    `log_every` iterations. `generator` (on the state's device) draws the
+    split and grow noise. `start_iteration` resumes mid-stage; the loop
+    runs iterations start_iteration + 1 .. iterations.
+
+    The state is updated in place by the step; the guard keeps a copy of
+    the last healthy state on the device. The alive count lives on the
+    host and is read back only at surgery. `mesh` (multi-GPU) is not
+    ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("multi-GPU training is not ported yet")
+    opt = cfg.opt
+    dev = state.alive.device
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+    n_views = len(cameras)
+    batch = opt.batch_size
+    extent = float(cameras_extent)
+    reg_weights = (cfg.hidden.time_smoothness_weight,
+                   cfg.hidden.l1_time_planes, cfg.hidden.plane_tv_weight)
+
+    view_pool = np.arange(n_views)
+    if zerostamp_view_mask is not None:
+        view_pool = view_pool[zerostamp_view_mask]
+
+    def next_epoch():
+        if epoch_order_fn is not None:
+            return epoch_order_fn(rng)
+        return rng.permutation(view_pool)
+
+    perm = next_epoch()
+    ptr = 0
+
+    active_sh = min(initial_active_sh, cfg.model.sh_degree)
+    history: list = []
+    events: list = []
+    t0 = time.perf_counter()
+    paused = 0.0
+    nan_check_every = 25
+    # the guard starts from the incoming state, so that a divergence in the
+    # first window can roll back
+    last_good, last_good_it = state.to(dev), start_iteration
+    rollbacks = 0
+    last_cap_change = start_iteration
+    n_alive = int(state.alive.sum())
+
+    def bucket_for(n):
+        return pick_bucket(n, cfg.raster.capacity, cfg.raster.min_bucket,
+                           cfg.raster.bucket_headroom)
+
+    def event(it, kind):
+        events.append(dict(iter=it, kind=kind, points=n_alive,
+                           capacity=state.capacity))
+
+    aux = None
+    for it in range(start_iteration + 1, iterations + 1):
+        if on_iteration is not None:
+            tp = time.perf_counter()
+            on_iteration(it, state, active_sh)
+            paused += time.perf_counter() - tp
+        if it % 1000 == 0 and active_sh < cfg.model.sh_degree:
+            active_sh += 1
+
+        if ptr + batch > len(perm):
+            perm = next_epoch()
+            ptr = 0
+        idxs = perm[ptr:ptr + batch]
+        ptr += batch
+        cams = [cameras[int(i)] for i in idxs]
+        gts = images[idxs]
+        state, aux = train_step(
+            state, cams, gts, bg, active_sh, stage=stage,
+            raster_cfg=raster_cfg, tx=tx,
+            lambda_dssim=float(opt.lambda_dssim), reg_weights=reg_weights,
+            track_stats=it < opt.densify_until_iter)
+
+        # NaN guard: roll back to the last healthy state. One host read
+        # carries every number the guard and the cap growth look at.
+        if it % nan_check_every == 0 or it == iterations:
+            probe = torch.stack([
+                aux.loss.double(), torch.as_tensor(aux.n_visible).double(),
+                torch.as_tensor(aux.max_alpha).double(),
+                _nan_count(state).double(),
+                torch.as_tensor(aux.dropped_pairs).double(),
+                torch.as_tensor(aux.dropped_tile).double(),
+                torch.as_tensor(aux.num_pairs).double(),
+                torch.as_tensor(aux.tile_peak).double()]).cpu().tolist()
+            loss, visible, max_alpha, nans, dp, dt, npairs, peak = probe
+            collapsed = visible == 0 and n_alive > 0
+            gate_collapsed = max_alpha <= 0.0 and n_alive > 0
+            healthy = (math.isfinite(loss) and not collapsed
+                       and not gate_collapsed and nans == 0)
+            if not healthy:
+                rollbacks += 1
+                if rollbacks >= 3:
+                    raise FloatingPointError(
+                        f"training diverged at {stage} iteration {it} after "
+                        f"{rollbacks - 1} rollbacks"
+                        + (" (visibility collapse)" if collapsed else
+                           " (contribution collapse: no gaussian passes the"
+                           " alpha gate)" if gate_collapsed else ""))
+                print(f"[{stage} {it}] "
+                      + ("all gaussians culled" if collapsed
+                         else "zero blend contribution (alpha-gate collapse)"
+                         if gate_collapsed else "loss non-finite")
+                      + f"; rolling back {it - last_good_it} iterations")
+                state = last_good.to(dev)
+                n_alive = int(state.alive.sum())
+                event(it, "rollback")
+                perm = next_epoch()
+                ptr = 0
+            else:
+                last_good, last_good_it = state.to(dev), it
+                rollbacks = 0
+
+            # binner overflow: grow the overflowing cap (tile-cap drops
+            # only past 0.5 % of the step's pairs), or shrink an oversized
+            # tile_cap with strong hysteresis
+            dp, dt = int(dp), int(dt)
+            if cfg.raster.autogrow and (dp or dt):
+                changes = {}
+                if (dt > max(64, max(int(npairs), 1) // 200)
+                        and raster_cfg.tile_cap < 8192):
+                    changes["tile_cap"] = min(raster_cfg.tile_cap * 2, 8192)
+                if dp and raster_cfg.bin_pairs_per_chunk < (1 << 18):
+                    changes["bin_pairs_per_chunk"] = min(
+                        raster_cfg.bin_pairs_per_chunk * 2, 1 << 18)
+                if changes:
+                    raster_cfg = dataclasses.replace(raster_cfg, **changes)
+                    last_cap_change = it
+                    print(f"[{stage} {it}] binner overflow ({dp} pairs / "
+                          f"{dt} tile-cap): growing {changes}")
+                    for k in changes:
+                        event(it, k)
+            elif cfg.raster.autogrow:
+                peak = int(peak)
+                if (peak > 0 and raster_cfg.tile_cap > 256
+                        and peak * 4 < raster_cfg.tile_cap
+                        and it - last_cap_change
+                        >= cfg.raster.cap_shrink_spacing):
+                    raster_cfg = dataclasses.replace(
+                        raster_cfg, tile_cap=raster_cfg.tile_cap // 2)
+                    last_cap_change = it
+                    print(f"[{stage} {it}] tile peak {peak} << cap: "
+                          f"shrinking tile_cap to {raster_cfg.tile_cap}")
+                    event(it, "tile_cap")
+
+        # densification schedule
+        if it < opt.densify_until_iter:
+            if stage == "coarse":
+                op_thresh = opt.opacity_threshold_coarse
+                dense_thresh = opt.densify_grad_threshold_coarse
+            else:
+                frac = it / opt.densify_until_iter
+                op_thresh = (opt.opacity_threshold_fine_init
+                             - frac * (opt.opacity_threshold_fine_init
+                                       - opt.opacity_threshold_fine_after))
+                dense_thresh = (opt.densify_grad_threshold_fine_init
+                                - frac * (opt.densify_grad_threshold_fine_init
+                                          - opt.densify_grad_threshold_after))
+
+            did_surgery = False
+            if (it > opt.densify_from_iter
+                    and it % opt.densification_interval == 0
+                    and n_alive < opt.densify_max_points):
+                # grow the bucket first so that clones and splits find
+                # free slots
+                bucket = bucket_for(n_alive)
+                if bucket != state.capacity:
+                    state = compact_and_resize(state, bucket)
+                    event(it, "resize")
+                state, _ = densify_mod.densify(
+                    state, float(dense_thresh), opt.percent_dense, extent,
+                    opt.densify_max_points, generator=generator)
+                did_surgery = True
+                n_alive = int(state.alive.sum())
+                event(it, "densify")
+            if (it > opt.pruning_from_iter
+                    and it % opt.pruning_interval == 0
+                    and n_alive > opt.prune_min_points):
+                size_thresh = 20 if it > opt.opacity_reset_interval else None
+                state = densify_mod.prune(state, float(op_thresh), extent,
+                                          size_thresh, opt.prune_min_points)
+                did_surgery = True
+                n_alive = int(state.alive.sum())
+                event(it, "prune")
+            if (opt.add_point and it % opt.densification_interval == 0
+                    and n_alive < opt.densify_max_points):
+                state, _ = densify_mod.grow(
+                    state, max_points=opt.densify_max_points,
+                    generator=generator)
+                did_surgery = True
+                n_alive = int(state.alive.sum())
+                event(it, "grow")
+            if it % opt.opacity_reset_interval == 0:
+                state = densify_mod.reset_opacity(state)
+                event(it, "reset_opacity")
+            if did_surgery:
+                bucket = bucket_for(n_alive)
+                if bucket != state.capacity:
+                    state = compact_and_resize(state, bucket)
+                    event(it, "resize")
+
+        # evals, snapshots and checkpoints, outside the reported train time
+        if ((it in test_iterations and on_test)
+                or (it in save_iterations and on_save)
+                or (it in checkpoint_iterations and on_checkpoint)):
+            tp = time.perf_counter()
+            if it in test_iterations and on_test:
+                on_test(it, state, active_sh, raster_cfg=raster_cfg)
+            if it in save_iterations and on_save:
+                on_save(it, state)
+            if it in checkpoint_iterations and on_checkpoint:
+                on_checkpoint(it, state, active_sh)
+            paused += time.perf_counter() - tp
+
+        if it % log_every == 0 or it == iterations:
+            tp = time.perf_counter()
+            g = state.params["gauss"]
+            (loss, l1, psnr, dp, dt, npairs, rot_max, op_max, visible,
+             max_alpha, gmax) = torch.stack([
+                 aux.loss.double(), aux.l1.double(), aux.psnr.double(),
+                 torch.as_tensor(aux.dropped_pairs).double(),
+                 torch.as_tensor(aux.dropped_tile).double(),
+                 torch.as_tensor(aux.num_pairs).double(),
+                 g.rotation.detach().abs().max().double(),
+                 g.opacity.detach().max().double(),
+                 torch.as_tensor(aux.n_visible).double(),
+                 torch.as_tensor(aux.max_alpha).double(),
+                 _grid_absmax(state).double()]).cpu().tolist()
+            rec = dict(stage=stage, iter=it, loss=loss, l1=l1, psnr=psnr,
+                       points=n_alive, capacity=state.capacity,
+                       elapsed=tp - t0 - paused,
+                       dropped_pairs=int(dp), dropped_tile=int(dt),
+                       num_pairs=int(npairs), rot_max=rot_max,
+                       op_max=op_max, visible=int(visible),
+                       max_alpha=max_alpha, grid_absmax=gmax)
+            if dp or dt > max(64, int(npairs) // 200):
+                print(f"[{stage} {it}] WARNING: binner overflow: "
+                      f"{int(dp)} pairs / {int(dt)} tile-cap drops this "
+                      f"step; raise tile_cap/pair_cap or the scene will "
+                      f"lose far gaussians")
+            history.append(rec)
+            if log_fn:
+                log_fn(rec)
+            paused += time.perf_counter() - tp
+
+    return StageResult(state=state, history=history,
+                       wall_time=time.perf_counter() - t0 - paused,
+                       active_sh=active_sh, raster_cfg=raster_cfg,
+                       events=events)

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
 chip_smoke.py imports jax, jaxlib or the JAX package, and importing the
-serving and training modules leaves jax out of sys.modules."""
+serving, training and data modules, the training driver and its CLI leaves
+jax out of sys.modules."""
 import ast
 import subprocess
 import sys
@@ -41,7 +42,16 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.train.state, fourdgs_tpu_torch.convert, "
             "fourdgs_tpu_torch.ops.rasterize_ref, "
             "fourdgs_tpu_torch.ops.knn, "
-            "fourdgs_tpu_torch.tools.profile_render; "
+            "fourdgs_tpu_torch.tools.profile_render, "
+            "fourdgs_tpu_torch.tools.train, "
+            "fourdgs_tpu_torch.tools.make_synthetic_scene, "
+            "fourdgs_tpu_torch.data.scene, fourdgs_tpu_torch.data.blender, "
+            "fourdgs_tpu_torch.data.png, fourdgs_tpu_torch.ops.scatter, "
+            "fourdgs_tpu_torch.train.densify, "
+            "fourdgs_tpu_torch.train.checkpoint, "
+            "fourdgs_tpu_torch.train.sampler, "
+            "fourdgs_tpu_torch.utils.point_grow, "
+            "fourdgs_tpu_torch.render.state_at_time; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fourdgs_tpu')]; "
             "assert not bad, bad")

@@ -13,7 +13,10 @@ gate decisions and differ only in the order of the color and depth sums.
 The backward kernel (K2) sums with atomics, in an order that changes from
 run to run, so its gradients are held to the JAX tests' normalised
 tolerance: each column group divided by its largest magnitude, atol 1e-4
-(tests/test_pallas_blend.py).
+(tests/test_pallas_blend.py). The per-slot backward (K3) has no atomics
+and is held per column, over the slots that hold a gaussian, to the same
+tolerance; the row scatter-add (K4) adds with atomics, max |a - b| /
+max |b| 1e-5; the scalar scatter-set (K5) is exact.
 """
 import numpy as np
 import pytest
@@ -24,6 +27,10 @@ from fourdgs_tpu_torch.models.deformation import DeformConfig, Deformation
 from fourdgs_tpu_torch.models.gaussians import GaussianParams
 from fourdgs_tpu_torch.ops import blend
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, prepare_blend
+from fourdgs_tpu_torch.ops.scatter import (scatter_add_rows,
+                                           scatter_add_rows_plain,
+                                           scatter_set_scalars,
+                                           scatter_set_scalars_plain)
 from fourdgs_tpu_torch.render.render import splats_at
 from fourdgs_tpu_torch.train import config as tconfig
 from fourdgs_tpu_torch.train import loop, optim
@@ -306,3 +313,132 @@ def test_train_step_on_card_matches_cpu(cuda, stage):
                       cpu_state.xyz_gradient_accum, "xyz_gradient_accum")
     assert torch.equal(gpu_state.denom.cpu(), cpu_state.denom)
     assert torch.equal(gpu_state.max_radii2d.cpu(), cpu_state.max_radii2d)
+
+
+# ---------------------------------------------------------------------------
+# K3 (per-slot blend backward), K4 (row scatter-add), K5 (scalar scatter-set)
+# ---------------------------------------------------------------------------
+
+def _check_slots(dev, binned, table, cfg):
+    """K3's table against the plain one over the slots with gidx >= 0, each
+    column normalised by its max; and its reduction against K2's rows."""
+    out, cot = _backward_inputs(dev, binned, table, cfg)
+    args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
+    before = blend.blend_backward_slots.launches
+    got = blend.blend_backward_slots(*args)
+    torch.cuda.synchronize()
+    assert blend.blend_backward_slots.launches == before + 1
+    ref = blend.blend_backward_slots_plain(*args)
+    assert got.shape == ref.shape == (cfg.num_tiles, cfg.tile_cap,
+                                      blend.GRAD_W)
+    used = binned.gidx >= 0
+    for c, name in enumerate(("pix_x", "pix_y", "conic_a", "conic_b",
+                              "conic_c", "red", "green", "blue", "opacity",
+                              "depth")):
+        _normalised_close(got[..., c][used], ref[..., c][used], name)
+    # the same table twice: no atomics
+    assert torch.equal(blend.blend_backward_slots(*args)[used], got[used])
+    n = table.shape[0] - 1
+    reduced = blend.reduce_slots(binned.gidx, got, n)
+    fused = blend.blend_backward(*args)
+    for name, (a, b) in GROUPS.items():
+        _normalised_close(reduced[:, a:b], fused[:, a:b], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_blend_slots_kernel_matches_plain(cuda, kind, ts):
+    binned, table, cfg = _inputs(cuda, kind, ts)
+    assert int(binned.counts.max()) > cfg.chunk     # several chunks
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,tile_cap,chunk", [(16, 16, 8), (16, 64, 32),
+                                               (16, 96, 32), (32, 128, 64)])
+def test_blend_slots_kernel_caps_and_chunks(cuda, ts, tile_cap, chunk):
+    """Full tiles, counts that end inside a chunk, and (32, 64) a chunk
+    whose shared table passes 48 KB."""
+    binned, table, cfg = _inputs(cuda, "random", ts, tile_cap, chunk, n=900,
+                                 seed=1)
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+def test_blend_switches_select_k3_and_k4(cuda, monkeypatch):
+    """One differentiable blend under FOURDGS_PALLAS_NO_FUSED_BWD and
+    FOURDGS_PALLAS_GRAD_SCATTER runs K3 and K4 and gives K2's gradients."""
+    binned, table, cfg = _inputs(cuda, "random", 16)
+    leaves = [table[:-1, a:b].clone().requires_grad_(True)
+              for a, b in ((0, 2), (2, 5), (5, 8), (8, 9), (9, 10))]
+
+    def grads():
+        color, depth, t = blend.blend(binned.gidx, binned.counts, leaves[0],
+                                      leaves[1], leaves[2], leaves[3][:, 0],
+                                      leaves[4][:, 0], cfg)
+        loss = (color ** 2).mean() + 0.1 * depth.mean() + (t ** 2).mean()
+        return torch.autograd.grad(loss, leaves)
+
+    fused = grads()
+    monkeypatch.setenv("FOURDGS_PALLAS_NO_FUSED_BWD", "1")
+    monkeypatch.setenv("FOURDGS_PALLAS_GRAD_SCATTER", "1")
+    k3, k4 = blend.blend_backward_slots.launches, scatter_add_rows.launches
+    slots = grads()
+    torch.cuda.synchronize()
+    assert blend.blend_backward_slots.launches == k3 + 1
+    assert scatter_add_rows.launches == k4 + 1
+    for i, (a, b) in enumerate(zip(slots, fused)):
+        _normalised_close(a, b, f"leaf {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,w,n_out", [(5000, 10, 37), (100_000, 32, 4096),
+                                       (7, 3, 1)])
+def test_scatter_add_rows_kernel_matches_plain(cuda, m, w, n_out):
+    """Duplicate indices, and indices below 0 and past n_out (clamped to
+    the first and the sacrificial last row); max |a - b| / max |b| 1e-5."""
+    rng = np.random.default_rng(m)
+    idx = torch.from_numpy(rng.integers(-3, n_out + 5, m).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(m, w)).astype(np.float32))
+    rows[::7] = 0.0
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(idx.to(cuda), rows.to(cuda), n_out=n_out)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.launches == before + 1
+    ref = scatter_add_rows_plain(idx, rows, n_out=n_out)
+    assert got.shape == ref.shape == (n_out, w)
+    err = float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_scatter_set_scalars_kernel_matches_plain(cuda):
+    """Unique indices, some past n_out (dropped), -1 where unwritten:
+    equal."""
+    rng = np.random.default_rng(5)
+    n_out = 100_000
+    idx = rng.permutation(n_out + 20_000)[:60_000].astype(np.int32)
+    val = rng.integers(0, 10 ** 6, len(idx)).astype(np.int32)
+    before = scatter_set_scalars.launches
+    got = scatter_set_scalars(torch.from_numpy(idx).to(cuda),
+                              torch.from_numpy(val).to(cuda), n_out=n_out)
+    torch.cuda.synchronize()
+    assert scatter_set_scalars.launches == before + 1
+    ref = scatter_set_scalars_plain(torch.from_numpy(idx),
+                                    torch.from_numpy(val), n_out=n_out)
+    assert torch.equal(got.cpu(), ref)
+    assert int((ref == -1).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_binner_switch_runs_k5(cuda, monkeypatch):
+    """FOURDGS_BIN_SCATTER=pallas gives the binner's gidx equal to the
+    default's, through K5, tile-cap drops included."""
+    ref, _, _ = _inputs(cuda, "random", 16, 16, 8, n=900, seed=1)
+    assert int(ref.overflow.sum()) > 0
+    monkeypatch.setenv("FOURDGS_BIN_SCATTER", "pallas")
+    before = scatter_set_scalars.launches
+    got, _, _ = _inputs(cuda, "random", 16, 16, 8, n=900, seed=1)
+    assert scatter_set_scalars.launches == before + 1
+    assert torch.equal(got.gidx, ref.gidx)
