@@ -41,7 +41,14 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
              K2's, with CUDA-event times and the PyTorch call that computes
-             the same function where there is one.
+             the same function where there is one;
+  9. dev:    the six tools of fourdgs_tpu_torch/tools that port the Pallas
+             prototypes of scripts/ (D1-D6), each through its `main` at its
+             script's shapes, with the launch counts read around the six;
+             then each kernel against its plain version on its tool's
+             inputs (D1, D2, D4a, D4b equal; D3 to SCATTER_TOL; D5, K1 at
+             tile 16, to TOL; D6 to DEV_TOL), with the tools' CUDA-event
+             times and bounds.
 The second-to-last line of stdout is the kernels JSON, the last line the
 result JSON. It imports nothing of JAX or the JAX package.
 """
@@ -60,6 +67,9 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
+                                            MUFU_OP_S, time_call, time_pair)
 
 ROOT = Path(__file__).resolve().parent
 N_GAUSS = 100_000
@@ -88,12 +98,6 @@ MEAN_ALPHA_FLOOR = 0.1
 SMALL = 160
 SMALL_TOL_MEAN, SMALL_TOL_MAX = 1e-5, 5e-3
 
-# H100 SXM peaks (NVIDIA data sheet and CUDA guide): 3.35 TB/s HBM3; 128
-# FP32 instructions issued per clock per SM (a fused multiply-add is one)
-# and 16 SFU results (expf's MUFU.EX2), x 132 SMs x 1.98 GHz
-HBM_BYTES_S = 3.35e12
-FP32_ISSUE_S = 128 * 132 * 1.98e9
-MUFU_OP_S = 16 * 132 * 1.98e9
 # FP32-pipe instructions of csrc/blend_fwd.cu's loop body per pixel x slot
 # evaluation, by how far the evaluation gets, as the sm_90a SASS
 # (`cuobjdump -sass` of the built library) has them (compares and fminf
@@ -163,6 +167,9 @@ RasterParams = dict(min_bucket=1024)
 """
 RENDER_PSNR_TOL = 0.1          # dB: the snapshot's render vs the run's eval
 SCATTER_TOL = 1e-5             # K4 vs plain, max |a - b| / max |b|
+# phase 9: D6's four bodies vs plain, max |a - b| / max |b|; the same sums
+# of 768 terms a pixel in another association
+DEV_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -353,27 +360,6 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
 # phase 4: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def time_pair(torch, kernel, plain, launches: int = 50):
-    """ms per call of each, CUDA events around batches run in the order
-    plain, kernel, kernel, plain (launches/2 calls per batch)."""
-    for fn in (kernel, plain):      # warm-up
-        fn()
-    torch.cuda.synchronize()
-    total = {"kernel": 0.0, "plain": 0.0}
-    half = launches // 2
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel if which == "kernel" else plain
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(half):
-            fn()
-        stop.record()
-        stop.synchronize()
-        total[which] += start.elapsed_time(stop)
-    return total["kernel"] / (2 * half), total["plain"] / (2 * half)
-
-
 def blend_work(torch, gidx, counts, table, cfg) -> dict:
     """This input's pixel x slot evaluations, by how far each gets in the
     kernels' loop bodies: all evaluated, past the power test (an expf),
@@ -450,7 +436,7 @@ def phase_kernels(torch, renderer, cam):
             raise AssertionError(f"blend_fwd disagrees with plain: {k} {v}")
 
     ms, plain_ms = time_pair(
-        torch, lambda: blend.blend_forward(gidx, counts, table, rc),
+        lambda: blend.blend_forward(gidx, counts, table, rc),
         lambda: blend.blend_forward_plain(gidx, counts, table, rc))
     work = blend_work(torch, gidx, counts, table, rc)
     instr = sum(BLEND_FP32_INSTR[k] * work[k] for k in BLEND_FP32_INSTR)
@@ -662,7 +648,7 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
     if not max(col_err) <= GRAD_TOL:
         raise AssertionError(f"blend_bwd disagrees with plain: {col_err}")
 
-    ms, plain_ms = time_pair(torch, lambda: blend.blend_backward(*args),
+    ms, plain_ms = time_pair(lambda: blend.blend_backward(*args),
                              lambda: blend.blend_backward_plain(*args),
                              launches=20)
     work = blend_work(torch, gidx, counts, table, rc)
@@ -899,20 +885,6 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
 # phase 8: K3, K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
 
-def time_call(torch, fn, launches: int = 20) -> float:
-    """ms per call of fn, CUDA events around a batch after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / launches
-
-
 def scatter_rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
@@ -944,7 +916,7 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         f" (tol {GRAD_TOL:g})")
     if not max(col_err) <= GRAD_TOL:
         raise AssertionError(f"blend_bwd_slots disagrees: {col_err}")
-    ms3, plain3 = time_pair(torch, lambda: blend.blend_backward_slots(*args),
+    ms3, plain3 = time_pair(lambda: blend.blend_backward_slots(*args),
                             lambda: blend.blend_backward_slots_plain(*args),
                             launches=20)
     instr = (sum(BLEND_BWD_FP32_INSTR[k] * work_k2[k]
@@ -1003,9 +975,9 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         torch.cuda.synchronize()
         err = scatter_rel_err(a, b)
         ms, plain_ms = time_pair(
-            torch, lambda: scatter.scatter_add_rows(idx, rows, n_out=n_out),
+            lambda: scatter.scatter_add_rows(idx, rows, n_out=n_out),
             lambda: scatter.scatter_add_rows_plain(idx, rows, n_out=n_out))
-        lib_ms = time_call(torch, lambda: torch.zeros(
+        lib_ms = time_call(lambda: torch.zeros(
             (n_out, rows.shape[1]), device=rows.device).index_add_(
                 0, idx.long(), rows))
         nbytes = 4 * idx.numel() + 4 * rows.numel() + 4 * n_out * rows.shape[1]
@@ -1062,7 +1034,7 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
     torch.cuda.synchronize()
     equal = bool(torch.equal(a, b))
     ms5, plain5 = time_pair(
-        torch, lambda: scatter.scatter_set_scalars(idx, val, n_out=n_out),
+        lambda: scatter.scatter_set_scalars(idx, val, n_out=n_out),
         lambda: scatter.scatter_set_scalars_plain(idx, val, n_out=n_out))
     safe = torch.clamp(idx, max=n_out).long()
 
@@ -1072,7 +1044,7 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         buf[safe] = val
         return buf
 
-    lib5 = time_call(torch, library)
+    lib5 = time_call(library)
     nbytes5 = 8 * idx.numel() + 4 * n_out
     bound5 = nbytes5 / HBM_BYTES_S * 1e3
     log(f"kernel scatter_set_scalars (binner): {idx.numel()} pairs -> "
@@ -1116,6 +1088,198 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         raise AssertionError(f"K3 + K4 step gradients disagree: {err}")
     k3["step_grad_err_vs_k2"] = err
     return [k3, k4, k5]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the dev tools' kernels (D1-D6) at the scripts' shapes
+# ---------------------------------------------------------------------------
+
+def dev_entry(kid: str, name: str, source: str, replaces: str,
+              tpu_kernel: str, launches: int, err: float, rec: dict,
+              library_ms=None, **extra) -> dict:
+    """A kernels-line entry of a dev tool's kernel from its tool's record
+    (ms, plain_ms, bound_ms, bound_by, bound_resource)."""
+    return {"name": f"{kid} {name}", "route": "cuda",
+            "source": f"fourdgs_tpu_torch/csrc/{source}",
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": launches, "max_abs_err": err, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "bound_resource": rec["bound_resource"],
+            "library_ms": library_ms, "ok": True, **extra}
+
+
+def phase_dev_kernels(torch, device, seed: int) -> list:
+    """Each tool of fourdgs_tpu_torch/tools that ports a Pallas prototype
+    of scripts/ runs through its `main` at its script's shapes, with the
+    launch counts read around the six; then each kernel against its plain
+    version on the tool's inputs."""
+    from fourdgs_tpu_torch.ops import (binner_proto, blend, blend_variants,
+                                       gather, scatter, serial)
+    from fourdgs_tpu_torch.tools import (exp_binner_proto, exp_gather,
+                                         exp_scatter, exp_serial,
+                                         profile_blend_split,
+                                         profile_kernel_variants)
+    from fourdgs_tpu_torch.utils.timing import bound
+
+    bodies = [getattr(blend_variants, b) for b in blend_variants.BODIES]
+    wrappers = [gather.gather_rows, binner_proto.expand_rank,
+                scatter.scatter_add_rows, serial.scalar_store,
+                serial.tile_counter_store, blend.blend_forward, *bodies]
+    tools = {"D1": exp_gather, "D2": exp_binner_proto, "D3": exp_scatter,
+             "D4": exp_serial, "D5": profile_blend_split,
+             "D6": profile_kernel_variants}
+    argv = ["--seed", str(seed), "--device", device.type]
+
+    # ---- the main path, with the launch counts read around it ----
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = {kid: tool.main(argv) for kid, tool in tools.items()}
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"dev tools: {time.perf_counter() - t0:.2f} s; launches {launches}")
+
+    # ---- each kernel against its plain version on its tool's inputs ----
+    out = []
+    table, idx = res["D1"]["inputs"]["table"], res["D1"]["inputs"]["idx"]
+    ref = gather.gather_rows_plain(table, idx)
+    equal = all(torch.equal(gather.gather_rows(table, idx, vector=v), ref)
+                for v in (True, False))
+    log(f"kernel gather_rows (both forms) vs plain: equal {equal}")
+    if not equal:
+        raise AssertionError("gather_rows disagrees with plain")
+    out.append(dev_entry(
+        "D1", "gather_rows", "gather.cu", "scripts/exp_pallas_gather.py:50",
+        "scripts/exp_pallas_gather.py:50, :75, :102, :125 (gather1-4)",
+        launches["gather_rows"], 0.0, {**res["D1"]["vec4"], **res["D1"]},
+        library_ms=res["D1"]["library_ms"],
+        ms_scalar=res["D1"]["scalar"]["ms"], nbytes=res["D1"]["nbytes"]))
+
+    rec = res["D2"]
+    kw = dict(pc=exp_binner_proto.PC, n_tiles=exp_binner_proto.NT,
+              grid_x=exp_binner_proto.GRID_X,
+              tile_cap=exp_binner_proto.TILE_CAP)
+    inp = list(rec["inputs"].values())
+    equal = bool(torch.equal(binner_proto.expand_rank(*inp, **kw),
+                             binner_proto.expand_rank_plain(*inp, **kw)))
+    log(f"kernel expand_rank vs plain: equal {equal}")
+    if not equal:
+        raise AssertionError("expand_rank disagrees with plain")
+    out.append(dev_entry(
+        "D2", "expand_rank", "binner_proto.cu",
+        "scripts/exp_pallas_binner_proto.py:78",
+        "scripts/exp_pallas_binner_proto.py:29 (kernel)",
+        launches["expand_rank"], 0.0, rec, pairs=rec["pairs"],
+        pairs_per_s=rec["pairs_per_s"], pairs_past_pc=rec["pairs_past_pc"],
+        pairs_past_tile_cap=rec["pairs_past_tile_cap"],
+        passes_ms=rec["passes_ms"], device_ms=rec["device_ms"]))
+
+    cases = {}
+    for case, rec in res["D3"].items():
+        i = rec["inputs"]
+        a = scatter.scatter_add_rows(i["idx"], i["rows"], n_out=i["n_out"])
+        b = scatter.scatter_add_rows_plain(i["idx"], i["rows"],
+                                           n_out=i["n_out"])
+        err = scatter_rel_err(a, b)
+        log(f"kernel scatter_add_rows ({case}, {rec['shape']}) vs plain: max "
+            f"|a-b| / max |b| {err:.3g} (tol {SCATTER_TOL:g})")
+        if not err <= SCATTER_TOL:
+            raise AssertionError(f"scatter_add_rows ({case}) disagrees: "
+                                 f"{err}")
+        cases[case] = {k: v for k, v in rec.items() if k != "inputs"}
+        cases[case].update(max_rel_err=err,
+                           max_abs_err=float((a - b).abs().max()))
+    main3 = cases["hexplane"]
+    out.append(dev_entry(
+        "D3", "scatter_add_rows", "scatter.cu",
+        "scripts/exp_pallas_scatter.py:66",
+        "scripts/exp_pallas_scatter.py:48 (make_scatter_add's kernel)",
+        launches["scatter_add_rows"],
+        max(c["max_abs_err"] for c in cases.values()), main3,
+        library_ms=main3["library_ms"], cases=cases))
+
+    i = res["D4"]["inputs"]
+    store = serial.scalar_store(i["idx"], i["val"], n_out=exp_serial.TABLE)
+    kw = dict(n_tiles=exp_serial.NT, tile_cap=exp_serial.TILE_CAP,
+              n_out=exp_serial.TABLE)
+    counter = serial.tile_counter_store(i["tid"], i["val"], **kw)
+    equal = {"scalar_store": bool(torch.equal(store, serial.scalar_store_plain(
+        i["idx"], i["val"], n_out=exp_serial.TABLE))),
+        "tile_counter_store": all(
+            torch.equal(a, b) for a, b in zip(
+                counter, serial.tile_counter_store_plain(i["tid"], i["val"],
+                                                         **kw)))}
+    log(f"kernels scalar_store, tile_counter_store vs plain ("
+        f"{res['D4']['repeats']} repeated indices): equal {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"serial stores disagree with plain: {equal}")
+    for kid, name, line, body in (("D4a", "scalar_store", 70, "store_kernel"
+                                   " :31"),
+                                  ("D4b", "tile_counter_store", 77,
+                                   "counter_kernel :43")):
+        rec = res["D4"]["store" if kid == "D4a" else "counter"]
+        out.append(dev_entry(
+            kid, name, "serial.cu", f"scripts/exp_pallas_serial.py:{line}",
+            f"scripts/exp_pallas_serial.py:{body}", launches[name], 0.0,
+            rec, pairs_per_s=rec["pairs_per_s"], passes_ms=rec["passes_ms"],
+            device_ms=rec["device_ms"],
+            library_note="no single PyTorch call: indexed assignment leaves "
+                         "the winner among repeated indices undefined"))
+
+    rec = res["D5"]
+    i = rec["inputs"]
+    args = (i["gidx"], i["counts"], i["table"], i["cfg"])
+    got, ref = blend.blend_forward(*args), blend.blend_forward_plain(*args)
+    err = {k: float((a - b).abs().max())
+           for k, a, b in zip(("color", "depth", "t"), got, ref)}
+    log("kernel blend_fwd (tile 16) vs plain: max abs err " + ", ".join(
+        f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in err.items()))
+    if not all(v <= TOL[k] for k, v in err.items()):
+        raise AssertionError(f"blend_fwd (tile 16) disagrees: {err}")
+    cfg = i["cfg"]
+    work = blend_work(torch, *args)
+    n_rows = int(torch.unique(i["gidx"][i["gidx"] >= 0]).numel())
+    nbytes = (4 * cfg.num_tiles + 4 * int(i["counts"].sum()) + 48 * n_rows
+              + 5 * 4 * cfg.num_tiles * cfg.pixels_per_tile)
+    rec5 = {**rec, **bound(nbytes, sum(BLEND_FP32_INSTR[k] * work[k]
+                                       for k in BLEND_FP32_INSTR),
+                           work["exp"])}
+    log(f"blend_fwd (tile 16): {rec['ms']:.4f} ms, bound "
+        f"{rec5['bound_ms']:.4f} ms ({rec5['bound_resource']}); "
+        f"evaluations {work}")
+    out.append(dev_entry(
+        "D5", "blend_fwd (tile 16)", "blend_fwd.cu",
+        "scripts/profile_pallas_split.py:83",
+        "scripts/profile_pallas_split.py:83 (_raw_fwd around K1's "
+        "_fwd_kernel)", launches["blend_forward"], err["color"], rec5,
+        max_abs_err_depth=err["depth"], max_abs_err_t=err["t"],
+        pack_ms=rec["pack_ms"], pack_and_blend_ms=rec["pack_and_blend_ms"],
+        evaluations=work))
+
+    i = res["D6"]["inputs"]
+    for fn, line in zip(bodies, (66, 77, 91, 108)):
+        name = fn.__name__
+        a, b = fn(i["attrs"], i["px"]), getattr(
+            blend_variants, name + "_plain")(i["attrs"], i["px"])
+        err = scatter_rel_err(a, b)
+        log(f"kernel {name} vs plain: max |a-b| / max |b| {err:.3g} (tol "
+            f"{DEV_TOL:g})")
+        if not err <= DEV_TOL:
+            raise AssertionError(f"{name} disagrees with plain: {err}")
+        rec = res["D6"][name]
+        out.append(dev_entry(
+            "D6", f"blend_variants.{name}", "blend_variants.cu",
+            "scripts/profile_kernel_variants.py:50",
+            f"scripts/profile_kernel_variants.py:{line} (k_{name})",
+            launches[name], float((a - b).abs().max()), rec,
+            max_rel_err=err, sass_per_row=rec["sass_per_row"]))
+    for e in out:
+        log(f"{e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+            f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_resource']}); launches {e['launches']}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1169,6 +1333,7 @@ def main(argv=None) -> int:
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches)
     kernels[2]["driver"] = driver
+    kernels += phase_dev_kernels(torch, device, args.seed)
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")

@@ -21,6 +21,10 @@ port's modules.
 The JAX package stores a weight `w` as (fan_in, fan_out) and applies
 `x @ w + b`; `nn.Linear` keeps (fan_out, fan_in), so weights are
 transposed on the way in and out.
+
+The dev tools' kernels (D1-D6, `tools/exp_*.py`, `profile_blend_split.py`,
+`profile_kernel_variants.py`) have no parameters to carry across: their
+inputs are made from `--seed` with numpy, as the scripts make them.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -122,9 +123,59 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.scatter_add_rows_launch.restype = i
     lib.scatter_set_scalars_launch.argtypes = [vp, vp, ll, i, vp, vp]
     lib.scatter_set_scalars_launch.restype = i
+    lib.gather_rows_launch.argtypes = [vp, vp, ll, i, i, i, vp, vp]
+    lib.gather_rows_launch.restype = i
+    lib.rank_segment_items.argtypes = []
+    lib.rank_segment_items.restype = i
+    lib.scalar_store_launch.argtypes = [vp, vp, i, i, vp, vp, vp]
+    lib.scalar_store_launch.restype = i
+    lib.tile_counter_store_launch.argtypes = [vp, vp, i, i, i, i, vp, vp,
+                                              vp, vp, vp, vp]
+    lib.tile_counter_store_launch.restype = i
+    lib.expand_rank_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i,
+                                       i, i, vp, vp, vp]
+    lib.expand_rank_launch.restype = i
+    lib.blend_variant_launch.argtypes = [i, vp, vp, i, i, i, vp, vp]
+    lib.blend_variant_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def sass_opcodes(function_part: str) -> dict[str, int]:
+    """How often each opcode (modifiers and predicates stripped) appears in
+    the built library's functions whose mangled names contain
+    `function_part`, from `cuobjdump -sass` of the toolkit beside nvcc."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(build())], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function_part in line
+            continue
+        m = _SASS_LINE.match(line) if inside else None
+        if m:
+            op = m.group(1).split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
+    if not counts:
+        raise RuntimeError(f"no SASS for a function named like "
+                           f"{function_part!r}")
+    return counts
+
+
+# "/*0a40*/  @!P0 FFMA.FTZ R3, R2, R5, R3 ;" -> FFMA.FTZ
+_SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)")
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function returned a CUDA error: a refused launch
+    never runs, and no later synchronize reports it."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

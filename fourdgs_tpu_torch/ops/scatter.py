@@ -26,12 +26,6 @@ def _check_cuda(x):
         raise ValueError(f"no scatter kernel for device {x.device}")
 
 
-def _launch_error(lib, name, err):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
-
-
 def _check_rows(idx, rows, n_out):
     if idx.dtype != torch.int32 or rows.dtype != torch.float32:
         raise TypeError("idx must be int32 and rows float32")
@@ -54,7 +48,7 @@ def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, *,
     if rows.device.type == "cpu":
         return scatter_add_rows_plain(idx, rows, n_out=n_out)
     _check_cuda(rows)
-    from fourdgs_tpu_torch.ops._build import load_library
+    from fourdgs_tpu_torch.ops._build import check_launch, load_library
     lib = load_library()
     idx, rows = idx.contiguous(), rows.contiguous()
     m, w = rows.shape
@@ -63,7 +57,7 @@ def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, *,
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.scatter_add_rows_launch(idx.data_ptr(), rows.data_ptr(), m,
                                           w, n_out, out.data_ptr(), stream)
-    _launch_error(lib, "scatter_add_rows", err)
+    check_launch(lib, "scatter_add_rows", err)
     scatter_add_rows.launches += 1
     return out
 
@@ -100,7 +94,7 @@ def scatter_set_scalars(idx: torch.Tensor, val: torch.Tensor, *,
     if idx.device.type == "cpu":
         return scatter_set_scalars_plain(idx, val, n_out=n_out)
     _check_cuda(idx)
-    from fourdgs_tpu_torch.ops._build import load_library
+    from fourdgs_tpu_torch.ops._build import check_launch, load_library
     lib = load_library()
     idx, val = idx.contiguous(), val.contiguous()
     with torch.cuda.device(idx.device):
@@ -110,7 +104,7 @@ def scatter_set_scalars(idx: torch.Tensor, val: torch.Tensor, *,
         err = lib.scatter_set_scalars_launch(idx.data_ptr(), val.data_ptr(),
                                              idx.shape[0], n_out,
                                              out.data_ptr(), stream)
-    _launch_error(lib, "scatter_set_scalars", err)
+    check_launch(lib, "scatter_set_scalars", err)
     scatter_set_scalars.launches += 1
     return out
 

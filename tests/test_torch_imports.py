@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
 chip_smoke.py imports jax, jaxlib or the JAX package, and importing the
-serving, training and data modules, the training driver and its CLI leaves
-jax out of sys.modules."""
+serving, training and data modules, the training driver and its CLI, and
+the dev tools' kernels and tools leaves jax out of sys.modules; importing
+the dev tools touches neither nvcc nor CUDA."""
 import ast
 import subprocess
 import sys
@@ -36,6 +37,30 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the dev tools' kernels (D1-D6): wrappers, tools and the timing helpers
+_DEV_MODULES = ", ".join(
+    "fourdgs_tpu_torch." + m for m in (
+        "ops.gather", "ops.serial", "ops.binner_proto", "ops.blend_variants",
+        "utils.timing", "tools.exp_gather", "tools.exp_scatter",
+        "tools.exp_serial", "tools.exp_binner_proto",
+        "tools.profile_blend_split", "tools.profile_kernel_variants"))
+
+
+def test_dev_modules_touch_neither_nvcc_nor_cuda():
+    """Importing the dev kernels' wrappers and tools starts no process,
+    initialises no CUDA context and loads no kernel library."""
+    code = ("import subprocess, torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'a process at import: {a}')\n"
+            "subprocess.Popen = subprocess.run = refuse\n"
+            f"import {_DEV_MODULES}\n"
+            "from fourdgs_tpu_torch.ops import _build\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "assert _build._lib is None and not _build.build_info\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 def test_serve_import_leaves_jax_out():
     code = ("import sys, fourdgs_tpu_torch.render.serve, "
             "fourdgs_tpu_torch.ops._build, fourdgs_tpu_torch.train.loop, "
@@ -51,7 +76,8 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.train.checkpoint, "
             "fourdgs_tpu_torch.train.sampler, "
             "fourdgs_tpu_torch.utils.point_grow, "
-            "fourdgs_tpu_torch.render.state_at_time; "
+            "fourdgs_tpu_torch.render.state_at_time, "
+            + _DEV_MODULES + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fourdgs_tpu')]; "
             "assert not bad, bad")

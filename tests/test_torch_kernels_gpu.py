@@ -16,7 +16,8 @@ tolerance: each column group divided by its largest magnitude, atol 1e-4
 (tests/test_pallas_blend.py). The per-slot backward (K3) has no atomics
 and is held per column, over the slots that hold a gaussian, to the same
 tolerance; the row scatter-add (K4) adds with atomics, max |a - b| /
-max |b| 1e-5; the scalar scatter-set (K5) is exact.
+max |b| 1e-5; the scalar scatter-set (K5) is exact. The dev tools'
+kernels (D1, D2, D4a, D4b) are exact, D6's sums held to rtol 1e-5.
 """
 import numpy as np
 import pytest
@@ -25,12 +26,17 @@ import torch
 from fourdgs_tpu_torch.data.camera import look_at_camera, make_camera
 from fourdgs_tpu_torch.models.deformation import DeformConfig, Deformation
 from fourdgs_tpu_torch.models.gaussians import GaussianParams
-from fourdgs_tpu_torch.ops import blend
+from fourdgs_tpu_torch.ops import blend, blend_variants
+from fourdgs_tpu_torch.ops.binner_proto import expand_rank, expand_rank_plain
+from fourdgs_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, prepare_blend
 from fourdgs_tpu_torch.ops.scatter import (scatter_add_rows,
                                            scatter_add_rows_plain,
                                            scatter_set_scalars,
                                            scatter_set_scalars_plain)
+from fourdgs_tpu_torch.ops.serial import (scalar_store, scalar_store_plain,
+                                          tile_counter_store,
+                                          tile_counter_store_plain)
 from fourdgs_tpu_torch.render.render import splats_at
 from fourdgs_tpu_torch.train import config as tconfig
 from fourdgs_tpu_torch.train import loop, optim
@@ -442,3 +448,144 @@ def test_binner_switch_runs_k5(cuda, monkeypatch):
     got, _, _ = _inputs(cuda, "random", 16, 16, 8, n=900, seed=1)
     assert scatter_set_scalars.launches == before + 1
     assert torch.equal(got.gidx, ref.gidx)
+
+
+# ---------------------------------------------------------------------------
+# D1-D6: the kernels of the dev tools (fourdgs_tpu_torch/tools), which port
+# the Pallas prototypes of scripts/. D1, D2, D4a and D4b are exact; D6 sums
+# in another association than its plain version, rtol 1e-5.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,w,m", [(1000, 16, 70_000), (37, 4, 999),
+                                      (5, 3, 64)])
+def test_gather_rows_kernel_matches_plain(cuda, rows, w, m):
+    """Both forms where they apply; indices below 0 and past the table
+    clamp to its first and last rows: equal."""
+    rng = np.random.default_rng(rows)
+    table = torch.from_numpy(rng.normal(size=(rows, w)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-3, rows + 3, m).astype(np.int32))
+    ref = gather_rows_plain(table, idx)
+    for vector in ((True, False) if w % 4 == 0 else (False,)):
+        before = gather_rows.launches
+        got = gather_rows(table.to(cuda), idx.to(cuda), vector=vector)
+        torch.cuda.synchronize()
+        assert gather_rows.launches == before + 1
+        assert torch.equal(got.cpu(), ref)
+
+
+def _rect_inputs(n, g, nt, grid_x, max_side, seed):
+    """Rects of up to max_side^2 pairs, some empty (sx 0), some reaching
+    past the grid's last row (tiles >= nt), slot0 per chunk."""
+    rng = np.random.default_rng(seed)
+    sx = rng.integers(0, max_side + 1, n).astype(np.int32)
+    sy = rng.integers(1, max_side + 1, n).astype(np.int32)
+    x0 = rng.integers(0, grid_x, n).astype(np.int32)
+    y0 = rng.integers(0, nt // grid_x, n).astype(np.int32)
+    touched = np.where(sx > 0, sx * sy, 0)
+    off = np.concatenate([[0], np.cumsum(touched)])[:-1]
+    slot0 = (off - np.repeat(off[::g], g)).astype(np.int32)
+    gid = rng.permutation(n).astype(np.int32)
+    return [torch.from_numpy(a.reshape(n // g, 1, g))
+            for a in (x0, y0, sx, sy, slot0, gid)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,g,pc,nt,grid_x,tile_cap,side", [
+    (131_072, 4096, 16384, 625, 25, 1536, 3),   # the script's shapes
+    (16_384, 4096, 6000, 625, 25, 40, 3),       # past pc and tile_cap
+    (3000, 1000, 50_000, 4096, 64, 300, 9),     # long rects, big grid
+])
+def test_expand_rank_kernel_matches_plain(cuda, n, g, pc, nt, grid_x,
+                                          tile_cap, side):
+    """Serial ranks across segments and chunks, pairs past pc, ranks past
+    tile_cap, empty rects and tiles past the grid: equal, and the same
+    from run to run."""
+    arrays = _rect_inputs(n, g, nt, grid_x, side, n)
+    kw = dict(pc=pc, n_tiles=nt, grid_x=grid_x, tile_cap=tile_cap)
+    ref = expand_rank_plain(*arrays, **kw)
+    before = expand_rank.launches
+    got = expand_rank(*(a.to(cuda) for a in arrays), **kw)
+    again = expand_rank(*(a.to(cuda) for a in arrays), **kw)
+    torch.cuda.synchronize()
+    assert expand_rank.launches == before + 2
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n_out", [(262_144, 960_000), (50_000, 777),
+                                     (3, 1)])
+def test_scalar_store_kernel_matches_plain(cuda, m, n_out):
+    """Repeated indices (the last store wins) and indices outside
+    [0, n_out) (dropped): equal."""
+    rng = np.random.default_rng(m)
+    idx = torch.from_numpy(rng.integers(-5, n_out + 5, m).astype(np.int32))
+    val = torch.from_numpy(rng.integers(0, 1 << 20, m).astype(np.int32))
+    before = scalar_store.launches
+    got = scalar_store(idx.to(cuda), val.to(cuda), n_out=n_out)
+    torch.cuda.synchronize()
+    assert scalar_store.launches == before + 1
+    assert torch.equal(got.cpu(), scalar_store_plain(idx, val, n_out=n_out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,nt,tile_cap,n_out", [
+    (262_144, 625, 1536, 960_000),   # the script's shapes
+    (40_000, 8, 1536, 5000),         # the clamp to n_out - 1
+    (9000, 3, 1000, 2500),           # ranks past tile_cap, then the clamp
+])
+def test_tile_counter_store_kernel_matches_plain(cuda, m, nt, tile_cap,
+                                                 n_out):
+    """Serial ranks, the clamp, the last write winning, tile ids outside
+    [0, n_tiles) (dropped): equal outputs and counters."""
+    rng = np.random.default_rng(m)
+    tid = torch.from_numpy(rng.integers(-1, nt + 1, m).astype(np.int32))
+    val = torch.from_numpy(rng.integers(0, 1 << 20, m).astype(np.int32))
+    kw = dict(n_tiles=nt, tile_cap=tile_cap, n_out=n_out)
+    before = tile_counter_store.launches
+    out, cnt = tile_counter_store(tid.to(cuda), val.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert tile_counter_store.launches == before + 1
+    ref_out, ref_cnt = tile_counter_store_plain(tid, val, **kw)
+    assert torch.equal(cnt.cpu(), ref_cnt)
+    assert torch.equal(out.cpu(), ref_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", blend_variants.BODIES)
+@pytest.mark.parametrize("nt,p", [(300, 256), (7, 100), (2, 1024)])
+def test_blend_variant_kernel_matches_plain(cuda, body, nt, p):
+    rng = np.random.default_rng(nt)
+    attrs = torch.from_numpy(rng.uniform(
+        0, 1, (nt, 3 * blend_variants.CHUNK, 16)).astype(np.float32))
+    px = torch.from_numpy(rng.uniform(0, 1, (nt, 1, p)).astype(np.float32))
+    fn = getattr(blend_variants, body)
+    before = fn.launches
+    got = fn(attrs.to(cuda), px.to(cuda))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = getattr(blend_variants, body + "_plain")(attrs, px)
+    assert got.shape == ref.shape == (nt, 1, p)
+    err = float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_dev_kernels_refuse_what_they_cannot_take(cuda):
+    counts = [fn.launches for fn in (gather_rows, blend_variants.slices)]
+    with pytest.raises(ValueError, match="16-byte"):
+        gather_rows(torch.zeros(4, 3, device=cuda),
+                    torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="chunk 32"):
+        blend_variants.slices(torch.zeros(2, 48, 16, device=cuda),
+                              torch.zeros(2, 8, device=cuda), chunk=16)
+    with pytest.raises(ValueError, match="pixels"):
+        blend_variants.slices(torch.zeros(2, 64, 16, device=cuda),
+                              torch.zeros(2, 2048, device=cuda))
+    with pytest.raises(ValueError, match="n_tiles"):
+        tile_counter_store(torch.zeros(2, dtype=torch.int32, device=cuda),
+                           torch.zeros(2, dtype=torch.int32, device=cuda),
+                           n_tiles=9000, tile_cap=4, n_out=8)
+    assert counts == [fn.launches for fn in (gather_rows,
+                                             blend_variants.slices)]
