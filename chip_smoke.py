@@ -1145,17 +1145,15 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
     out = []
     table, idx = res["D1"]["inputs"]["table"], res["D1"]["inputs"]["idx"]
     ref = gather.gather_rows_plain(table, idx)
-    equal = all(torch.equal(gather.gather_rows(table, idx, vector=v), ref)
-                for v in (True, False))
-    log(f"kernel gather_rows (both forms) vs plain: equal {equal}")
+    equal = bool(torch.equal(gather.gather_rows(table, idx), ref))
+    log(f"kernel gather_rows vs plain: equal {equal}")
     if not equal:
         raise AssertionError("gather_rows disagrees with plain")
     out.append(dev_entry(
         "D1", "gather_rows", "gather.cu", "scripts/exp_pallas_gather.py:50",
         "scripts/exp_pallas_gather.py:50, :75, :102, :125 (gather1-4)",
-        launches["gather_rows"], 0.0, {**res["D1"]["vec4"], **res["D1"]},
-        library_ms=res["D1"]["library_ms"],
-        ms_scalar=res["D1"]["scalar"]["ms"], nbytes=res["D1"]["nbytes"]))
+        launches["gather_rows"], 0.0, res["D1"],
+        library_ms=res["D1"]["library_ms"], nbytes=res["D1"]["nbytes"]))
 
     rec = res["D2"]
     kw = dict(pc=exp_binner_proto.PC, n_tiles=exp_binner_proto.NT,
@@ -1274,7 +1272,7 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
             "scripts/profile_kernel_variants.py:50",
             f"scripts/profile_kernel_variants.py:{line} (k_{name})",
             launches[name], float((a - b).abs().max()), rec,
-            max_rel_err=err, sass_per_row=rec["sass_per_row"]))
+            max_rel_err=err))
     for e in out:
         log(f"{e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
             f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms "

@@ -19,15 +19,13 @@
 // through shared memory before any thread reads them, so that dma_only
 // still moves all of attrs, as the TPU variant did. The prefix products,
 // a Kogge-Stone scan over sublanes on the TPU, are a serial product in the
-// thread. The row loop is unrolled and the chunk loop is not, so the SASS
-// of each body holds its 32 rows once (tools/profile_kernel_variants.py
-// counts their instructions there).
+// thread. The row loop is unrolled and the chunk loop is not.
 //
 // Bound on an H100: dma_only by bytes (attrs, px and out once: 128 MB at
 // the script's shapes, 2,504 tiles x 24 chunks, 0.038 ms at 3.35 TB/s);
-// the other three by FP32 issue over the 492M pixel x row evaluations,
-// priced at the FP32-pipe instructions of their bodies as the sm_90a SASS
-// has them.
+// the other three by the operations their function needs over the 492M
+// pixel x row evaluations (tools/profile_kernel_variants.py:FP32_PER_ROW):
+// exp_only by its exps on the SFU, slices and scans by FP32 issue.
 
 #include <cuda_runtime.h>
 

@@ -4,16 +4,15 @@
 // gather2 :75, gather3 :102, gather4 :125): four ways to write one gather
 // from a VMEM-resident table in Pallas (jnp.take, take_along_axis, a loop
 // of dynamic row copies, advanced indexing). On the card one kernel
-// computes the function; it comes in two forms. Plain version:
+// computes the function. Plain version:
 // fourdgs_tpu_torch/ops/gather.py:gather_rows_plain.
 //
-// table (n_rows, w) float32, idx (m,) int32 clamped to [0, n_rows - 1],
-// out (m, w) float32.
+// table (n_rows, w) float32, w a multiple of 4, idx (m,) int32 clamped to
+// [0, n_rows - 1], out (m, w) float32.
 //
-// vec4: one thread per 16 bytes of an output row (w a multiple of 4, the
-// rows 16-byte aligned), so the four threads of a 64-byte row share its
-// index and a warp writes 512 contiguous bytes. scalar: one thread per
-// float, any w.
+// One thread per 16 bytes of an output row (the rows 16-byte aligned), so
+// the four threads of a 64-byte row share its index and a warp writes 512
+// contiguous bytes.
 //
 // Bound on an H100: bytes. The index is read once and the output written
 // once; the table's rows are read through L2 (the script's 8 MiB table
@@ -41,18 +40,6 @@ __global__ void gather_rows_vec4_kernel(const float4* __restrict__ table,
     out[i] = __ldg(&table[(size_t)g * w4 + c]);
 }
 
-__global__ void gather_rows_scalar_kernel(const float* __restrict__ table,
-                                          const int* __restrict__ idx,
-                                          long long m, int w, int n_rows,
-                                          float* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m * w) return;
-    const long long r = i / w;
-    const int c = (int)(i - r * w);
-    const int g = clamp_row(__ldg(&idx[r]), n_rows);
-    out[i] = __ldg(&table[(size_t)g * w + c]);
-}
-
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -60,25 +47,16 @@ constexpr int kThreads = 256;
 extern "C" {
 
 // Launch on `stream`; return the cudaError_t of the launch (0 = ok).
-// vec4 != 0 takes the 16-byte form (w % 4 == 0, table and out 16-byte
-// aligned: the wrapper checks).
+// w % 4 == 0, table and out 16-byte aligned (the wrapper checks).
 int gather_rows_launch(const void* table, const void* idx, long long m,
-                       int w, int n_rows, int vec4, void* out,
-                       void* stream) {
-    const long long n = vec4 ? m * (w / 4) : m * w;
+                       int w, int n_rows, void* out, void* stream) {
+    const long long n = m * (w / 4);
     if (n == 0) return 0;
     const long long blocks = (n + kThreads - 1) / kThreads;
-    if (vec4) {
-        gather_rows_vec4_kernel<<<(unsigned)blocks, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-            (const float4*)table, (const int*)idx, m, w / 4, n_rows,
-            (float4*)out);
-    } else {
-        gather_rows_scalar_kernel<<<(unsigned)blocks, kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-            (const float*)table, (const int*)idx, m, w, n_rows,
-            (float*)out);
-    }
+    gather_rows_vec4_kernel<<<(unsigned)blocks, kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        (const float4*)table, (const int*)idx, m, w / 4, n_rows,
+        (float4*)out);
     return (int)cudaGetLastError();
 }
 

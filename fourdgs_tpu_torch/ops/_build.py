@@ -14,7 +14,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -123,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.scatter_add_rows_launch.restype = i
     lib.scatter_set_scalars_launch.argtypes = [vp, vp, ll, i, vp, vp]
     lib.scatter_set_scalars_launch.restype = i
-    lib.gather_rows_launch.argtypes = [vp, vp, ll, i, i, i, vp, vp]
+    lib.gather_rows_launch.argtypes = [vp, vp, ll, i, i, vp, vp]
     lib.gather_rows_launch.restype = i
     lib.rank_segment_items.argtypes = []
     lib.rank_segment_items.restype = i
@@ -140,34 +139,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def sass_opcodes(function_part: str) -> dict[str, int]:
-    """How often each opcode (modifiers and predicates stripped) appears in
-    the built library's functions whose mangled names contain
-    `function_part`, from `cuobjdump -sass` of the toolkit beside nvcc."""
-    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(build())], capture_output=True,
-                          text=True, check=True).stdout
-    counts: dict[str, int] = {}
-    inside = False
-    for line in text.splitlines():
-        if "Function :" in line:
-            inside = function_part in line
-            continue
-        m = _SASS_LINE.match(line) if inside else None
-        if m:
-            op = m.group(1).split(".")[0]
-            counts[op] = counts.get(op, 0) + 1
-    if not counts:
-        raise RuntimeError(f"no SASS for a function named like "
-                           f"{function_part!r}")
-    return counts
-
-
-# "/*0a40*/  @!P0 FFMA.FTZ R3, R2, R5, R3 ;" -> FFMA.FTZ
-_SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                        r"([A-Z][A-Z0-9_.]*)")
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

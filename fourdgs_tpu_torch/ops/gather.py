@@ -4,9 +4,8 @@ of scripts/exp_pallas_gather.py, D1).
 `gather_rows` launches the CUDA kernel of csrc/gather.cu for tensors on
 the card and runs `gather_rows_plain` for tensors on the CPU; a CUDA tensor
 that the kernel cannot take raises. `gather_rows.launches` counts kernel
-launches. The kernel comes in two forms, which `vector` picks: 16-byte
-loads, four threads to a 64-byte row (the default), or one thread per
-float.
+launches. The kernel reads 16 bytes a thread, four threads to a 64-byte
+row, so it takes tables whose width is a multiple of 4.
 """
 from __future__ import annotations
 
@@ -25,8 +24,7 @@ def _check(table, idx):
         raise ValueError("table and idx must share a device")
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
-                vector: bool = True) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table (R, W) float32, idx (M,) int32 clamped to [0, R - 1] ->
     (M, W) float32. CUDA tensors launch the kernel; CPU tensors run the
     plain version."""
@@ -37,8 +35,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
         raise ValueError(f"no gather kernel for device {table.device}")
     table, idx = table.contiguous(), idx.contiguous()
     (r, w), m = table.shape, idx.shape[0]
-    if vector and (w % 4 or table.data_ptr() % 16):
-        raise ValueError(f"the 16-byte gather needs W % 4 == 0 and a 16-byte "
+    if w % 4 or table.data_ptr() % 16:
+        raise ValueError(f"the gather kernel needs W % 4 == 0 and a 16-byte "
                          f"aligned table (W {w})")
     from fourdgs_tpu_torch.ops._build import check_launch, load_library
     lib = load_library()
@@ -46,7 +44,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
         out = torch.empty((m, w), dtype=torch.float32, device=table.device)
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.gather_rows_launch(table.data_ptr(), idx.data_ptr(), m, w,
-                                     r, int(vector), out.data_ptr(), stream)
+                                     r, out.data_ptr(), stream)
     check_launch(lib, "gather_rows", err)
     gather_rows.launches += 1
     return out

@@ -8,12 +8,11 @@ seed.
         [--device cpu]
 
 The script timed four Pallas formulations of one gather against XLA's. On
-the card one kernel (csrc/gather.cu) computes it, in two forms: 16-byte
-loads, four threads to a row, and one thread per float. The tool prints
-`torch.index_select` (the library call), each form and the plain version,
-whether each equals the library call, and the byte bound. `main` returns
-the numbers and the inputs. On the CPU only the plain version runs, and
-its times are host times.
+the card one kernel (csrc/gather.cu) computes it, with 16-byte loads, four
+threads to a row. The tool prints `torch.index_select` (the library call),
+the kernel and the plain version, whether the kernel equals the library
+call, and the byte bound. `main` returns the numbers and the inputs. On
+the CPU only the plain version runs, and its times are host times.
 """
 from __future__ import annotations
 
@@ -61,15 +60,14 @@ def main(argv=None) -> dict:
     lib_ms = time_call(lambda: torch.index_select(table, 0, idx), args.iters,
                        dev)
     print(f"{'index_select (library)':40s} {lib_ms:9.4f} ms", flush=True)
-    res = {"library_ms": lib_ms}
-    for form, vector in (("vec4", True), ("scalar", False)):
-        match = bool(torch.equal(gather_rows(table, idx, vector=vector), ref))
-        ms, plain_ms = time_pair(
-            lambda: gather_rows(table, idx, vector=vector),
-            lambda: gather_rows_plain(table, idx), args.iters, dev)
-        print(f"{'gather_rows ' + form:40s} {ms:9.4f} ms   plain "
-              f"{plain_ms:9.4f} ms   match: {match}", flush=True)
-        res[form] = {"ms": ms, "plain_ms": plain_ms, "match": match}
+    match = bool(torch.equal(gather_rows(table, idx), ref))
+    ms, plain_ms = time_pair(lambda: gather_rows(table, idx),
+                             lambda: gather_rows_plain(table, idx),
+                             args.iters, dev)
+    print(f"{'gather_rows':40s} {ms:9.4f} ms   plain {plain_ms:9.4f} ms   "
+          f"match: {match}", flush=True)
+    res = {"library_ms": lib_ms, "ms": ms, "plain_ms": plain_ms,
+           "match": match}
     nbytes = gather_bytes(table, idx)
     res.update(bound(nbytes), nbytes=nbytes)
     print(f"bound: {nbytes} bytes, {res['bound_ms']:.4f} ms at the H100's "

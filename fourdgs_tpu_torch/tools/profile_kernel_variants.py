@@ -11,11 +11,11 @@ The four bodies (ops/blend_variants.py, csrc/blend_variants.cu): the
 attributes' movement alone (dma_only), one slice and an exp (exp_only),
 ten slices (slices), two prefix products (scans). For each the tool prints
 the kernel's and the plain version's time and the bound. On the card the
-bound of exp_only, slices and scans is priced at the FP32-pipe and MUFU
-instructions of their 32 unrolled rows, counted off the library's sm_90a
-SASS (`cuobjdump -sass`); dma_only's is its bytes. On the CPU only the
-plain versions run, and their times are host times. `main` returns the
-numbers and the inputs.
+bound of exp_only, slices and scans is priced at the FP32 operations and
+exps that their function needs a pixel x row (`FP32_PER_ROW`,
+`MUFU_PER_ROW`), not at what the kernel happens to issue; dma_only's is its
+bytes. On the CPU only the plain versions run, and their times are host
+times. `main` returns the numbers and the inputs.
 """
 from __future__ import annotations
 
@@ -30,9 +30,16 @@ from fourdgs_tpu_torch.utils.timing import bound, clock, time_pair
 
 NT, NCH, P = 2504, 24, 256
 K, ATTR = blend_variants.CHUNK, blend_variants.ATTR_W
-# the FP32 pipe's instructions in the SASS (compares and min/max counted,
-# as for chip_smoke.py's BLEND_FP32_INSTR)
-FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP")
+# What each body's function needs a pixel x row, whatever code computes
+# it, so that the bound does not move with the kernel under test:
+#   exp_only  x = a0 - px, x * x, times -0.5 log2(e), the running add: 4
+#             FP32 operations and one exp2 (MUFU.EX2)
+#   slices    a0 - px, nine multiply-adds a[i] * px, the running add: 11
+#   scans     x = a0 * px, the multiply-adds 1 - 0.001 x and 1 - 0.002 x,
+#             the two running products, their sum and the running add: 7
+# (a multiply-add is one operation, as the card issues it)
+FP32_PER_ROW = {"exp_only": 4, "slices": 11, "scans": 7}
+MUFU_PER_ROW = {"exp_only": 1}
 
 
 def make_inputs(tiles: int, seed: int, device):
@@ -42,18 +49,6 @@ def make_inputs(tiles: int, seed: int, device):
     attrs = rng.uniform(0, 1, (tiles, NCH * K, ATTR)).astype(np.float32)
     px = rng.uniform(0, 1, (tiles, 1, P)).astype(np.float32)
     return torch.from_numpy(attrs).to(device), torch.from_numpy(px).to(device)
-
-
-def sass_per_row(body: str) -> dict:
-    """FP32-pipe and MUFU instructions of `body`'s kernel over its 32
-    unrolled rows (the chunk loop's staging and the prologue included),
-    from the built library's SASS."""
-    from fourdgs_tpu_torch.ops._build import sass_opcodes
-    ops = sass_opcodes(f"blend_variant_kernelILi"
-                       f"{blend_variants.BODIES.index(body)}E")
-    return {"fp32": sum(ops.get(o, 0) for o in FP32_OPS) / K,
-            "mufu": ops.get("MUFU", 0) / K,
-            "ldg": ops.get("LDG", 0), "sts": ops.get("STS", 0)}
 
 
 def main(argv=None) -> dict:
@@ -78,15 +73,11 @@ def main(argv=None) -> dict:
                                  lambda: plain(attrs, px), args.iters, dev)
         rec = {"ms": ms, "plain_ms": plain_ms}
         if dev.type == "cuda":
-            rec["sass_per_row"] = sass_per_row(body)
-            work = {} if body == "dma_only" else {
-                "fp32": rec["sass_per_row"]["fp32"] * evals,
-                "mufu": rec["sass_per_row"]["mufu"] * evals}
-            rec.update(bound(nbytes, **work))
+            rec.update(bound(nbytes, FP32_PER_ROW.get(body, 0) * evals,
+                             MUFU_PER_ROW.get(body, 0) * evals))
         print(f"{body:12s} {ms:9.4f} ms  plain {plain_ms:9.4f} ms" + (
-            f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_resource']}; "
-            f"SASS a row {rec['sass_per_row']})" if "bound_ms" in rec
-            else ""), flush=True)
+            f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_resource']})"
+            if "bound_ms" in rec else ""), flush=True)
         res[body] = rec
     res["inputs"] = {"attrs": attrs, "px": px}
     return res

@@ -38,7 +38,7 @@ from fourdgs_tpu.ops.projection import project_gaussians as jproject
 from fourdgs_tpu_torch.ops import blend as tblend
 from fourdgs_tpu_torch.ops import blend_variants
 from fourdgs_tpu_torch.ops.binner_proto import expand_rank
-from fourdgs_tpu_torch.ops.gather import gather_rows
+from fourdgs_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
 from fourdgs_tpu_torch.ops.serial import scalar_store, tile_counter_store
 from fourdgs_tpu_torch.tools import profile_blend_split
@@ -80,7 +80,7 @@ def test_gather_plain_matches_jax(rows, width, m):
     assert gather_rows.launches == before          # no kernel here
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        gather_rows(_t(table), _t(idx), vector=False).numpy(), want)
+        gather_rows_plain(_t(table), _t(idx)).numpy(), want)
 
 
 # ---------------------------------------------------------------------------

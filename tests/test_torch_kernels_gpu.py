@@ -460,18 +460,22 @@ def test_binner_switch_runs_k5(cuda, monkeypatch):
 @pytest.mark.parametrize("rows,w,m", [(1000, 16, 70_000), (37, 4, 999),
                                       (5, 3, 64)])
 def test_gather_rows_kernel_matches_plain(cuda, rows, w, m):
-    """Both forms where they apply; indices below 0 and past the table
-    clamp to its first and last rows: equal."""
+    """Indices below 0 and past the table clamp to its first and last
+    rows: equal. A width that is no multiple of 4 raises, launching
+    nothing."""
     rng = np.random.default_rng(rows)
     table = torch.from_numpy(rng.normal(size=(rows, w)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(-3, rows + 3, m).astype(np.int32))
-    ref = gather_rows_plain(table, idx)
-    for vector in ((True, False) if w % 4 == 0 else (False,)):
-        before = gather_rows.launches
-        got = gather_rows(table.to(cuda), idx.to(cuda), vector=vector)
-        torch.cuda.synchronize()
-        assert gather_rows.launches == before + 1
-        assert torch.equal(got.cpu(), ref)
+    before = gather_rows.launches
+    if w % 4:
+        with pytest.raises(ValueError, match="W % 4"):
+            gather_rows(table.to(cuda), idx.to(cuda))
+        assert gather_rows.launches == before
+        return
+    got = gather_rows(table.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got.cpu(), gather_rows_plain(table, idx))
 
 
 def _rect_inputs(n, g, nt, grid_x, max_side, seed):
