@@ -41,7 +41,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
              K2's, with CUDA-event times and the PyTorch call that computes
-             the same function where there is one;
+             the same function where there is one; for K4, K5 and those
+             calls also the device time (torch.profiler, fills included)
+             and the host's time to enqueue one call;
   9. dev:    the six tools of fourdgs_tpu_torch/tools that port the Pallas
              prototypes of scripts/ (D1-D6), each through its `main` at its
              script's shapes, with the launch counts read around the six;
@@ -69,7 +71,8 @@ from pathlib import Path
 import numpy as np
 
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
-                                            MUFU_OP_S, time_call, time_pair)
+                                            MUFU_OP_S, kernel_times,
+                                            time_call, time_pair)
 
 ROOT = Path(__file__).resolve().parent
 N_GAUSS = 100_000
@@ -889,6 +892,30 @@ def scatter_rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def host_ms(fn, n: int = 200) -> float:
+    """The host's ms per call to enqueue fn: n calls on the host clock
+    with no synchronize inside, after one call and a drain."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ms(fn) -> dict:
+    """Device ms per call of fn, fills and copies included, summed over
+    the kernels torch.profiler sees, with the breakdown by name; and the
+    host's ms per call to enqueue it, what events time when it is the
+    larger."""
+    kernels = kernel_times(fn, n=20)
+    return {"ms": sum(kernels.values()), "host_ms": host_ms(fn),
+            "kernels": {k: round(v, 5) for k, v in kernels.items()}}
+
+
 def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
                         launches: dict) -> list:
     """K3 on phase 6's step input, K4 at the reduction's and a HexPlane
@@ -977,23 +1004,39 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         ms, plain_ms = time_pair(
             lambda: scatter.scatter_add_rows(idx, rows, n_out=n_out),
             lambda: scatter.scatter_add_rows_plain(idx, rows, n_out=n_out))
-        lib_ms = time_call(lambda: torch.zeros(
-            (n_out, rows.shape[1]), device=rows.device).index_add_(
-                0, idx.long(), rows))
+        def library():
+            return torch.zeros((n_out, rows.shape[1]),
+                               device=rows.device).index_add_(0, idx.long(),
+                                                              rows)
+
+        lib_ms = time_call(library)
+        dev = device_ms(lambda: scatter.scatter_add_rows(idx, rows,
+                                                         n_out=n_out))
+        lib_dev = device_ms(library)
         nbytes = 4 * idx.numel() + 4 * rows.numel() + 4 * n_out * rows.shape[1]
         bound = nbytes / HBM_BYTES_S * 1e3
         log(f"kernel scatter_add_rows ({label}): idx {tuple(idx.shape)}, rows "
             f"{tuple(rows.shape)} -> ({n_out}, {rows.shape[1]}); max |a-b| / "
             f"max |b| {err:.3g} (tol {SCATTER_TOL:g}); {ms:.4f} ms/launch, "
-            f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; {nbytes} "
-            f"bytes, bound {bound:.4f} ms (hbm bytes)")
+            f"device {dev['ms']:.4f} ms {dev['kernels']}, host "
+            f"{dev['host_ms']:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+            f"{lib_ms:.4f} ms (device {lib_dev['ms']:.4f} ms "
+            f"{lib_dev['kernels']}, host {lib_dev['host_ms']:.4f} ms); "
+            f"{nbytes} bytes, "
+            f"bound {bound:.4f} ms (hbm bytes)")
         if not err <= SCATTER_TOL:
             raise AssertionError(f"scatter_add_rows ({label}) disagrees: "
                                  f"{err}")
         k4_rec[label] = {"max_rel_err": err,
                          "max_abs_err": float((a - b).abs().max()),
-                         "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": bound,
+                         "ms": ms, "device_ms": dev["ms"],
+                         "device_kernels": dev["kernels"],
+                         "host_ms": dev["host_ms"],
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_device_ms": lib_dev["ms"],
+                         "library_device_kernels": lib_dev["kernels"],
+                         "library_host_ms": lib_dev["host_ms"],
+                         "bound_ms": bound,
                          "shape": [int(idx.numel()), int(rows.shape[1]),
                                    int(n_out)]}
     main4 = k4_rec["blend reduction"]
@@ -1004,7 +1047,8 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
           "launches": launches["scatter_add_rows"],
           "max_abs_err": max(v["max_abs_err"] for v in k4_rec.values()),
           "max_rel_err": max(v["max_rel_err"] for v in k4_rec.values()),
-          "ms": main4["ms"], "plain_ms": main4["plain_ms"],
+          "ms": main4["ms"], "device_ms": main4["device_ms"],
+          "host_ms": main4["host_ms"], "plain_ms": main4["plain_ms"],
           "bound_ms": main4["bound_ms"], "bound_by": "bytes",
           "library_ms": main4["library_ms"], "cases": k4_rec, "ok": True}
 
@@ -1045,12 +1089,42 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         return buf
 
     lib5 = time_call(library)
+    dev5 = device_ms(lambda: scatter.scatter_set_scalars(idx, val,
+                                                         n_out=n_out))
+    lib_dev5 = device_ms(library)
+    # the pieces of a call's host path: the launch function alone (fill
+    # and scatter into a made buffer), the two ways to name the stream,
+    # the two allocations
+    from fourdgs_tpu_torch.ops._build import load_library
+    lib, out = load_library(), idx.new_empty(n_out)
+    stream = torch._C._cuda_getCurrentRawStream(idx.get_device())
+    pieces = {
+        "launch function": lambda: lib.scatter_set_scalars_launch(
+            idx.data_ptr(), val.data_ptr(), idx.numel(), n_out,
+            out.data_ptr(), stream),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "_cuda_getCurrentRawStream":
+            lambda: torch._C._cuda_getCurrentRawStream(idx.get_device()),
+        "torch.empty": lambda: torch.empty((n_out,), dtype=torch.int32,
+                                           device=idx.device),
+        "new_empty": lambda: idx.new_empty(n_out),
+        "torch.full": lambda: torch.full((n_out + 1,), -1,
+                                         dtype=torch.int32,
+                                         device=idx.device)}
+    host5 = {k: host_ms(f) for k, f in pieces.items()}
+    log("host ms a call of the pieces of K5's path: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in host5.items()))
     nbytes5 = 8 * idx.numel() + 4 * n_out
     bound5 = nbytes5 / HBM_BYTES_S * 1e3
     log(f"kernel scatter_set_scalars (binner): {idx.numel()} pairs -> "
         f"{n_out} slots, {int((idx >= n_out).sum())} past tile_cap; equal "
-        f"{equal}; {ms5:.4f} ms/launch, plain {plain5:.4f} ms, indexed "
-        f"assignment {lib5:.4f} ms; {nbytes5} bytes, bound {bound5:.4f} ms "
+        f"{equal}; {ms5:.4f} ms/launch, device {dev5['ms']:.4f} ms "
+        f"{dev5['kernels']}, host {dev5['host_ms']:.4f} ms, plain "
+        f"{plain5:.4f} ms, indexed assignment {lib5:.4f} ms (device "
+        f"{lib_dev5['ms']:.4f} ms {lib_dev5['kernels']}, host "
+        f"{lib_dev5['host_ms']:.4f} ms); {nbytes5} bytes, bound "
+        f"{bound5:.4f} ms "
         f"(hbm bytes)")
     if not equal:
         raise AssertionError("scatter_set_scalars disagrees with plain")
@@ -1060,8 +1134,14 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
           "tpu_kernel":
               "fourdgs_tpu/ops/pallas/scatter.py:scatter_set_scalars",
           "launches": launches["scatter_set_scalars"], "max_abs_err": 0.0,
-          "ms": ms5, "plain_ms": plain5, "bound_ms": bound5,
-          "bound_by": "bytes", "library_ms": lib5, "ok": True}
+          "ms": ms5, "device_ms": dev5["ms"],
+          "device_kernels": dev5["kernels"], "host_ms": dev5["host_ms"],
+          "plain_ms": plain5,
+          "bound_ms": bound5, "bound_by": "bytes", "library_ms": lib5,
+          "library_device_ms": lib_dev5["ms"],
+          "library_device_kernels": lib_dev5["kernels"],
+          "library_host_ms": lib_dev5["host_ms"], "host_pieces_ms": host5,
+          "ok": True}
 
     # ---- one step's gradients, K3 + K4 against K2 ----
     kw = dict(stage="fine", raster_cfg=rc, lambda_dssim=0.0,

@@ -151,8 +151,12 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:
     """The kernels' library, built on first use. Raises when CUDA is not
-    available: there is nothing to fall back to here."""
+    available: there is nothing to fall back to here. Once loaded, the
+    library is returned before anything else is asked: the scatter
+    wrappers call this on every launch."""
     global _lib
+    if _lib is not None:
+        return _lib
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; the plain "
                            "versions run only for CPU tensors")

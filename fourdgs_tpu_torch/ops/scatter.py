@@ -9,6 +9,12 @@ CPU; `scatter_set_scalars` does the same with K5 and
 that a kernel cannot take raises. `.launches` on each wrapper counts kernel
 launches.
 
+K4 sums each run of consecutive rows with one index before its atomics,
+and adds up to four floats per atomic; K5 moves four elements per 16-byte
+load. Each launch function fills its output on the stream itself, so a
+wrapper allocates with `new_empty` and makes one ctypes call (`_launch`);
+the library, once loaded, comes back without a CUDA query.
+
 They run behind the JAX package's switches, read at call time:
   * K4 reduces the per-slot blend backward (K3) per gaussian under
     FOURDGS_PALLAS_GRAD_SCATTER (ops/blend.py), and is the HexPlane gather
@@ -20,10 +26,23 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops._build import check_launch, load_library
 
-def _check_cuda(x):
-    if x.device.type != "cuda":
-        raise ValueError(f"no scatter kernel for device {x.device}")
+
+def _launch(lib, fn, x, *args) -> None:
+    """Call launch function fn of lib with args and the handle of PyTorch's
+    current stream on x's card, and raise if it failed. The host path is
+    kept short, since these kernels take a few microseconds each: the raw
+    stream handle (`torch._C._cuda_getCurrentRawStream`, not the Stream
+    object that `torch.cuda.current_stream()` builds on every call), and
+    the device's context only when x is off the current device."""
+    d = x.get_device()
+    if d == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    else:
+        with torch.cuda.device(d):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    check_launch(lib, fn.__name__, err)
 
 
 def _check_rows(idx, rows, n_out):
@@ -45,19 +64,16 @@ def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, *,
     launch K4 (atomics: the float order changes from run to run); CPU
     tensors run the plain version."""
     _check_rows(idx, rows, n_out)
-    if rows.device.type == "cpu":
-        return scatter_add_rows_plain(idx, rows, n_out=n_out)
-    _check_cuda(rows)
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
+    if not rows.is_cuda:
+        if rows.device.type == "cpu":
+            return scatter_add_rows_plain(idx, rows, n_out=n_out)
+        raise ValueError(f"no scatter kernel for device {rows.device}")
     lib = load_library()
     idx, rows = idx.contiguous(), rows.contiguous()
     m, w = rows.shape
-    with torch.cuda.device(rows.device):
-        out = torch.zeros((n_out, w), dtype=torch.float32, device=rows.device)
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.scatter_add_rows_launch(idx.data_ptr(), rows.data_ptr(), m,
-                                          w, n_out, out.data_ptr(), stream)
-    check_launch(lib, "scatter_add_rows", err)
+    out = rows.new_empty((n_out, w))    # zero-filled by the launch
+    _launch(lib, lib.scatter_add_rows_launch, rows, idx.data_ptr(),
+            rows.data_ptr(), m, w, n_out, out.data_ptr())
     scatter_add_rows.launches += 1
     return out
 
@@ -91,20 +107,15 @@ def scatter_set_scalars(idx: torch.Tensor, val: torch.Tensor, *,
     is dropped. CUDA tensors launch K5; CPU tensors run the plain
     version."""
     _check_scalars(idx, val, n_out)
-    if idx.device.type == "cpu":
-        return scatter_set_scalars_plain(idx, val, n_out=n_out)
-    _check_cuda(idx)
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
+    if not idx.is_cuda:
+        if idx.device.type == "cpu":
+            return scatter_set_scalars_plain(idx, val, n_out=n_out)
+        raise ValueError(f"no scatter kernel for device {idx.device}")
     lib = load_library()
     idx, val = idx.contiguous(), val.contiguous()
-    with torch.cuda.device(idx.device):
-        out = torch.full((n_out,), -1, dtype=torch.int32,
-                         device=idx.device)
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = lib.scatter_set_scalars_launch(idx.data_ptr(), val.data_ptr(),
-                                             idx.shape[0], n_out,
-                                             out.data_ptr(), stream)
-    check_launch(lib, "scatter_set_scalars", err)
+    out = idx.new_empty(n_out)          # filled with -1 by the launch
+    _launch(lib, lib.scatter_set_scalars_launch, idx, idx.data_ptr(),
+            val.data_ptr(), idx.shape[0], n_out, out.data_ptr())
     scatter_set_scalars.launches += 1
     return out
 

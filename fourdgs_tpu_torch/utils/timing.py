@@ -110,7 +110,8 @@ def kernel_times(fn, n: int = 5) -> dict:
     out: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            m = re.search(r"(\w+)\s*[<(]", e.name)
+            bare = re.sub(r"^void\s+|\(anonymous namespace\)::", "", e.name)
+            m = re.search(r"(\w+)\s*[<(]", bare)
             name = m.group(1) if m else e.name
             out[name] = (out.get(name, 0.0)
                          + e.time_range.elapsed_us() / 1e3 / n)

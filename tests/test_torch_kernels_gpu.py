@@ -450,6 +450,137 @@ def test_binner_switch_runs_k5(cuda, monkeypatch):
     assert torch.equal(got.gidx, ref.gidx)
 
 
+def _runs_idx(pattern, m, n_out, rng):
+    """K4's run-heavy patterns: each tile of 768 slots a random head and a
+    -1 tail sent to the sacrificial row (the blend reduction); a random
+    head and a constant tail of a third of the rows (the buffer's dead
+    slots in one HexPlane cell); sorted runs of random length."""
+    if pattern == "tile tail":
+        idx = np.full(m, n_out - 1)
+        for start in range(0, m, 768):
+            used = min(int(rng.integers(0, 400)), m - start)
+            idx[start:start + used] = rng.integers(0, n_out - 1, used)
+        return idx
+    if pattern == "dead tail":
+        idx = rng.integers(0, n_out, m)
+        idx[2 * m // 3:] = int(rng.integers(0, n_out))
+        return idx
+    assert pattern == "sorted runs"
+    return np.sort(rng.integers(0, n_out, m))
+
+
+def _dyadic_rows(rng, m, w):
+    """Rows of multiples of 1/8 up to 8 in magnitude: every partial sum is
+    exact in float32, so any order of the atomics gives the same table."""
+    return torch.from_numpy((rng.integers(-64, 65, (m, w)) / 8.0)
+                            .astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["tile tail", "dead tail", "sorted runs"])
+@pytest.mark.parametrize("w", [1, 3, 10, 16, 32, 128])
+def test_scatter_add_rows_kernel_on_runs(cuda, w, pattern):
+    """Runs of one index that cross warps and blocks, at every vector
+    width (4, 2 and 1 floats an atomic): exact with dyadic rows, and
+    within max |a - b| / max |b| 1e-5 with normal ones."""
+    rng = np.random.default_rng(w)
+    m, n_out = (60_000 if w <= 32 else 12_000), 997
+    idx = torch.from_numpy(_runs_idx(pattern, m, n_out, rng).astype(np.int32))
+    rows = _dyadic_rows(rng, m, w)
+    rows[::11] = 0.0
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(idx.to(cuda), rows.to(cuda), n_out=n_out)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.launches == before + 1
+    assert torch.equal(got.cpu(), scatter_add_rows_plain(idx, rows,
+                                                         n_out=n_out))
+    rows = torch.from_numpy(rng.normal(size=(m, w)).astype(np.float32))
+    got = scatter_add_rows(idx.to(cuda), rows.to(cuda), n_out=n_out).cpu()
+    ref = scatter_add_rows_plain(idx, rows, n_out=n_out)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,offset", [(16, 1), (16, 2), (10, 1), (32, 3)])
+def test_scatter_add_rows_kernel_misaligned_rows(cuda, w, offset):
+    """A row view whose base is 4 or 8 bytes past a 16-byte boundary takes
+    the narrower vectors: exact with dyadic rows."""
+    rng = np.random.default_rng(offset)
+    m, n_out = 20_000, 300
+    idx = torch.from_numpy(_runs_idx("tile tail", m, n_out, rng)
+                           .astype(np.int32))
+    flat = _dyadic_rows(rng, 1, m * w + offset).reshape(-1)
+    rows = flat.to(cuda)[offset:].view(m, w)
+    assert rows.data_ptr() % 16 != 0
+    got = scatter_add_rows(idx.to(cuda), rows, n_out=n_out)
+    ref = scatter_add_rows_plain(idx, flat[offset:].view(m, w), n_out=n_out)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+def test_scatter_add_rows_kernel_edges(cuda):
+    """m = 0 gives a zero table; n_out = 1 sends every row, below 0 and
+    past the end included, to row 0."""
+    got = scatter_add_rows(torch.zeros(0, dtype=torch.int32, device=cuda),
+                           torch.zeros((0, 10), device=cuda), n_out=7)
+    assert torch.equal(got.cpu(), torch.zeros(7, 10))
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(-5, 5, 5000).astype(np.int32))
+    rows = _dyadic_rows(rng, 5000, 12)
+    got = scatter_add_rows(idx.to(cuda), rows.to(cuda), n_out=1)
+    assert torch.equal(got.cpu(), rows.sum(0, keepdim=True))
+
+
+@pytest.mark.gpu
+def test_scatter_add_rows_kernel_nan_stays_in_its_row(cuda):
+    """A NaN only in rows sent to the sacrificial row: that row's columns
+    are NaN where the plain version's are, every other row within 1e-5."""
+    rng = np.random.default_rng(3)
+    m, w, n_out = 30_000, 10, 500
+    idx = torch.from_numpy(_runs_idx("tile tail", m, n_out, rng)
+                           .astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(m, w)).astype(np.float32))
+    last = torch.nonzero(idx == n_out - 1).reshape(-1)
+    rows[last[::97], 3] = float("nan")
+    got = scatter_add_rows(idx.to(cuda), rows.to(cuda), n_out=n_out).cpu()
+    ref = scatter_add_rows_plain(idx, rows, n_out=n_out)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert bool(got[-1, 3].isnan()) and int(got.isnan().sum()) == 1
+    err = float((got[:-1] - ref[:-1]).abs().max()) / float(
+        ref[:-1].abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odd m", "both offset 1", "offsets 1 and 2",
+                                  "empty", "all dropped"])
+def test_scatter_set_scalars_kernel_edges(cuda, case):
+    """A length no multiple of four, views whose bases share or do not
+    share their offset within 16 bytes, m = 0 and every index dropped:
+    equal to the plain version."""
+    rng = np.random.default_rng(len(case))
+    n_out = 50_000
+    m = {"odd m": 30_003, "empty": 0}.get(case, 30_001)
+    hi = 2 * n_out if case == "all dropped" else n_out + 9_000
+    lo = n_out if case == "all dropped" else 0
+    idx = lo + rng.permutation(hi - lo)[:m]
+    if case == "all dropped":
+        idx[::2] = -1 - idx[::2]
+    off_i, off_v = {"both offset 1": (1, 1),
+                    "offsets 1 and 2": (1, 2)}.get(case, (0, 0))
+    idx = torch.from_numpy(np.concatenate([np.zeros(off_i), idx])
+                           .astype(np.int32))
+    val = torch.from_numpy(rng.integers(0, 10 ** 6, m + off_v)
+                           .astype(np.int32))
+    i_dev, v_dev = idx.to(cuda)[off_i:], val.to(cuda)[off_v:]
+    got = scatter_set_scalars(i_dev, v_dev, n_out=n_out).cpu()
+    ref = scatter_set_scalars_plain(idx[off_i:], val[off_v:], n_out=n_out)
+    assert torch.equal(got, ref)
+    if case in ("empty", "all dropped"):
+        assert bool((got == -1).all())
+
+
 # ---------------------------------------------------------------------------
 # D1-D6: the kernels of the dev tools (fourdgs_tpu_torch/tools), which port
 # the Pallas prototypes of scripts/. D1, D2, D4a and D4b are exact; D6 sums

@@ -70,6 +70,78 @@ def test_scatter_add_rows_plain_matches_pallas(m, w, n_out, lo, hi):
                                                      n_out=n_out).numpy())
 
 
+def _run_heavy_idx(pattern, m, n_out, rng):
+    """Index patterns with long runs of one destination, as K4's callers
+    send them: sorted runs of random length; per-slot tiles whose empty
+    tail goes to the sacrificial row n_out - 1 (the blend reduction); a
+    random head and a constant tail (the gaussian buffer's dead slots, all
+    in one HexPlane cell); runs past the range, clamped to the last row."""
+    if pattern == "sorted runs":
+        return np.sort(rng.integers(0, n_out, m))
+    if pattern == "sacrificial tail":
+        tile = 96
+        idx = np.full(m, n_out - 1)
+        for start in range(0, m, tile):
+            used = min(int(rng.integers(0, tile // 2)), m - start)
+            idx[start:start + used] = rng.integers(0, n_out - 1, used)
+        return idx
+    if pattern == "constant tail":
+        idx = rng.integers(0, n_out, m)
+        idx[m // 3:] = int(rng.integers(0, n_out))
+        return idx
+    assert pattern == "clamped runs"
+    return np.repeat(rng.integers(-4, n_out + 4, m // 16 + 1), 16)[:m]
+
+
+@pytest.mark.parametrize("pattern", ["sorted runs", "sacrificial tail",
+                                     "constant tail", "clamped runs"])
+@pytest.mark.parametrize("w", [10, 32])
+def test_scatter_add_rows_plain_matches_pallas_on_runs(pattern, w):
+    """Run-heavy indices (the hot rows the CUDA kernel sums per run before
+    its atomics): the plain version keeps the JAX kernel's sums, the
+    sacrificial row's included, at the JAX test's rtol 1e-6."""
+    rng = np.random.default_rng(len(pattern) + w)
+    m, n_out = 384, 29
+    idx = _run_heavy_idx(pattern, m, n_out, rng).astype(np.int32)
+    rows = rng.standard_normal((m, w)).astype(np.float32)
+    want = np.asarray(jscatter.scatter_add_rows(
+        jnp.asarray(idx), jnp.asarray(rows), n_out=n_out, blk=32, unroll=4))
+    got = tscatter.scatter_add_rows(_t(idx), _t(rows), n_out=n_out).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    clamped = np.clip(idx, 0, n_out - 1)
+    np.testing.assert_allclose(got[-1], rows[clamped == n_out - 1].sum(0,
+                               dtype=np.float64), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pattern", ["binner tiles", "all dropped", "odd m"])
+def test_scatter_set_scalars_plain_matches_pallas_on_patterns(pattern):
+    """The binner's layout (destinations rising within each tile, the pairs
+    past tile_cap sent to n_out), every index dropped, and a length no
+    multiple of four: equal to the JAX kernel, -1 where nothing was
+    written."""
+    rng = np.random.default_rng(len(pattern))
+    n_tiles, cap = 12, 16
+    n_out = n_tiles * cap
+    if pattern == "binner tiles":
+        counts = rng.integers(0, 2 * cap, n_tiles)
+        idx = np.concatenate([np.where(np.arange(c) < cap,
+                                       t * cap + np.arange(c), n_out)
+                              for t, c in enumerate(counts)])
+    elif pattern == "all dropped":
+        idx = rng.integers(n_out, 2 * n_out, 101)
+    else:
+        idx = rng.permutation(n_out + 40)[:n_out - 5]
+    idx = idx.astype(np.int32)
+    val = rng.integers(0, 10 ** 6, len(idx)).astype(np.int32)
+    want = np.asarray(jscatter.scatter_set_scalars(
+        jnp.minimum(jnp.asarray(idx), n_out), jnp.asarray(val), n_out=n_out,
+        blk=64, unroll=4))
+    got = tscatter.scatter_set_scalars(_t(idx), _t(val), n_out=n_out)
+    np.testing.assert_array_equal(got.numpy(), want)
+    written = idx[idx < n_out]
+    assert (got.numpy() == -1).sum() == n_out - len(written)
+
+
 @pytest.mark.parametrize("n_out,m", [(1000, 600), (300, 300)])
 def test_scatter_set_scalars_plain_matches_pallas(n_out, m):
     """Unique indices, some at or past n_out (the JAX caller clamps those
