@@ -70,6 +70,8 @@ from pathlib import Path
 
 import numpy as np
 
+from fourdgs_tpu_torch.tools.profile_blend_split import (BLEND_FP32_INSTR,
+                                                         blend_work)
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
                                             MUFU_OP_S, kernel_times,
                                             time_call, time_pair)
@@ -101,17 +103,6 @@ MEAN_ALPHA_FLOOR = 0.1
 SMALL = 160
 SMALL_TOL_MEAN, SMALL_TOL_MAX = 1e-5, 5e-3
 
-# FP32-pipe instructions of csrc/blend_fwd.cu's loop body per pixel x slot
-# evaluation, by how far the evaluation gets, as the sm_90a SASS
-# (`cuobjdump -sass` of the built library) has them (compares and fminf
-# counted as FP32 issues; expf without fast math is 5 FP32 instructions,
-# one MUFU.EX2 and a final multiply):
-#   every one: dx, dy (2), the three quadratic terms (6), power (3) and
-#     its test (1)
-#   power <= 0: expf (6), opacity x exp (1), fminf (1), the alpha test (1)
-#   used (alpha >= 1/255, entering T > 1e-4): T x cp and its test (2),
-#     the weight (1), four fused sums (4), 1 - alpha and cp (2)
-BLEND_FP32_INSTR = {"eval": 12, "exp": 9, "used": 9}
 # FP32-pipe instructions of csrc/blend_bwd.cu's loop body per pixel x slot
 # evaluation, as its sm_90a SASS has them: the replay up to the alpha test
 # is K1's (12 and 9); a used slot runs T x cp and its test (2), the
@@ -363,49 +354,6 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
 # phase 4: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def blend_work(torch, gidx, counts, table, cfg) -> dict:
-    """This input's pixel x slot evaluations, by how far each gets in the
-    kernels' loop bodies: all evaluated, past the power test (an expf),
-    and used; and the slots some pixel of a warp used (a warp reduction in
-    K2) and some pixel of a tile used (a flush of ten values in K2). A
-    pixel evaluates every slot of its tile's list (up to the count) while
-    its entering transmittance is above T_MIN. Walks the plain
-    recurrence."""
-    from fourdgs_tpu_torch.ops.blend import tile_pixel_coords
-    from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
-    k = cfg.chunk
-    px, py = tile_pixel_coords(cfg, table.device)
-    idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
-    t = torch.ones_like(px)
-    work = {"eval": 0, "exp": 0, "used": 0, "warp_slots": 0, "tile_slots": 0}
-    for j in range(-(-int(counts.max()) // k)):
-        rows = table[idx[:, j * k:(j + 1) * k]]
-        dx = rows[:, :, 0:1] - px[:, None, :]
-        dy = rows[:, :, 1:2] - py[:, None, :]
-        power = (-0.5 * (rows[:, :, 2:3] * dx * dx + rows[:, :, 4:5] * dy * dy)
-                 - rows[:, :, 3:4] * dx * dy)
-        alpha = torch.clamp(rows[:, :, 8:9] * torch.exp(
-            torch.clamp(power, max=0.0)), max=ALPHA_MAX)
-        g = torch.where((power <= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
-        cp = torch.cumprod(1.0 - g, dim=1)
-        t_pref = t[:, None, :] * torch.cat(
-            [torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
-        live = torch.arange(j * k, (j + 1) * k, device=table.device)[None, :] \
-            < counts[:, None]
-        ev = (t_pref > T_MIN) & live[:, :, None]
-        used = ev & (g > 0)
-        work["eval"] += int(ev.sum())
-        work["exp"] += int((ev & (power <= 0)).sum())
-        work["used"] += int(used.sum())
-        nt, kk, p = used.shape
-        work["warp_slots"] += int(used.reshape(nt, kk, p // 32, 32)
-                                  .any(-1).sum())
-        work["tile_slots"] += int(used.any(-1).sum())
-        use = (g > 0) & (t_pref > T_MIN)
-        t = t * torch.where(use, cp, torch.ones_like(cp)).amin(dim=1)
-    return work
-
-
 def phase_kernels(torch, renderer, cam):
     """K1 against its plain version on the inputs that the main path's
     frame at `cam` gives it: the renderer's objects and its caps after
@@ -438,10 +386,13 @@ def phase_kernels(torch, renderer, cam):
         if not v <= TOL[k]:
             raise AssertionError(f"blend_fwd disagrees with plain: {k} {v}")
 
+    def kernel():
+        return blend.blend_forward(gidx, counts, table, rc)
+
     ms, plain_ms = time_pair(
-        lambda: blend.blend_forward(gidx, counts, table, rc),
-        lambda: blend.blend_forward_plain(gidx, counts, table, rc))
-    work = blend_work(torch, gidx, counts, table, rc)
+        kernel, lambda: blend.blend_forward_plain(gidx, counts, table, rc))
+    dev = device_ms(kernel)
+    work = blend_work(gidx, counts, table, rc)
     instr = sum(BLEND_FP32_INSTR[k] * work[k] for k in BLEND_FP32_INSTR)
     n_rows = int(torch.unique(gidx[gidx >= 0]).numel())
     nbytes = (4 * rc.num_tiles + 4 * int(counts.sum()) + 48 * n_rows
@@ -450,11 +401,19 @@ def phase_kernels(torch, renderer, cam):
               "fp32 issue": instr / FP32_ISSUE_S,
               "mufu (expf)": work["exp"] / MUFU_OP_S}
     resource = max(bounds, key=bounds.get)
-    log(f"blend_fwd: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms; "
-        f"pixel x slot evaluations {work}, {instr} FP32 instructions, "
-        f"{nbytes} bytes; bounds " +
+    where = {k: work.pop(k) for k in ("occupancy", "heaviest_tile",
+                                      "heaviest_sub_tile", "warp_issued")}
+    log(f"blend_fwd: {ms:.4f} ms/launch, device {dev['ms']:.4f} ms "
+        f"{dev['kernels']}, host {dev['host_ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; pixel x slot evaluations {work}, {instr} FP32 "
+        f"instructions, {nbytes} bytes; bounds " +
         ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in bounds.items()) +
         f"; bound by {resource}")
+    log(f"blend_fwd: occupancy {where['occupancy']}; heaviest tile "
+        f"{where['heaviest_tile']}; heaviest sub-tile "
+        f"{where['heaviest_sub_tile']}; warp-issued evaluations "
+        f"{where['warp_issued']} against {work['lanes_walked']} walked and "
+        f"{work['eval']} needed")
     return {
         "name": "blend_fwd",
         "route": "cuda",
@@ -465,12 +424,16 @@ def phase_kernels(torch, renderer, cam):
         "max_abs_err_depth": err["depth"],
         "max_abs_err_t": err["t"],
         "ms": ms,
+        "device_ms": dev["ms"],
+        "device_kernels": dev["kernels"],
+        "host_ms": dev["host_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bounds[resource] * 1e3,
         "bound_by": "bytes" if resource == "hbm bytes" else "operations",
         "bound_resource": resource,
         "library_ms": None,        # no single PyTorch call blends
         "evaluations": work,
+        **where,
         "ok": True,
     }
 
@@ -654,7 +617,7 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
     ms, plain_ms = time_pair(lambda: blend.blend_backward(*args),
                              lambda: blend.blend_backward_plain(*args),
                              launches=20)
-    work = blend_work(torch, gidx, counts, table, rc)
+    work = blend_work(gidx, counts, table, rc)
     instr = (sum(BLEND_BWD_FP32_INSTR[k] * work[k]
                  for k in BLEND_BWD_FP32_INSTR) + 10 * work["used"])
     mufu = work["exp"] + 2 * work["used"]
@@ -1317,7 +1280,7 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
     if not all(v <= TOL[k] for k, v in err.items()):
         raise AssertionError(f"blend_fwd (tile 16) disagrees: {err}")
     cfg = i["cfg"]
-    work = blend_work(torch, *args)
+    work = blend_work(*args)
     n_rows = int(torch.unique(i["gidx"][i["gidx"] >= 0]).numel())
     nbytes = (4 * cfg.num_tiles + 4 * int(i["counts"].sum()) + 48 * n_rows
               + 5 * 4 * cfg.num_tiles * cfg.pixels_per_tile)

@@ -21,6 +21,10 @@ pack_attr_table), and that line has no exact counterpart here. The tool
 prints the pack, K1 alone, the two together, and K1's plain version. On
 the CPU only the plain version runs, and its times are host times. `main`
 returns the numbers and K1's inputs.
+
+`blend_work` counts where K1's time can go on any input (chip_smoke.py
+prices K1's bound with it, and reads the tiles' occupancy, the heaviest
+tile and the warp-issued evaluations off it).
 """
 from __future__ import annotations
 
@@ -31,12 +35,143 @@ import torch
 
 from fourdgs_tpu_torch.data.camera import look_at_camera
 from fourdgs_tpu_torch.ops.blend import (blend_forward, blend_forward_plain,
-                                         pack_attr_table)
+                                         pack_attr_table, tile_pixel_coords)
 from fourdgs_tpu_torch.ops.projection import project_gaussians
+from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
 from fourdgs_tpu_torch.ops.rasterize_tiled import (RasterConfig,
                                                    bin_gaussians_count)
 from fourdgs_tpu_torch.utils.device import resolve_device
-from fourdgs_tpu_torch.utils.timing import clock, time_call, time_pair
+from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_SM_S, clock,
+                                            time_call, time_pair)
+
+# FP32-pipe instructions of K1's loop body (csrc/blend_fwd.cu) per pixel x
+# slot evaluation, by how far the evaluation gets, as the sm_90a SASS
+# (`cuobjdump -sass` of the built library) has them (compares and fminf
+# counted as FP32 issues; expf without fast math is 5 FP32 instructions,
+# one MUFU.EX2 and a final multiply):
+#   every one: dx, dy (2), the three quadratic terms (6), power (3) and
+#     its test (1)
+#   power <= 0: expf (6), opacity x exp (1), fminf (1), the alpha test (1)
+#   used (alpha >= 1/255, entering T > 1e-4): T x cp and its test (2),
+#     the weight (1), four fused sums (4), 1 - alpha and cp (2)
+BLEND_FP32_INSTR = {"eval": 12, "exp": 9, "used": 9}
+# K1's thread layout (csrc/blend_fwd.cu): a block of 256 threads covers a
+# 16 x 16 sub-tile, its warps 8 x 4 patches, two across and four down, each
+# lane one pixel, row-major in its patch. The design before it ran a block
+# per tile and a warp per 32 consecutive pixels of the tile ("row").
+SUB, PATCH_W, PATCH_H = 16, 8, 4
+WARP_SHAPES = ("row", "patch")
+
+
+def warp_pixels(tile_size: int, shape: str) -> torch.Tensor:
+    """(P / 32, 32) tile-local pixel numbers p = y * tile_size + x of each
+    warp's lanes: 32 consecutive pixels ("row", a 32 x 1 row at tile 32),
+    or K1's 8 x 4 patches in its sub-tile order ("patch"), so that the
+    rows [8 b, 8 b + 8) are the warps of sub-tile b."""
+    p = tile_size * tile_size
+    if shape == "row":
+        return torch.arange(p).reshape(-1, 32)
+    subs = tile_size // SUB
+    lane = torch.arange(p)
+    b, w, i = lane // (SUB * SUB), lane // 32 % (SUB * SUB // 32), lane % 32
+    x = (b % subs) * SUB + (w % (SUB // PATCH_W)) * PATCH_W + i % PATCH_W
+    y = (b // subs) * SUB + (w // (SUB // PATCH_W)) * PATCH_H + i // PATCH_W
+    return (y * tile_size + x).reshape(-1, 32)
+
+
+def blend_work(gidx, counts, table, cfg) -> dict:
+    """Where K1's time can go on this input, by walking the plain
+    recurrence (ops/blend.py:_chunk_math) chunk by chunk:
+
+    eval, exp, used: pixel x slot evaluations by how far each gets in the
+      kernels' loop bodies (all evaluated, past the power test, used); a
+      pixel evaluates every slot of its tile's list up to the count while
+      its entering transmittance is above T_MIN. They price the bound.
+    warp_slots, tile_slots: the slots some pixel of a warp of 32
+      consecutive pixels used (a warp reduction in K2) and some pixel of a
+      tile used (a flush in K2).
+    lanes_walked: the slots each pixel's thread walks in SIMT: from the
+      chunk's first slot until it ends or a gated slot finds the entering
+      transmittance at or below T_MIN, if the pixel was live (T > T_MIN) as
+      the chunk began.
+    warp_issued: per warp shape (`warp_pixels`), 32 x the slots each warp
+      with a live lane walks (the most any of its lanes walks), summed over
+      chunks: the evaluations a SIMT design issues.
+    block_chunks: the chunks that blocks walk, a block walking a chunk of
+      its tile's list while one of its pixels is live: a block per tile
+      ("tile"), or per 16 x 16 sub-tile ("sub_tile", K1's).
+    occupancy: the mean, p99 and max of counts.
+    heaviest_tile, heaviest_sub_tile: the tile (sub-tile) with the most FP32
+      instructions by BLEND_FP32_INSTR, its evaluations, and its one-SM
+      time, those instructions over one SM's FP32 issue rate (128 lanes at
+      1.98 GHz): the least time a design that keeps it on one SM takes."""
+    k = cfg.chunk
+    dev = table.device
+    px, py = tile_pixel_coords(cfg, dev)
+    nt, p = px.shape
+    idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
+    warps = {s: warp_pixels(cfg.tile_size, s).to(dev) for s in WARP_SHAPES}
+    subs = warps["patch"].reshape(-1, SUB * SUB)     # (sub-tiles, 256)
+    t = torch.ones_like(px)
+    pix = {key: torch.zeros((nt, p), dtype=torch.int64, device=dev)
+           for key in BLEND_FP32_INSTR}
+    work = {"warp_slots": 0, "tile_slots": 0, "lanes_walked": 0}
+    issued = dict.fromkeys(WARP_SHAPES, 0)
+    blocks = {"tile": 0, "sub_tile": 0}
+    for j in range(-(-int(counts.max()) // k)):
+        rows = table[idx[:, j * k:(j + 1) * k]]
+        dx = rows[:, :, 0:1] - px[:, None, :]
+        dy = rows[:, :, 1:2] - py[:, None, :]
+        power = (-0.5 * (rows[:, :, 2:3] * dx * dx + rows[:, :, 4:5] * dy * dy)
+                 - rows[:, :, 3:4] * dx * dy)
+        alpha = torch.clamp(rows[:, :, 8:9] * torch.exp(
+            torch.clamp(power, max=0.0)), max=ALPHA_MAX)
+        gated = (power <= 0) & (alpha >= ALPHA_MIN)
+        g = torch.where(gated, alpha, 0.0)
+        cp = torch.cumprod(1.0 - g, dim=1)
+        t_pref = t[:, None, :] * torch.cat(
+            [torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+        slot = torch.arange(j * k, (j + 1) * k, device=dev)[None, :] \
+            < counts[:, None]                             # (nt, K)
+        ev = (t_pref > T_MIN) & slot[:, :, None]
+        used = ev & gated
+        pix["eval"] += ev.sum(1)
+        pix["exp"] += (ev & (power <= 0)).sum(1)
+        pix["used"] += used.sum(1)
+        work["warp_slots"] += int(used.reshape(nt, k, p // 32, 32)
+                                  .any(-1).sum())
+        work["tile_slots"] += int(used.any(-1).sum())
+        # a lane stops at the first gated slot whose entering T is spent
+        stop = (gated & (t_pref <= T_MIN)).int()
+        walk = (slot[:, :, None] & (t > T_MIN)[:, None, :]
+                & (torch.cumsum(stop, dim=1) - stop == 0))
+        walked = walk.sum(1)                              # (nt, P)
+        work["lanes_walked"] += int(walked.sum())
+        for s, lanes in warps.items():
+            issued[s] += 32 * int(walked[:, lanes].amax(-1).sum())
+        live = (t > T_MIN) & slot[:, :1]                  # (nt, P)
+        blocks["tile"] += int(live.any(-1).sum())
+        blocks["sub_tile"] += int(live[:, subs].any(-1).sum())
+        use = gated & (t_pref > T_MIN)
+        t = t * torch.where(use, cp, torch.ones_like(cp)).amin(dim=1)
+    work.update({key: int(v.sum()) for key, v in pix.items()})
+    work.update(warp_issued=issued, block_chunks=blocks)
+    c = counts.double()
+    work["occupancy"] = {"mean": float(c.mean()),
+                         "p99": float(torch.quantile(c, 0.99)),
+                         "max": int(counts.max())}
+    fp32 = sum(w * pix[key] for key, w in BLEND_FP32_INSTR.items())
+    for name, groups in (("heaviest_tile", torch.arange(p, device=dev)[None]),
+                         ("heaviest_sub_tile", subs)):
+        per = fp32[:, groups].sum(-1).reshape(-1)         # tile-major
+        top = int(per.argmax())
+        tile, part = divmod(top, groups.shape[0])
+        work[name] = {"tile": tile, "part": part, "count": int(counts[tile]),
+                      **{key: int(v[tile, groups[part]].sum())
+                         for key, v in pix.items()},
+                      "fp32": int(per[top]),
+                      "one_sm_ms": float(per[top]) / FP32_ISSUE_SM_S * 1e3}
+    return work
 
 
 def synthetic_points(n_points: int, seed: int = 0):

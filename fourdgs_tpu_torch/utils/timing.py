@@ -19,7 +19,8 @@ import torch
 # FP32 instructions issued per clock per SM (a fused multiply-add is one)
 # and 16 SFU results (expf's MUFU.EX2), x 132 SMs x 1.98 GHz
 HBM_BYTES_S = 3.35e12
-FP32_ISSUE_S = 128 * 132 * 1.98e9
+FP32_ISSUE_SM_S = 128 * 1.98e9     # one SM
+FP32_ISSUE_S = FP32_ISSUE_SM_S * 132
 MUFU_OP_S = 16 * 132 * 1.98e9
 
 
