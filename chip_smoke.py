@@ -15,7 +15,11 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              CPU path on a small image;
   4. kernel: K1 (blend forward) against its plain PyTorch version, on the
              inputs that one of phase 3's frames gives it (the caps after
-             the cap probe), with CUDA-event times;
+             the cap probe), with CUDA-event, device and host-enqueue
+             times, and where its time can go
+             (tools/profile_blend_split.py:blend_work: the tiles'
+             occupancy, the heaviest tile's one-SM time, the evaluations
+             that warps of either shape issue);
   5. train:  a TrainState of the same scene (capacity 1<<17, the first
              100,000 slots alive) takes --steps fine train_steps at
              800x800 toward four targets that eval_step rendered before

@@ -107,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """ctypes signatures: every pointer and the stream as c_void_p, so that
     no 64-bit address is cut to 32 bits."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
+    lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i,
                                      vp, vp, vp, vp]
     lib.blend_fwd_launch.restype = i
     lib.blend_bwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
@@ -149,11 +149,27 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
                            f"{lib.cuda_error_string(err).decode()} ({err})")
 
 
+def _launch(lib: ctypes.CDLL, fn, x: torch.Tensor, *args) -> None:
+    """Call launch function fn of lib with args and the handle of PyTorch's
+    current stream on x's card, and raise if it failed. The host path is
+    kept short, since some kernels take a few microseconds: the raw stream
+    handle (`torch._C._cuda_getCurrentRawStream`, not the Stream object
+    that `torch.cuda.current_stream()` builds on every call), and the
+    device's context only when x is off the current device."""
+    d = x.get_device()
+    if d == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    else:
+        with torch.cuda.device(d):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    check_launch(lib, fn.__name__, err)
+
+
 def load_library(verbose: bool = False) -> ctypes.CDLL:
     """The kernels' library, built on first use. Raises when CUDA is not
     available: there is nothing to fall back to here. Once loaded, the
-    library is returned before anything else is asked: the scatter
-    wrappers call this on every launch."""
+    library is returned before anything else is asked: the wrappers call
+    this on every launch."""
     global _lib
     if _lib is not None:
         return _lib

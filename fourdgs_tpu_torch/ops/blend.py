@@ -34,12 +34,16 @@ import os
 import torch
 from torch.profiler import record_function
 
+from fourdgs_tpu_torch.ops._build import _launch, load_library
 from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
 
 ATTR_W = 16
 GRAD_W = 10        # [pix(2), conic(3), color(3), opacity, depth]
-_MAX_CHUNK = 1024  # K1's shared memory holds chunk * 48 bytes (<= 48 KB)
+# K1's shared memory: a ring of 2 x chunk x 48 bytes of rows (96 KB at
+# chunk 1024) and the staged slot list, at most _LIST_SLOTS ids (16 KB)
+_MAX_CHUNK = 1024
+_LIST_SLOTS = 4096
 _MAX_CHUNK_BWD = 512  # K2's holds chunk * (48 + 40) bytes (< 48 KB)
 _MAX_SMEM = 232_448   # the dynamic shared memory a block can take (K3)
 
@@ -127,22 +131,17 @@ def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
     if table.device.type == "cpu":
         return blend_forward_plain(gidx, counts, table, cfg)
     _check_kernel(table, cfg, _MAX_CHUNK)
-    from fourdgs_tpu_torch.ops._build import load_library
     lib = load_library()
-    nt, p, ts = cfg.num_tiles, cfg.pixels_per_tile, cfg.tile_size
-    with torch.cuda.device(table.device):
-        color = torch.empty((nt, p, 3), dtype=torch.float32,
-                            device=table.device)
-        depth = torch.empty((nt, p), dtype=torch.float32, device=table.device)
-        trans = torch.empty((nt, p), dtype=torch.float32, device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.blend_fwd_launch(
-            gidx.data_ptr(), counts.data_ptr(), table.data_ptr(),
-            table.shape[0] - 1, nt, cfg.tile_cap, cfg.grid_x, ts, cfg.chunk,
-            color.data_ptr(), depth.data_ptr(), trans.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
+    # the slots staged at a time: the whole list up to _LIST_SLOTS
+    list_len = min(cfg.tile_cap, max(_LIST_SLOTS // k, 1) * k)
+    color = table.new_empty((nt, p, 3))
+    depth = table.new_empty((nt, p))
+    trans = table.new_empty((nt, p))
+    _launch(lib, lib.blend_fwd_launch, table, gidx.data_ptr(),
+            counts.data_ptr(), table.data_ptr(), table.shape[0] - 1, nt,
+            cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
+            color.data_ptr(), depth.data_ptr(), trans.data_ptr())
     blend_forward.launches += 1
     return color, depth, trans
 

@@ -12,8 +12,9 @@ launches.
 K4 sums each run of consecutive rows with one index before its atomics,
 and adds up to four floats per atomic; K5 moves four elements per 16-byte
 load. Each launch function fills its output on the stream itself, so a
-wrapper allocates with `new_empty` and makes one ctypes call (`_launch`);
-the library, once loaded, comes back without a CUDA query.
+wrapper allocates with `new_empty` and makes one ctypes call
+(`_build._launch`); the library, once loaded, comes back without a CUDA
+query.
 
 They run behind the JAX package's switches, read at call time:
   * K4 reduces the per-slot blend backward (K3) per gaussian under
@@ -26,23 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from fourdgs_tpu_torch.ops._build import check_launch, load_library
-
-
-def _launch(lib, fn, x, *args) -> None:
-    """Call launch function fn of lib with args and the handle of PyTorch's
-    current stream on x's card, and raise if it failed. The host path is
-    kept short, since these kernels take a few microseconds each: the raw
-    stream handle (`torch._C._cuda_getCurrentRawStream`, not the Stream
-    object that `torch.cuda.current_stream()` builds on every call), and
-    the device's context only when x is off the current device."""
-    d = x.get_device()
-    if d == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
-    else:
-        with torch.cuda.device(d):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
-    check_launch(lib, fn.__name__, err)
+from fourdgs_tpu_torch.ops._build import _launch, load_library
 
 
 def _check_rows(idx, rows, n_out):

@@ -7,7 +7,11 @@ tests/test_pallas_blend.py runs it) and its XLA blend, on the same binned
 inputs, at tile sizes 16 and 32. Tolerances are those of
 tests/test_pallas_blend.py: color 1e-5, depth 1e-4, transmittance/alpha
 1e-5. tests/test_torch_kernels_gpu.py holds the CUDA kernel against the
-plain version on the card."""
+plain version on the card, on the same ragged scene.
+
+tools/profile_blend_split.py:blend_work, which counts where K1's time can
+go, is held to a loop over each pixel's walk through the plain
+recurrence."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +23,10 @@ from fourdgs_tpu.ops.projection import project_gaussians
 from fourdgs_tpu_torch.data import camera as tcam
 from fourdgs_tpu_torch.ops import blend as tblend
 from fourdgs_tpu_torch.ops import rasterize_tiled as trt
+from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MIN, T_MIN
+from fourdgs_tpu_torch.tools import profile_blend_split
 from tests.test_rasterize import FOV, H, W, random_scene, simple_camera
+from tests.test_torch_kernels_gpu import ragged_scene
 
 torch.set_num_threads(1)
 
@@ -36,6 +43,8 @@ def _scene(kind):
     if kind == "random":
         return tuple(np.asarray(x) for x in
                      random_scene(np.random.default_rng(11), n=96))
+    if kind == "ragged":
+        return tuple(ragged_scene(np.random.default_rng(5), W, H, FOV, FOV))
     # deep stack of near-opaque splats covering the image: every pixel
     # saturates after the first chunks (tests/test_pallas_blend.py:38)
     rng = np.random.default_rng(7)
@@ -88,7 +97,7 @@ def _assert_blend_close(port, ref):
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 @pytest.mark.parametrize("ts", [16, 32])
-@pytest.mark.parametrize("kind", ["random", "saturating"])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
 def test_blend_plain_matches_jax(kind, ts, backend):
     jcfg, tcfg = _cfgs(ts)
     proj, binned, opac, colors = _binned_inputs(kind, jcfg)
@@ -97,6 +106,12 @@ def test_blend_plain_matches_jax(kind, ts, backend):
     _assert_blend_close(port, ref)
     if kind == "saturating":
         assert float(port[2].max()) <= 1e-3   # every pixel saturated
+    elif kind == "ragged":
+        # tiles whose blobs saturate beside pixels that walk the whole list
+        t = port[2]
+        assert int(binned.counts.max()) > 2 * tcfg.chunk
+        assert int(binned.dropped_tile) == 0
+        assert bool(((t.amin(1) <= T_MIN) & (t.amax(1) > 0.5)).any())
     else:
         assert 0.0 < float(port[2].min()) < 0.5 < float(port[2].max())
 
@@ -158,3 +173,124 @@ def test_blend_rejects_bad_inputs():
     # an empty tile list blends to the background
     c, d, t = tblend.blend_forward(gidx, counts, table, tcfg)
     assert float(c.abs().max()) == 0 and float(t.min()) == 1.0
+
+
+def _walk_reference(gidx, counts, table, cfg):
+    """What blend_work counts, by a loop over each pixel's walk through
+    the plain recurrence's per-slot values (ops/blend.py:_chunk_math), as
+    K1's thread for the pixel walks it, with K1's layout written out: a
+    warp is 32 consecutive pixels ("row") or an 8 x 4 patch ("patch"), a
+    block a tile or a 16 x 16 sub-tile."""
+    k, ts = cfg.chunk, cfg.tile_size
+    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+    px, py = tblend.tile_pixel_coords(cfg, "cpu")
+    idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
+    xs, ys = np.arange(p) % ts, np.arange(p) // ts
+    group = {"row": np.arange(p) // 32,
+             "patch": (ys // 4) * (ts // 8) + xs // 8,
+             "sub": (ys // 16) * (ts // 16) + xs // 16}
+    pix = {key: np.zeros((nt, p), np.int64) for key in ("eval", "exp", "used")}
+    ref = {"warp_slots": 0, "tile_slots": 0, "lanes_walked": 0,
+           "warp_issued": {"row": 0, "patch": 0},
+           "block_chunks": {"tile": 0, "sub_tile": 0}}
+    cnt = counts.tolist()
+    t = torch.ones((nt, p))
+    for j in range(-(-max(cnt) // k)):
+        rows = table[idx[:, j * k:(j + 1) * k]]
+        dx, dy, _, alpha, _, t_pref, _, t_next = tblend._chunk_math(
+            rows, px, py, t)
+        power = (-0.5 * (rows[:, :, 2:3] * dx * dx + rows[:, :, 4:5] * dy * dy)
+                 - rows[:, :, 3:4] * dx * dy)
+        pw, al, tp, t0 = (x.tolist() for x in (power, alpha, t_pref, t))
+        for ti in range(nt):
+            nk = min(k, cnt[ti] - j * k)
+            walked = np.zeros(p, np.int64)
+            used = np.zeros((max(nk, 0), p), bool)
+            for pi in range(p):
+                if not t0[ti][pi] > T_MIN:
+                    continue
+                for s in range(nk):
+                    walked[pi] += 1
+                    gate = pw[ti][s][pi] <= 0 and al[ti][s][pi] >= ALPHA_MIN
+                    if tp[ti][s][pi] > T_MIN:
+                        pix["eval"][ti, pi] += 1
+                        pix["exp"][ti, pi] += pw[ti][s][pi] <= 0
+                        pix["used"][ti, pi] += gate
+                        used[s, pi] = gate
+                    elif gate:
+                        break
+            ref["warp_slots"] += int(used.reshape(-1, p // 32, 32)
+                                     .any(-1).sum())
+            ref["tile_slots"] += int(used.any(-1).sum())
+            ref["lanes_walked"] += int(walked.sum())
+            for shape in ("row", "patch"):
+                ref["warp_issued"][shape] += 32 * sum(
+                    int(walked[group[shape] == g].max())
+                    for g in np.unique(group[shape]))
+            ref["block_chunks"]["tile"] += int(walked.any())
+            ref["block_chunks"]["sub_tile"] += len(
+                np.unique(group["sub"][walked > 0]))
+        t = t_next
+    ref.update({key: int(v.sum()) for key, v in pix.items()})
+    c = counts.numpy()
+    ref["occupancy"] = {"mean": float(c.mean()),
+                        "p99": float(np.percentile(c, 99)),
+                        "max": int(c.max())}
+    fp32 = sum(w * pix[key]
+               for key, w in profile_blend_split.BLEND_FP32_INSTR.items())
+    for name, grp in (("heaviest_tile", np.zeros(p, np.int64)),
+                      ("heaviest_sub_tile", group["sub"])):
+        n_grp = int(grp.max()) + 1
+        per = np.stack([fp32[:, grp == g].sum(-1) for g in range(n_grp)], 1)
+        tile, part = divmod(int(per.argmax()), n_grp)
+        sel = grp == part
+        ref[name] = {"tile": tile, "part": part, "count": int(c[tile]),
+                     **{key: int(v[tile, sel].sum()) for key, v in pix.items()},
+                     "fp32": int(per.max()),
+                     "one_sm_ms": float(per.max()) / (128 * 1.98e9) * 1e3}
+    return ref
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
+def test_blend_work_matches_a_pixel_walk(kind, ts):
+    jcfg, tcfg = _cfgs(ts)
+    proj, binned, opac, colors = _binned_inputs(kind, jcfg)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    table = tblend.pack_attr_table(t(proj.pix), t(proj.conic), t(colors),
+                                   t(opac), t(proj.depth))
+    gidx, counts = t(binned.gidx), t(binned.counts)
+    work = profile_blend_split.blend_work(gidx, counts, table, tcfg)
+    ref = _walk_reference(gidx, counts, table, tcfg)
+    for key in ("heaviest_tile", "heaviest_sub_tile"):
+        assert work[key].pop("one_sm_ms") == pytest.approx(
+            ref[key].pop("one_sm_ms"), rel=1e-12)
+    assert work == ref
+    # the walk passes the needed evaluations, and a SIMT warp issues more
+    for shape in ("row", "patch"):
+        assert work["warp_issued"][shape] >= work["lanes_walked"] >= \
+            work["eval"] > 0
+    if kind == "ragged" and ts == 32:   # a sub-tile stops before its tile
+        assert work["block_chunks"]["sub_tile"] < \
+            work["block_chunks"]["tile"] * (ts // 16) ** 2
+
+
+def test_warp_pixels_are_k1_layout():
+    """Each warp covers 32 distinct pixels; an 8 x 4 patch in its 16 x 16
+    sub-tile, sub-tiles in row-major order of the tile."""
+    for ts in (16, 32):
+        p = ts * ts
+        for shape in profile_blend_split.WARP_SHAPES:
+            lanes = profile_blend_split.warp_pixels(ts, shape)
+            assert lanes.shape == (p // 32, 32)
+            assert torch.equal(lanes.reshape(-1).sort().values,
+                               torch.arange(p))
+        lanes = profile_blend_split.warp_pixels(ts, "patch")
+        x, y = lanes % ts, lanes // ts
+        assert bool(((x.amax(1) - x.amin(1)) == 7).all())
+        assert bool(((y.amax(1) - y.amin(1)) == 3).all())
+        sub = (y // 16) * (ts // 16) + x // 16
+        assert torch.equal(sub, torch.arange(p // 32)[:, None].expand(-1, 32)
+                           // 8)

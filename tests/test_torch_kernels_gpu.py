@@ -53,8 +53,49 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def ragged_scene(rng, width, height, fovx, fovy, n_faint=18):
+    """A dense centre and faint edges. In front, six near-opaque splats 24
+    pixels wide at pixel (8, 8) saturate a disc of some 15 pixels around
+    it, the image's first 16 x 16 block whole; behind them, three
+    near-opaque splats of one random width (1.5 to 4 pixels) at the centre
+    of each 16 x 16 block; behind those, `n_faint` wide faint splats spread
+    over the image (opacity 0.0042 to 0.005, so that only a disc of 0.4 to
+    0.7 sigma around each centre passes alpha 1/255). The saturated pixels
+    stop within the first chunk; the pixels between the blobs see only the
+    faint splats and walk their tile's whole list. Returns (means, scales,
+    quats, opacities, colors) as float32 arrays for a camera at the origin
+    looking down +z."""
+    tx, ty = np.tan(fovx / 2), np.tan(fovy / 2)
+    cx, cy = np.meshgrid(np.arange(8.0, width, 16), np.arange(8.0, height, 16))
+    cx = np.concatenate([np.full(6, 8.0), np.repeat(cx.ravel(), 3)])
+    cy = np.concatenate([np.full(6, 8.0), np.repeat(cy.ravel(), 3)])
+    m = cx.size
+    z = np.concatenate([np.linspace(1.9, 1.95, 6),
+                        np.tile([2.0, 2.05, 2.1], (m - 6) // 3),
+                        rng.uniform(3.0, 6.0, n_faint)])
+    u = np.concatenate([(cx + rng.uniform(-0.5, 0.5, m) + 0.5) * 2 / width - 1,
+                        rng.uniform(-1.0, 1.0, n_faint)])
+    v = np.concatenate([(cy + rng.uniform(-0.5, 0.5, m) + 0.5) * 2 / height - 1,
+                        rng.uniform(-1.0, 1.0, n_faint)])
+    means = np.stack([u * z * tx, v * z * ty, z], -1)
+    # pixel sigma: 24 for the front six, the blob's width, 0.6 of the
+    # image's for a faint splat
+    sigma = np.concatenate([np.full(6, 24.0),
+                            np.repeat(rng.uniform(1.5, 4.0, (m - 6) // 3), 3),
+                            np.full(n_faint, 0.6 * width)])
+    scales = np.repeat((sigma * z * 2 * tx / width)[:, None], 3, 1)
+    quats = np.tile(np.array([1.0, 0.0, 0.0, 0.0]), (m + n_faint, 1))
+    opac = np.concatenate([rng.uniform(0.95, 0.99, m),
+                           rng.uniform(0.0042, 0.005, n_faint)])
+    colors = rng.uniform(0.0, 1.0, (m + n_faint, 3))
+    return [np.asarray(x, np.float32)
+            for x in (means, scales, quats, opac, colors)]
+
+
 def _scene(kind, n, seed):
     rng = np.random.default_rng(seed)
+    if kind == "ragged":
+        return ragged_scene(rng, W, H, 1.0, 0.85)
     if kind == "random":
         means = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.2, 1.2, n),
                           rng.uniform(2.0, 6.0, n)], -1)
@@ -91,7 +132,7 @@ def _assert_close(out, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ts", [16, 32])
-@pytest.mark.parametrize("kind", ["random", "saturating"])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
 def test_blend_kernel_matches_plain(cuda, kind, ts):
     binned, table, cfg = _inputs(cuda, kind, ts)
     assert int(binned.counts.max()) > cfg.chunk     # several chunks
@@ -103,6 +144,9 @@ def test_blend_kernel_matches_plain(cuda, kind, ts):
                                                  table, cfg))
     if kind == "saturating":
         assert float(out[2].max()) <= 1e-3
+    if kind == "ragged":   # tiles that hold both saturated and live pixels
+        t = out[2]
+        assert bool(((t.amin(1) <= 1e-3) & (t.amax(1) > 0.5)).any())
 
 
 @pytest.mark.gpu
@@ -113,6 +157,70 @@ def test_blend_kernel_caps_and_chunks(cuda, tile_cap, chunk):
                                  seed=1)
     if tile_cap == 16:
         assert int(binned.overflow.sum()) > 0
+    out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
+                                                 table, cfg))
+
+
+def _deep_inputs(dev, ts, tile_cap, chunk, n_faint):
+    """The ragged scene with `n_faint` faint splats, at a tile_cap that its
+    tiles fill or not."""
+    rng = np.random.default_rng(3)
+    cfg = RasterConfig(img_width=W, img_height=H, tile_size=ts,
+                       tile_cap=tile_cap, chunk=chunk,
+                       bin_pairs_per_chunk=1 << 17)
+    means, scales, quats, opac, colors = (
+        torch.from_numpy(x).to(dev)
+        for x in ragged_scene(rng, W, H, 1.0, 0.85, n_faint))
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.85, device=dev)
+    _, binned, table = prepare_blend(means, scales, quats, opac, colors, cam,
+                                     cfg)
+    return binned, table, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,tile_cap,chunk,n_faint", [
+    (32, 2048, 32, 2400),     # the driver's tile_cap, full tiles
+    (16, 2048, 8, 1200),      # chunk 8, counts ending inside a chunk
+    (32, 2048, 1024, 1500),   # chunk 1024: 96 KB of rows, past 48 KB
+    (16, 1024, 1024, 700)])   # one chunk that the count ends inside
+def test_blend_kernel_long_lists(cuda, ts, tile_cap, chunk, n_faint):
+    """Long slot lists: full tiles at tile_cap 2048, the smallest and the
+    largest chunk, and counts that end inside a chunk."""
+    binned, table, cfg = _deep_inputs(cuda, ts, tile_cap, chunk, n_faint)
+    counts = binned.counts
+    assert int(binned.dropped_pairs) == 0
+    assert bool((counts % chunk != 0).any())
+    if n_faint > tile_cap:
+        assert int(counts.max()) == tile_cap
+    out = blend.blend_forward(binned.gidx, counts, table, cfg)
+    ref = blend.blend_forward_plain(binned.gidx, counts, table, cfg)
+    _assert_close(out, ref)
+    assert float(ref[2].max()) > 1e-3     # pixels that walked every slot
+
+
+@pytest.mark.gpu
+def test_blend_kernel_empty_tiles(cuda):
+    """Tiles with count 0 blend to nothing beside tiles that hold slots."""
+    binned, table, cfg = _inputs(cuda, "ragged", 32)
+    gidx, counts = binned.gidx.clone(), binned.counts.clone()
+    gidx[::2], counts[::2] = -1, 0
+    assert bool((counts > 0).any())
+    color, depth, trans = blend.blend_forward(gidx, counts, table, cfg)
+    _assert_close((color, depth, trans),
+                  blend.blend_forward_plain(gidx, counts, table, cfg))
+    assert float(color[::2].abs().max()) == 0.0
+    assert float(trans[::2].min()) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("list_slots", [32, 96])
+def test_blend_kernel_restages_the_list(cuda, monkeypatch, list_slots):
+    """A slot list longer than the staged segment is staged again at each
+    segment's first chunk."""
+    monkeypatch.setattr(blend, "_LIST_SLOTS", list_slots)
+    binned, table, cfg = _deep_inputs(cuda, 16, 512, 32, 400)
+    assert int(binned.counts.max()) > 3 * list_slots
     out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
     _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
                                                  table, cfg))
@@ -212,6 +320,18 @@ def _check_backward(dev, binned, table, cfg):
 def test_blend_backward_kernel_matches_plain(cuda, kind, ts):
     binned, table, cfg = _inputs(cuda, kind, ts)
     assert int(binned.counts.max()) > cfg.chunk     # several chunks
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_backward_kernel_on_ragged_k1_outputs(cuda, ts):
+    """K2 on K1's outputs of the ragged scene, whose sub-tiles stop at
+    different chunks, against the plain backward on the same outputs."""
+    binned, table, cfg = _inputs(cuda, "ragged", ts)
+    out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
+                                                 table, cfg))
     _check_backward(cuda, binned, table, cfg)
 
 
