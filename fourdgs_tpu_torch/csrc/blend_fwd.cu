@@ -28,10 +28,11 @@
 //
 // What keeps the card from that bound is latency that nothing hides, and
 // lanes that issue work no pixel needs. The design:
-//  * Sub-tile blocks. A block of 256 threads covers a 16 x 16 sub-tile: a
-//    tile of 16 is one block, a tile of 32 four. Several blocks share an
-//    SM (__launch_bounds__), so one block's loads and barriers overlap
-//    another's arithmetic, and each block stops when its own pixels are
+//  * Sub-tile blocks. A block of 128 threads covers a 16 x 8 sub-tile: a
+//    tile of 16 is two blocks, a tile of 32 eight. Eight blocks share an
+//    SM (__launch_bounds__, 56 registers), so one block's loads and
+//    barriers overlap the others' arithmetic, the heavy tiles of a frame
+//    spread over many SMs, and each block stops when its own pixels are
 //    saturated: an empty edge no longer waits on the tile's busy centre.
 //    Every block walks its tile's whole slot list, in order. The list is
 //    never split across blocks: compositing segments would multiply T in
@@ -46,7 +47,7 @@
 //    that the whole list up to 4,096 slots), with bad ids sent to the
 //    sentinel row. A row gather then issues one global load that depends
 //    on nothing, not a gidx load and then a row load in a chain. Thread t
-//    stages the entries i = t (mod 256) and gathers the rows of the same
+//    stages the entries i = t (mod 128) and gathers the rows of the same
 //    entries, so restaging a segment needs no barrier.
 //  * A cp.async ring. The rows of chunk j + 1 (three 16-byte pieces a
 //    slot) are copied into the second of two shared buffers while the
@@ -54,18 +55,25 @@
 //    j's rows visible, frees the buffer that chunk j + 1 overwrites, and
 //    counts the live pixels for the saturation exit. TMA is no help here:
 //    it copies rectangular tiles and cannot gather rows by index.
-// Shared memory: 2 x chunk x 48 bytes of rows and 4 x list_len bytes of
-// list, 112 KB at chunk 1024 and list 4,096 (the C entry opts in past the
-// default 48 KB).
+//  * A gate batch. A thread computes the gates (power, alpha) of four
+//    slots with no branch before it walks them in order: they depend on
+//    neither T nor one another, so their loads and their two dozen
+//    dependent operations each overlap, where one slot at a time waited
+//    out the whole chain. The serial pass then only multiplies T and adds
+//    the used slots' colors, in the plain version's order.
+// Shared memory: 2 x chunk x 48 bytes of rows (chunk rounded up to whole
+// batches) and 4 x list_len bytes of list, 112 KB at chunk 1024 and list
+// 4,096 (the C entry opts in past the default 48 KB).
 //
-// What is still left: a heavy tile's four blocks are scheduled wherever
-// the grid puts them, so the frame's tail waits on the last heavy tile (a
-// persistent kernel that takes tiles by count would order them); every
-// lane of a live warp still evaluates every slot of its chunk, where
-// culling slots per sub-tile before the power test would skip some (only
-// with a cull that provably keeps every gate); and the power and alpha
-// chain runs in FP32 on the CUDA cores (tensor cores round differently and
-// would move the gates).
+// What is still left: the blocks of a frame's heavy tiles run wherever
+// the grid order puts them, so the kernel's tail waits on the last of
+// them (a persistent kernel that takes tiles by count would order them);
+// every lane of a live warp still evaluates every slot of its chunk,
+// where culling slots per sub-tile before the power test would skip some
+// (only with a cull that provably keeps every gate); and the power and
+// alpha chain, some 34 issued instructions a slot with expf, runs in FP32
+// on the CUDA cores (tensor cores round differently and would move the
+// gates).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -76,11 +84,17 @@ namespace {
 
 using namespace fourdgs;
 
-constexpr int kThreads = 256;            // one 16 x 16 sub-tile
-constexpr int kSub = 16;
+constexpr int kSubW = 16, kSubH = 8;     // a block's sub-tile
+constexpr int kThreads = kSubW * kSubH;
 constexpr int kPatchW = 8, kPatchH = 4;  // a warp's patch
-constexpr int kMinBlocks = 4;            // blocks an SM keeps (<= 64 regs)
+constexpr int kMinBlocks = 8;            // blocks an SM keeps (<= 64 regs)
+constexpr int kBatch = 4;                // slots whose gates go first
 constexpr int kDefaultSmem = 48 * 1024;
+
+// Slots a buffer of the ring holds: chunk rounded up to whole batches.
+__host__ __device__ __forceinline__ int ring_slots(int chunk) {
+    return (chunk + kBatch - 1) / kBatch * kBatch;
+}
 
 // Stage entries [from, from + n) of the tile's list into s_list[0, n),
 // each id outside [0, n_gauss] sent to the all-zero sentinel row n_gauss.
@@ -119,16 +133,18 @@ blend_fwd_kernel(const int* __restrict__ gidx,
                  int chunk, int list_len, float* __restrict__ out_color,
                  float* __restrict__ out_depth, float* __restrict__ out_t) {
     extern __shared__ float4 smem[];
-    float4* s_rows = smem;                       // 2 x chunk x 3 float4
-    int* s_list = (int*)(smem + 6 * chunk);      // list_len ids
-    const int subs = tile_size / kSub;           // sub-tiles along an edge
-    const int tile = blockIdx.x / (subs * subs);
-    const int sub = blockIdx.x % (subs * subs);
+    const int ring = ring_slots(chunk);
+    float4* s_rows = smem;                       // 2 x ring x 3 float4
+    int* s_list = (int*)(smem + 6 * ring);       // list_len ids
+    const int subs_x = tile_size / kSubW;        // sub-tiles across a tile
+    const int subs = subs_x * (tile_size / kSubH);
+    const int tile = blockIdx.x / subs;
+    const int sub = blockIdx.x % subs;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int x = (sub % subs) * kSub + (warp % (kSub / kPatchW)) * kPatchW
-                  + lane % kPatchW;
-    const int y = (sub / subs) * kSub + (warp / (kSub / kPatchW)) * kPatchH
-                  + lane / kPatchW;
+    const int x = (sub % subs_x) * kSubW
+                  + (warp % (kSubW / kPatchW)) * kPatchW + lane % kPatchW;
+    const int y = (sub / subs_x) * kSubH
+                  + (warp / (kSubW / kPatchW)) * kPatchH + lane / kPatchW;
     const float px = (float)((tile % grid_x) * tile_size + x);
     const float py = (float)((tile / grid_x) * tile_size + y);
     const int count = counts[tile];
@@ -151,33 +167,53 @@ blend_fwd_kernel(const int* __restrict__ gidx,
             if (i0 == 0)   // a new segment of the list; no barrier needed
                 stage_list(s_list, tile_gidx, next,
                            min(list_len, count - next), n_gauss);
-            gather_async(s_rows + 3 * chunk * ((j + 1) & 1), s_list, table,
+            gather_async(s_rows + 3 * ring * ((j + 1) & 1), s_list, table,
                          i0, min(chunk, count - next));
         }
         if (T > kTMin) {
-            const float4* rows = s_rows + 3 * chunk * (j & 1);
+            const float4* rows = s_rows + 3 * ring * (j & 1);
             const int nk = min(chunk, count - base);
             // cp: product of (1 - alpha) over the chunk's gated slots so
             // far; the entering transmittance of a slot is T * cp.
             float cp = 1.0f, cp_used = 1.0f;
-            for (int k = 0; k < nk; ++k) {
-                const float4 a = rows[3 * k];
-                const float4 b = rows[3 * k + 1];
-                const float4 c = rows[3 * k + 2];
-                float dx, dy;
-                const float power = splat_power(a, b, px, py, dx, dy);
-                if (power > 0.0f) continue;
-                const float alpha = splat_alpha(splat_alpha_u(c.x, power));
-                if (!(alpha >= kAlphaMin)) continue;  // NaN skips too
-                const float t_pref = __fmul_rn(T, cp);
-                if (t_pref <= kTMin) break;  // entering transmittance test
-                const float w = __fmul_rn(alpha, t_pref);
-                c0 += w * b.y;
-                c1 += w * b.z;
-                c2 += w * b.w;
-                d += w * c.y;
-                cp = __fmul_rn(cp, __fsub_rn(1.0f, alpha));
-                cp_used = cp;
+            bool spent = false;
+            for (int k0 = 0; k0 < nk && !spent; k0 += kBatch) {
+                // The batch's gates first: they depend on neither T nor one
+                // another, and nothing branches, so their loads and
+                // arithmetic overlap. A slot past nk reads a stale or
+                // unwritten row of the ring (it holds whole batches) and is
+                // masked. A gated alpha is >= 1/255; 0 marks a slot that is
+                // not (power > 0, alpha < 1/255 or NaN, or past nk).
+                float gate[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const float4 a = rows[3 * (k0 + u)];
+                    const float4 b = rows[3 * (k0 + u) + 1];
+                    float dx, dy;
+                    const float power = splat_power(a, b, px, py, dx, dy);
+                    const float alpha = splat_alpha(
+                        splat_alpha_u(rows[3 * (k0 + u) + 2].x, power));
+                    gate[u] = (k0 + u < nk && power <= 0.0f
+                               && alpha >= kAlphaMin) ? alpha : 0.0f;
+                }
+                // then the serial pass over the gated slots, in order
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    if (gate[u] == 0.0f) continue;
+                    const float t_pref = __fmul_rn(T, cp);
+                    if (t_pref <= kTMin) {  // entering transmittance test
+                        spent = true;
+                        break;
+                    }
+                    const float w = __fmul_rn(gate[u], t_pref);
+                    const float4 b = rows[3 * (k0 + u) + 1];
+                    c0 += w * b.y;
+                    c1 += w * b.z;
+                    c2 += w * b.w;
+                    d += w * rows[3 * (k0 + u) + 2].y;
+                    cp = __fmul_rn(cp, __fsub_rn(1.0f, gate[u]));
+                    cp_used = cp;
+                }
             }
             T = __fmul_rn(T, cp_used);
         }
@@ -202,7 +238,7 @@ int blend_fwd_launch(const void* gidx, const void* counts, const void* table,
                      int n_gauss, int num_tiles, int tile_cap, int grid_x,
                      int tile_size, int chunk, int list_len, void* out_color,
                      void* out_depth, void* out_t, void* stream) {
-    const size_t smem = (size_t)chunk * 6 * sizeof(float4)
+    const size_t smem = (size_t)ring_slots(chunk) * 6 * sizeof(float4)
                         + (size_t)list_len * sizeof(int);
     if (smem > kDefaultSmem) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -210,8 +246,8 @@ int blend_fwd_launch(const void* gidx, const void* counts, const void* table,
             (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    const int subs = tile_size / kSub;
-    blend_fwd_kernel<<<num_tiles * subs * subs, kThreads, smem,
+    const int subs = (tile_size / kSubW) * (tile_size / kSubH);
+    blend_fwd_kernel<<<num_tiles * subs, kThreads, smem,
                        (cudaStream_t)stream>>>(
         (const int*)gidx, (const int*)counts, (const float4*)table, n_gauss,
         tile_cap, grid_x, tile_size, chunk, list_len, (float*)out_color,

@@ -5,7 +5,9 @@ script's scene: 100,000 synthetic gaussians at 800x800, tile 16, tile_cap
 768, chunk 32.
 
     python -m fourdgs_tpu_torch.tools.profile_blend_split [--n 100000]
-        [--size 800] [--seed 0] [--iters 20] [--device cpu]
+        [--size 800] [--tile_size 16] [--seed 0] [--iters 20] [--device cpu]
+
+(`--tile_size 32` runs the same scene at the render path's tile.)
 
 The scene is the script's: the JAX package's benchmark point rule
 (`synthetic_points`, the port's copy of `__graft_entry__._synthetic_scene`),
@@ -55,27 +57,29 @@ from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_SM_S, clock,
 #   used (alpha >= 1/255, entering T > 1e-4): T x cp and its test (2),
 #     the weight (1), four fused sums (4), 1 - alpha and cp (2)
 BLEND_FP32_INSTR = {"eval": 12, "exp": 9, "used": 9}
-# K1's thread layout (csrc/blend_fwd.cu): a block of 256 threads covers a
-# 16 x 16 sub-tile, its warps 8 x 4 patches, two across and four down, each
+# K1's thread layout (csrc/blend_fwd.cu): a block of 128 threads covers a
+# 16 x 8 sub-tile, its warps 8 x 4 patches, two across and two down, each
 # lane one pixel, row-major in its patch. The design before it ran a block
 # per tile and a warp per 32 consecutive pixels of the tile ("row").
-SUB, PATCH_W, PATCH_H = 16, 8, 4
+SUB_W, SUB_H, PATCH_W, PATCH_H = 16, 8, 8, 4
 WARP_SHAPES = ("row", "patch")
 
 
 def warp_pixels(tile_size: int, shape: str) -> torch.Tensor:
     """(P / 32, 32) tile-local pixel numbers p = y * tile_size + x of each
     warp's lanes: 32 consecutive pixels ("row", a 32 x 1 row at tile 32),
-    or K1's 8 x 4 patches in its sub-tile order ("patch"), so that the
-    rows [8 b, 8 b + 8) are the warps of sub-tile b."""
+    or K1's 8 x 4 patches in its block order ("patch"), so that the rows
+    [4 b, 4 b + 4) are the warps of sub-tile b (K1's block b of the tile,
+    sub-tiles row-major)."""
     p = tile_size * tile_size
     if shape == "row":
         return torch.arange(p).reshape(-1, 32)
-    subs = tile_size // SUB
+    subs_x, n = tile_size // SUB_W, SUB_W * SUB_H
     lane = torch.arange(p)
-    b, w, i = lane // (SUB * SUB), lane // 32 % (SUB * SUB // 32), lane % 32
-    x = (b % subs) * SUB + (w % (SUB // PATCH_W)) * PATCH_W + i % PATCH_W
-    y = (b // subs) * SUB + (w // (SUB // PATCH_W)) * PATCH_H + i // PATCH_W
+    b, w, i = lane // n, lane % n // 32, lane % 32
+    x = (b % subs_x) * SUB_W + (w % (SUB_W // PATCH_W)) * PATCH_W + i % PATCH_W
+    y = (b // subs_x) * SUB_H + (w // (SUB_W // PATCH_W)) * PATCH_H \
+        + i // PATCH_W
     return (y * tile_size + x).reshape(-1, 32)
 
 
@@ -99,7 +103,7 @@ def blend_work(gidx, counts, table, cfg) -> dict:
       chunks: the evaluations a SIMT design issues.
     block_chunks: the chunks that blocks walk, a block walking a chunk of
       its tile's list while one of its pixels is live: a block per tile
-      ("tile"), or per 16 x 16 sub-tile ("sub_tile", K1's).
+      ("tile"), or per 16 x 8 sub-tile ("sub_tile", K1's).
     occupancy: the mean, p99 and max of counts.
     heaviest_tile, heaviest_sub_tile: the tile (sub-tile) with the most FP32
       instructions by BLEND_FP32_INSTR, its evaluations, and its one-SM
@@ -111,7 +115,7 @@ def blend_work(gidx, counts, table, cfg) -> dict:
     nt, p = px.shape
     idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
     warps = {s: warp_pixels(cfg.tile_size, s).to(dev) for s in WARP_SHAPES}
-    subs = warps["patch"].reshape(-1, SUB * SUB)     # (sub-tiles, 256)
+    subs = warps["patch"].reshape(-1, SUB_W * SUB_H)  # (sub-tiles, 128)
     t = torch.ones_like(px)
     pix = {key: torch.zeros((nt, p), dtype=torch.int64, device=dev)
            for key in BLEND_FP32_INSTR}
@@ -185,10 +189,10 @@ def synthetic_points(n_points: int, seed: int = 0):
     return pts, cols
 
 
-def make_inputs(n: int, size: int, seed: int, device):
+def make_inputs(n: int, size: int, seed: int, device, tile_size: int = 16):
     """The script's scene, projected and binned: (proj, binned, colors,
     opacities, cfg)."""
-    cfg = RasterConfig(img_width=size, img_height=size, tile_size=16,
+    cfg = RasterConfig(img_width=size, img_height=size, tile_size=tile_size,
                        tile_cap=768, chunk=32)
     pts, cols = synthetic_points(n, seed)
     rng = np.random.default_rng(seed)
@@ -212,6 +216,7 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=100_000)
     parser.add_argument("--size", type=int, default=800)
+    parser.add_argument("--tile_size", type=int, default=16)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--device", default=None)
@@ -219,7 +224,8 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     print(f"timing: {clock(dev)}", flush=True)
     proj, binned, colors, opac, cfg = make_inputs(args.n, args.size,
-                                                  args.seed, dev)
+                                                  args.seed, dev,
+                                                  args.tile_size)
     gidx, counts = binned.gidx, binned.counts
 
     def pack():
@@ -239,7 +245,8 @@ def main(argv=None) -> dict:
            "num_pairs": int(binned.num_pairs),
            "dropped_pairs": int(binned.dropped_pairs),
            "dropped_tile": int(binned.dropped_tile)}
-    print(f"scene: {args.n} gaussians, {args.size}x{args.size}, tile 16, "
+    print(f"scene: {args.n} gaussians, {args.size}x{args.size}, tile "
+          f"{cfg.tile_size}, "
           f"{cfg.num_tiles} tiles; {res['pairs']} pairs in the tiles "
           f"({res['num_pairs']} touched, {res['dropped_pairs']} past the "
           f"pair budget, {res['dropped_tile']} past tile_cap)", flush=True)

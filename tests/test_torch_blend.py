@@ -180,7 +180,7 @@ def _walk_reference(gidx, counts, table, cfg):
     the plain recurrence's per-slot values (ops/blend.py:_chunk_math), as
     K1's thread for the pixel walks it, with K1's layout written out: a
     warp is 32 consecutive pixels ("row") or an 8 x 4 patch ("patch"), a
-    block a tile or a 16 x 16 sub-tile."""
+    block a tile or a 16 x 8 sub-tile."""
     k, ts = cfg.chunk, cfg.tile_size
     nt, p = cfg.num_tiles, cfg.pixels_per_tile
     px, py = tblend.tile_pixel_coords(cfg, "cpu")
@@ -188,7 +188,7 @@ def _walk_reference(gidx, counts, table, cfg):
     xs, ys = np.arange(p) % ts, np.arange(p) // ts
     group = {"row": np.arange(p) // 32,
              "patch": (ys // 4) * (ts // 8) + xs // 8,
-             "sub": (ys // 16) * (ts // 16) + xs // 16}
+             "sub": (ys // 8) * (ts // 16) + xs // 16}
     pix = {key: np.zeros((nt, p), np.int64) for key in ("eval", "exp", "used")}
     ref = {"warp_slots": 0, "tile_slots": 0, "lanes_walked": 0,
            "warp_issued": {"row": 0, "patch": 0},
@@ -274,12 +274,13 @@ def test_blend_work_matches_a_pixel_walk(kind, ts):
             work["eval"] > 0
     if kind == "ragged" and ts == 32:   # a sub-tile stops before its tile
         assert work["block_chunks"]["sub_tile"] < \
-            work["block_chunks"]["tile"] * (ts // 16) ** 2
+            work["block_chunks"]["tile"] * (ts // 16) * (ts // 8)
 
 
 def test_warp_pixels_are_k1_layout():
-    """Each warp covers 32 distinct pixels; an 8 x 4 patch in its 16 x 16
-    sub-tile, sub-tiles in row-major order of the tile."""
+    """Each warp covers 32 distinct pixels; an 8 x 4 patch in its 16 x 8
+    sub-tile, four warps a sub-tile, sub-tiles in row-major order of the
+    tile."""
     for ts in (16, 32):
         p = ts * ts
         for shape in profile_blend_split.WARP_SHAPES:
@@ -291,6 +292,6 @@ def test_warp_pixels_are_k1_layout():
         x, y = lanes % ts, lanes // ts
         assert bool(((x.amax(1) - x.amin(1)) == 7).all())
         assert bool(((y.amax(1) - y.amin(1)) == 3).all())
-        sub = (y // 16) * (ts // 16) + x // 16
+        sub = (y // 8) * (ts // 16) + x // 16
         assert torch.equal(sub, torch.arange(p // 32)[:, None].expand(-1, 32)
-                           // 8)
+                           // 4)
