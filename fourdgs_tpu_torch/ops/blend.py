@@ -134,7 +134,7 @@ def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
     lib = load_library()
     nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
     # the slots staged at a time: the whole list up to _LIST_SLOTS
-    list_len = min(cfg.tile_cap, max(_LIST_SLOTS // k, 1) * k)
+    list_len = min(cfg.tile_cap, _LIST_SLOTS // k * k)
     color = table.new_empty((nt, p, 3))
     depth = table.new_empty((nt, p))
     trans = table.new_empty((nt, p))

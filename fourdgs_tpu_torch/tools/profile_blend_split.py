@@ -5,9 +5,7 @@ script's scene: 100,000 synthetic gaussians at 800x800, tile 16, tile_cap
 768, chunk 32.
 
     python -m fourdgs_tpu_torch.tools.profile_blend_split [--n 100000]
-        [--size 800] [--tile_size 16] [--seed 0] [--iters 20] [--device cpu]
-
-(`--tile_size 32` runs the same scene at the render path's tile.)
+        [--size 800] [--seed 0] [--iters 20] [--device cpu]
 
 The scene is the script's: the JAX package's benchmark point rule
 (`synthetic_points`, the port's copy of `__graft_entry__._synthetic_scene`),
@@ -189,10 +187,10 @@ def synthetic_points(n_points: int, seed: int = 0):
     return pts, cols
 
 
-def make_inputs(n: int, size: int, seed: int, device, tile_size: int = 16):
+def make_inputs(n: int, size: int, seed: int, device):
     """The script's scene, projected and binned: (proj, binned, colors,
     opacities, cfg)."""
-    cfg = RasterConfig(img_width=size, img_height=size, tile_size=tile_size,
+    cfg = RasterConfig(img_width=size, img_height=size, tile_size=16,
                        tile_cap=768, chunk=32)
     pts, cols = synthetic_points(n, seed)
     rng = np.random.default_rng(seed)
@@ -216,7 +214,6 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=100_000)
     parser.add_argument("--size", type=int, default=800)
-    parser.add_argument("--tile_size", type=int, default=16)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--device", default=None)
@@ -224,8 +221,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     print(f"timing: {clock(dev)}", flush=True)
     proj, binned, colors, opac, cfg = make_inputs(args.n, args.size,
-                                                  args.seed, dev,
-                                                  args.tile_size)
+                                                  args.seed, dev)
     gidx, counts = binned.gidx, binned.counts
 
     def pack():
@@ -245,8 +241,7 @@ def main(argv=None) -> dict:
            "num_pairs": int(binned.num_pairs),
            "dropped_pairs": int(binned.dropped_pairs),
            "dropped_tile": int(binned.dropped_tile)}
-    print(f"scene: {args.n} gaussians, {args.size}x{args.size}, tile "
-          f"{cfg.tile_size}, "
+    print(f"scene: {args.n} gaussians, {args.size}x{args.size}, tile 16, "
           f"{cfg.num_tiles} tiles; {res['pairs']} pairs in the tiles "
           f"({res['num_pairs']} touched, {res['dropped_pairs']} past the "
           f"pair budget, {res['dropped_tile']} past tile_cap)", flush=True)
