@@ -180,7 +180,7 @@ def _deep_inputs(dev, ts, tile_cap, chunk, n_faint):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ts,tile_cap,chunk,n_faint", [
-    (32, 2048, 32, 2400),     # the driver's tile_cap, full tiles
+    (32, 2048, 32, 2400),     # the train CLI's default tile_cap, full tiles
     (16, 2048, 8, 1200),      # chunk 8, counts ending inside a chunk
     (32, 2048, 1024, 1500),   # chunk 1024: 96 KB of rows, past 48 KB
     (16, 1024, 1024, 700)])   # one chunk that the count ends inside
