@@ -150,9 +150,11 @@ def test_blend_kernel_matches_plain(cuda, kind, ts):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile_cap,chunk", [(16, 8), (64, 32), (96, 32)])
+@pytest.mark.parametrize("tile_cap,chunk", [(16, 8), (64, 32), (96, 32),
+                                            (96, 6), (16, 1)])
 def test_blend_kernel_caps_and_chunks(cuda, tile_cap, chunk):
-    """Full tiles (tile overflow), and counts that end inside a chunk."""
+    """Full tiles (tile overflow), counts that end inside a chunk, and
+    chunks that are not whole gate batches (K1's ring pads them)."""
     binned, table, cfg = _inputs(cuda, "random", 16, tile_cap, chunk, n=900,
                                  seed=1)
     if tile_cap == 16:
