@@ -26,10 +26,15 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              seeded noise moved its colors and opacities, with the launch
              counts read around those steps; the loss must fall, and one
              step's gradients with K2 must equal those with the plain
-             backward on the card;
+             backward on the card, on each training view and on phase
+             6's view;
   6. kernel: K2 (blend backward) against its plain version on the step
              input of the trained state's frame at t = 0.5 (its
-             cotangents, its caps), with CUDA-event times;
+             cotangents, its caps), with CUDA-event, device and
+             host-enqueue times, the float2 atomics and reduced warp
+             batches that a counting build of K2 tallies on that input,
+             and where its sums can go
+             (tools/profile_blend_split.py:bwd_work);
   7. driver: the training CLI (tools.train.main) on a synthetic D-NeRF
              scene (tools.make_synthetic_scene: 60 train and 10 test views
              at 800x800) at the D-NeRF width of dnerf_default.py, its
@@ -39,8 +44,11 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              the binner): densify, prune, opacity reset, bucket resizes,
              the SH ramp, test evaluations, a snapshot and a checkpoint,
              then a 20-iteration resume from that checkpoint, then
-             Renderer.from_snapshot on the trained snapshot rendering a
-             test view; the launch counts are read around the whole phase;
+             Renderer.from_snapshot on the trained snapshot rendering test
+             view 0 at its probed caps and as the run's eval rendered it
+             (the eval's caps, the run's buffer capacity), each render's
+             drops and caps printed; the launch counts are read around the
+             whole phase;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -75,7 +83,8 @@ from pathlib import Path
 import numpy as np
 
 from fourdgs_tpu_torch.tools.profile_blend_split import (BLEND_FP32_INSTR,
-                                                         blend_work)
+                                                         blend_work,
+                                                         bwd_work)
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
                                             MUFU_OP_S, kernel_times,
                                             time_call, time_pair)
@@ -446,27 +455,36 @@ def phase_kernels(torch, renderer, cam):
 # phase 5: the training slice
 # ---------------------------------------------------------------------------
 
+def padded(torch, gauss, alive, capacity: int):
+    """Gaussians and their alive mask in a buffer of `capacity` slots, the
+    given ones first; the slots after them dead, with identity
+    rotations."""
+    from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
+
+    n = alive.shape[0]
+
+    def pad(x, fill=0.0):
+        out = torch.full((capacity,) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=x.device)
+        out[:n] = x
+        return out
+
+    out = GaussianParams(**{f: pad(getattr(gauss, f)) for f in FIELDS})
+    out.rotation[n:, 0] = 1.0
+    return out, pad(alive, False)
+
+
 def make_train_state(torch, scene, device):
     """The scene's gaussians in a capacity-TRAIN_CAPACITY buffer with the
     first N_GAUSS slots alive, and a copy of its deformation."""
-    from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
     from fourdgs_tpu_torch.train.state import create_state
 
-    cfg, gauss, _, deform, aabb = scene
+    cfg, gauss, alive, deform, aabb = scene
     cfg = copy.deepcopy(cfg)
     cfg.raster.capacity = TRAIN_CAPACITY
-
-    def pad(x, fill=0.0):
-        out = torch.full((TRAIN_CAPACITY,) + tuple(x.shape[1:]), fill,
-                         dtype=x.dtype, device=device)
-        out[:N_GAUSS] = x
-        return out
-
-    padded = GaussianParams(**{f: pad(getattr(gauss, f)) for f in FIELDS})
-    padded.rotation[N_GAUSS:, 0] = 1.0
-    alive = pad(torch.ones(N_GAUSS, dtype=torch.bool, device=device), False)
+    gauss, alive = padded(torch, gauss, alive, TRAIN_CAPACITY)
     state = create_state(cfg, None, None, SPATIAL_LR_SCALE, aabb=aabb,
-                         deform=copy.deepcopy(deform), gauss=padded,
+                         deform=copy.deepcopy(deform), gauss=gauss,
                          alive=alive, device=device)
     return cfg, state
 
@@ -556,25 +574,33 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
                          spans=TRAIN_SPANS, label="step")
     calls = prof["runtime_calls_per_step"]
 
-    # ---- one step's gradients with K2 and with the plain backward ----
-    def grads():
-        sg = loop.step_gradients(state, [cams[0]], gts[0][None], bg, sh, **kw)
+    # ---- one step's gradients with K2 and with the plain backward, on
+    # each training view and the kernel check's view ----
+    def grads(cam, gt):
+        sg = loop.step_gradients(state, [cam], gt[None], bg, sh, **kw)
         return [x for x in sg.grads + [sg.ndc_grad] if x is not None]
 
-    with_k2 = grads()
-    with plain_version("blend_backward"):
-        plain = grads()
-    err = max(grads_agree(a, b) for a, b in zip(with_k2, plain))
+    errs = []
+    for view, (cam, gt) in enumerate(zip(cams + [check_cam], gts)):
+        with_k2 = grads(cam, gt)
+        with plain_version("blend_backward"):
+            plain = grads(cam, gt)
+        leaf_errs = [grads_agree(a, b) for a, b in zip(with_k2, plain)]
+        errs.append(max(leaf_errs))
+        if not errs[-1] <= GRAD_TOL:
+            leaf = int(np.argmax(leaf_errs))
+            raise AssertionError(
+                f"K2 step gradients disagree on view {view}: {errs[-1]} in "
+                f"leaf {leaf} of shape {tuple(plain[leaf].shape)}")
     log(f"train: one step's gradients, K2 vs plain backward on the card: "
-        f"{len(plain)} leaves, normalised max abs err {err:.3g} "
-        f"(tol {GRAD_TOL:g})")
-    if not err <= GRAD_TOL:
-        raise AssertionError(f"K2 step gradients disagree: {err}")
+        f"{len(plain)} leaves, normalised max abs err per view "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (tol {GRAD_TOL:g})")
     return state, rc, bg, sh, check_cam, gts[-1], launches, {
         "ms_per_step": ms, "rays_per_s": SIZE * SIZE / (ms / 1e3),
         "peak_mib": peak / 2**20, "loss_first": losses[0],
         "loss_last5": float(np.mean(losses[-5:])),
         "runtime_calls_per_step": calls,
+        "step_grad_errs": errs,
         "device_busy_share": prof["device_busy_share"],
         "kernel_ms_per_step": prof["kernel_ms_per_step"]}
 
@@ -618,10 +644,15 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
     if not max(col_err) <= GRAD_TOL:
         raise AssertionError(f"blend_bwd disagrees with plain: {col_err}")
 
-    ms, plain_ms = time_pair(lambda: blend.blend_backward(*args),
+    def kernel():
+        return blend.blend_backward(*args)
+
+    ms, plain_ms = time_pair(kernel,
                              lambda: blend.blend_backward_plain(*args),
                              launches=20)
+    dev = device_ms(kernel)
     work = blend_work(gidx, counts, table, rc)
+    sums = bwd_work(gidx, counts, table, rc)
     instr = (sum(BLEND_BWD_FP32_INSTR[k] * work[k]
                  for k in BLEND_BWD_FP32_INSTR) + 10 * work["used"])
     mufu = work["exp"] + 2 * work["used"]
@@ -633,13 +664,35 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
               "fp32 issue": instr / FP32_ISSUE_S,
               "mufu (expf, 2 rcp)": mufu / MUFU_OP_S}
     resource = max(bounds, key=bounds.get)
-    atomics = {"shared": 10 * work["warp_slots"],
-               "global": 10 * work["tile_slots"]}
-    log(f"blend_bwd: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms; pixel x "
-        f"slot work {work}; atomics (at most) {atomics}; {instr} FP32 "
+    # the atomics and reduced batches that K2's counting build tallies on
+    # this input; the timed build is the same kernel without the tally
+    tally = torch.zeros(2, dtype=torch.int64, device=table.device)
+    counted = blend.blend_backward(*args, tally=tally)
+    torch.cuda.synchronize()
+    atomics, batches = tally.tolist()
+    count_err = float(((counted - ref).abs() / scale).max())
+    if not count_err <= GRAD_TOL:
+        raise AssertionError(f"K2's counting build disagrees: {count_err}")
+    # what the counts imply: 45 shuffles a reduced batch, no shared
+    # atomics, and at most five float2 atomics a slot a 16 x 8 sub-tile
+    # used (a pair whose sum is zero issues none); the first K2 took ten
+    # shuffle sums of 5 steps and ten shared atomics per slot a 32-pixel
+    # warp used, and ten float atomics per slot a tile used
+    first = {"atomics": {"global": 10 * sums["block_slots"]["tile"],
+                         "shared": 10 * sums["warp_slots"]["row"]},
+             "shuffles": 50 * sums["warp_slots"]["row"]}
+    log(f"blend_bwd: {ms:.4f} ms/launch, device {dev['ms']:.4f} ms "
+        f"{dev['kernels']}, host {dev['host_ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; pixel x slot work {work}; {instr} FP32 "
         f"instructions, {mufu} MUFU, {nbytes} bytes; bounds " +
         ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in bounds.items()) +
         f"; bound by {resource}")
+    log(f"blend_bwd: sums over pixels {sums}; counted by the kernel: "
+        f"{atomics} float2 atomics (at most "
+        f"{5 * sums['block_slots']['sub_tile']}), 0 shared, {batches} "
+        f"batches reduced, so {45 * batches} warp shuffles; the first "
+        f"design's at these counts: {first}; counting build's normalised "
+        f"max abs err {count_err:.3g}")
     return {
         "name": "blend_bwd",
         "route": "cuda",
@@ -649,13 +702,18 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
         "max_abs_err": abs_err,
         "max_normalised_err": max(col_err),
         "ms": ms,
+        "device_ms": dev["ms"],
+        "device_kernels": dev["kernels"],
+        "host_ms": dev["host_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bounds[resource] * 1e3,
         "bound_by": "bytes" if resource == "hbm bytes" else "operations",
         "bound_resource": resource,
         "library_ms": None,   # no single PyTorch call computes it
         "evaluations": work,
-        "atomics": atomics,
+        "sums": sums,
+        "float2_atomics": atomics,
+        "reduced_batches": batches,
         "ok": True,
     }, args, work
 
@@ -706,6 +764,32 @@ def surgery_counts(events, start: int):
             grew += e["kind"] == "densify" and e["points"] > last
             last = e["points"]
     return counts, grew
+
+
+def as_run_eval(torch, renderer, raster_cfg: dict, capacity: int,
+                caps: dict):
+    """The Renderer as the run's eval renders a view: the snapshot's
+    gaussians in a buffer of the run's capacity, since the binner's pair
+    budget is ceil(buffer / bin_chunk) x bin_pairs_per_chunk slots, at the
+    run's final raster config with the caps that the eval grew on the
+    view. The buffer keeps the run's order of the live gaussians, so the
+    binner makes and drops the same pairs."""
+    from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
+
+    gauss, alive = padded(torch, renderer.gauss, renderer.alive, capacity)
+    rc = dataclasses.replace(RasterConfig(**raster_cfg),
+                             tile_cap=caps["tile_cap"],
+                             bin_pairs_per_chunk=caps["bin_pairs_per_chunk"])
+    return dataclasses.replace(renderer, gauss=gauss, alive=alive,
+                               raster_cfg=rc)
+
+
+def render_drops(out, rc) -> dict:
+    """What a render dropped, at which caps."""
+    return {"dropped_pairs": int(out.dropped_pairs),
+            "dropped_tile": int(out.dropped_tile),
+            "num_pairs": int(out.num_pairs), "tile_cap": rc.tile_cap,
+            "bin_pairs_per_chunk": rc.bin_pairs_per_chunk}
 
 
 def phase_driver(torch, device, work: Path, coarse: int, fine: int,
@@ -763,7 +847,16 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
         test0 = read_cameras_from_transforms(
             str(scene), "transforms_test.json", True, ".png", mapper,
             (DRIVER_SIZE, DRIVER_SIZE))[0]
-        out = renderer.render(camera_from_info(test0, device))
+        test_cam = camera_from_info(test0, device)
+        out = renderer.render(test_cam)
+        # the same view as the run's eval rendered it (its last record)
+        with open(model / "train_log.jsonl") as f:
+            last_eval = [r for r in map(json.loads, f)
+                         if r.get("eval") == "test"][-1]
+        twin = as_run_eval(torch, renderer, summary["stages"][-1]["raster_cfg"],
+                           last_eval["capacity"],
+                           last_eval["render_per_view"][0])
+        twin_out = twin.render(test_cam)
         torch.cuda.synchronize()
         launches = driver_counts()
 
@@ -801,18 +894,30 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
         f"{res_stage['iterations']}, {t_resume:.2f} s; loss last "
         f"{res_stage['history'][-1]['loss']:.6f}; test PSNR "
         f"{res_stage['test_psnr']}")
-    psnr = float(losses.psnr(torch.clamp(out.color, 0, 1)[None],
-                             torch.from_numpy(test0.image).to(device)[None])
-                 [0])
+    gt0 = torch.from_numpy(test0.image).to(device)[None]
+
+    def psnr_of(o):
+        return float(losses.psnr(torch.clamp(o.color, 0, 1)[None], gt0)[0])
+
+    psnr, twin_psnr = psnr_of(out), psnr_of(twin_out)
     fine_eval = summary["stages"][-1]["test_psnr"][-1][1]
-    with open(model / "train_log.jsonl") as f:
-        evals = [r for r in map(json.loads, f) if r.get("eval") == "test"]
-    view0 = evals[-1]["psnr_per_view"][0]
+    view0 = last_eval["psnr_per_view"][0]
+    drops = {"renderer": render_drops(out, renderer.raster_cfg),
+             "run's eval": last_eval["render_per_view"][0],
+             "renderer at the eval's caps": render_drops(twin_out,
+                                                         twin.raster_cfg)}
     log(f"driver: Renderer on the trained snapshot (iteration "
         f"{renderer.iteration}, {int(renderer.alive.sum())} points): test "
-        f"view 0 PSNR {psnr:.4f} dB, the run's eval of it {view0:.4f} dB "
+        f"view 0 PSNR {psnr:.4f} dB at its probed caps, {twin_psnr:.4f} dB "
+        f"at the eval's caps in the run's capacity "
+        f"{last_eval['capacity']}; the run's eval of it {view0:.4f} dB "
         f"(mean over the test views {fine_eval:.4f}); CLI {t_train:.2f} s; "
         f"launches {launches}")
+    for name, d in drops.items():
+        log(f"driver: test view 0, {name}: dropped_pairs "
+            f"{d['dropped_pairs']}, dropped_tile {d['dropped_tile']}, "
+            f"num_pairs {d['num_pairs']}; tile_cap {d['tile_cap']}, "
+            f"bin_pairs_per_chunk {d['bin_pairs_per_chunk']}")
 
     co, fi = stats["stages"]["coarse"], stats["stages"]["fine"]
     ev = {k: co["events"].get(k, 0) + fi["events"].get(k, 0)
@@ -832,7 +937,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
             res_stage["start"] == ckpt_it
             and res_stage["history"][-1]["iter"] == fine,
         "the render matches the run's eval":
-            abs(psnr - view0) <= RENDER_PSNR_TOL,
+            abs(twin_psnr - view0) <= RENDER_PSNR_TOL,
     }
     gauss, flat, _ = checkpoint.load_snapshot(
         str(model / "point_cloud" / f"iteration_{fine}"))
@@ -847,7 +952,8 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
         + (f"; FAILED: {failed}" if failed else ""))
     if failed:
         raise AssertionError(f"driver phase: {failed}")
-    stats.update(render_psnr=psnr, eval_psnr_view0=view0)
+    stats.update(render_psnr=psnr, render_psnr_at_eval_caps=twin_psnr,
+                 eval_psnr_view0=view0, test_view0_drops=drops)
     return launches, stats
 
 

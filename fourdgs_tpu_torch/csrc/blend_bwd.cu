@@ -16,42 +16,78 @@
 //        - (rc - after_cg + rd - after_dg + rt) / max(1 - alpha, 0.01),
 // chains it to opacity (alpha_u / op), to the power (da * alpha_u) and so
 // to pix and the conic, and takes w g_c and w g_d for color and depth:
-// ten values [pix(2), conic(3), color(3), opacity, depth] per pixel x slot.
-//
-// Design. The structure of K1 (blend_fwd.cu): one block per tile, one
-// thread per pixel, each chunk's table rows gathered by gidx into shared
-// memory, the occupancy bound counts[tile] and the block-wide saturation
-// exit. The ten values of a slot are summed over the warp with
-// __shfl_down_sync wherever some lane of the warp used the slot, and lane 0
-// adds them into a per-chunk (chunk x 10) shared accumulator with shared
-// atomics; after the chunk, one global atomicAdd per nonzero (slot, value)
-// adds the block's sums into the (N+1, 10) table that the wrapper
-// zero-fills (row N is the sentinel). The TPU kernel's lane-packed VMEM
-// accumulator and its serial row loop have no counterpart here: device
-// memory holds the table and atomics do the sum. The order of the atomic
-// sums varies from run to run, so results agree with the plain version to
-// rounding, not bit for bit.
-//
-// Control flow stays warp-uniform around the shuffles: a lane whose pixel
-// is saturated, or whose entering transmittance fell to 1e-4, keeps walking
-// the slots with zero contributions, and the warp leaves a chunk only when
-// every lane has stopped (__all_sync).
+// ten values [pix(2), conic(3), color(3), opacity, depth] per pixel x slot,
+// summed over the pixels into the (N+1, 10) table (row N is the sentinel).
 //
 // Bound on an H100. Per evaluated pixel x slot the replay costs what K1's
 // loop costs up to the alpha test; a used slot adds the gradient chain
-// (about 40 FP32 instructions); and every slot that some lane of a warp
-// used costs the warp 10 five-step shuffle reductions (50 shuffles and 50
-// adds a warp, whatever the number of lanes that used it). The bytes are
-// K1's plus the cotangents and the (N+1, 10) table. So K2 is bound by
-// operations: chip_smoke.py counts this run's evaluations, used slots and
-// atomics and computes the bound from FP32 issue, MUFU and bytes.
+// (about 40 FP32 instructions). The bytes are K1's plus the cotangents and
+// the (N+1, 10) table. So K2 is bound by FP32 issue: chip_smoke.py counts
+// this run's evaluations and used slots and computes the bound from FP32
+// issue, MUFU and bytes. The sums over pixels cost what a design makes
+// them cost: the first design summed each slot some lane of a warp used
+// with ten five-step shuffle reductions (50 shuffles and 50 adds a warp)
+// and then ten shared atomics by one lane, as much as the per-pixel work.
 //
-// What this simple design leaves for later: the warp reductions cost as
-// much as the per-pixel work; a block-level transpose (each warp writes its
-// ten values per slot to shared memory, then one thread per slot sums
-// them) or a segmented reduction over only the warps that used a slot would
-// cut them. Registers cap a 1024-thread block at 64 a thread.
+// Design. K1's layout (blend_fwd.cu), with the gate chain replayed bit for
+// bit, and the sums reorganised:
+//  * Sub-tile blocks. A block of 128 threads covers a 16 x 8 sub-tile (two
+//    a tile at tile 16, eight at tile 32) and a warp an 8 x 4 patch; each
+//    block walks its tile's whole slot list in order and stops when its
+//    own pixels are saturated. The launch bound asks for four blocks an
+//    SM and leaves ptxas its register count: 72 here (seven blocks). A
+//    bound of eight, which caps it at 64, ran slower.
+//  * A staged slot list and a cp.async ring. The tile's gidx is staged in
+//    shared memory (list_len ids at a time) and the rows of chunk j + 1
+//    are copied into the second of two buffers while chunk j is replayed.
+//    One barrier a chunk: at the head of chunk j it makes chunk j's rows
+//    visible, frees chunk j - 1's buffers, counts the live pixels for the
+//    exit and closes chunk j - 1's partial sums, which the block then
+//    flushes; the partial sums are double-buffered like the rows.
+//  * Batches of four slots. A thread computes the four slots' gates with
+//    no branch (the same __f*_rn chain and expf as K1 and _chunk_math),
+//    then replays the gated ones in order. A batch that no live lane of
+//    the warp gates is skipped by one vote.
+//  * Transpose reductions. The batch's 40 values a lane (4 slots x 10)
+//    are summed over the warp by halving steps: at each shuffle a lane
+//    trades the half of its values that its partner keeps for the other
+//    half (blend_common.cuh:transpose_add), so 20 + 10 + 5 shuffles leave
+//    5 values a lane, each a sum over 8 lanes, and two butterfly steps
+//    finish them: 45 shuffles for 4 slots, where the first design took 50
+//    for one. Each (slot, value) sum then sits in one group of four lanes,
+//    which store it to the warp's partial row in shared memory: no shared
+//    atomics. The batch's first pair of slots is reduced before the second
+//    pair is replayed, which keeps 30 values live, not 40.
+//  * Vector atomics. After the barrier, the block adds its four warps'
+//    partial rows in warp order and adds each nonzero pair of values into
+//    the table with one float2 atomicAdd (Hopper's vector atomics on
+//    global memory; a 40-byte row is 8-byte aligned): five a row. A
+//    slot's row is flushed once by each sub-tile block that used it.
+// The C entry zero-fills the table (cudaMemsetAsync) before the launch.
+// The order of the atomic sums varies from run to run, so results agree
+// with the plain version to rounding, not bit for bit.
+//
+// Shared memory: 2 x chunk x 48 bytes of rows and 2 x 4 x chunk x 40
+// bytes of partial rows (chunk rounded up to whole batches), and
+// 4 x list_len bytes of list: 224 KB at chunk 512 and list 4,096 (the C
+// entry opts in past the default 48 KB), 16 KB at chunk 32 and list 768.
+//
+// A second build of the kernel (kCount) also tallies the float2 atomics it
+// issues and the batches its warps reduce, for chip_smoke.py's phase 6;
+// the build that the wrapper times and the training step run has none.
+//
+// What is still left. On an H100 at chip_smoke.py phase 6's input, the
+// gates and the recurrence alone (the chain and the reductions removed)
+// take about half of K2's time, the gradient chain and the reductions the
+// other half, and the global atomics about 4 %: so a thread block cluster
+// that sums the tile's sub-tiles in distributed shared memory before
+// fewer atomics would gain at most that, at the cost of coupling the
+// blocks' exits. Every lane of a live warp evaluates every slot of its
+// chunk (a per-sub-tile cull before the power test would skip some, only
+// with a cull that provably keeps every gate), and the heavy tiles' blocks
+// run wherever the grid order puts them.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
@@ -60,104 +96,307 @@ namespace {
 
 using namespace fourdgs;
 
-__global__ void __launch_bounds__(1024)
+constexpr int kSubW = 16, kSubH = 8;     // a block's sub-tile
+constexpr int kThreads = kSubW * kSubH;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPatchW = 8, kPatchH = 4;  // a warp's patch
+constexpr int kMinBlocks = 4;            // at most 128 registers a thread
+constexpr int kBatch = 4;                // slots replayed and reduced together
+constexpr int kHalfW = kGradW / 2;       // values a lane ends a batch with;
+                                         // float2 atomics a row
+constexpr int kDefaultSmem = 48 * 1024;
+
+// Slots a buffer of the ring holds: chunk rounded up to whole batches.
+__host__ __device__ __forceinline__ int ring_slots(int chunk) {
+    return (chunk + kBatch - 1) / kBatch * kBatch;
+}
+
+__host__ __device__ __forceinline__ size_t smem_bytes(int chunk,
+                                                      int list_len) {
+    return (size_t)ring_slots(chunk)
+               * (2 * 3 * sizeof(float4) + 2 * kWarps * kGradW * sizeof(float))
+           + (size_t)list_len * sizeof(int);
+}
+
+// One pixel's replay of one slot of a batch (row: its three float4; alpha:
+// its gate, 0 when it is not gated; alpha_u, dx, dy from the gate pass).
+// A used slot writes its ten gradient values to v, advances after_cg,
+// after_dg and cp (the product of (1 - alpha) over the chunk's used slots
+// so far); a gated slot whose entering transmittance T * cp fell to 1e-4
+// ends the pixel's chunk (spent), as in K1. v is zero otherwise. The chain
+// is blend_common.cuh:slot_grads' after its gates.
+__device__ __forceinline__ void replay(const float4* row, float alpha,
+                                       float alpha_u, float dx, float dy,
+                                       const BwdPixel& q, float T, float& cp,
+                                       float& after_cg, float& after_dg,
+                                       bool& spent, float* v) {
+#pragma unroll
+    for (int i = 0; i < kGradW; ++i) v[i] = 0.0f;
+    if (spent || alpha == 0.0f) return;
+    const float t_pref = __fmul_rn(T, cp);
+    if (t_pref <= kTMin) {  // entering transmittance test
+        spent = true;
+        return;
+    }
+    const float4 a = row[0], b = row[1], c = row[2];
+    const float w = alpha * t_pref;
+    const float cg = b.y * q.gc0 + b.z * q.gc1 + b.w * q.gc2;
+    const float dg = c.y * q.gd;
+    after_cg += w * cg;
+    after_dg += w * dg;
+    const float one_m_a = fmaxf(1.0f - alpha, 1.0f - kAlphaMax);
+    const float da = t_pref * (cg + dg)
+                     - (q.rc - after_cg + q.rd - after_dg + q.rt) / one_m_a;
+    const float d_pow = da * alpha_u;
+    v[0] = d_pow * -(a.z * dx + a.w * dy);
+    v[1] = d_pow * -(b.x * dy + a.w * dx);
+    v[2] = -0.5f * d_pow * dx * dx;
+    v[3] = -d_pow * dx * dy;
+    v[4] = -0.5f * d_pow * dy * dy;
+    v[5] = w * q.gc0;
+    v[6] = w * q.gc1;
+    v[7] = w * q.gc2;
+    v[8] = c.x > 0.0f ? da * (alpha_u / fmaxf(c.x, 1e-20f)) : 0.0f;
+    v[9] = w * q.gd;
+    cp = __fmul_rn(cp, __fsub_rn(1.0f, alpha));
+}
+
+// Replay one chunk's slots [0, nk) (rows: the ring buffer) for the warp's
+// pixels and write the warp's sums to its partial rows part (ring x 10).
+// T is the pixel's entering transmittance; returns the chunk's product of
+// (1 - alpha) over the used slots. The counting build (kCount) adds each
+// batch the warp reduces to tally[1].
+template <bool kCount>
+__device__ __forceinline__ float replay_chunk(const float4* rows, int nk,
+                                              const BwdPixel& q, float T,
+                                              float& after_cg,
+                                              float& after_dg, float* part,
+                                              unsigned long long* tally) {
+    const int lane = threadIdx.x % 32;
+    const bool live = T > kTMin;
+    if (!__any_sync(kFullMask, live)) {   // a saturated patch: zero sums
+        for (int i = lane; i < nk * kGradW; i += 32) part[i] = 0.0f;
+        return 1.0f;
+    }
+    // where this lane's sums of a batch go: slot 2 * bit3 + bit4 of the
+    // batch, columns 5 * bit2 .. + 4 (the transpose steps below)
+    float* dst = part + (2 * ((lane >> 3) & 1) + ((lane >> 4) & 1)) * kGradW
+                 + kHalfW * ((lane >> 2) & 1);
+    float cp = 1.0f;
+    bool spent = !live;
+    for (int k0 = 0; k0 < nk; k0 += kBatch, dst += kBatch * kGradW) {
+        float s[kHalfW];
+#pragma unroll
+        for (int i = 0; i < kHalfW; ++i) s[i] = 0.0f;
+        if (__any_sync(kFullMask, !spent)) {
+            // The batch's gates first, with no branch: they depend on
+            // neither T nor one another. A slot past nk reads a stale or
+            // unwritten row of the ring (it holds whole batches) and is
+            // masked by its index.
+            float gate[kBatch], alpha_u[kBatch], dx[kBatch], dy[kBatch];
+            bool gated = false;
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+                const float4* row = rows + 3 * (k0 + u);
+                const float power =
+                    splat_power(row[0], row[1], q.px, q.py, dx[u], dy[u]);
+                alpha_u[u] = splat_alpha_u(row[2].x, power);
+                const float alpha = splat_alpha(alpha_u[u]);
+                gate[u] = (k0 + u < nk && power <= 0.0f
+                           && alpha >= kAlphaMin) ? alpha : 0.0f;
+                gated |= gate[u] != 0.0f;
+            }
+            if (__any_sync(kFullMask, gated && !spent)) {
+                if (kCount && lane == 0) atomicAdd(tally + 1, 1ull);
+                // the replay in order, reduced a pair of slots at a time
+                float v0[kGradW], v1[kGradW], h0[kGradW], h1[kGradW];
+                const float4* row = rows + 3 * k0;
+                replay(row, gate[0], alpha_u[0], dx[0], dy[0], q, T, cp,
+                       after_cg, after_dg, spent, v0);
+                replay(row + 3, gate[1], alpha_u[1], dx[1], dy[1], q, T, cp,
+                       after_cg, after_dg, spent, v1);
+                transpose_add<kGradW>(h0, v0, v1, lane, 16);  // slot bit4
+                replay(row + 6, gate[2], alpha_u[2], dx[2], dy[2], q, T, cp,
+                       after_cg, after_dg, spent, v0);
+                replay(row + 9, gate[3], alpha_u[3], dx[3], dy[3], q, T, cp,
+                       after_cg, after_dg, spent, v1);
+                transpose_add<kGradW>(h1, v0, v1, lane, 16);  // 2 + bit4
+                transpose_add<kGradW>(v0, h0, h1, lane, 8);   // + 2 * bit3
+                transpose_add<kHalfW>(s, v0, v0 + kHalfW, lane, 4);
+#pragma unroll
+                for (int i = 0; i < kHalfW; ++i) {
+                    s[i] += __shfl_xor_sync(kFullMask, s[i], 2);
+                    s[i] += __shfl_xor_sync(kFullMask, s[i], 1);
+                }
+            }
+        }
+        // the four lanes of a group hold the same sums; each stores some
+#pragma unroll
+        for (int i = 0; i < kHalfW; ++i)
+            if ((i & 3) == (lane & 3)) dst[i] = s[i];
+    }
+    return cp;
+}
+
+// Add the block's sums of the tile's slots [from, from + nk), its warps'
+// partial rows (kWarps x ring x 10) in warp order, into grads: one float2
+// atomic per nonzero pair of values. The ids are read from gidx, not from
+// the staged list, which a new segment may be overwriting. The counting
+// build (kCount) adds the atomics it issued to tally[0].
+template <bool kCount>
+__device__ __forceinline__ void flush(const float* part, int ring,
+                                      const int* tile_gidx, int from, int nk,
+                                      int n_gauss, float* grads,
+                                      unsigned long long* tally) {
+    unsigned issued = 0;
+    for (int i = threadIdx.x; i < nk * kHalfW; i += kThreads) {
+        const int slot = i / kHalfW, pair = i - slot * kHalfW;
+        float2 s = make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                part + ((size_t)w * ring + slot) * kGradW + 2 * pair);
+            s.x += p.x;
+            s.y += p.y;
+        }
+        if (s.x != 0.0f || s.y != 0.0f) {
+            int g = tile_gidx[from + slot];
+            g = (g < 0 || g > n_gauss) ? n_gauss : g;
+            atomicAdd(reinterpret_cast<float2*>(
+                          grads + (size_t)g * kGradW + 2 * pair), s);
+            ++issued;
+        }
+    }
+    if (kCount && issued) atomicAdd(tally, (unsigned long long)issued);
+}
+
+// kCount: the counting build, which tallies its float2 atomics and its
+// reduced batches into tally[0] and tally[1] (for measurement; the timed
+// build is kCount = false, which compiles no tally).
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 blend_bwd_kernel(const int* __restrict__ gidx,
                  const int* __restrict__ counts,
                  const float4* __restrict__ table,
                  int n_gauss, int tile_cap, int grid_x, int tile_size,
-                 int chunk, const float* __restrict__ out_color,
+                 int chunk, int list_len, const float* __restrict__ out_color,
                  const float* __restrict__ out_depth,
                  const float* __restrict__ out_t,
                  const float* __restrict__ g_color,
                  const float* __restrict__ g_depth,
-                 const float* __restrict__ g_t, float* __restrict__ grads) {
-    extern __shared__ float4 smem[];
-    float4* s_rows = smem;                                     // chunk x 3
-    float* s_acc = reinterpret_cast<float*>(smem + 3 * chunk);  // chunk x 10
-    const int tile = blockIdx.x;
-    const int p = threadIdx.x;
-    const int n_pix = blockDim.x;
-    const int lane = p & 31;
+                 const float* __restrict__ g_t, float* __restrict__ grads,
+                 unsigned long long* __restrict__ tally) {
+    const int subs_x = tile_size / kSubW;        // sub-tiles across a tile
+    const int subs = subs_x * (tile_size / kSubH);
+    const int tile = blockIdx.x / subs;
     const int count = counts[tile];
+    if (count <= 0) return;                      // the whole block
+    extern __shared__ float4 smem[];
+    const int ring = ring_slots(chunk);
+    const int part_len = kWarps * ring * kGradW;  // one buffer's partials
+    float4* s_rows = smem;                        // 2 x ring x 3 float4
+    float* s_part = reinterpret_cast<float*>(smem + 6 * ring);
+    int* s_list = reinterpret_cast<int*>(s_part + 2 * part_len);
+    const int sub = blockIdx.x % subs;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int x = (sub % subs_x) * kSubW
+                  + (warp % (kSubW / kPatchW)) * kPatchW + lane % kPatchW;
+    const int y = (sub / subs_x) * kSubH
+                  + (warp / (kSubW / kPatchW)) * kPatchH + lane / kPatchW;
+    const int p = y * tile_size + x;
     const int* tile_gidx = gidx + (size_t)tile * tile_cap;
-    const BwdPixel q = load_bwd_pixel(tile, p, grid_x, tile_size,
-                                      (size_t)tile * n_pix + p, out_color,
-                                      out_depth, out_t, g_color, g_depth,
-                                      g_t);
+    const BwdPixel q = load_bwd_pixel(
+        tile, p, grid_x, tile_size, (size_t)tile * tile_size * tile_size + p,
+        out_color, out_depth, out_t, g_color, g_depth, g_t);
 
+    stage_ids<kThreads>(s_list, tile_gidx, 0, min(list_len, count), n_gauss);
+    copy_rows_async<kThreads>(s_rows, s_list, table, 0, min(chunk, count));
     float T = 1.0f, after_cg = 0.0f, after_dg = 0.0f;
-    for (int base = 0; base < count; base += chunk) {
-        const int nk = min(chunk, count - base);
-        gather_rows(s_rows, tile_gidx, table, base, nk, n_gauss);
-        for (int i = p; i < nk * kGradW; i += n_pix) s_acc[i] = 0.0f;
-        __syncthreads();
-        const bool live = T > kTMin;
-        if (__any_sync(kFullMask, live)) {
-            float cp = 1.0f;
-            bool stop = !live;
-            for (int k = 0; k < nk; ++k) {
-                float v[kGradW];
-#pragma unroll
-                for (int i = 0; i < kGradW; ++i) v[i] = 0.0f;
-                const bool used =
-                    !stop && slot_grads(s_rows[3 * k], s_rows[3 * k + 1],
-                                        s_rows[3 * k + 2], q, T, cp,
-                                        after_cg, after_dg, stop, v);
-                if (__any_sync(kFullMask, used)) {
-#pragma unroll
-                    for (int i = 0; i < kGradW; ++i) v[i] = warp_sum(v[i]);
-                    if (lane == 0) {
-#pragma unroll
-                        for (int i = 0; i < kGradW; ++i)
-                            if (v[i] != 0.0f)
-                                atomicAdd(&s_acc[k * kGradW + i], v[i]);
-                    }
-                }
-                if (__all_sync(kFullMask, stop)) break;
-            }
-            if (live) T = __fmul_rn(T, cp);
+    for (int base = 0, j = 0;; base += chunk, ++j) {
+        // chunk j's rows have landed (this thread's copies; the barrier
+        // publishes everyone's), every warp has written chunk j - 1's
+        // partial rows and is done with its buffers, and the block stops
+        // once the list ends or none of its pixels is live
+        __pipeline_wait_prior(0);
+        const int n_live = __syncthreads_count(base < count && T > kTMin);
+        if (j > 0)
+            flush<kCount>(s_part + ((j - 1) & 1) * part_len, ring,
+                          tile_gidx, base - chunk,
+                          min(chunk, count - (base - chunk)), n_gauss, grads,
+                          tally);
+        if (n_live == 0) break;
+        const int next = base + chunk;
+        if (next < count) {
+            const int i0 = next % list_len;
+            if (i0 == 0)   // a new segment of the list; no barrier needed
+                stage_ids<kThreads>(s_list, tile_gidx, next,
+                                    min(list_len, count - next), n_gauss);
+            copy_rows_async<kThreads>(s_rows + 3 * ring * ((j + 1) & 1),
+                                      s_list, table, i0,
+                                      min(chunk, count - next));
         }
-        __syncthreads();
-        // flush the chunk's sums: one global atomic per nonzero value
-        for (int i = p; i < nk * kGradW; i += n_pix) {
-            const float v = s_acc[i];
-            if (v != 0.0f) {
-                const int slot = i / kGradW;
-                int g = tile_gidx[base + slot];
-                g = (g < 0 || g > n_gauss) ? n_gauss : g;
-                atomicAdd(&grads[(size_t)g * kGradW + (i - slot * kGradW)],
-                          v);
-            }
-        }
-        // barrier before the next chunk overwrites s_rows and s_acc, and
-        // the block-wide saturation test
-        if (__syncthreads_count(T > kTMin) == 0) break;
+        const float cp = replay_chunk<kCount>(
+            s_rows + 3 * ring * (j & 1), min(chunk, count - base), q, T,
+            after_cg, after_dg,
+            s_part + (j & 1) * part_len + warp * ring * kGradW, tally);
+        T = __fmul_rn(T, cp);
     }
+}
+
+// Launch one build of the kernel, opting in past the default shared
+// memory first where it needs to.
+template <bool kCount>
+cudaError_t launch(const int* gidx, const int* counts, const float4* table,
+                   int n_gauss, int num_tiles, int tile_cap, int grid_x,
+                   int tile_size, int chunk, int list_len,
+                   const float* const* fwd, float* grads,
+                   unsigned long long* tally, cudaStream_t s) {
+    const size_t smem = smem_bytes(chunk, list_len);
+    if (smem > kDefaultSmem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            blend_bwd_kernel<kCount>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    const int subs = (tile_size / kSubW) * (tile_size / kSubH);
+    blend_bwd_kernel<kCount><<<num_tiles * subs, kThreads, smem, s>>>(
+        gidx, counts, table, n_gauss, tile_cap, grid_x, tile_size, chunk,
+        list_len, fwd[0], fwd[1], fwd[2], fwd[3], fwd[4], fwd[5], grads,
+        tally);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// table is (n_gauss + 1, 16) and grads (n_gauss + 1, 10) float32, grads
-// zero-filled by the caller; the forward outputs and their cotangents are
-// tile-major (num_tiles, P[, 3]).
+// Zero-fill grads on `stream`, then launch; returns the cudaError_t of the
+// fill or the launch (0 = ok). table is (n_gauss + 1, 16) and grads
+// (n_gauss + 1, 10) float32 (8-byte aligned); the forward outputs and
+// their cotangents are tile-major (num_tiles, P[, 3]); tile_size is 16 or
+// 32; list_len, the slots staged at a time, is a multiple of chunk. tally
+// is null, or two uint64 on the card to which the counting build adds the
+// float2 atomics it issued and the warp batches it reduced.
 int blend_bwd_launch(const void* gidx, const void* counts, const void* table,
                      int n_gauss, int num_tiles, int tile_cap, int grid_x,
-                     int tile_size, int chunk, const void* out_color,
-                     const void* out_depth, const void* out_t,
-                     const void* g_color, const void* g_depth,
-                     const void* g_t, void* grads, void* stream) {
-    const int n_pix = tile_size * tile_size;
-    const size_t smem = (size_t)chunk * (3 * sizeof(float4)
-                                         + fourdgs::kGradW * sizeof(float));
-    blend_bwd_kernel<<<num_tiles, n_pix, smem, (cudaStream_t)stream>>>(
-        (const int*)gidx, (const int*)counts, (const float4*)table, n_gauss,
-        tile_cap, grid_x, tile_size, chunk, (const float*)out_color,
-        (const float*)out_depth, (const float*)out_t, (const float*)g_color,
-        (const float*)g_depth, (const float*)g_t, (float*)grads);
-    return (int)cudaGetLastError();
+                     int tile_size, int chunk, int list_len,
+                     const void* out_color, const void* out_depth,
+                     const void* out_t, const void* g_color,
+                     const void* g_depth, const void* g_t, void* grads,
+                     void* tally, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(
+        grads, 0, sizeof(float) * fourdgs::kGradW * ((size_t)n_gauss + 1), s);
+    if (err != cudaSuccess) return (int)err;
+    if (num_tiles == 0) return 0;
+    const float* fwd[6] = {(const float*)out_color, (const float*)out_depth,
+                           (const float*)out_t, (const float*)g_color,
+                           (const float*)g_depth, (const float*)g_t};
+    auto build = tally ? &launch<true> : &launch<false>;
+    return (int)build((const int*)gidx, (const int*)counts,
+                      (const float4*)table, n_gauss, num_tiles, tile_cap,
+                      grid_x, tile_size, chunk, list_len, fwd, (float*)grads,
+                      (unsigned long long*)tally, s);
 }
 
 }  // extern "C"

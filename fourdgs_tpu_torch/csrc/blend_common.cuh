@@ -1,6 +1,7 @@
 // Forward math shared by the blend kernels (blend_fwd.cu K1, blend_bwd.cu
-// K2, blend_bwd_slots.cu K3), and the backward replay's per-slot step
-// shared by K2 and K3.
+// K2, blend_bwd_slots.cu K3), the backward replay's per-slot step shared by
+// K2 and K3, and the staged slot list, row ring and warp transpose
+// reduction of K2's sub-tile blocks (at the end).
 //
 // Every value that feeds a gate (power > 0, alpha < 1/255, the entering
 // transmittance T * cp <= 1e-4, and the chunk's product carried to the next
@@ -11,6 +12,7 @@
 // slightly noisy one.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace fourdgs {
@@ -149,6 +151,55 @@ __device__ __forceinline__ void gather_rows(float4* s_rows,
         g = (g < 0 || g > n_gauss) ? n_gauss : g;
         s_rows[i] = table[(size_t)g * 4 + (i - slot * 3)];
     }
+}
+
+// Stage entries [from, from + n) of a tile's slot list into s_list[0, n),
+// each id outside [0, n_gauss] sent to the all-zero sentinel row n_gauss.
+// Thread t of a block of kThreads stages the entries i = t (mod kThreads).
+template <int kThreads>
+__device__ __forceinline__ void stage_ids(int* s_list, const int* tile_gidx,
+                                          int from, int n, int n_gauss) {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int g = tile_gidx[from + i];
+        s_list[i] = (g < 0 || g > n_gauss) ? n_gauss : g;
+    }
+}
+
+// Start copying the rows (3 float4 a slot) of staged entries [i0, i0 + nk)
+// into rows with cp.async, committed as one group. Thread t copies the
+// entries it staged itself (stage_ids), so neither a new segment of the
+// list nor its rows need a barrier in between.
+template <int kThreads>
+__device__ __forceinline__ void copy_rows_async(float4* rows,
+                                                const int* s_list,
+                                                const float4* table, int i0,
+                                                int nk) {
+    const int first =
+        i0 + (int)((threadIdx.x - (unsigned)i0) & (kThreads - 1));
+    for (int i = first; i < i0 + nk; i += kThreads) {
+        const float4* src = table + (size_t)s_list[i] * 4;
+        float4* dst = rows + 3 * (i - i0);
+        __pipeline_memcpy_async(dst, src, sizeof(float4));
+        __pipeline_memcpy_async(dst + 1, src + 1, sizeof(float4));
+        __pipeline_memcpy_async(dst + 2, src + 2, sizeof(float4));
+    }
+    __pipeline_commit();
+}
+
+// One step of a warp's transpose reduction over n values a lane: the lanes
+// whose lane bit `bit` is clear keep lo and add their partner's lo, the
+// others keep hi and add their partner's hi (the partner is lane ^ bit).
+// n shuffles halve what a lane holds, where a butterfly would take n per
+// value-halving step and keep every value in every lane.
+template <int N>
+__device__ __forceinline__ void transpose_add(float* keep, const float* lo,
+                                              const float* hi, int lane,
+                                              int bit) {
+    const bool upper = (lane & bit) != 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+        keep[i] = (upper ? hi[i] : lo[i])
+                  + __shfl_xor_sync(kFullMask, upper ? lo[i] : hi[i], bit);
 }
 
 }  // namespace fourdgs

@@ -44,7 +44,9 @@ GRAD_W = 10        # [pix(2), conic(3), color(3), opacity, depth]
 # chunk 1024) and the staged slot list, at most _LIST_SLOTS ids (16 KB)
 _MAX_CHUNK = 1024
 _LIST_SLOTS = 4096
-_MAX_CHUNK_BWD = 512  # K2's holds chunk * (48 + 40) bytes (< 48 KB)
+# K2's: a ring of rows and a double buffer of four warps' partial rows,
+# chunk x 416 bytes (208 KB at chunk 512), and the staged slot list as K1's
+_MAX_CHUNK_BWD = 512
 _MAX_SMEM = 232_448   # the dynamic shared memory a block can take (K3)
 
 
@@ -217,35 +219,40 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
                    table: torch.Tensor, color: torch.Tensor,
                    depth: torch.Tensor, trans: torch.Tensor,
                    g_color: torch.Tensor, g_depth: torch.Tensor,
-                   g_t: torch.Tensor, cfg) -> torch.Tensor:
+                   g_t: torch.Tensor, cfg,
+                   tally: torch.Tensor | None = None) -> torch.Tensor:
     """Per-gaussian gradients (N, GRAD_W) of the blend, from its inputs,
     its outputs (color, depth, trans) and their cotangents. CUDA tensors
     launch the kernel, which sums the per-slot gradients into the rows
     with atomics (so the float order varies from run to run); CPU tensors
-    run the plain version."""
+    run the plain version. `tally`, for measurement: a (2,) int64 tensor
+    on the table's card, to which a counting build of the kernel adds the
+    float2 atomics it issued and the batches its warps reduced."""
     _check_inputs(gidx, counts, table, cfg)
     _check_outputs(table, color, depth, trans, cfg, "output")
     _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
+    if tally is not None and (tally.dtype != torch.int64
+                              or tally.shape != (2,)
+                              or tally.device != table.device):
+        raise ValueError("tally must be a (2,) int64 tensor on the table's "
+                         "device")
     if table.device.type == "cpu":
+        if tally is not None:
+            raise ValueError("the plain backward issues no atomics to tally")
         return blend_backward_plain(gidx, counts, table, color, depth,
                                     trans, g_color, g_depth, g_t, cfg)
     _check_kernel(table, cfg, _MAX_CHUNK_BWD)
-    from fourdgs_tpu_torch.ops._build import load_library
     lib = load_library()
-    n = table.shape[0] - 1
-    with torch.cuda.device(table.device):
-        grads = torch.zeros((n + 1, GRAD_W), dtype=torch.float32,
-                            device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.blend_bwd_launch(
-            gidx.data_ptr(), counts.data_ptr(), table.data_ptr(), n,
-            cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
-            cfg.chunk, color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
+    n, k = table.shape[0] - 1, cfg.chunk
+    # the slots staged at a time: the whole list up to _LIST_SLOTS
+    list_len = min(cfg.tile_cap, _LIST_SLOTS // k * k)
+    grads = table.new_empty((n + 1, GRAD_W))    # zero-filled by the launch
+    _launch(lib, lib.blend_bwd_launch, table, gidx.data_ptr(),
+            counts.data_ptr(), table.data_ptr(), n, cfg.num_tiles,
+            cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
+            color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
             g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
-            grads.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_bwd launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+            grads.data_ptr(), None if tally is None else tally.data_ptr())
     blend_backward.launches += 1
     return grads[:n]
 
@@ -357,26 +364,18 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
         return blend_backward_slots_plain(gidx, counts, table, color, depth,
                                           trans, g_color, g_depth, g_t, cfg)
     _check_kernel(table, cfg, cfg.tile_cap)
-    from fourdgs_tpu_torch.ops._build import load_library
     lib = load_library()
     smem = lib.blend_bwd_slots_smem(cfg.tile_size, cfg.chunk)
     if smem > _MAX_SMEM:
         raise ValueError(f"chunk {cfg.chunk} needs {smem} bytes of shared "
                          f"memory in blend_bwd_slots (at most {_MAX_SMEM})")
-    n = table.shape[0] - 1
-    with torch.cuda.device(table.device):
-        slots = torch.empty((cfg.num_tiles, cfg.tile_cap, GRAD_W),
-                            dtype=torch.float32, device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.blend_bwd_slots_launch(
-            gidx.data_ptr(), counts.data_ptr(), table.data_ptr(), n,
+    slots = table.new_empty((cfg.num_tiles, cfg.tile_cap, GRAD_W))
+    _launch(lib, lib.blend_bwd_slots_launch, table, gidx.data_ptr(),
+            counts.data_ptr(), table.data_ptr(), table.shape[0] - 1,
             cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
             cfg.chunk, color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
             g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
-            slots.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_bwd_slots launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+            slots.data_ptr())
     blend_backward_slots.launches += 1
     return slots
 

@@ -23,8 +23,9 @@ the CPU only the plain version runs, and its times are host times. `main`
 returns the numbers and K1's inputs.
 
 `blend_work` counts where K1's time can go on any input (chip_smoke.py
-prices K1's bound with it, and reads the tiles' occupancy, the heaviest
-tile and the warp-issued evaluations off it).
+prices K1's and K2's bounds with it, and reads the tiles' occupancy, the
+heaviest tile and the warp-issued evaluations off it); `bwd_work` counts
+where K2's sums over pixels can go (its warp reductions and atomics).
 """
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ BLEND_FP32_INSTR = {"eval": 12, "exp": 9, "used": 9}
 # per tile and a warp per 32 consecutive pixels of the tile ("row").
 SUB_W, SUB_H, PATCH_W, PATCH_H = 16, 8, 8, 4
 WARP_SHAPES = ("row", "patch")
+# K2 (csrc/blend_bwd.cu) takes K1's layout and replays and sums the slots
+# of a chunk in batches of four
+BWD_BATCH = 4
 
 
 def warp_pixels(tile_size: int, shape: str) -> torch.Tensor:
@@ -81,45 +85,25 @@ def warp_pixels(tile_size: int, shape: str) -> torch.Tensor:
     return (y * tile_size + x).reshape(-1, 32)
 
 
-def blend_work(gidx, counts, table, cfg) -> dict:
-    """Where K1's time can go on this input, by walking the plain
-    recurrence (ops/blend.py:_chunk_math) chunk by chunk:
+def _chunk_walks(gidx, counts, table, cfg):
+    """Per occupied chunk of the plain recurrence (ops/blend.py:
+    _chunk_math), what the kernels' thread of each pixel does with each
+    slot, as (tile, slot[, pixel]) boolean tensors:
 
-    eval, exp, used: pixel x slot evaluations by how far each gets in the
-      kernels' loop bodies (all evaluated, past the power test, used); a
-      pixel evaluates every slot of its tile's list up to the count while
-      its entering transmittance is above T_MIN. They price the bound.
-    warp_slots, tile_slots: the slots some pixel of a warp of 32
-      consecutive pixels used (a warp reduction in K2) and some pixel of a
-      tile used (a flush in K2).
-    lanes_walked: the slots each pixel's thread walks in SIMT: from the
-      chunk's first slot until it ends or a gated slot finds the entering
-      transmittance at or below T_MIN, if the pixel was live (T > T_MIN) as
-      the chunk began.
-    warp_issued: per warp shape (`warp_pixels`), 32 x the slots each warp
-      with a live lane walks (the most any of its lanes walks), summed over
-      chunks: the evaluations a SIMT design issues.
-    block_chunks: the chunks that blocks walk, a block walking a chunk of
-      its tile's list while one of its pixels is live: a block per tile
-      ("tile"), or per 16 x 8 sub-tile ("sub_tile", K1's).
-    occupancy: the mean, p99 and max of counts.
-    heaviest_tile, heaviest_sub_tile: the tile (sub-tile) with the most FP32
-      instructions by BLEND_FP32_INSTR, its evaluations, and its one-SM
-      time, those instructions over one SM's FP32 issue rate (128 lanes at
-      1.98 GHz): the least time a design that keeps it on one SM takes."""
+    slot (nt, K): the slot lies within its tile's count;
+    live (nt, P): the pixel entered the chunk with T > T_MIN;
+    exp (nt, K, P): power <= 0, so the slot takes an expf;
+    gated: power <= 0 and alpha >= 1/255;
+    eval: evaluated (within the count, the entering T above T_MIN);
+    used: evaluated and gated;
+    walk: walked in SIMT: from the chunk's first slot, if the pixel was
+      live, until it ends or a gated slot finds the entering T at or below
+      T_MIN (that slot included)."""
     k = cfg.chunk
     dev = table.device
     px, py = tile_pixel_coords(cfg, dev)
-    nt, p = px.shape
     idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
-    warps = {s: warp_pixels(cfg.tile_size, s).to(dev) for s in WARP_SHAPES}
-    subs = warps["patch"].reshape(-1, SUB_W * SUB_H)  # (sub-tiles, 128)
     t = torch.ones_like(px)
-    pix = {key: torch.zeros((nt, p), dtype=torch.int64, device=dev)
-           for key in BLEND_FP32_INSTR}
-    work = {"warp_slots": 0, "tile_slots": 0, "lanes_walked": 0}
-    issued = dict.fromkeys(WARP_SHAPES, 0)
-    blocks = {"tile": 0, "sub_tile": 0}
     for j in range(-(-int(counts.max()) // k)):
         rows = table[idx[:, j * k:(j + 1) * k]]
         dx = rows[:, :, 0:1] - px[:, None, :]
@@ -136,26 +120,59 @@ def blend_work(gidx, counts, table, cfg) -> dict:
         slot = torch.arange(j * k, (j + 1) * k, device=dev)[None, :] \
             < counts[:, None]                             # (nt, K)
         ev = (t_pref > T_MIN) & slot[:, :, None]
-        used = ev & gated
-        pix["eval"] += ev.sum(1)
-        pix["exp"] += (ev & (power <= 0)).sum(1)
-        pix["used"] += used.sum(1)
-        work["warp_slots"] += int(used.reshape(nt, k, p // 32, 32)
-                                  .any(-1).sum())
-        work["tile_slots"] += int(used.any(-1).sum())
         # a lane stops at the first gated slot whose entering T is spent
         stop = (gated & (t_pref <= T_MIN)).int()
-        walk = (slot[:, :, None] & (t > T_MIN)[:, None, :]
+        live = t > T_MIN
+        walk = (slot[:, :, None] & live[:, None, :]
                 & (torch.cumsum(stop, dim=1) - stop == 0))
-        walked = walk.sum(1)                              # (nt, P)
+        yield {"slot": slot, "live": live, "exp": ev & (power <= 0),
+               "gated": gated, "eval": ev, "used": ev & gated, "walk": walk}
+        use = gated & (t_pref > T_MIN)
+        t = t * torch.where(use, cp, torch.ones_like(cp)).amin(dim=1)
+
+
+def blend_work(gidx, counts, table, cfg) -> dict:
+    """Where K1's time can go on this input, by walking the plain
+    recurrence (ops/blend.py:_chunk_math) chunk by chunk (`_chunk_walks`):
+
+    eval, exp, used: pixel x slot evaluations by how far each gets in the
+      kernels' loop bodies (all evaluated, past the power test, used); a
+      pixel evaluates every slot of its tile's list up to the count while
+      its entering transmittance is above T_MIN. They price the bound.
+    lanes_walked: the slots each pixel's thread walks in SIMT: from the
+      chunk's first slot until it ends or a gated slot finds the entering
+      transmittance at or below T_MIN, if the pixel was live (T > T_MIN) as
+      the chunk began.
+    warp_issued: per warp shape (`warp_pixels`), 32 x the slots each warp
+      with a live lane walks (the most any of its lanes walks), summed over
+      chunks: the evaluations a SIMT design issues.
+    block_chunks: the chunks that blocks walk, a block walking a chunk of
+      its tile's list while one of its pixels is live: a block per tile
+      ("tile"), or per 16 x 8 sub-tile ("sub_tile", K1's).
+    occupancy: the mean, p99 and max of counts.
+    heaviest_tile, heaviest_sub_tile: the tile (sub-tile) with the most FP32
+      instructions by BLEND_FP32_INSTR, its evaluations, and its one-SM
+      time, those instructions over one SM's FP32 issue rate (128 lanes at
+      1.98 GHz): the least time a design that keeps it on one SM takes."""
+    dev = table.device
+    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+    warps = {s: warp_pixels(cfg.tile_size, s).to(dev) for s in WARP_SHAPES}
+    subs = warps["patch"].reshape(-1, SUB_W * SUB_H)  # (sub-tiles, 128)
+    pix = {key: torch.zeros((nt, p), dtype=torch.int64, device=dev)
+           for key in BLEND_FP32_INSTR}
+    work = {"lanes_walked": 0}
+    issued = dict.fromkeys(WARP_SHAPES, 0)
+    blocks = {"tile": 0, "sub_tile": 0}
+    for c in _chunk_walks(gidx, counts, table, cfg):
+        for key in BLEND_FP32_INSTR:
+            pix[key] += c[key].sum(1)
+        walked = c["walk"].sum(1)                         # (nt, P)
         work["lanes_walked"] += int(walked.sum())
         for s, lanes in warps.items():
             issued[s] += 32 * int(walked[:, lanes].amax(-1).sum())
-        live = (t > T_MIN) & slot[:, :1]                  # (nt, P)
+        live = c["live"] & c["slot"][:, :1]               # (nt, P)
         blocks["tile"] += int(live.any(-1).sum())
         blocks["sub_tile"] += int(live[:, subs].any(-1).sum())
-        use = gated & (t_pref > T_MIN)
-        t = t * torch.where(use, cp, torch.ones_like(cp)).amin(dim=1)
     work.update({key: int(v.sum()) for key, v in pix.items()})
     work.update(warp_issued=issued, block_chunks=blocks)
     c = counts.double()
@@ -173,6 +190,42 @@ def blend_work(gidx, counts, table, cfg) -> dict:
                          for key, v in pix.items()},
                       "fp32": int(per[top]),
                       "one_sm_ms": float(per[top]) / FP32_ISSUE_SM_S * 1e3}
+    return work
+
+
+def bwd_work(gidx, counts, table, cfg) -> dict:
+    """Where K2's sums over pixels can go on this input (csrc/blend_bwd.cu,
+    K1's layout with batches of BWD_BATCH slots), by the walk of
+    `_chunk_walks`:
+
+    warp_slots: per warp shape, the slots some pixel of a warp used: the
+      first K2 reduced each with ten five-step shuffle sums ("row");
+    block_slots: the slots some pixel of a tile ("tile": the first K2's
+      flushes, ten atomics each at most) or of a 16 x 8 sub-tile
+      ("sub_tile": K2's flushes, five float2 atomics each at most) used;
+    reduced_batches: the batches (slots [4 b, 4 b + 4) of a chunk) that an
+      8 x 4 patch warp reduces, 45 shuffles each: those in which some lane
+      walks to the batch's first slot and some slot of the batch within
+      the count is gated for it."""
+    k, b = cfg.chunk, BWD_BATCH
+    dev = table.device
+    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+    warps = {s: warp_pixels(cfg.tile_size, s).to(dev) for s in WARP_SHAPES}
+    subs = warps["patch"].reshape(-1, SUB_W * SUB_H)
+    nb = -(-k // b)
+    work = {"warp_slots": dict.fromkeys(WARP_SHAPES, 0),
+            "block_slots": {"tile": 0, "sub_tile": 0}, "reduced_batches": 0}
+    for c in _chunk_walks(gidx, counts, table, cfg):
+        used = c["used"]
+        for s, lanes in warps.items():
+            work["warp_slots"][s] += int(used[:, :, lanes].any(-1).sum())
+        work["block_slots"]["tile"] += int(used.any(-1).sum())
+        work["block_slots"]["sub_tile"] += int(used[:, :, subs].any(-1).sum())
+        gated = c["gated"] & c["slot"][:, :, None]        # (nt, K, P)
+        gated = torch.cat([gated, gated.new_zeros((nt, nb * b - k, p))], 1)
+        batch = gated.reshape(nt, nb, b, p).any(2) & c["walk"][:, ::b]
+        work["reduced_batches"] += int(batch[:, :, warps["patch"]]
+                                       .any(-1).sum())
     return work
 
 

@@ -8,7 +8,9 @@ The coarse stage (static gaussians) and then the fine stage (gaussians and
 deformation) run through `train.loop.run_stage`, each with a fresh
 optimizer; `--start_checkpoint` resumes mid-stage. Every `log` record goes
 to <out>/train_log.jsonl with the JAX script's keys, and every test
-evaluation adds a record with `"eval": "test"`. Snapshots land under
+evaluation adds a record with `"eval": "test"`, which also gives the
+state's capacity and what each view's render dropped at which caps
+(`render_per_view`). Snapshots land under
 <out>/point_cloud/ and checkpoints at <out>/chkpnt_{stage}_{iter}.npz, in
 the JAX package's layouts.
 
@@ -74,6 +76,32 @@ def build_parser() -> tuple[argparse.ArgumentParser, config_mod.Config]:
     cfg = config_mod.Config()
     config_mod.add_args(parser, cfg)
     return parser, cfg
+
+
+def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
+    """One view with the live caps; an overflowing view doubles the
+    overflowing cap and renders again, up to `renders` renders. Returns the
+    last render's color, and what it dropped at which caps."""
+    for i in range(renders):
+        out = loop.eval_step(state, cam, bg, stage=stage,
+                             active_sh=active_sh, raster_cfg=rcfg)
+        dp, dt, npairs = (int(x) for x in torch.stack([
+            out.dropped_pairs, out.dropped_tile, out.num_pairs]).cpu())
+        dt_thresh = max(64, npairs // 200)
+        if i == renders - 1 or not (dp or dt > dt_thresh):
+            break
+        changes = {}
+        if dt > dt_thresh:
+            changes["tile_cap"] = min(rcfg.tile_cap * 2, 8192)
+        if dp:
+            changes["bin_pairs_per_chunk"] = min(
+                rcfg.bin_pairs_per_chunk * 2, 1 << 18)
+        if all(getattr(rcfg, k) == v for k, v in changes.items()):
+            break
+        rcfg = dataclasses.replace(rcfg, **changes)
+    return out.color, {"dropped_pairs": dp, "dropped_tile": dt,
+                       "num_pairs": npairs, "tile_cap": rcfg.tile_cap,
+                       "bin_pairs_per_chunk": rcfg.bin_pairs_per_chunk}
 
 
 def main(argv=None) -> dict:
@@ -149,45 +177,26 @@ def main(argv=None) -> dict:
         def epoch_order_fn(r):
             return fine_sample_order(len(scene.train), n_poses, r)
 
-    def eval_render(state, cam, stage, active_sh, rcfg):
-        """One view with the live caps; an overflowing view doubles the
-        overflowing cap and renders again (up to 4 times)."""
-        for _ in range(4):
-            out = loop.eval_step(state, cam, bg, stage=stage,
-                                 active_sh=active_sh, raster_cfg=rcfg)
-            dp, dt, npairs = (int(x) for x in torch.stack([
-                out.dropped_pairs, out.dropped_tile,
-                out.num_pairs]).cpu())
-            dt_thresh = max(64, npairs // 200)
-            if not (dp or dt > dt_thresh):
-                break
-            changes = {}
-            if dt > dt_thresh:
-                changes["tile_cap"] = min(rcfg.tile_cap * 2, 8192)
-            if dp:
-                changes["bin_pairs_per_chunk"] = min(
-                    rcfg.bin_pairs_per_chunk * 2, 1 << 18)
-            if all(getattr(rcfg, k) == v for k, v in changes.items()):
-                break
-            rcfg = dataclasses.replace(rcfg, **changes)
-        return out.color
-
     test_psnrs: dict[str, list] = {"coarse": [], "fine": []}
 
     def make_on_test(stage):
         def eval_split(split, it, state, active_sh, rcfg, n=None):
             n = len(split) if n is None else min(len(split), n)
-            out = []
+            out, renders = [], []
             for i in range(n):
-                img = torch.clamp(eval_render(state, split.cameras[i], stage,
-                                              active_sh, rcfg), 0, 1)
+                color, drops = eval_render(state, split.cameras[i], bg,
+                                           stage, active_sh, rcfg)
+                img = torch.clamp(color, 0, 1)
                 out.append(losses.psnr(img, split.images[[i]][0])[0])
-            return torch.stack(out).cpu().tolist()
+                renders.append(drops)
+            return torch.stack(out).cpu().tolist(), renders
 
         def on_test(it, state, active_sh, raster_cfg):
             rcfg = raster_cfg
-            test = eval_split(scene.test, it, state, active_sh, rcfg)
-            train = eval_split(scene.train, it, state, active_sh, rcfg, n=5)
+            test, renders = eval_split(scene.test, it, state, active_sh,
+                                       rcfg)
+            train, _ = eval_split(scene.train, it, state, active_sh, rcfg,
+                                  n=5)
             print(f"\n[ITER {it}] Evaluating test: PSNR "
                   f"{np.mean(test):.2f} over {len(test)} views "
                   f"(train probe {np.mean(train):.2f})", flush=True)
@@ -195,6 +204,8 @@ def main(argv=None) -> dict:
             write_log({"stage": stage, "iter": it, "eval": "test",
                        "psnr": float(np.mean(test)),
                        "psnr_per_view": [round(p, 4) for p in test],
+                       "capacity": state.capacity,
+                       "render_per_view": renders,
                        "train_probe_psnr": float(np.mean(train))})
         return on_test
 

@@ -175,6 +175,25 @@ def test_blend_rejects_bad_inputs():
     assert float(c.abs().max()) == 0 and float(t.min()) == 1.0
 
 
+def test_blend_backward_tally_is_for_the_kernel():
+    """The atomics tally counts the kernel's work: the plain backward,
+    which a CPU table runs, refuses it, as the wrapper refuses a tally of
+    another shape or type."""
+    _, tcfg = _cfgs(16)
+    nt, p = tcfg.num_tiles, tcfg.pixels_per_tile
+    gidx = torch.full((nt, 64), -1, dtype=torch.int32)
+    counts = torch.zeros(nt, dtype=torch.int32)
+    table = torch.zeros((5, 16))
+    outs = [torch.zeros((nt, p, 3)), torch.zeros((nt, p)), torch.ones((nt, p))]
+    args = (gidx, counts, table, *outs, *outs, tcfg)
+    for tally, what in ((torch.zeros(2, dtype=torch.int64), "no atomics"),
+                        (torch.zeros(3, dtype=torch.int64), "a \\(2,\\)"),
+                        (torch.zeros(2), "int64")):
+        with pytest.raises(ValueError, match=what):
+            tblend.blend_backward(*args, tally=tally)
+    assert float(tblend.blend_backward(*args).abs().max()) == 0
+
+
 def _walk_reference(gidx, counts, table, cfg):
     """What blend_work counts, by a loop over each pixel's walk through
     the plain recurrence's per-slot values (ops/blend.py:_chunk_math), as
@@ -190,8 +209,7 @@ def _walk_reference(gidx, counts, table, cfg):
              "patch": (ys // 4) * (ts // 8) + xs // 8,
              "sub": (ys // 8) * (ts // 16) + xs // 16}
     pix = {key: np.zeros((nt, p), np.int64) for key in ("eval", "exp", "used")}
-    ref = {"warp_slots": 0, "tile_slots": 0, "lanes_walked": 0,
-           "warp_issued": {"row": 0, "patch": 0},
+    ref = {"lanes_walked": 0, "warp_issued": {"row": 0, "patch": 0},
            "block_chunks": {"tile": 0, "sub_tile": 0}}
     cnt = counts.tolist()
     t = torch.ones((nt, p))
@@ -205,7 +223,6 @@ def _walk_reference(gidx, counts, table, cfg):
         for ti in range(nt):
             nk = min(k, cnt[ti] - j * k)
             walked = np.zeros(p, np.int64)
-            used = np.zeros((max(nk, 0), p), bool)
             for pi in range(p):
                 if not t0[ti][pi] > T_MIN:
                     continue
@@ -216,12 +233,8 @@ def _walk_reference(gidx, counts, table, cfg):
                         pix["eval"][ti, pi] += 1
                         pix["exp"][ti, pi] += pw[ti][s][pi] <= 0
                         pix["used"][ti, pi] += gate
-                        used[s, pi] = gate
                     elif gate:
                         break
-            ref["warp_slots"] += int(used.reshape(-1, p // 32, 32)
-                                     .any(-1).sum())
-            ref["tile_slots"] += int(used.any(-1).sum())
             ref["lanes_walked"] += int(walked.sum())
             for shape in ("row", "patch"):
                 ref["warp_issued"][shape] += 32 * sum(
@@ -275,6 +288,86 @@ def test_blend_work_matches_a_pixel_walk(kind, ts):
     if kind == "ragged" and ts == 32:   # a sub-tile stops before its tile
         assert work["block_chunks"]["sub_tile"] < \
             work["block_chunks"]["tile"] * (ts // 16) * (ts // 8)
+
+
+def _bwd_walk_reference(gidx, counts, table, cfg):
+    """What bwd_work counts, by a loop over each pixel's walk as K2's
+    thread for the pixel walks it (`_walk_reference`'s walk), with K2's
+    layout written out: a warp is 32 consecutive pixels ("row") or an 8 x 4
+    patch ("patch"), a block a tile or a 16 x 8 sub-tile, and a patch warp
+    reduces a batch of four slots when one of its lanes reaches the batch's
+    first slot and a slot of the batch within the count is gated for it."""
+    k, ts, b = cfg.chunk, cfg.tile_size, profile_blend_split.BWD_BATCH
+    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+    px, py = tblend.tile_pixel_coords(cfg, "cpu")
+    idx = torch.where(gidx >= 0, gidx, table.shape[0] - 1).long()
+    xs, ys = np.arange(p) % ts, np.arange(p) // ts
+    group = {"row": np.arange(p) // 32,
+             "patch": (ys // 4) * (ts // 8) + xs // 8,
+             "sub": (ys // 8) * (ts // 16) + xs // 16}
+
+    def by_group(flags, shape):    # (n, P) -> groups with a flag, summed
+        return sum(int(flags[:, group[shape] == g].any(-1).sum())
+                   for g in np.unique(group[shape]))
+
+    ref = {"warp_slots": {"row": 0, "patch": 0},
+           "block_slots": {"tile": 0, "sub_tile": 0}, "reduced_batches": 0}
+    cnt = counts.tolist()
+    t = torch.ones((nt, p))
+    for j in range(-(-max(cnt) // k)):
+        rows = table[idx[:, j * k:(j + 1) * k]]
+        dx, dy, _, alpha, _, t_pref, _, t_next = tblend._chunk_math(
+            rows, px, py, t)
+        power = (-0.5 * (rows[:, :, 2:3] * dx * dx + rows[:, :, 4:5] * dy * dy)
+                 - rows[:, :, 3:4] * dx * dy)
+        gated = ((power <= 0) & (alpha >= ALPHA_MIN)).tolist()
+        tp, t0 = t_pref.tolist(), t.tolist()
+        for ti in range(nt):
+            nk = min(k, cnt[ti] - j * k)
+            if nk <= 0:
+                continue
+            used = np.zeros((nk, p), bool)
+            batch = np.zeros((-(-nk // b), p), bool)
+            for pi in range(p):
+                if not t0[ti][pi] > T_MIN:
+                    continue
+                for s in range(nk):
+                    if s % b == 0:
+                        batch[s // b, pi] = any(
+                            gated[ti][u][pi] for u in range(s, min(s + b, nk)))
+                    if tp[ti][s][pi] > T_MIN:
+                        used[s, pi] = gated[ti][s][pi]
+                    elif gated[ti][s][pi]:
+                        break
+            for shape in ("row", "patch"):
+                ref["warp_slots"][shape] += by_group(used, shape)
+            ref["block_slots"]["tile"] += int(used.any(-1).sum())
+            ref["block_slots"]["sub_tile"] += by_group(used, "sub")
+            ref["reduced_batches"] += by_group(batch, "patch")
+        t = t_next
+    return ref
+
+
+@pytest.mark.parametrize("kind,ts,chunk", [
+    ("random", 16, 8), ("random", 32, 6), ("saturating", 16, 6),
+    ("saturating", 32, 8), ("ragged", 16, 8), ("ragged", 32, 6)])
+def test_bwd_work_matches_a_pixel_walk(kind, ts, chunk):
+    """K2's counts (warp reductions, flushes, reduced batches), chunks of 6
+    included (not whole batches), against a per-pixel walk."""
+    jcfg, tcfg = _cfgs(ts, cap=64 if chunk == 8 else 60, chunk=chunk)
+    proj, binned, opac, colors = _binned_inputs(kind, jcfg)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    table = tblend.pack_attr_table(t(proj.pix), t(proj.conic), t(colors),
+                                   t(opac), t(proj.depth))
+    gidx, counts = t(binned.gidx), t(binned.counts)
+    work = profile_blend_split.bwd_work(gidx, counts, table, tcfg)
+    assert work == _bwd_walk_reference(gidx, counts, table, tcfg)
+    # a slot a sub-tile used is used by one of its warps, and so on up
+    assert work["warp_slots"]["patch"] >= work["block_slots"]["sub_tile"] \
+        >= work["block_slots"]["tile"] > 0
+    assert work["reduced_batches"] > 0
 
 
 def test_warp_pixels_are_k1_layout():

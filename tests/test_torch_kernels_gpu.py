@@ -339,15 +339,103 @@ def test_blend_backward_kernel_on_ragged_k1_outputs(cuda, ts):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile_cap,chunk", [(16, 8), (64, 32), (96, 32),
-                                            (512, 512)])
+                                            (512, 512), (96, 6), (16, 1)])
 def test_blend_backward_kernel_caps_and_chunks(cuda, tile_cap, chunk):
-    """Full tiles (tile overflow), counts that end inside a chunk, and the
-    largest chunk the shared accumulator takes."""
+    """Full tiles (tile overflow), counts that end inside a chunk, the
+    largest chunk the kernel takes, and chunks that are not whole batches
+    of four slots (K2's ring pads them)."""
     binned, table, cfg = _inputs(cuda, "random", 16, tile_cap, chunk, n=900,
                                  seed=1)
     if tile_cap == 16:
         assert int(binned.overflow.sum()) > 0
     _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,tile_cap,chunk,n_faint,list_slots", [
+    (32, 2048, 32, 2400, 1024),   # the train CLI's tile_cap, full tiles
+    (16, 2048, 8, 2000, 1024),    # chunk 8, counts ending inside a chunk
+    (32, 2048, 512, 1500, 1024),  # the largest chunk
+    (32, 4096, 512, 1500, None)])  # and the whole list: 224 KB of shared
+def test_blend_backward_kernel_long_lists(cuda, monkeypatch, ts, tile_cap,
+                                          chunk, n_faint, list_slots):
+    """Long slot lists: full tiles at tile_cap 2048, staged in segments of
+    1,024 ids, the smallest and the largest chunk, and the largest shared
+    memory K2 takes (chunk 512 and a list of _LIST_SLOTS ids)."""
+    if list_slots is not None:
+        monkeypatch.setattr(blend, "_LIST_SLOTS", list_slots)
+    binned, table, cfg = _deep_inputs(cuda, ts, tile_cap, chunk, n_faint)
+    assert int(binned.dropped_pairs) == 0
+    if n_faint > tile_cap:
+        assert int(binned.counts.max()) == tile_cap
+    if list_slots is not None:
+        assert int(binned.counts.max()) > list_slots
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("list_slots", [32, 96])
+def test_blend_backward_kernel_restages_the_list(cuda, monkeypatch,
+                                                 list_slots):
+    """A slot list longer than the staged segment is staged again at each
+    segment's first chunk."""
+    monkeypatch.setattr(blend, "_LIST_SLOTS", list_slots)
+    binned, table, cfg = _deep_inputs(cuda, 16, 512, 32, 400)
+    assert int(binned.counts.max()) > 3 * list_slots
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+def test_blend_backward_kernel_empty_tiles(cuda):
+    """Tiles with count 0 beside tiles that hold slots: their blocks add
+    nothing, and the others' sums are whole."""
+    binned, table, cfg = _inputs(cuda, "ragged", 32)
+    binned.gidx[::2], binned.counts[::2] = -1, 0
+    assert bool((binned.counts > 0).any())
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_backward_kernel_gaussians_in_many_tiles(cuda, ts):
+    """Eight wide, faint splats, each in every tile: every sub-tile block
+    of the image flushes the same eight rows."""
+    rng = np.random.default_rng(4)
+    n = 8
+    means = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                      np.linspace(3.0, 4.0, n)], -1)
+    cfg = RasterConfig(img_width=W, img_height=H, tile_size=ts,
+                       tile_cap=32, chunk=8)
+    means, scales, quats, opac, colors = (
+        torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+        for x in (means, np.full((n, 3), 1.2), rng.normal(size=(n, 4)),
+                  rng.uniform(0.2, 0.4, n), rng.uniform(0.0, 1.0, (n, 3))))
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.85, device=cuda)
+    _, binned, table = prepare_blend(means, scales, quats, opac, colors, cam,
+                                     cfg)
+    assert bool((binned.counts == n).all())
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_backward_kernel_tally(cuda, ts):
+    """The counting build gives the timed build's gradients, reduces the
+    batches that `bwd_work` counts, and issues at most five float2 atomics
+    per slot that a 16 x 8 sub-tile used."""
+    from fourdgs_tpu_torch.tools.profile_blend_split import bwd_work
+    binned, table, cfg = _inputs(cuda, "ragged", ts, tile_cap=96, chunk=6)
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
+    tally = torch.zeros(2, dtype=torch.int64, device=cuda)
+    g = blend.blend_backward(*args, tally=tally)
+    ref = blend.blend_backward(*args)
+    for name, (a, b) in GROUPS.items():
+        _normalised_close(g[:, a:b], ref[:, a:b], name)
+    atomics, batches = tally.tolist()
+    work = bwd_work(binned.gidx, binned.counts, table, cfg)
+    assert batches == work["reduced_batches"] > 0
+    assert 0 < atomics <= 5 * work["block_slots"]["sub_tile"]
 
 
 @pytest.mark.gpu

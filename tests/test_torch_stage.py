@@ -13,10 +13,11 @@ training checkpoints (train/checkpoint.py) and the training CLI
   * Each package loads the other's checkpoint leaf for leaf.
   * The CLI trains both stages on the CPU, writes snapshots, checkpoints
     and its log, and resumes from its own checkpoint and from one the JAX
-    package wrote.
+    package wrote; its eval logs the caps of the render it kept.
 """
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ from fourdgs_tpu.train import sampler as jsampler
 from fourdgs_tpu.train import state as jstate
 from fourdgs_tpu_torch import convert
 from fourdgs_tpu_torch.data import scene as tscene
+from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.render import state_at_time as tstate_at_time
 from fourdgs_tpu_torch.tools import train as ttrain
 from fourdgs_tpu_torch.tools.make_synthetic_scene import write_split
@@ -225,6 +227,40 @@ def test_train_cli_trains_saves_and_resumes(fixture_scene, tmp_path):
     (stage,) = resumed["stages"]
     assert stage["stage"] == "fine" and stage["start"] == 12
     assert stage["history"][-1]["iter"] == 16
+
+
+@pytest.mark.parametrize("dropped_pairs,dropped_tile,caps", [
+    (0, 0, [(64, 1024)]),                          # drop-free at once
+    (3, 0, [(64, 1024), (64, 2048), (64, 4096), (64, 8192)]),
+    (3, 500, [(64, 1024), (128, 2048), (256, 4096), (512, 8192)]),
+    (0, 500, [(4096, 1024), (8192, 1024)])])       # tile_cap at its limit
+def test_eval_render_logs_the_caps_it_rendered_at(monkeypatch, dropped_pairs,
+                                                  dropped_tile, caps):
+    """The train CLI's eval grows an overflowing view's caps and renders
+    again, four renders at most; what it logs (`render_per_view`) are the
+    drops and caps of the render whose color it returns, also when the
+    last render still overflows."""
+    seen = []
+
+    def eval_step(state, cam, bg, *, stage, active_sh, raster_cfg):
+        seen.append((raster_cfg.tile_cap, raster_cfg.bin_pairs_per_chunk))
+        return types.SimpleNamespace(
+            color=torch.full((1,), float(len(seen))),
+            dropped_pairs=torch.tensor(dropped_pairs),
+            dropped_tile=torch.tensor(dropped_tile),
+            num_pairs=torch.tensor(20_000))
+
+    monkeypatch.setattr(ttrain.loop, "eval_step", eval_step)
+    rcfg = RasterConfig(img_width=32, img_height=32, tile_cap=caps[0][0],
+                        bin_pairs_per_chunk=caps[0][1])
+    color, drops = ttrain.eval_render(None, None, None, "fine", 0, rcfg)
+    assert seen == caps
+    assert float(color[0]) == len(caps)
+    assert (drops["tile_cap"], drops["bin_pairs_per_chunk"]) == caps[-1]
+    assert drops == {"dropped_pairs": dropped_pairs,
+                     "dropped_tile": dropped_tile, "num_pairs": 20_000,
+                     "tile_cap": caps[-1][0],
+                     "bin_pairs_per_chunk": caps[-1][1]}
 
 
 def test_train_cli_resumes_from_a_jax_checkpoint(fixture_scene, tmp_path):
