@@ -31,9 +31,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
   6. kernel: K2 (blend backward) against its plain version on the step
              input of the trained state's frame at t = 0.5 (its
              cotangents, its caps), with CUDA-event, device and
-             host-enqueue times, the float2 atomics and reduced warp
-             batches that a counting build of K2 tallies on that input,
-             and where its sums can go
+             host-enqueue times, the float2 atomics, reduced warp
+             batches and block chunks that a counting build of K2 tallies
+             on that input, and where its sums can go
              (tools/profile_blend_split.py:bwd_work);
   7. driver: the training CLI (tools.train.main) on a synthetic D-NeRF
              scene (tools.make_synthetic_scene: 60 train and 10 test views
@@ -52,10 +52,14 @@ Phases, each of which raises on failure (so the exit code is nonzero):
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
-             K2's, with CUDA-event times and the PyTorch call that computes
-             the same function where there is one; for K4, K5 and those
-             calls also the device time (torch.profiler, fills included)
-             and the host's time to enqueue one call;
+             K2's, with CUDA-event times, the device time (torch.profiler,
+             fills included) and the host's time to enqueue one call, and
+             the PyTorch call that computes the same function where there
+             is one; K3's table twice, bit for bit, and what a counting
+             build of K3 tallies (its float2 stores, five a row of the
+             tiles' occupied chunks, its reduced warp batches, equal to
+             phase 6's count of K2's, and the chunks its blocks walk,
+             against those of K2's sub-tile blocks: the coupled exit);
   9. dev:    the six tools of fourdgs_tpu_torch/tools that port the Pallas
              prototypes of scripts/ (D1-D6), each through its `main` at its
              script's shapes, with the launch counts read around the six;
@@ -86,8 +90,9 @@ from fourdgs_tpu_torch.tools.profile_blend_split import (BLEND_FP32_INSTR,
                                                          blend_work,
                                                          bwd_work)
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
-                                            MUFU_OP_S, kernel_times,
-                                            time_call, time_pair)
+                                            MUFU_OP_S, kernel_records,
+                                            per_call_ms, time_call,
+                                            time_pair)
 
 ROOT = Path(__file__).resolve().parent
 N_GAUSS = 100_000
@@ -124,9 +129,9 @@ SMALL_TOL_MEAN, SMALL_TOL_MAX = 1e-5, 5e-3
 # that any sum into the per-gaussian rows needs, and counts one MUFU.EX2
 # per expf and two MUFU.RCP per used slot.
 BLEND_BWD_FP32_INSTR = {"eval": 12, "exp": 9, "used": 53}
-# K3 (csrc/blend_bwd_slots.cu) runs K2's replay and gradient chain; its
-# per-slot sums over the tile's pixels need the same 10 additions per used
-# pixel x slot, so its bound counts K2's instructions.
+# K3 (csrc/blend_bwd.cu's per-slot build) runs K2's replay and gradient
+# chain; its per-slot sums over the tile's pixels need the same 10
+# additions per used pixel x slot, so its bound counts K2's instructions.
 
 # phase 7: the switches of the per-slot path, read at call time by
 # ops/blend.py, ops/scatter.py's callers and models/hexplane.py
@@ -439,6 +444,7 @@ def phase_kernels(torch, renderer, cam):
         "ms": ms,
         "device_ms": dev["ms"],
         "device_kernels": dev["kernels"],
+        "device_records": dev["records"],
         "host_ms": dev["host_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bounds[resource] * 1e3,
@@ -664,12 +670,13 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
               "fp32 issue": instr / FP32_ISSUE_S,
               "mufu (expf, 2 rcp)": mufu / MUFU_OP_S}
     resource = max(bounds, key=bounds.get)
-    # the atomics and reduced batches that K2's counting build tallies on
-    # this input; the timed build is the same kernel without the tally
-    tally = torch.zeros(2, dtype=torch.int64, device=table.device)
+    # the atomics, reduced batches and block chunks that K2's counting
+    # build tallies on this input; the timed build is the same kernel
+    # without the tally
+    tally = torch.zeros(3, dtype=torch.int64, device=table.device)
     counted = blend.blend_backward(*args, tally=tally)
     torch.cuda.synchronize()
-    atomics, batches = tally.tolist()
+    atomics, batches, chunks = tally.tolist()
     count_err = float(((counted - ref).abs() / scale).max())
     if not count_err <= GRAD_TOL:
         raise AssertionError(f"K2's counting build disagrees: {count_err}")
@@ -690,9 +697,11 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
     log(f"blend_bwd: sums over pixels {sums}; counted by the kernel: "
         f"{atomics} float2 atomics (at most "
         f"{5 * sums['block_slots']['sub_tile']}), 0 shared, {batches} "
-        f"batches reduced, so {45 * batches} warp shuffles; the first "
-        f"design's at these counts: {first}; counting build's normalised "
-        f"max abs err {count_err:.3g}")
+        f"batches reduced, so {45 * batches} warp shuffles; {chunks} "
+        f"chunks walked by its sub-tile blocks (blend_work's walk: "
+        f"{work['block_chunks']['sub_tile']}); the first design's at these "
+        f"counts: {first}; counting build's normalised max abs err "
+        f"{count_err:.3g}")
     return {
         "name": "blend_bwd",
         "route": "cuda",
@@ -704,6 +713,7 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
         "ms": ms,
         "device_ms": dev["ms"],
         "device_kernels": dev["kernels"],
+        "device_records": dev["records"],
         "host_ms": dev["host_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bounds[resource] * 1e3,
@@ -714,6 +724,7 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
         "sums": sums,
         "float2_atomics": atomics,
         "reduced_batches": batches,
+        "block_chunks": chunks,
         "ok": True,
     }, args, work
 
@@ -979,21 +990,70 @@ def host_ms(fn, n: int = 200) -> float:
     return ms
 
 
-def device_ms(fn) -> dict:
+def device_ms(fn, n: int = 20) -> dict:
     """Device ms per call of fn, fills and copies included, summed over
-    the kernels torch.profiler sees, with the breakdown by name; and the
-    host's ms per call to enqueue it, what events time when it is the
-    larger."""
-    kernels = kernel_times(fn, n=20)
+    the kernels torch.profiler sees, with the breakdown by name; the
+    records the profiler kept of those the host launched over n calls
+    (`records`; where it kept fewer, each kernel's time is the mean of
+    the records it kept times its launches a call, and the reading is
+    flagged in the log); and the host's ms per call to enqueue it, what
+    events time when it is the larger."""
+    records, launched = kernel_records(fn, n)
+    kernels = per_call_ms(records, n)
+    kept = {k: len(v) for k, v in records.items()}
+    if sum(kept.values()) != launched:
+        log(f"device_ms: the profiler kept {sum(kept.values())} records "
+            f"{kept} of the {launched} the host launched over {n} calls; "
+            f"those kernels' times are estimated from the kept records")
     return {"ms": sum(kernels.values()), "host_ms": host_ms(fn),
-            "kernels": {k: round(v, 5) for k, v in kernels.items()}}
+            "kernels": {k: round(v, 5) for k, v in kernels.items()},
+            "records": {"kept": kept, "launched": launched}}
+
+
+def k3_counts(torch, args, got, occupied, k2: dict, modelled: int) -> dict:
+    """What K3's counting build tallies on `args`: its table must be the
+    timed build's `got` bit for bit on the rows it writes (`occupied`), its
+    float2 stores five a row of those, and its reduced warp batches those
+    of K2's counting build (`k2`, phase 6's entry; the same replay). It
+    also counts the chunks its blocks walk, which the coupled exit holds
+    at or above K2's; `modelled` is blend_work's walk of them."""
+    from fourdgs_tpu_torch.ops import blend
+    tally = torch.zeros(3, dtype=torch.int64, device=got.device)
+    counted = blend.blend_backward_slots(*args, tally=tally)
+    torch.cuda.synchronize()
+    stored, batches, chunks = tally.tolist()
+    written = int(occupied.sum())
+    log(f"blend_bwd_slots: counted by the kernel: {stored} float2 stores "
+        f"(5 x {written} rows), {batches} batches reduced (K2's "
+        f"{k2['reduced_batches']}), {chunks} chunks walked by its blocks "
+        f"against K2's {k2['block_chunks']} (the coupled exit: "
+        f"{chunks / k2['block_chunks'] - 1:.2%} more; blend_work's walk: "
+        f"{modelled})")
+    if not torch.equal(counted[occupied], got[occupied]):
+        raise AssertionError("K3's counting build's table differs")
+    if (batches != k2["reduced_batches"] or stored != 5 * written
+            or chunks < k2["block_chunks"]):
+        raise AssertionError(
+            f"K3 counted {stored} stores, {batches} batches and {chunks} "
+            f"block chunks, not {5 * written}, {k2['reduced_batches']} and "
+            f"at least {k2['block_chunks']}")
+    return {"float2_stores": stored, "reduced_batches": batches,
+            "block_chunks": chunks}
+
+
+def occupied_rows(torch, counts, rc):
+    """(num_tiles, tile_cap) mask of the rows of each tile's occupied
+    chunks, the rows K3 writes."""
+    ends = (counts.long() + rc.chunk - 1) // rc.chunk * rc.chunk
+    return (torch.arange(rc.tile_cap, device=counts.device)[None]
+            < ends[:, None])
 
 
 def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
-                        launches: dict) -> list:
+                        launches: dict, k2: dict) -> list:
     """K3 on phase 6's step input, K4 at the reduction's and a HexPlane
     plane's shapes, K5 at the binner's, and one step's gradients through
-    K3 + K4 against K2's."""
+    K3 + K4 against K2's (`k2`: phase 6's entry, with its counts)."""
     from fourdgs_tpu_torch.models import hexplane
     from fourdgs_tpu_torch.ops import blend, rasterize_tiled, scatter
     from fourdgs_tpu_torch.ops.rasterize_tiled import prepare_blend
@@ -1016,38 +1076,59 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         f" (tol {GRAD_TOL:g})")
     if not max(col_err) <= GRAD_TOL:
         raise AssertionError(f"blend_bwd_slots disagrees: {col_err}")
-    ms3, plain3 = time_pair(lambda: blend.blend_backward_slots(*args),
+    # the rows it writes: each slot of the tiles' occupied chunks, zero
+    # past the count, and the same twice (no atomics)
+    occupied = occupied_rows(torch, counts, rc)
+    again = blend.blend_backward_slots(*args)
+    torch.cuda.synchronize()
+    if bool(got[occupied & ~used].any()):
+        raise AssertionError("K3 wrote a nonzero row past a tile's count")
+    if not torch.equal(again[occupied], got[occupied]):
+        raise AssertionError("K3 gave two tables on one input")
+
+    def kernel():
+        return blend.blend_backward_slots(*args)
+
+    ms3, plain3 = time_pair(kernel,
                             lambda: blend.blend_backward_slots_plain(*args),
                             launches=20)
+    dev3 = device_ms(kernel)
     instr = (sum(BLEND_BWD_FP32_INSTR[k] * work_k2[k]
                  for k in BLEND_BWD_FP32_INSTR) + 10 * work_k2["used"])
     mufu = work_k2["exp"] + 2 * work_k2["used"]
     n_rows = int(torch.unique(gidx[used]).numel())
     pixels = rc.num_tiles * rc.pixels_per_tile
-    # the table rows K3 writes: every slot of each tile's occupied chunks
-    written = int(torch.clamp((counts + rc.chunk - 1) // rc.chunk * rc.chunk,
-                              max=rc.tile_cap).sum())
+    written = int(occupied.sum())
     nbytes = (4 * rc.num_tiles + 4 * int(counts.sum()) + 48 * n_rows
               + 10 * 4 * pixels + 4 * blend.GRAD_W * written)
     bounds = {"hbm bytes": nbytes / HBM_BYTES_S,
               "fp32 issue": instr / FP32_ISSUE_S,
               "mufu (expf, 2 rcp)": mufu / MUFU_OP_S}
     res3 = max(bounds, key=bounds.get)
-    log(f"blend_bwd_slots: {ms3:.4f} ms/launch, plain {plain3:.4f} ms; "
-        f"table {tuple(got.shape)}; {instr} FP32 instructions, {nbytes} "
-        f"bytes; bounds " + ", ".join(f"{k} {v * 1e3:.4f} ms"
-                                      for k, v in bounds.items()) +
+    log(f"blend_bwd_slots: {ms3:.4f} ms/launch, device {dev3['ms']:.4f} ms "
+        f"{dev3['kernels']}, host {dev3['host_ms']:.4f} ms, plain "
+        f"{plain3:.4f} ms; table {tuple(got.shape)}, {written} rows "
+        f"written; {instr} FP32 instructions, {nbytes} bytes; bounds " +
+        ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in bounds.items()) +
         f"; bound by {res3}")
+    # the coupled exit: a tile's cluster walks a chunk while any of its
+    # sub-tiles has a live pixel, K2's sub-tile block while one of its own
+    subs = (rc.tile_size // 16) * (rc.tile_size // 8)
+    modelled = subs * work_k2["block_chunks"]["tile"]
     k3 = {"name": "blend_bwd_slots", "route": "cuda",
-          "source": "fourdgs_tpu_torch/csrc/blend_bwd_slots.cu",
+          "source": "fourdgs_tpu_torch/csrc/blend_bwd.cu",
           "replaces": "fourdgs_tpu/ops/pallas/blend.py:115",
           "tpu_kernel": "fourdgs_tpu/ops/pallas/blend.py:_bwd_kernel",
           "launches": launches["blend_bwd_slots"],
           "max_abs_err": float((g - r).abs().max()),
-          "max_normalised_err": max(col_err), "ms": ms3, "plain_ms": plain3,
+          "max_normalised_err": max(col_err), "ms": ms3,
+          "device_ms": dev3["ms"], "device_kernels": dev3["kernels"],
+          "device_records": dev3["records"],
+          "host_ms": dev3["host_ms"], "plain_ms": plain3,
           "bound_ms": bounds[res3] * 1e3,
           "bound_by": "bytes" if res3 == "hbm bytes" else "operations",
-          "bound_resource": res3, "library_ms": None, "ok": True}
+          "bound_resource": res3, "library_ms": None,
+          **k3_counts(torch, args, got, occupied, k2, modelled), "ok": True}
 
     # ---- K4: the reduction's shapes and a HexPlane plane's ----
     flat = gidx.reshape(-1)
@@ -1104,10 +1185,12 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
                          "max_abs_err": float((a - b).abs().max()),
                          "ms": ms, "device_ms": dev["ms"],
                          "device_kernels": dev["kernels"],
+                         "device_records": dev["records"],
                          "host_ms": dev["host_ms"],
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "library_device_ms": lib_dev["ms"],
                          "library_device_kernels": lib_dev["kernels"],
+                         "library_device_records": lib_dev["records"],
                          "library_host_ms": lib_dev["host_ms"],
                          "bound_ms": bound,
                          "shape": [int(idx.numel()), int(rows.shape[1]),
@@ -1208,11 +1291,13 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
               "fourdgs_tpu/ops/pallas/scatter.py:scatter_set_scalars",
           "launches": launches["scatter_set_scalars"], "max_abs_err": 0.0,
           "ms": ms5, "device_ms": dev5["ms"],
-          "device_kernels": dev5["kernels"], "host_ms": dev5["host_ms"],
+          "device_kernels": dev5["kernels"],
+          "device_records": dev5["records"], "host_ms": dev5["host_ms"],
           "plain_ms": plain5,
           "bound_ms": bound5, "bound_by": "bytes", "library_ms": lib5,
           "library_device_ms": lib_dev5["ms"],
           "library_device_kernels": lib_dev5["kernels"],
+          "library_device_records": lib_dev5["records"],
           "library_host_ms": lib_dev5["host_ms"], "host_pieces_ms": host5,
           "ok": True}
 
@@ -1482,7 +1567,7 @@ def main(argv=None) -> int:
     k1["launches_driver"] = driver_launches["blend_fwd"]
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
-        driver_launches)
+        driver_launches, k2)
     kernels[2]["driver"] = driver
     kernels += phase_dev_kernels(torch, device, args.seed)
     for k in kernels:

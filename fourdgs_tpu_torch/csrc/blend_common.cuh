@@ -1,7 +1,7 @@
 // Forward math shared by the blend kernels (blend_fwd.cu K1, blend_bwd.cu
-// K2, blend_bwd_slots.cu K3), the backward replay's per-slot step shared by
-// K2 and K3, and the staged slot list, row ring and warp transpose
-// reduction of K2's sub-tile blocks (at the end).
+// K2 and K3), what a pixel carries into the backward, and the staged slot
+// list, row ring and warp transpose reduction of the backward's sub-tile
+// blocks (at the end).
 //
 // Every value that feeds a gate (power > 0, alpha < 1/255, the entering
 // transmittance T * cp <= 1e-4, and the chunk's product carried to the next
@@ -60,56 +60,6 @@ struct BwdPixel {
 // opacity, depth].
 constexpr int kGradW = 10;
 
-// One pixel's step of the backward replay over one slot whose rows are
-// a, b, c (blend_bwd.cu K2 and blend_bwd_slots.cu K3). T is the pixel's
-// transmittance entering the chunk, cp the product of (1 - alpha) over the
-// chunk's used slots so far. A used slot writes its ten gradient values to
-// v (which the caller zeroed), advances the running sums after_cg and
-// after_dg and cp, and returns true; a slot whose entering transmittance
-// fell to 1e-4 sets stop. With the suffix identity
-//   da = t_pref (c . g_c + z g_d)
-//        - (rc - after_cg + rd - after_dg + rt) / max(1 - alpha, 0.01),
-// chained to opacity (alpha_u / op), to the power (da * alpha_u) and so to
-// pix and the conic, and w g_c, w g_d for color and depth.
-__device__ __forceinline__ bool slot_grads(const float4 a, const float4 b,
-                                           const float4 c, const BwdPixel& q,
-                                           float T, float& cp,
-                                           float& after_cg, float& after_dg,
-                                           bool& stop, float* v) {
-    float dx, dy;
-    const float power = splat_power(a, b, q.px, q.py, dx, dy);
-    if (power > 0.0f) return false;  // K1's `continue` test
-    const float alpha_u = splat_alpha_u(c.x, power);
-    const float alpha = splat_alpha(alpha_u);
-    if (!(alpha >= kAlphaMin)) return false;
-    const float t_pref = __fmul_rn(T, cp);
-    if (t_pref <= kTMin) {
-        stop = true;  // entering transmittance test
-        return false;
-    }
-    const float w = alpha * t_pref;
-    const float cg = b.y * q.gc0 + b.z * q.gc1 + b.w * q.gc2;
-    const float dg = c.y * q.gd;
-    after_cg += w * cg;
-    after_dg += w * dg;
-    const float one_m_a = fmaxf(1.0f - alpha, 1.0f - kAlphaMax);
-    const float da = t_pref * (cg + dg)
-                     - (q.rc - after_cg + q.rd - after_dg + q.rt) / one_m_a;
-    const float d_pow = da * alpha_u;
-    v[0] = d_pow * -(a.z * dx + a.w * dy);
-    v[1] = d_pow * -(b.x * dy + a.w * dx);
-    v[2] = -0.5f * d_pow * dx * dx;
-    v[3] = -d_pow * dx * dy;
-    v[4] = -0.5f * d_pow * dy * dy;
-    v[5] = w * q.gc0;
-    v[6] = w * q.gc1;
-    v[7] = w * q.gc2;
-    v[8] = c.x > 0.0f ? da * (alpha_u / fmaxf(c.x, 1e-20f)) : 0.0f;
-    v[9] = w * q.gd;
-    cp = __fmul_rn(cp, __fsub_rn(1.0f, alpha));
-    return true;
-}
-
 // The pixel's coordinates and what it carries into the backward, from the
 // tile-major forward outputs and cotangents at pixel o of the tile.
 __device__ __forceinline__ BwdPixel load_bwd_pixel(
@@ -131,27 +81,6 @@ __device__ __forceinline__ BwdPixel load_bwd_pixel(
 }
 
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(kFullMask, v, off);
-    return v;
-}
-
-// Gather the rows of slots [base, base + nk) of a tile into shared memory
-// (3 float4 per slot); a -1 or out-of-range id reads the all-zero sentinel
-// row at n_gauss. The caller synchronises.
-__device__ __forceinline__ void gather_rows(float4* s_rows,
-                                            const int* tile_gidx,
-                                            const float4* table, int base,
-                                            int nk, int n_gauss) {
-    for (int i = threadIdx.x; i < nk * 3; i += blockDim.x) {
-        const int slot = i / 3;
-        int g = tile_gidx[base + slot];
-        g = (g < 0 || g > n_gauss) ? n_gauss : g;
-        s_rows[i] = table[(size_t)g * 4 + (i - slot * 3)];
-    }
-}
 
 // Stage entries [from, from + n) of a tile's slot list into s_list[0, n),
 // each id outside [0, n_gauss] sent to the all-zero sentinel row n_gauss.

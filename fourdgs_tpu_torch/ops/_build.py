@@ -113,11 +113,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.blend_bwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i,
                                      vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.blend_bwd_launch.restype = i
-    lib.blend_bwd_slots_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i,
-                                           vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.blend_bwd_slots_launch.argtypes = lib.blend_bwd_launch.argtypes
     lib.blend_bwd_slots_launch.restype = i
-    lib.blend_bwd_slots_smem.argtypes = [i, i]
-    lib.blend_bwd_slots_smem.restype = ctypes.c_size_t
     ll = ctypes.c_longlong
     lib.scatter_add_rows_launch.argtypes = [vp, vp, ll, i, i, vp, vp]
     lib.scatter_add_rows_launch.restype = i

@@ -8,7 +8,7 @@ fourdgs_tpu/ops/rasterize_tiled.py).
 tensors on the card, and runs `blend_forward_plain` for tensors on the
 CPU; `blend_backward` does the same with csrc/blend_bwd.cu (K2) and
 `blend_backward_plain`, and `blend_backward_slots` (the per-slot table,
-unreduced) with csrc/blend_bwd_slots.cu (K3) and
+unreduced) with the per-slot build of the same kernel (K3) and
 `blend_backward_slots_plain`. None swaps one for the other: a CUDA tensor
 that a kernel cannot take raises. `.launches` on each wrapper counts
 kernel launches. `blend` is the differentiable blend (the role of the JAX
@@ -44,10 +44,10 @@ GRAD_W = 10        # [pix(2), conic(3), color(3), opacity, depth]
 # chunk 1024) and the staged slot list, at most _LIST_SLOTS ids (16 KB)
 _MAX_CHUNK = 1024
 _LIST_SLOTS = 4096
-# K2's: a ring of rows and a double buffer of four warps' partial rows,
-# chunk x 416 bytes (208 KB at chunk 512), and the staged slot list as K1's
+# K2's and K3's: a ring of rows and a double buffer of four warps' partial
+# rows, chunk x 416 bytes (208 KB at chunk 512), and the staged slot list
+# as K1's
 _MAX_CHUNK_BWD = 512
-_MAX_SMEM = 232_448   # the dynamic shared memory a block can take (K3)
 
 
 def pack_attr_table(pix, conic, color, opacity, depth) -> torch.Tensor:
@@ -125,6 +125,25 @@ def _check_kernel(table, cfg, max_chunk):
                          "must be 16-byte aligned")
 
 
+def _list_len(cfg) -> int:
+    """The slots the kernels stage at a time: the whole list up to
+    _LIST_SLOTS, a multiple of the chunk."""
+    return min(cfg.tile_cap, _LIST_SLOTS // cfg.chunk * cfg.chunk)
+
+
+def _check_tally(tally, table, plain_refuses: str):
+    """A counting build's tally: a (3,) int64 tensor on the table's card;
+    a CPU table runs the plain version, which counts nothing."""
+    if tally is None:
+        return
+    if (tally.dtype != torch.int64 or tally.shape != (3,)
+            or tally.device != table.device):
+        raise ValueError("tally must be a (3,) int64 tensor on the table's "
+                         "device")
+    if table.device.type == "cpu":
+        raise ValueError(plain_refuses)
+
+
 def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
                   table: torch.Tensor, cfg):
     """Blend every tile. CUDA tensors launch the kernel; CPU tensors run
@@ -135,8 +154,7 @@ def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
     _check_kernel(table, cfg, _MAX_CHUNK)
     lib = load_library()
     nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
-    # the slots staged at a time: the whole list up to _LIST_SLOTS
-    list_len = min(cfg.tile_cap, _LIST_SLOTS // k * k)
+    list_len = _list_len(cfg)
     color = table.new_empty((nt, p, 3))
     depth = table.new_empty((nt, p))
     trans = table.new_empty((nt, p))
@@ -225,31 +243,26 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
     its outputs (color, depth, trans) and their cotangents. CUDA tensors
     launch the kernel, which sums the per-slot gradients into the rows
     with atomics (so the float order varies from run to run); CPU tensors
-    run the plain version. `tally`, for measurement: a (2,) int64 tensor
+    run the plain version. `tally`, for measurement: a (3,) int64 tensor
     on the table's card, to which a counting build of the kernel adds the
-    float2 atomics it issued and the batches its warps reduced."""
+    float2 atomics it issued, the batches its warps reduced and the chunks
+    its blocks walked."""
     _check_inputs(gidx, counts, table, cfg)
     _check_outputs(table, color, depth, trans, cfg, "output")
     _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
-    if tally is not None and (tally.dtype != torch.int64
-                              or tally.shape != (2,)
-                              or tally.device != table.device):
-        raise ValueError("tally must be a (2,) int64 tensor on the table's "
-                         "device")
+    _check_tally(tally, table, "the plain backward issues no atomics to "
+                 "tally")
     if table.device.type == "cpu":
-        if tally is not None:
-            raise ValueError("the plain backward issues no atomics to tally")
         return blend_backward_plain(gidx, counts, table, color, depth,
                                     trans, g_color, g_depth, g_t, cfg)
     _check_kernel(table, cfg, _MAX_CHUNK_BWD)
     lib = load_library()
-    n, k = table.shape[0] - 1, cfg.chunk
-    # the slots staged at a time: the whole list up to _LIST_SLOTS
-    list_len = min(cfg.tile_cap, _LIST_SLOTS // k * k)
+    n = table.shape[0] - 1
     grads = table.new_empty((n + 1, GRAD_W))    # zero-filled by the launch
     _launch(lib, lib.blend_bwd_launch, table, gidx.data_ptr(),
             counts.data_ptr(), table.data_ptr(), n, cfg.num_tiles,
-            cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
+            cfg.tile_cap, cfg.grid_x, cfg.tile_size, cfg.chunk,
+            _list_len(cfg),
             color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
             g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
             grads.data_ptr(), None if tally is None else tally.data_ptr())
@@ -349,33 +362,38 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
                          table: torch.Tensor, color: torch.Tensor,
                          depth: torch.Tensor, trans: torch.Tensor,
                          g_color: torch.Tensor, g_depth: torch.Tensor,
-                         g_t: torch.Tensor, cfg) -> torch.Tensor:
+                         g_t: torch.Tensor, cfg,
+                         tally: torch.Tensor | None = None) -> torch.Tensor:
     """The per-slot gradients (num_tiles, tile_cap, GRAD_W) of the blend,
     unreduced: row (t, s) sums slot s's gradient over tile t's pixels.
     Rows of occupied chunks past the count, and of chunks after a tile
     saturated, are zero; rows past a tile's occupied chunks hold nothing
     defined on the card, and a reduction must send their gidx (-1) to a
-    sacrificial row. CUDA tensors launch K3 (no atomics: the same result
-    from run to run); CPU tensors run the plain version."""
+    sacrificial row. CUDA tensors launch K3, the per-slot build of K2's
+    kernel, whose blocks sum a tile's rows in a fixed order (no atomics:
+    the same result from run to run); CPU tensors run the plain version.
+    `tally`, for measurement: a (3,) int64 tensor on the table's card, to
+    which a counting build adds the float2 stores it issued, the batches
+    its warps reduced and the chunks its blocks walked (each block of a
+    tile's cluster walks the tile's)."""
     _check_inputs(gidx, counts, table, cfg)
     _check_outputs(table, color, depth, trans, cfg, "output")
     _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
+    _check_tally(tally, table, "the plain per-slot backward issues no "
+                 "stores to tally")
     if table.device.type == "cpu":
         return blend_backward_slots_plain(gidx, counts, table, color, depth,
                                           trans, g_color, g_depth, g_t, cfg)
-    _check_kernel(table, cfg, cfg.tile_cap)
+    _check_kernel(table, cfg, _MAX_CHUNK_BWD)
     lib = load_library()
-    smem = lib.blend_bwd_slots_smem(cfg.tile_size, cfg.chunk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"chunk {cfg.chunk} needs {smem} bytes of shared "
-                         f"memory in blend_bwd_slots (at most {_MAX_SMEM})")
     slots = table.new_empty((cfg.num_tiles, cfg.tile_cap, GRAD_W))
     _launch(lib, lib.blend_bwd_slots_launch, table, gidx.data_ptr(),
             counts.data_ptr(), table.data_ptr(), table.shape[0] - 1,
             cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
-            cfg.chunk, color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
-            g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
-            slots.data_ptr())
+            cfg.chunk, _list_len(cfg), color.data_ptr(), depth.data_ptr(),
+            trans.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
+            g_t.data_ptr(), slots.data_ptr(),
+            None if tally is None else tally.data_ptr())
     blend_backward_slots.launches += 1
     return slots
 

@@ -94,10 +94,24 @@ def bound(nbytes: float = 0, fp32: float = 0, mufu: float = 0) -> dict:
             "bound_resource": resource}
 
 
-def kernel_times(fn, n: int = 5) -> dict:
-    """Device ms per call of each kernel that fn launches, by the kernel's
-    function name (templates and arguments stripped), from torch.profiler
-    over n calls on the card."""
+# The host's runtime calls that each leave one record on the card: a kernel
+# launch (runtime or driver API), a fill or a copy.
+_RECORDED_CALL = re.compile(r"^(cudaLaunch|cuLaunch|cudaMemset|cuMemset"
+                            r"|cudaMemcpy|cuMemcpy)")
+
+
+def recorded_call(name: str) -> bool:
+    """Whether a host runtime call named `name` leaves one record on the
+    card (what `kernel_records` counts as launched)."""
+    return _RECORDED_CALL.match(name) is not None
+
+
+def kernel_records(fn, n: int = 5) -> tuple[dict, int]:
+    """Each kernel's recorded launch times (ms) over n calls of fn on the
+    card, by the kernel's function name (templates and arguments
+    stripped), from torch.profiler; and the calls the host made in those n
+    calls that each leave one record (launches, fills, copies): the
+    records the profiler should have kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -108,12 +122,37 @@ def kernel_times(fn, n: int = 5) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
+    records: dict[str, list[float]] = {}
+    launched = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             bare = re.sub(r"^void\s+|\(anonymous namespace\)::", "", e.name)
             m = re.search(r"(\w+)\s*[<(]", bare)
             name = m.group(1) if m else e.name
-            out[name] = (out.get(name, 0.0)
-                         + e.time_range.elapsed_us() / 1e3 / n)
-    return out
+            records.setdefault(name, []).append(e.time_range.elapsed_us()
+                                                / 1e3)
+        elif recorded_call(e.name):
+            launched += 1
+    return records, launched
+
+
+def kernel_times(fn, n: int = 5) -> dict:
+    """Device ms per call of each kernel that fn launches, by name, from
+    torch.profiler over n calls on the card (`kernel_records`). The
+    profiler can drop a launch's record (on an H100, up to 9 of 20
+    launches of one kernel in a window), so each kernel's time is taken
+    from the records it kept (`per_call_ms`)."""
+    return per_call_ms(kernel_records(fn, n)[0], n)
+
+
+def per_call_ms(records: dict, n: int) -> dict:
+    """Device ms per call of each kernel from its recorded launch times
+    (ms) over n calls, when each call launches every kernel the same
+    number of times: the mean launch times the launches a call, taken as
+    ceil(records / n). With every record kept this is the records' sum
+    over n; it stays right while the profiler drops fewer than n of a
+    kernel's records, and reads k-fold low for a kernel launched k times
+    a call once n or more of its records are gone, which `kernel_records`'
+    count of the host's launches shows."""
+    return {name: sum(ms) / len(ms) * -(-len(ms) // n)
+            for name, ms in records.items()}

@@ -186,12 +186,31 @@ def test_blend_backward_tally_is_for_the_kernel():
     table = torch.zeros((5, 16))
     outs = [torch.zeros((nt, p, 3)), torch.zeros((nt, p)), torch.ones((nt, p))]
     args = (gidx, counts, table, *outs, *outs, tcfg)
-    for tally, what in ((torch.zeros(2, dtype=torch.int64), "no atomics"),
-                        (torch.zeros(3, dtype=torch.int64), "a \\(2,\\)"),
-                        (torch.zeros(2), "int64")):
+    for tally, what in ((torch.zeros(3, dtype=torch.int64), "no atomics"),
+                        (torch.zeros(2, dtype=torch.int64), "a \\(3,\\)"),
+                        (torch.zeros(3), "int64")):
         with pytest.raises(ValueError, match=what):
             tblend.blend_backward(*args, tally=tally)
     assert float(tblend.blend_backward(*args).abs().max()) == 0
+
+
+def test_blend_backward_slots_tally_is_for_the_kernel():
+    """K3's store tally, like K2's atomics tally: the plain per-slot
+    backward, which a CPU table runs, refuses it, as the wrapper refuses a
+    tally of another shape or type."""
+    _, tcfg = _cfgs(16)
+    nt, p = tcfg.num_tiles, tcfg.pixels_per_tile
+    gidx = torch.full((nt, 64), -1, dtype=torch.int32)
+    counts = torch.zeros(nt, dtype=torch.int32)
+    table = torch.zeros((5, 16))
+    outs = [torch.zeros((nt, p, 3)), torch.zeros((nt, p)), torch.ones((nt, p))]
+    args = (gidx, counts, table, *outs, *outs, tcfg)
+    for tally, what in ((torch.zeros(3, dtype=torch.int64), "no stores"),
+                        (torch.zeros(2, dtype=torch.int64), "a \\(3,\\)"),
+                        (torch.zeros(3), "int64")):
+        with pytest.raises(ValueError, match=what):
+            tblend.blend_backward_slots(*args, tally=tally)
+    assert float(tblend.blend_backward_slots(*args).abs().max()) == 0
 
 
 def _walk_reference(gidx, counts, table, cfg):

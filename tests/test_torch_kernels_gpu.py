@@ -19,6 +19,8 @@ tolerance; the row scatter-add (K4) adds with atomics, max |a - b| /
 max |b| 1e-5; the scalar scatter-set (K5) is exact. The dev tools'
 kernels (D1, D2, D4a, D4b) are exact, D6's sums held to rtol 1e-5.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -421,21 +423,25 @@ def test_blend_backward_kernel_gaussians_in_many_tiles(cuda, ts):
 @pytest.mark.parametrize("ts", [16, 32])
 def test_blend_backward_kernel_tally(cuda, ts):
     """The counting build gives the timed build's gradients, reduces the
-    batches that `bwd_work` counts, and issues at most five float2 atomics
-    per slot that a 16 x 8 sub-tile used."""
-    from fourdgs_tpu_torch.tools.profile_blend_split import bwd_work
+    batches that `bwd_work` counts, issues at most five float2 atomics
+    per slot that a 16 x 8 sub-tile used, and its sub-tile blocks walk the
+    chunks that `blend_work` counts for them."""
+    from fourdgs_tpu_torch.tools.profile_blend_split import (blend_work,
+                                                             bwd_work)
     binned, table, cfg = _inputs(cuda, "ragged", ts, tile_cap=96, chunk=6)
     out, cot = _backward_inputs(cuda, binned, table, cfg)
     args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
-    tally = torch.zeros(2, dtype=torch.int64, device=cuda)
+    tally = torch.zeros(3, dtype=torch.int64, device=cuda)
     g = blend.blend_backward(*args, tally=tally)
     ref = blend.blend_backward(*args)
     for name, (a, b) in GROUPS.items():
         _normalised_close(g[:, a:b], ref[:, a:b], name)
-    atomics, batches = tally.tolist()
+    atomics, batches, chunks = tally.tolist()
     work = bwd_work(binned.gidx, binned.counts, table, cfg)
     assert batches == work["reduced_batches"] > 0
     assert 0 < atomics <= 5 * work["block_slots"]["sub_tile"]
+    walked = blend_work(binned.gidx, binned.counts, table, cfg)
+    assert chunks == walked["block_chunks"]["sub_tile"] > 0
 
 
 @pytest.mark.gpu
@@ -535,9 +541,19 @@ def test_train_step_on_card_matches_cpu(cuda, stage):
 # K3 (per-slot blend backward), K4 (row scatter-add), K5 (scalar scatter-set)
 # ---------------------------------------------------------------------------
 
+def _occupied(counts, cfg):
+    """(num_tiles, tile_cap) mask of the rows of each tile's occupied
+    chunks, which K3 writes."""
+    k = cfg.chunk
+    ends = (counts.long() + k - 1) // k * k
+    return (torch.arange(cfg.tile_cap, device=counts.device)[None]
+            < ends[:, None])
+
+
 def _check_slots(dev, binned, table, cfg):
     """K3's table against the plain one over the slots with gidx >= 0, each
-    column normalised by its max; and its reduction against K2's rows."""
+    column normalised by its max; zeros in the other rows of the occupied
+    chunks; and its reduction against K2's rows."""
     out, cot = _backward_inputs(dev, binned, table, cfg)
     args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
     before = blend.blend_backward_slots.launches
@@ -554,6 +570,7 @@ def _check_slots(dev, binned, table, cfg):
         _normalised_close(got[..., c][used], ref[..., c][used], name)
     # the same table twice: no atomics
     assert torch.equal(blend.blend_backward_slots(*args)[used], got[used])
+    assert not bool(got[_occupied(binned.counts, cfg) & ~used].any())
     n = table.shape[0] - 1
     reduced = blend.reduce_slots(binned.gidx, got, n)
     fused = blend.blend_backward(*args)
@@ -572,13 +589,178 @@ def test_blend_slots_kernel_matches_plain(cuda, kind, ts):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ts,tile_cap,chunk", [(16, 16, 8), (16, 64, 32),
-                                               (16, 96, 32), (32, 128, 64)])
+                                               (16, 96, 32), (32, 128, 64),
+                                               (16, 96, 6), (32, 16, 1),
+                                               (16, 512, 512)])
 def test_blend_slots_kernel_caps_and_chunks(cuda, ts, tile_cap, chunk):
-    """Full tiles, counts that end inside a chunk, and (32, 64) a chunk
-    whose shared table passes 48 KB."""
+    """Full tiles, counts that end inside a chunk, chunks that are not
+    whole batches of four slots (6, 1), and the largest chunk K3 takes."""
     binned, table, cfg = _inputs(cuda, "random", ts, tile_cap, chunk, n=900,
                                  seed=1)
     _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,tile_cap,chunk,n_faint,list_slots", [
+    (32, 2048, 32, 2400, 1024),   # the train CLI's tile_cap, full tiles
+    (16, 2048, 8, 2000, 1024),    # chunk 8, counts ending inside a chunk
+    (32, 2048, 512, 1500, 1024),  # the largest chunk
+    (32, 4096, 512, 1500, None)])  # and the whole list: 224 KB of shared
+def test_blend_slots_kernel_long_lists(cuda, monkeypatch, ts, tile_cap,
+                                       chunk, n_faint, list_slots):
+    """Long slot lists: full tiles at tile_cap 2048, staged in segments of
+    1,024 ids, the smallest and the largest chunk, and the largest shared
+    memory K3 takes (chunk 512 and a list of _LIST_SLOTS ids), which a
+    cluster of eight blocks must find on eight SMs."""
+    if list_slots is not None:
+        monkeypatch.setattr(blend, "_LIST_SLOTS", list_slots)
+    binned, table, cfg = _deep_inputs(cuda, ts, tile_cap, chunk, n_faint)
+    assert int(binned.dropped_pairs) == 0
+    if n_faint > tile_cap:
+        assert int(binned.counts.max()) == tile_cap
+    if list_slots is not None:
+        assert int(binned.counts.max()) > list_slots
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("list_slots", [32, 96])
+def test_blend_slots_kernel_restages_the_list(cuda, monkeypatch,
+                                              list_slots):
+    """A slot list longer than the staged segment is staged again at each
+    segment's first chunk on every rank of the tile's cluster."""
+    monkeypatch.setattr(blend, "_LIST_SLOTS", list_slots)
+    binned, table, cfg = _deep_inputs(cuda, 16, 512, 32, 400)
+    assert int(binned.counts.max()) > 3 * list_slots
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+def test_blend_slots_kernel_empty_tiles(cuda):
+    """Tiles with count 0 beside tiles that hold slots: their clusters
+    write nothing, and the others' rows are whole."""
+    binned, table, cfg = _inputs(cuda, "ragged", 32)
+    binned.gidx[::2], binned.counts[::2] = -1, 0
+    assert bool((binned.counts > 0).any())
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_slots_kernel_gaussians_in_many_tiles(cuda, ts):
+    """Eight wide, faint splats, each in every tile: every tile's cluster
+    writes the same eight slots' rows."""
+    rng = np.random.default_rng(4)
+    n = 8
+    means = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                      np.linspace(3.0, 4.0, n)], -1)
+    cfg = RasterConfig(img_width=W, img_height=H, tile_size=ts,
+                       tile_cap=32, chunk=8)
+    means, scales, quats, opac, colors = (
+        torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+        for x in (means, np.full((n, 3), 1.2), rng.normal(size=(n, 4)),
+                  rng.uniform(0.2, 0.4, n), rng.uniform(0.0, 1.0, (n, 3))))
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.85, device=cuda)
+    _, binned, table = prepare_blend(means, scales, quats, opac, colors, cam,
+                                     cfg)
+    assert bool((binned.counts == n).all())
+    _check_slots(cuda, binned, table, cfg)
+
+
+def _sub_tile_stack(dev, ts, n_faint=600, seed=5):
+    """A list whose first tile's first 16 x 8 sub-tile saturates early and
+    alone: in front, three layers of 128 near-opaque splats, one centred
+    on each pixel of that sub-tile (opacity 0.99, sigma 0.5 pixel, so a
+    pixel outside it keeps T above 0.6); behind them `n_faint` wide faint
+    splats over the tile (sigma 20 pixels, opacity 0.004 to 0.008). Every
+    tile takes the whole list, 384 + n_faint slots. Returns (binned-like
+    gidx and counts, table, cfg) at tile_cap 1024 and chunk 32."""
+    rng = np.random.default_rng(seed)
+    cfg = RasterConfig(img_width=W, img_height=H, tile_size=ts,
+                       tile_cap=1024, chunk=32)
+    y, x = np.meshgrid(np.arange(8.0), np.arange(16.0), indexing="ij")
+    front = np.tile(np.stack([x.ravel(), y.ravel()], -1), (3, 1))
+    pix = np.concatenate([front, rng.uniform(0.0, ts, (n_faint, 2))])
+    m = len(pix)
+    sharp, wide = 1.0 / 0.5 ** 2, 1.0 / 20.0 ** 2
+    conic = np.zeros((m, 3))
+    conic[:, 0] = conic[:, 2] = np.r_[np.full(384, sharp),
+                                      np.full(n_faint, wide)]
+    opacity = np.r_[np.full(384, 0.99), rng.uniform(0.004, 0.008, n_faint)]
+    depth = np.r_[np.repeat([1.0, 1.1, 1.2], 128),
+                  np.linspace(2.0, 6.0, n_faint)]
+    color = rng.uniform(0.0, 1.0, (m, 3))
+    table = blend.pack_attr_table(*(
+        torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        for a in (pix, conic, color, opacity, depth)))
+    gidx = torch.full((cfg.num_tiles, cfg.tile_cap), -1, dtype=torch.int32,
+                      device=dev)
+    gidx[:, :m] = torch.arange(m, dtype=torch.int32, device=dev)
+    counts = torch.full((cfg.num_tiles,), m, dtype=torch.int32, device=dev)
+    return SimpleNamespace(gidx=gidx, counts=counts), table, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_slots_kernel_sub_tiles_saturate_apart(cuda, ts):
+    """One sub-tile of the first tile saturates within the front stack's
+    chunks, its neighbours walk the whole list: its rank flushes zero
+    partial rows for the chunks left, and the tile's rows are whole."""
+    binned, table, cfg = _sub_tile_stack(cuda, ts)
+    _, _, trans = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    t0 = trans[0].reshape(ts, ts)
+    stacked = torch.zeros((ts, ts), dtype=torch.bool, device=cuda)
+    stacked[:8, :16] = True
+    assert float(t0[stacked].max()) <= 1e-4
+    assert float(t0[~stacked].min()) > 1e-3
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+def test_blend_slots_kernel_tally(cuda, ts):
+    """K3's counting build gives the timed build's table bit for bit,
+    reduces the batches that K2's counting build reduces on the same
+    input, stores five float2 a row of each tile's occupied chunks, and
+    its blocks walk the chunks of their tile's cluster: the sub-tiles of a
+    tile times the chunks that `blend_work` counts for a tile's block."""
+    from fourdgs_tpu_torch.tools.profile_blend_split import blend_work
+    binned, table, cfg = _inputs(cuda, "ragged", ts, tile_cap=96, chunk=6)
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
+    tally = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = blend.blend_backward_slots(*args, tally=tally)
+    ref = blend.blend_backward_slots(*args)
+    occupied = _occupied(binned.counts, cfg)
+    assert torch.equal(got[occupied], ref[occupied])
+    tally2 = torch.zeros(3, dtype=torch.int64, device=cuda)
+    blend.blend_backward(*args, tally=tally2)
+    stored, batches, chunks = tally.tolist()
+    assert batches == int(tally2[1]) > 0
+    assert stored == 5 * int(occupied.sum())
+    walked = blend_work(binned.gidx, binned.counts, table, cfg)
+    subs = (ts // 16) * (ts // 8)
+    assert chunks == subs * walked["block_chunks"]["tile"] >= int(tally2[2])
+
+
+@pytest.mark.gpu
+def test_blend_slots_kernel_refuses_what_it_cannot_take(cuda):
+    """K3 takes K2's inputs: chunks up to 512 and tile sizes 16 and 32."""
+    before = blend.blend_backward_slots.launches
+    binned, table, cfg = _inputs(cuda, "random", 16, 1024, 1024)
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    with pytest.raises(ValueError, match="chunk 1024"):
+        blend.blend_backward_slots(binned.gidx, binned.counts, table, *out,
+                                   *cot, cfg)
+    cfg8 = RasterConfig(img_width=W, img_height=H, tile_size=8,
+                        tile_cap=128, chunk=8)
+    binned, table, _ = _inputs(cuda, "random", 8)
+    out = blend.blend_forward_plain(binned.gidx, binned.counts, table, cfg8)
+    cot = [torch.zeros_like(x) for x in out]
+    with pytest.raises(ValueError, match="tile_size 16 or 32"):
+        blend.blend_backward_slots(binned.gidx, binned.counts, table, *out,
+                                   *cot, cfg8)
+    assert blend.blend_backward_slots.launches == before
 
 
 @pytest.mark.gpu
