@@ -9,10 +9,15 @@ Phases, each of which raises on failure (so the exit code is nonzero):
   2. build:  the CUDA kernels from fourdgs_tpu_torch/csrc with nvcc;
   3. slice:  a synthetic snapshot (100,000 Gaussians, D-NeRF deformation
              width, random weights from --seed) served through
-             Renderer.from_snapshot at 800x800 for --frames frames, with
-             the kernels' launch counts read around that run, and checks
-             of the images against the plain blend on the card and the
-             CPU path on a small image;
+             Renderer.from_snapshot at 800x800 for --frames frames, each
+             a replay of the captured frame (train/graphs.py), with the
+             kernels' runs read around that run; the same frames rendered
+             eagerly, equal bit for bit; each mode's ms/frame, FPS, peak
+             memory and, from a profile of a few frames, its syncs, copies
+             from the host, graph and kernel launches a frame (none of
+             the first two in a replay); and checks of the images against
+             the plain blend on the card and the CPU path on a small
+             image;
   4. kernel: K1 (blend forward) against its plain PyTorch version, on the
              inputs that one of phase 3's frames gives it (the caps after
              the cap probe), with CUDA-event, device and host-enqueue
@@ -23,11 +28,17 @@ Phases, each of which raises on failure (so the exit code is nonzero):
   5. train:  a TrainState of the same scene (capacity 1<<17, the first
              100,000 slots alive) takes --steps fine train_steps at
              800x800 toward four targets that eval_step rendered before
-             seeded noise moved its colors and opacities, with the launch
-             counts read around those steps; the loss must fall, and one
-             step's gradients with K2 must equal those with the plain
-             backward on the card, on each training view and on phase
-             6's view;
+             seeded noise moved its colors and opacities, eagerly and
+             then as replays of the captured step, each from the same
+             state, with the kernels' runs read around both; the loss must
+             fall in each, the captured run's leaves after one step must
+             equal the eager run's (GRAD_TOL) and its losses follow
+             (STEP_LOSS_RTOL); each mode's ms/step, rays/s, peak memory
+             and, from a profile of a few steps, its syncs, copies from
+             the host, graph and kernel launches and kernel time a step
+             (the eager one's spans too); and one step's gradients with
+             K2 must equal those with the plain backward on the card, on
+             each training view and on phase 6's view;
   6. kernel: K2 (blend backward) against its plain version on the step
              input of the trained state's frame at t = 0.5 (its
              cotangents, its caps), with CUDA-event, device and
@@ -47,8 +58,11 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              Renderer.from_snapshot on the trained snapshot rendering test
              view 0 at its probed caps and as the run's eval rendered it
              (the eval's caps, the run's buffer capacity), each render's
-             drops and caps printed; the launch counts are read around the
-             whole phase;
+             drops and caps printed; the CLI replays captured steps (its
+             default on the card), and the phase prints the capture
+             seconds of each key, the recaptures, the rebinds after
+             surgeries and the replays; the kernels' runs are read around
+             the whole phase;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -103,6 +117,15 @@ RASTER = dict(tile_size=32, tile_cap=768, chunk=32, bin_chunk=4096,
 KERNEL_CHECK_FRAME = 0.5       # the main-path frame at t = 0.5
 TOL = {"color": 1e-5, "depth": 1e-4, "t": 1e-5}
 GRAD_TOL = 1e-4                # gradients, normalised by their max |.|
+# phase 5: the captured run's losses against the eager run's, relative;
+# the two backward passes sum with float atomics in different orders, and
+# Adam's division by sqrt(nu) carries the last bits on from step to step
+STEP_LOSS_RTOL = 1e-3
+# the kernels of the main paths: reported name -> wrapper name
+REPORTED = {"blend_fwd": "blend_forward", "blend_bwd": "blend_backward",
+            "blend_bwd_slots": "blend_backward_slots",
+            "scatter_add_rows": "scatter_add_rows",
+            "scatter_set_scalars": "scatter_set_scalars"}
 TRAIN_CAPACITY = 1 << 17
 TRAIN_TIMES = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
 UNTIMED_STEPS = 3
@@ -284,11 +307,30 @@ def plain_version(name: str):
         setattr(blend, name, saved)
 
 
+def host_calls(prof: dict, label: str) -> dict:
+    """A profile's host syncs, copies from the host and graph launches a
+    call (tools/profile_render.py:profile_calls). A sync of the path (a
+    `.item()`, a data-dependent size, a copy from pageable host memory)
+    is a cudaStreamSynchronize; the cudaDeviceSynchronize calls are the
+    profile window's own `torch.cuda.synchronize()`."""
+    calls = prof[f"runtime_calls_per_{label}"]
+    return {"syncs": calls.get("cudaStreamSynchronize", 0.0),
+            "window_device_syncs": calls.get("cudaDeviceSynchronize", 0.0),
+            "copies_from_host": prof[f"device_copies_per_{label}"]["HtoD"],
+            "graph_launches": calls.get("cudaGraphLaunch", 0.0),
+            "kernel_launches": prof[f"kernel_launches_per_{label}"],
+            "kernel_ms": prof[f"kernel_ms_per_{label}"],
+            "device_busy_share": prof["device_busy_share"]}
+
+
 def phase_slice(torch, scene, device, frames: int, work: Path):
+    """The served frames, captured (the Renderer's default on the card)
+    and eager, in one call; returns what phase 4 needs and each mode's
+    numbers."""
     from fourdgs_tpu_torch.data.camera import look_at_camera
-    from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.render.serve import Renderer
-    from fourdgs_tpu_torch.train import checkpoint
+    from fourdgs_tpu_torch.tools.profile_render import profile_calls
+    from fourdgs_tpu_torch.train import checkpoint, graphs
     from fourdgs_tpu_torch.train import config as config_mod
 
     cfg, gauss, alive, deform, aabb = scene
@@ -298,30 +340,78 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
     cams = [look_at_camera(time=i / frames, device=device)
             for i in range(frames)]
 
-    # ---- the main path, with the launch counts read around it ----
+    # ---- the main path, with the launch counts read around it: the
+    # snapshot loaded, one untimed frame (the capture), then the frames ----
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    blend.blend_forward.launches = 0
+    graphs.zero_counts()
     t0 = time.perf_counter()
     renderer = Renderer.from_snapshot(str(model), width=SIZE, height=SIZE)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
+    renderer.render(cams[0])
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    t0 = time.perf_counter()
     outs = [renderer.render(c) for c in cams]
     torch.cuda.synchronize()
     t_frames = time.perf_counter() - t0
-    launches = {"blend_fwd": blend.blend_forward.launches}
+    launches = {"blend_fwd": kernel_runs()["blend_fwd"]}
     peak = torch.cuda.max_memory_allocated()
+    (frame,) = renderer.frames.values()
+    replays = frame.program.replays
 
-    renders = renderer.probe_renders + frames
+    renders = renderer.probe_renders + graphs.WARMUP + 1 + frames
     log(f"slice: from_snapshot {t_load:.3f} s ({renderer.probe_renders} "
-        f"probe renders, caps {renderer.raster_cfg}); {frames} frames in "
+        f"probe renders, caps {renderer.raster_cfg}); captured: first "
+        f"frame (capture) {t_capture:.3f} s, {frames} frames in "
         f"{t_frames:.3f} s = {1e3 * t_frames / frames:.3f} ms/frame "
         f"({frames / t_frames:.2f} FPS); peak memory "
-        f"{peak / 2**20:.1f} MiB")
-    if launches["blend_fwd"] != renders:
-        raise AssertionError(f"blend_fwd launched {launches['blend_fwd']} "
-                             f"times for {renders} renders")
+        f"{peak / 2**20:.1f} MiB; graph replays {replays}")
+    if launches["blend_fwd"] != renders or replays != frames + 1:
+        raise AssertionError(f"blend_fwd ran {launches['blend_fwd']} times "
+                             f"({replays} replays) for {renders} renders")
+
+    # ---- the same frames rendered eagerly, and both modes profiled ----
+    eager = dataclasses.replace(renderer, capture=False)
+    eager.render(cams[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eager_outs = [eager.render(c) for c in cams]
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    peak_eager = torch.cuda.max_memory_allocated()
+    modes = {}
+    for name, r, seconds, pk in (("captured", renderer, t_frames, peak),
+                                 ("eager", eager, t_eager, peak_eager)):
+        it = iter(cams[:PROFILED_STEPS])
+        prof = profile_calls(lambda: r.render(next(it)), PROFILED_STEPS)
+        modes[name] = {"ms_per_frame": 1e3 * seconds / frames,
+                       "fps": frames / seconds, "peak_mib": pk / 2**20,
+                       **host_calls(prof, "frame")}
+        log(f"slice {name}: {modes[name]['ms_per_frame']:.3f} ms/frame "
+            f"({modes[name]['fps']:.2f} FPS); per frame: syncs "
+            f"{modes[name]['syncs']:g}, copies from the host "
+            f"{modes[name]['copies_from_host']:g}, graph launches "
+            f"{modes[name]['graph_launches']:g}, kernel launches "
+            f"{modes[name]['kernel_launches']:g}, kernels "
+            f"{modes[name]['kernel_ms']:.3f} ms; peak memory "
+            f"{modes[name]['peak_mib']:.1f} MiB")
+    modes["captured"].update(replays=replays,
+                             capture_s=frame.program.seconds)
+    if modes["captured"]["syncs"] or modes["captured"]["copies_from_host"]:
+        raise AssertionError(f"a replayed frame synced or copied from the "
+                             f"host: {modes['captured']}")
+    differ = [i for i, (a, b) in enumerate(zip(outs, eager_outs))
+              if not all(torch.equal(getattr(a, f), getattr(b, f))
+                         for f in ("color", "depth", "alpha", "radii"))]
+    log(f"slice: captured frames against eager, bit for bit: "
+        f"{frames - len(differ)}/{frames} equal")
+    if differ:
+        raise AssertionError(f"captured frames {differ} differ from eager")
+
     alphas = [float(o.alpha.mean()) for o in outs]
     for o in outs:
         if o.color.shape != (SIZE, SIZE, 3) or not bool(
@@ -336,9 +426,10 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
         f"{max(int(o.dropped_tile) for o in outs)}; frame 0 vs frame -1 "
         f"max diff {float((outs[0].color - outs[-1].color).abs().max()):.4f}")
 
-    # ---- frame 0 through the plain blend on the card ----
+    # ---- frame 0 through the plain blend on the card (eagerly: a
+    # captured frame would replay the kernel) ----
     with plain_version("blend_forward"):
-        ref = renderer.render(cams[0])
+        ref = eager.render(cams[0])
     diff = float((outs[0].color - ref.color).abs().max())
     log(f"slice: frame 0, kernel vs plain blend: color max abs err "
         f"{diff:.3g} (tol {FRAME_TOL:g})")
@@ -348,7 +439,7 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
     # ---- a small image on the card and on the CPU path ----
     small = dataclasses.replace(renderer.raster_cfg, img_width=SMALL,
                                 img_height=SMALL)
-    gpu = dataclasses.replace(renderer, raster_cfg=small)
+    gpu = dataclasses.replace(eager, raster_cfg=small)
     cpu = dataclasses.replace(
         renderer, gauss=renderer.gauss.to("cpu"),
         alive=renderer.alive.cpu(),
@@ -365,7 +456,7 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
     if not (float(d.mean()) <= SMALL_TOL_MEAN
             and float(d.max()) <= SMALL_TOL_MAX):
         raise AssertionError("card and CPU paths disagree")
-    return renderer, cams, launches, renders
+    return renderer, cams, launches, renders, modes
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +600,7 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.tools.profile_render import (TRAIN_SPANS,
                                                         profile_calls)
-    from fourdgs_tpu_torch.train import loop, optim
+    from fourdgs_tpu_torch.train import graphs, loop, optim
 
     cfg, state = make_train_state(torch, scene, device)
     rc, bg, sh = renderer.raster_cfg, renderer.bg, cfg.model.sh_degree
@@ -531,54 +622,126 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
     kw = dict(stage="fine", raster_cfg=rc, lambda_dssim=cfg.opt.lambda_dssim,
               reg_weights=reg)
 
-    def step(i):
-        return loop.train_step(state, [cams[i % len(cams)]],
-                               gts[i % len(cams)][None], bg, sh, tx=tx, **kw)
+    start = state.to(device)     # both modes start from this state
+    key = graphs.StepKey("fine", state.capacity, rc, sh, True, 1,
+                         float(cfg.opt.lambda_dssim), reg, graphs.switches())
+    step_fn = loop.step_of_key(tx)       # run_stage's step of a key
+    programs = graphs.StepPrograms(step_fn)
+    states = {"eager": start.to(device), "captured": start.to(device)}
+    del start
+    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg),
+           "captured": lambda st, c, g: programs.run(key, st, c, g, bg)}
 
-    # ---- the main path, with the launch counts read around it ----
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    blend.blend_forward.launches = 0
-    blend.blend_backward.launches = 0
-    auxes = []
-    for i in range(steps):
-        if i == UNTIMED_STEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        auxes.append(step(i)[1])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"blend_fwd": blend.blend_forward.launches,
-                "blend_bwd": blend.blend_backward.launches}
-    peak = torch.cuda.max_memory_allocated()
-    ms = 1e3 * seconds / (steps - UNTIMED_STEPS)
-    losses = [float(a.loss) for a in auxes]
-    log(f"train: {steps} fine steps at {SIZE}x{SIZE}, {N_GAUSS} gaussians "
-        f"in capacity {TRAIN_CAPACITY}, caps {rc}; {ms:.3f} ms/step over "
-        f"the last {steps - UNTIMED_STEPS} = "
-        f"{SIZE * SIZE / (ms / 1e3):.0f} rays/s; peak memory "
-        f"{peak / 2**20:.1f} MiB; launches {launches}")
-    log(f"train: loss first {losses[0]:.6f}, last-5 mean "
-        f"{np.mean(losses[-5:]):.6f}, psnr first {float(auxes[0].psnr):.3f}"
-        f" last {float(auxes[-1].psnr):.3f}; max dropped_pairs "
-        f"{max(int(a.dropped_pairs) for a in auxes)}, max dropped_tile "
-        f"{max(int(a.dropped_tile) for a in auxes)}; num_pairs "
-        f"{int(auxes[0].num_pairs)}")
-    if launches != {"blend_fwd": steps, "blend_bwd": steps}:
-        raise AssertionError(f"launches {launches} for {steps} steps")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not np.mean(losses[-5:]) < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    nan = sum(int(torch.isnan(p).sum()) for p in optim.param_leaves(
-        state.params))
-    if nan:
-        raise AssertionError(f"{nan} NaN parameter values")
+    def step(mode, i):
+        return run[mode](states[mode], [cams[i % len(cams)]],
+                         gts[i % len(cams)][None])
 
-    it = iter(range(PROFILED_STEPS))
-    prof = profile_calls(lambda: step(next(it)), PROFILED_STEPS,
-                         spans=TRAIN_SPANS, label="step")
-    calls = prof["runtime_calls_per_step"]
+    # ---- the main path, both modes from one state, with the launch
+    # counts read around the two runs ----
+    modes, after_one, launches = {}, {}, {}
+    graphs.zero_counts()
+    for mode in ("eager", "captured"):
+        before = kernel_runs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        auxes = []
+        for i in range(steps):
+            if i == UNTIMED_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            auxes.append(step(mode, i))
+            if i == 0:
+                after_one[mode] = states[mode].to(device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ran = kernel_runs()
+        launches[mode] = {k: ran[k] - before[k]
+                          for k in ("blend_fwd", "blend_bwd")}
+        ms = 1e3 * seconds / (steps - UNTIMED_STEPS)
+        losses = [float(a.loss) for a in auxes]
+        modes[mode] = {"ms_per_step": ms, "rays_per_s": SIZE * SIZE
+                       / (ms / 1e3), "peak_mib": peak / 2**20,
+                       "losses": losses}
+        log(f"train {mode}: {steps} fine steps at {SIZE}x{SIZE}, {N_GAUSS} "
+            f"gaussians in capacity {TRAIN_CAPACITY}, caps {rc}; {ms:.3f} "
+            f"ms/step over the last {steps - UNTIMED_STEPS} = "
+            f"{SIZE * SIZE / (ms / 1e3):.0f} rays/s; peak memory "
+            f"{peak / 2**20:.1f} MiB; kernel runs {launches[mode]}")
+        log(f"train {mode}: loss first {losses[0]:.6f}, last-5 mean "
+            f"{np.mean(losses[-5:]):.6f}, psnr first "
+            f"{float(auxes[0].psnr):.3f} last {float(auxes[-1].psnr):.3f}; "
+            f"max dropped_pairs {max(int(a.dropped_pairs) for a in auxes)}, "
+            f"max dropped_tile {max(int(a.dropped_tile) for a in auxes)}; "
+            f"num_pairs {int(auxes[0].num_pairs)}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mode}: non-finite loss: {losses}")
+        if not np.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"{mode}: the loss did not fall: {losses}")
+        nan = sum(int(torch.isnan(p).sum()) for p in optim.param_leaves(
+            states[mode].params))
+        if nan:
+            raise AssertionError(f"{mode}: {nan} NaN parameter values")
+
+    live = programs.live.program
+    want = {"eager": {"blend_fwd": steps, "blend_bwd": steps},
+            "captured": {"blend_fwd": steps + graphs.WARMUP,
+                         "blend_bwd": steps + graphs.WARMUP}}
+    if (launches != want or live.replays != steps
+            or live.launches != {"blend_forward": 1,
+                                 "blend_backward": 1}):
+        raise AssertionError(f"kernel runs {launches} ({live.replays} "
+                             f"replays of {live.launches}) for {steps} "
+                             f"steps a mode")
+
+    # ---- the captured step against the eager one: every leaf after one
+    # step, and the losses of the whole run ----
+    def leaves(st):
+        return (optim.param_leaves(st.params)
+                + optim.moment_leaves(st.opt_state.mu)
+                + optim.moment_leaves(st.opt_state.nu)
+                + [st.xyz_gradient_accum, st.denom, st.max_radii2d])
+    one_step = max(grads_agree(a.detach(), b.detach()) for a, b in zip(
+        leaves(after_one["captured"]), leaves(after_one["eager"]),
+        strict=True))
+    le = np.array(modes["eager"]["losses"])
+    lc = np.array(modes["captured"]["losses"])
+    loss_err = float(np.max(np.abs(lc - le) / np.abs(le)))
+    log(f"train: captured against eager: after one step, every leaf "
+        f"within {one_step:.3g} normalised (tol {GRAD_TOL:g}); losses of "
+        f"the {steps} steps within {loss_err:.3g} relative (tol "
+        f"{STEP_LOSS_RTOL:g})")
+    if not one_step <= GRAD_TOL:
+        raise AssertionError(f"captured step leaves off by {one_step}")
+    if not loss_err <= STEP_LOSS_RTOL:
+        raise AssertionError(f"captured losses off by {loss_err}")
+    del after_one
+
+    # ---- both modes profiled: spans (eager only: a replay opens none),
+    # syncs, copies from the host, graph launches, kernel time ----
+    state = states["eager"]
+    for mode in ("captured", "eager"):
+        it = iter(range(PROFILED_STEPS))
+        prof = profile_calls(lambda: step(mode, next(it)), PROFILED_STEPS,
+                             spans=TRAIN_SPANS, label="step")
+        modes[mode].update(host_calls(prof, "step"),
+                           runtime_calls=prof["runtime_calls_per_step"])
+        if mode == "eager":
+            modes[mode]["spans"] = prof["spans"]
+    modes["captured"].update(replays=live.replays, capture_s=live.seconds)
+    for mode, m in modes.items():
+        log(f"train {mode}: per step: syncs {m['syncs']:g}, copies from the "
+            f"host {m['copies_from_host']:g}, graph launches "
+            f"{m['graph_launches']:g}, kernel launches "
+            f"{m['kernel_launches']:g}, kernels {m['kernel_ms']:.3f} ms, "
+            f"device busy {100 * m['device_busy_share']:.1f}%"
+            + (f"; {m['replays']} replays, captured in {m['capture_s']:.3f} "
+               f"s" if mode == "captured" else ""))
+    if modes["captured"]["syncs"] or modes["captured"]["copies_from_host"]:
+        raise AssertionError(f"a replayed step synced or copied from the "
+                             f"host: {modes['captured']}")
+    launches = {k: launches["eager"][k] + launches["captured"][k]
+                for k in ("blend_fwd", "blend_bwd")}
 
     # ---- one step's gradients with K2 and with the plain backward, on
     # each training view and the kernel check's view ----
@@ -602,13 +765,9 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
         f"{len(plain)} leaves, normalised max abs err per view "
         f"{', '.join(f'{e:.3g}' for e in errs)} (tol {GRAD_TOL:g})")
     return state, rc, bg, sh, check_cam, gts[-1], launches, {
-        "ms_per_step": ms, "rays_per_s": SIZE * SIZE / (ms / 1e3),
-        "peak_mib": peak / 2**20, "loss_first": losses[0],
-        "loss_last5": float(np.mean(losses[-5:])),
-        "runtime_calls_per_step": calls,
-        "step_grad_errs": errs,
-        "device_busy_share": prof["device_busy_share"],
-        "kernel_ms_per_step": prof["kernel_ms_per_step"]}
+        **modes, "captured_vs_eager": {"one_step_leaves": one_step,
+                                       "losses": loss_err},
+        "step_grad_errs": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -748,21 +907,13 @@ def switches_set(values: dict):
                 os.environ[k] = v
 
 
-def driver_counts() -> dict:
-    from fourdgs_tpu_torch.ops import blend, scatter
-    return {"blend_fwd": blend.blend_forward.launches,
-            "blend_bwd": blend.blend_backward.launches,
-            "blend_bwd_slots": blend.blend_backward_slots.launches,
-            "scatter_add_rows": scatter.scatter_add_rows.launches,
-            "scatter_set_scalars": scatter.scatter_set_scalars.launches}
-
-
-def zero_counts() -> None:
-    from fourdgs_tpu_torch.ops import blend, scatter
-    for fn in (blend.blend_forward, blend.blend_backward,
-               blend.blend_backward_slots, scatter.scatter_add_rows,
-               scatter.scatter_set_scalars):
-        fn.launches = 0
+def kernel_runs() -> dict:
+    """The kernels that ran, launched by the host or by graph replays
+    (train/graphs.py:kernel_runs), by the names the kernels line reports
+    them under."""
+    from fourdgs_tpu_torch.train import graphs
+    runs = graphs.kernel_runs()
+    return {name: runs[wrapper] for name, wrapper in REPORTED.items()}
 
 
 def surgery_counts(events, start: int):
@@ -815,7 +966,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
     from fourdgs_tpu_torch.render.serve import Renderer
     from fourdgs_tpu_torch.tools import make_synthetic_scene
     from fourdgs_tpu_torch.tools import train as train_cli
-    from fourdgs_tpu_torch.train import checkpoint
+    from fourdgs_tpu_torch.train import checkpoint, graphs
 
     scene, model = work / "scene", work / "driver"
     resumed = work / "driver_resume"
@@ -839,7 +990,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
     # ---- the main path, with the launch counts read around it ----
     with switches_set(SWITCHES):
         torch.cuda.synchronize()
-        zero_counts()
+        graphs.zero_counts()
         t0 = time.perf_counter()
         summary = train_cli.main(common + [
             "-m", str(model), "--test_iterations", str(coarse), str(fine),
@@ -869,7 +1020,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
                            last_eval["render_per_view"][0])
         twin_out = twin.render(test_cam)
         torch.cuda.synchronize()
-        launches = driver_counts()
+        launches = kernel_runs()
 
     # ---- what the run reports, and its checks ----
     stats = {"seconds_train_cli": t_train, "seconds_resume_cli": t_resume,
@@ -890,6 +1041,14 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
                "densify_grew": grew, "events": {k: kinds.count(k)
                                                 for k in sorted(set(kinds))},
                "tile_cap": st["raster_cfg"]["tile_cap"]}
+        g = st["graphs"]
+        rec["graphs"] = {
+            "captures": len(g["captures"]),
+            "recaptures": len(g["captures"]) - 1,
+            "rebinds": g["rebinds"], "replays": g["replays"],
+            "capture_s": sum(c["seconds"] for c in g["captures"]),
+            "capture_s_per_key": [(c["key"], c["seconds"])
+                                  for c in g["captures"]]}
         stats["stages"][st["stage"]] = rec
         log(f"driver {st['stage']}: {n_it} iterations, "
             f"{rec['ms_per_iteration']:.3f} ms/iteration "
@@ -900,6 +1059,13 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
             f"{rec['peak_mib']:.1f} MiB; events {rec['events']}")
         log(f"driver {st['stage']}: live count after each surgery "
             f"(iteration, kind, points): {counts}")
+        gr = rec["graphs"]
+        log(f"driver {st['stage']}: captured steps: {gr['captures']} "
+            f"captures ({gr['recaptures']} recaptures), {gr['rebinds']} "
+            f"rebinds, {gr['replays']} replays, {gr['capture_s']:.2f} s "
+            f"capturing")
+        for key, sec in gr["capture_s_per_key"]:
+            log(f"driver {st['stage']}:   {key}: {sec:.3f} s")
     (res_stage,) = resume["stages"]
     log(f"driver resume: fine from iteration {res_stage['start']} to "
         f"{res_stage['iterations']}, {t_resume:.2f} s; loss last "
@@ -949,6 +1115,9 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
             and res_stage["history"][-1]["iter"] == fine,
         "the render matches the run's eval":
             abs(twin_psnr - view0) <= RENDER_PSNR_TOL,
+        "every iteration replayed a captured step":
+            co["graphs"]["replays"] == co["iterations"]
+            and fi["graphs"]["replays"] == fi["iterations"],
     }
     gauss, flat, _ = checkpoint.load_snapshot(
         str(model / "point_cloud" / f"iteration_{fine}"))
@@ -1310,12 +1479,12 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
         return [x for x in sg.grads + [sg.ndc_grad] if x is not None]
 
     with_k2 = grads()
-    before = driver_counts()
+    before = kernel_runs()
     with switches_set({"FOURDGS_PALLAS_NO_FUSED_BWD": "1",
                        "FOURDGS_PALLAS_GRAD_SCATTER": "1"}):
         with_k3 = grads()
     torch.cuda.synchronize()
-    after = driver_counts()
+    after = kernel_runs()
     if (after["blend_bwd_slots"] - before["blend_bwd_slots"] != 1
             or after["blend_bwd"] != before["blend_bwd"]):
         raise AssertionError(f"the switched step ran {before} -> {after}")
@@ -1534,6 +1703,7 @@ def main(argv=None) -> int:
 
     import torch
     name = phase_device(torch)
+    from fourdgs_tpu_torch.train import graphs
     # Full float32 everywhere: the deformation MLP heads must not run in
     # TF32 (three decimal digits) for parity with the reference.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1548,19 +1718,21 @@ def main(argv=None) -> int:
     scene = make_scene(torch, args.seed, device)
     log(f"scene: {N_GAUSS} gaussians, seed {args.seed}, "
         f"{time.perf_counter() - t0:.2f} s")
-    renderer, cams, launches, renders = phase_slice(
+    renderer, cams, launches, renders, serve = phase_slice(
         torch, scene, device, args.frames, work)
     cam = cams[round(KERNEL_CHECK_FRAME * args.frames)]
     k1 = phase_kernels(torch, renderer, cam)
     k1["launches"] = launches["blend_fwd"]
     k1["launches_per_frame"] = launches["blend_fwd"] / renders
+    k1["serve"] = serve
     state, rc, bg, sh, check_cam, gt, train_launches, train = phase_train(
         torch, scene, renderer, device, args.steps, args.seed)
     k1["launches_train"] = train_launches["blend_fwd"]
     k2, step_args, work_k2 = phase_kernels_bwd(torch, state, rc, bg, sh,
                                                check_cam, gt)
     k2["launches"] = train_launches["blend_bwd"]
-    k2["launches_per_step"] = train_launches["blend_bwd"] / args.steps
+    k2["launches_per_step"] = train_launches["blend_bwd"] / (
+        2 * args.steps + graphs.WARMUP)
     k2["train"] = train
     driver_launches, driver = phase_driver(torch, device, work, args.coarse,
                                            args.fine, args.seed)

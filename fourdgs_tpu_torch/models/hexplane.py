@@ -50,10 +50,13 @@ def normalize_aabb(pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
 
 def _axis_coord(u: torch.Tensor, size: int):
     """Align-corners coordinate in [-1, 1] -> (floor index, fraction),
-    border-clamped."""
+    border-clamped. A NaN coordinate keeps a NaN fraction and gathers
+    row 0 (the integer conversion of a NaN is undefined; JAX's gather
+    clamps it), so that the NaN guard sees it instead of an index out of
+    range."""
     x = torch.clamp((u + 1.0) * 0.5 * (size - 1), 0.0, size - 1)
     x0 = torch.floor(x)
-    return x0.long(), x - x0
+    return torch.clamp(x0.long(), 0, size - 1), x - x0
 
 
 class _GatherRows(torch.autograd.Function):
@@ -123,7 +126,7 @@ def bilinear_sample_const_v(plane: torch.Tensor, u: torch.Tensor,
     y = torch.clamp((v + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
     y0 = torch.clamp(torch.floor(y), max=max(h - 2, 0))
     fy = y - y0
-    i0 = y0.long().reshape(1)
+    i0 = torch.clamp(y0.long(), 0, max(h - 2, 0)).reshape(1)
     rows = plane.index_select(0, torch.cat(
         [i0, torch.clamp(i0 + 1, max=h - 1)]))             # (2, w, c)
     row = rows[0] * (1.0 - fy) + rows[1] * fy            # (w, c)

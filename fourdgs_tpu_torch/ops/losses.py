@@ -51,9 +51,18 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+_WINDOWS: dict = {}
+
+
 def _window(window_size: int, like: torch.Tensor) -> torch.Tensor:
-    w1d = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(like)
-    return w1d[:, None] * w1d[None, :]
+    """The 2-D window on `like`'s device, made once per device and type:
+    a copy from the host inside a step would cost a sync per step and
+    cannot be captured in a CUDA graph."""
+    key = (window_size, like.dtype, like.device)
+    if key not in _WINDOWS:
+        w1d = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(like)
+        _WINDOWS[key] = w1d[:, None] * w1d[None, :]
+    return _WINDOWS[key]
 
 
 def _depthwise_conv2d(img: torch.Tensor, window: torch.Tensor,

@@ -81,10 +81,14 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     run of the gaussian that straddles the budget. The exact corner cull
     then drops kept pairs whose whole tile lies beyond the gate radius.
 
-    The mechanism differs from the JAX package's (whose rank scan works
-    around TPU costs): pairs are expanded with `repeat_interleave` (one
-    host sync for the output size) and a stable sort by tile id over the
-    depth-ordered pairs gives each pair its in-tile rank."""
+    Every shape is static and nothing is read to the host, as in the JAX
+    binner (so that a CUDA graph can capture it): slot s of the budget
+    takes its owner by a search over the depth-ordered run ends, invalid
+    and culled slots take the sentinel tile id `num_tiles`, a stable sort
+    by tile id over the depth-ordered slots gives each pair its in-tile
+    rank (the sentinel sorts last), and the lists are written through a
+    sacrificial last index. The mechanism differs from the JAX package's
+    rank scan, which works around TPU costs; the outputs are the same."""
     dev = proj.depth.device
     n = proj.depth.shape[0]
     nt = cfg.num_tiles
@@ -96,15 +100,14 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     order = torch.sort(torch.where(visible, proj.depth, inf),
                        stable=True).indices
     touched_s = proj.tiles_touched[order].long()
-    off = torch.cumsum(touched_s, 0)
-    start = off - touched_s
-    total = off[-1] if n else torch.zeros((), dtype=torch.long, device=dev)
-    alloc = torch.clamp(torch.minimum(touched_s, total_slots - start), min=0)
+    off = torch.cumsum(touched_s, 0)                    # run ends
+    total = off[-1:].sum()                              # 0 when n == 0
 
     # ---- pair expansion (depth-major, row-major within each rect) ----
-    rank_g = torch.arange(n, device=dev)
-    owner = torch.repeat_interleave(rank_g, alloc)      # depth rank per pair
-    local = torch.arange(owner.shape[0], device=dev) - start[owner]
+    slot = torch.arange(total_slots, device=dev)
+    owner = torch.clamp(torch.searchsorted(off, slot, right=True),
+                        max=max(n - 1, 0))              # depth rank per slot
+    local = slot - (off - touched_s)[owner]
     gid = order[owner]
     rmin = proj.rect_min[gid].long()
     sx = torch.clamp(proj.rect_max[gid, 0].long() - rmin[:, 0], min=1)
@@ -121,29 +124,28 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     ddy = torch.clamp(torch.maximum(loy - qpix[:, 1],
                                     qpix[:, 1] - (loy + ts - 1)) - 1,
                       0, _CULL_CLAMP)
-    keep = ddx * ddx + ddy * ddy <= proj.cull_r2[gid].long()
-    tile_id = (ty * cfg.grid_x + tx)[keep]
-    gid = gid[keep]
+    keep = (slot < total) & (ddx * ddx + ddy * ddy
+                             <= proj.cull_r2[gid].long())
+    tile_id = torch.where(keep, ty * cfg.grid_x + tx, nt)
 
     # ---- in-tile rank: stable sort by tile keeps depth order ----
     tile_sorted, perm = torch.sort(tile_id, stable=True)
-    counter = torch.bincount(tile_id, minlength=nt)
+    counter = torch.zeros(nt + 1, dtype=torch.long, device=dev).scatter_add_(
+        0, tile_id, torch.ones_like(tile_id))
     tile_start = torch.cumsum(counter, 0) - counter
-    rank = torch.arange(tile_sorted.shape[0], device=dev) \
-        - tile_start[tile_sorted]
-    ok = rank < cfg.tile_cap
+    rank = slot - tile_start[tile_sorted]
+    counter = counter[:nt]
+    n_out = nt * cfg.tile_cap
+    dest = torch.where((tile_sorted < nt) & (rank < cfg.tile_cap),
+                       tile_sorted * cfg.tile_cap + rank, n_out)
+    src = gid[perm].to(torch.int32)
     if os.environ.get("FOURDGS_BIN_SCATTER") == "pallas":
         # the JAX package's switch (rasterize_tiled.py:383-393): K5, with
         # the pairs past tile_cap sent to index n_out, which it drops
-        n_out = nt * cfg.tile_cap
-        dest = torch.where(ok, tile_sorted * cfg.tile_cap + rank, n_out)
-        gidx = scatter_set_scalars(dest.to(torch.int32),
-                                   gid[perm].to(torch.int32), n_out=n_out)
+        gidx = scatter_set_scalars(dest.to(torch.int32), src, n_out=n_out)
     else:
-        gidx = torch.full((nt * cfg.tile_cap,), -1, dtype=torch.int32,
-                          device=dev)
-        gidx[(tile_sorted * cfg.tile_cap + rank)[ok]] = \
-            gid[perm][ok].to(torch.int32)
+        gidx = torch.full((n_out + 1,), -1, dtype=torch.int32,
+                          device=dev).scatter_(0, dest, src)[:n_out]
 
     overflow = torch.clamp(counter - cfg.tile_cap, min=0).to(torch.int32)
     return BinnedTiles(

@@ -10,7 +10,8 @@ carrier for the densify statistics. Serving wraps it in torch.no_grad()
 
 The SH degree is a Python int: the JAX step passes a traced degree to
 `sh_to_rgb_dynamic` so that its jit never recompiles during the SH ramp;
-PyTorch runs eagerly and needs no such thing. Bands above the active
+here the degree is part of the key of the captured step and frame
+(train/graphs.py), so a ramp step captures anew. Bands above the active
 degree get a zero gradient in both.
 """
 from __future__ import annotations

@@ -5,6 +5,13 @@ scripts/render.py).
     renderer = Renderer.from_snapshot("output/scene")     # on cuda
     out = renderer.render(camera)                          # RenderOutput
 
+On the card a frame is a captured program (train/graphs.py, the
+counterpart of the JAX render CLI's jit): one CUDA graph per key (the
+raster config, the stage, the identity of the renderer's tensors, the
+blend's implementation and the switches), replayed with the camera copied
+into its static buffers. `capture=False` renders eagerly; the CPU always
+does.
+
 CLI: render a look-at orbit over t in [0, 1] and print frame count,
 seconds and FPS:
 
@@ -24,18 +31,21 @@ import torch
 from fourdgs_tpu_torch.data.camera import Camera, look_at_camera
 from fourdgs_tpu_torch.data.png import write_png
 from fourdgs_tpu_torch.models.deformation import Deformation
-from fourdgs_tpu_torch.models.gaussians import GaussianParams
+from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
+from fourdgs_tpu_torch.ops import blend
 from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.render.render import render
 from fourdgs_tpu_torch.train import checkpoint
 from fourdgs_tpu_torch.train import config as config_mod
+from fourdgs_tpu_torch.train import graphs
 from fourdgs_tpu_torch.utils.device import resolve_device
 
 # cap probe bounds (as in the JAX render CLI)
 _PROBE_ROUNDS = 5
 _TILE_CAP_MAX = 8192
 _PAIRS_PER_CHUNK_MAX = 1 << 18
+_FRAMES_HELD = 2     # captured frames a renderer keeps, the newest
 
 
 def _full_float32():
@@ -57,15 +67,19 @@ class Renderer:
     device: torch.device
     iteration: int = -1
     probe_renders: int = 0   # renders the cap probe made
+    capture: bool | None = None   # None: capture frames on the card
+    frames: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @classmethod
     def from_snapshot(cls, model_path: str, iteration: int = -1,
                       device: str | torch.device | None = None,
                       width: int = 800, height: int = 800,
-                      configs: str = "") -> "Renderer":
+                      configs: str = "",
+                      capture: bool | None = None) -> "Renderer":
         """Load the newest (or the given) snapshot under `model_path`, with
         configs from its `cfg_args.json` (plus an optional config file),
-        and run the cap probe on the look-at camera."""
+        and run the cap probe on the look-at camera (eagerly)."""
         dev = resolve_device(device)
         _full_float32()
         cfg_path = os.path.join(model_path, "cfg_args.json")
@@ -85,7 +99,7 @@ class Renderer:
                        raster_cfg=config_mod.raster_config_from(
                            cfg, width, height),
                        sh_degree=cfg.model.sh_degree, device=dev,
-                       iteration=it)
+                       iteration=it, capture=capture)
         renderer.probe_caps(look_at_camera(device=dev))
         return renderer
 
@@ -94,7 +108,7 @@ class Renderer:
         caps were sized for: render one view and double the overflowing
         cap until the render is drop-free."""
         for _ in range(_PROBE_ROUNDS):
-            out = self.render(camera)
+            out = self.render_eager(camera)
             self.probe_renders += 1
             dp, dt = int(out.dropped_pairs), int(out.dropped_tile)
             dt_thresh = max(64, int(out.num_pairs) // 200)
@@ -112,11 +126,40 @@ class Renderer:
                   f"growing {changes}")
             self.raster_cfg = dataclasses.replace(rc, **changes)
 
+    def captures(self) -> bool:
+        return self.device.type == "cuda" if self.capture is None \
+            else self.capture
+
     @torch.no_grad()
-    def render(self, camera: Camera, stage: str = "fine") -> RenderOutput:
+    def render_eager(self, camera: Camera,
+                     stage: str = "fine") -> RenderOutput:
         return render(self.gauss, self.deform, camera.to(self.device),
                       self.bg, self.raster_cfg, self.aabb, self.alive,
                       self.sh_degree, stage=stage)
+
+    @torch.no_grad()
+    def render(self, camera: Camera, stage: str = "fine") -> RenderOutput:
+        """The frame at `camera`: a replay of the captured frame of the
+        renderer's present key, or an eager render (`capture` False, or
+        the CPU)."""
+        if not self.captures():
+            return self.render_eager(camera, stage)
+        camera = camera.to(self.device)
+        inputs = tuple(getattr(self.gauss, f) for f in FIELDS) + (
+            self.alive, self.aabb, self.bg, self.deform)
+        key = (self.raster_cfg, stage, self.sh_degree,
+               tuple(map(id, inputs)), blend.blend_forward,
+               graphs.switches())
+        frame = self.frames.get(key)
+        if frame is None:
+            while len(self.frames) >= _FRAMES_HELD:
+                del self.frames[next(iter(self.frames))]
+            rc = self.raster_cfg
+            frame = self.frames[key] = graphs.CapturedFrame(
+                key, lambda cam: self.render_eager(cam, stage), camera,
+                inputs, f"frame {stage} {rc.img_width}x{rc.img_height} "
+                f"tile_cap {rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
+        return frame(camera)
 
 
 def orbit_cameras(frames: int, device) -> list[Camera]:

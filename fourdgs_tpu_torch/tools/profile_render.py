@@ -9,12 +9,16 @@ take the most device time. `profile_calls` does the same for any call
         --frames 24
 
 The spans are the `record_function` ranges that render/render.py and
-ops/rasterize_tiled.py open. The last line is the report as JSON.
+ops/rasterize_tiled.py open. A replayed CUDA graph (the Renderer's default
+on the card) opens none, so the CLI times and profiles the frames both
+ways: replayed (totals) and eager (spans). The last line is the report as
+JSON.
 """
 from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
 import json
 import math
 import time
@@ -34,10 +38,15 @@ SPANS = ("render.splats", "raster.project", "raster.bin", "raster.pack",
 TRAIN_SPANS = SPANS + ("train.forward", "train.backward",
                        "raster.blend_backward", "train.adam", "train.stats")
 # CUDA runtime calls counted per frame: a stream synchronize is a host wait
-# on the device (a `.item()`, a boolean mask's size, `repeat_interleave`)
+# on the device (a `.item()`, a copy from the host's pageable memory, a
+# data-dependent size); a captured step or frame is one cudaGraphLaunch
+# (train/graphs.py) and the device-to-device copies of its inputs
 _RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                   "cudaMemcpyAsync", "cudaLaunchKernel", "cuLaunchKernel",
-                  "cuLaunchKernelEx")
+                  "cuLaunchKernelEx", "cudaGraphLaunch")
+# the copies the device ran, by direction (their activity names read
+# "Memcpy HtoD (Pageable -> Device)" and the like)
+_COPY_KINDS = ("HtoD", "DtoH", "DtoD")
 
 
 def _busy_us(intervals) -> float:
@@ -94,6 +103,8 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
             "device_range_ms": sum(r.elapsed_us() for r in rng) / n / 1e3,
             "kernel_ms": sum(map(kernel_us_in, rng)) / n / 1e3}
     calls = {c: sum(e.name == c for e in events) / n for c in _RUNTIME_CALLS}
+    copies = {k: sum(e.name.startswith("Memcpy") and k in e.name
+                     for e in on_dev) / n for k in _COPY_KINDS}
     by_kernel: dict[str, list[float]] = {}
     for e in kernels:
         by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
@@ -104,6 +115,7 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
         f"kernel_ms_per_{label}": sum(map(sum, by_kernel.values())) / n / 1e3,
         f"kernel_launches_per_{label}": len(kernels) / n,
         f"runtime_calls_per_{label}": {c: v for c, v in calls.items() if v},
+        f"device_copies_per_{label}": copies,
         "spans": span_report,
         "top_kernels": [
             {"name": name[:90], f"ms_per_{label}": sum(d) / n / 1e3,
@@ -116,7 +128,8 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
           f"{100 * report['device_busy_share']:.1f}%; kernels "
           f"{report[f'kernel_ms_per_{label}']:.3f} ms/{label} in "
           f"{report[f'kernel_launches_per_{label}']:.1f} launches; runtime "
-          f"calls per {label} {report[f'runtime_calls_per_{label}']}")
+          f"calls per {label} {report[f'runtime_calls_per_{label}']}; "
+          f"device copies per {label} {copies}")
     for k, v in span_report.items():
         print(f"  span {k:22s} host {v['host_ms']:8.3f} ms  device range "
               f"{v['device_range_ms']:8.3f} ms  kernels "
@@ -152,17 +165,26 @@ def main(argv=None) -> dict:
                                       width=args.width, height=args.height)
     dev = renderer.device
     cams = orbit_cameras(args.frames, dev)
-    for c in cams:                               # warm-up, untimed
-        renderer.render(c)
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for c in cams:
-        renderer.render(c)
-    torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
-    print(f"device: {torch.cuda.get_device_name(dev)}; frames: {len(cams)}; "
-          f"{1e3 * seconds / len(cams):.3f} ms/frame unprofiled")
-    return profile_frames(renderer, cams)
+    modes = {"replayed": renderer,
+             "eager": dataclasses.replace(renderer, capture=False)}
+    for name, r in modes.items():
+        for c in cams:                           # warm-up, untimed
+            r.render(c)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for c in cams:
+            r.render(c)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        print(f"device: {torch.cuda.get_device_name(dev)}; {name} frames: "
+              f"{len(cams)}; {1e3 * seconds / len(cams):.3f} ms/frame "
+              f"unprofiled")
+    report = {}
+    for name, r in modes.items():
+        print(f"{name} frames:")
+        report[name] = profile_frames(r, cams)
+    print(json.dumps(report))
+    return report
 
 
 if __name__ == "__main__":

@@ -17,8 +17,12 @@ the JAX package's layouts.
 The scene is read in the Blender (D-NeRF) layout at 800x800 unless
 `--image_size` names the size its images have (the JAX script resizes them
 with PIL, which the port does not carry). `--mesh`, `--distributed` and
-`--gui` are not ported yet and raise; `--profile` wraps the fine stage in
-`torch.profiler` and writes a Chrome trace under <out>/trace/.
+`--gui` are not ported yet and raise; `--profile` runs the fine stage
+eagerly, so that its spans show (a replayed CUDA graph opens none), wraps
+it in `torch.profiler` and writes a Chrome trace under <out>/trace/.
+
+On the card each step is otherwise a replay of a captured CUDA graph
+(train/graphs.py), captured when the step's key changes.
 """
 from __future__ import annotations
 
@@ -273,7 +277,8 @@ def main(argv=None) -> dict:
                 on_test=make_on_test(stage), on_save=make_on_save(stage),
                 on_checkpoint=make_on_ckpt(stage),
                 epoch_order_fn=None if stage == "coarse" else epoch_order_fn,
-                start_iteration=start_it, initial_active_sh=active_sh)
+                start_iteration=start_it, initial_active_sh=active_sh,
+                capture=False if profile else None)
         if profile:
             trace_dir = os.path.join(cfg.model.model_path, "trace")
             os.makedirs(trace_dir, exist_ok=True)
@@ -285,7 +290,7 @@ def main(argv=None) -> dict:
         summary["stages"].append(dict(
             stage=stage, start=start_it, iterations=iters,
             wall_time=res.wall_time, active_sh=res.active_sh,
-            events=res.events,
+            events=res.events, graphs=res.graphs,
             history=res.history, test_psnr=test_psnrs[stage],
             raster_cfg=dataclasses.asdict(raster_cfg),
             peak_bytes=(torch.cuda.max_memory_allocated(dev)

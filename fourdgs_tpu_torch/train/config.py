@@ -142,6 +142,8 @@ class RasterParams:
     autogrow: bool = True
     min_bucket: int = 4096
     bucket_headroom: float = 1.5
+    # JAX's background compile of the next bucket; the port captures a
+    # step when its key comes up and does not read it (train/graphs.py)
     prewarm: bool = True
     cap_shrink_spacing: int = 2000
 

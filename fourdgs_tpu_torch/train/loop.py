@@ -10,8 +10,10 @@ every parameter and of a zero `ndc_offset`, the grouped Adam update, and
 the densify statistics (radii max, visibility count, screen-space
 gradient norm).
 
-The SH degree is a Python int (the JAX step traces it to keep its jit
-from recompiling; PyTorch has no jit to keep).
+The SH degree is a Python int. The JAX step traces it so that its jit
+does not recompile during the SH ramp; here it is part of the key of the
+captured step (train/graphs.py), which `run_stage` replays as a CUDA
+graph on the card, and the ramp's three steps recapture.
 """
 from __future__ import annotations
 
@@ -33,13 +35,13 @@ from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.render.render import render
 from fourdgs_tpu_torch.train import densify as densify_mod
-from fourdgs_tpu_torch.train import optim
+from fourdgs_tpu_torch.train import graphs, optim
 from fourdgs_tpu_torch.train.config import Config, raster_config_from
 from fourdgs_tpu_torch.train.state import TrainState, make_trainable
 
 __all__ = ["StepAux", "StepGrads", "StageResult", "step_gradients",
-           "train_step", "eval_step", "pick_bucket", "compact_and_resize",
-           "run_stage", "raster_config_from"]
+           "train_step", "step_of_key", "eval_step", "pick_bucket",
+           "compact_and_resize", "run_stage", "raster_config_from"]
 
 
 class StepAux(NamedTuple):
@@ -112,7 +114,7 @@ def train_step(state: TrainState, cameras: Sequence[Camera],
                         raster_cfg=raster_cfg, lambda_dssim=lambda_dssim,
                         reg_weights=reg_weights)
     with record_function("train.adam"):
-        state.opt_state = tx.update(sg.grads, state.opt_state, state.params)
+        tx.update(sg.grads, state.opt_state, state.params)
     outs = sg.outs
     with torch.no_grad(), record_function("train.stats"):
         radii = torch.stack([o.radii for o in outs]).amax(dim=0)
@@ -141,6 +143,22 @@ def train_step(state: TrainState, cameras: Sequence[Camera],
             tile_peak=torch.stack([o.tile_peak for o in outs]).amax(),
             max_alpha=torch.stack([o.alpha.detach() for o in outs]).amax())
     return state, aux
+
+
+def step_of_key(tx: optim.GroupedAdam
+                ) -> Callable[[graphs.StepKey], Callable]:
+    """The step function of a captured step's key (graphs.StepPrograms'
+    `step_fn`): `fn(state, cameras, gts, bg)` runs `train_step` with the
+    key's static arguments and returns its aux."""
+    def of_key(key: graphs.StepKey) -> Callable:
+        def fn(state, cameras, gts, bg):
+            return train_step(
+                state, cameras, gts, bg, key.active_sh, stage=key.stage,
+                raster_cfg=key.raster_cfg, tx=tx,
+                lambda_dssim=key.lambda_dssim, reg_weights=key.reg_weights,
+                track_stats=key.track_stats)[1]
+        return fn
+    return of_key
 
 
 @torch.no_grad()
@@ -226,6 +244,8 @@ class StageResult:
     # `kind` (densify, prune, grow, reset_opacity, resize, rollback,
     # tile_cap, bin_pairs_per_chunk), `points` and `capacity` after it
     events: list = dataclasses.field(default_factory=list)
+    # the captured steps (graphs.StepPrograms.report), None when eager
+    graphs: dict | None = None
 
 
 def _nan_count(state: TrainState) -> torch.Tensor:
@@ -265,6 +285,7 @@ def run_stage(
     on_iteration: Callable | None = None,
     start_iteration: int = 0,
     initial_active_sh: int = 0,
+    capture: bool | None = None,
 ) -> StageResult:
     """One training stage (JAX: loop.py:355): batches drawn from epoch
     permutations of `rng`, `train_step`, the NaN guard with rollback every
@@ -278,7 +299,13 @@ def run_stage(
     The state is updated in place by the step; the guard keeps a copy of
     the last healthy state on the device. The alive count lives on the
     host and is read back only at surgery. `mesh` (multi-GPU) is not
-    ported yet."""
+    ported yet.
+
+    `capture` (default: on the card) replays the step as a CUDA graph per
+    `graphs.StepKey` (the JAX step's static arguments), with the state
+    bound to the program's buffers; a step whose key changed (a bucket,
+    a cap growth, the SH ramp, the densify statistics' stop) captures
+    anew. False runs the step eagerly; the CPU has no graphs."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet")
     opt = cfg.opt
@@ -324,6 +351,11 @@ def run_stage(
         events.append(dict(iter=it, kind=kind, points=n_alive,
                            capacity=state.capacity))
 
+    lambda_dssim = float(opt.lambda_dssim)
+    if capture is None:
+        capture = dev.type == "cuda"
+    steps = graphs.StepPrograms(step_of_key(tx)) if capture else None
+
     aux = None
     for it in range(start_iteration + 1, iterations + 1):
         if on_iteration is not None:
@@ -339,12 +371,20 @@ def run_stage(
         idxs = perm[ptr:ptr + batch]
         ptr += batch
         cams = [cameras[int(i)] for i in idxs]
-        gts = images[idxs]
-        state, aux = train_step(
-            state, cams, gts, bg, active_sh, stage=stage,
-            raster_cfg=raster_cfg, tx=tx,
-            lambda_dssim=float(opt.lambda_dssim), reg_weights=reg_weights,
-            track_stats=it < opt.densify_until_iter)
+        # views picked on the host, gathered on the device: an index from
+        # the host would be copied over with a sync
+        gts = torch.stack([images[int(i)] for i in idxs])
+        track_now = it < opt.densify_until_iter
+        if steps is None:
+            state, aux = train_step(
+                state, cams, gts, bg, active_sh, stage=stage,
+                raster_cfg=raster_cfg, tx=tx, lambda_dssim=lambda_dssim,
+                reg_weights=reg_weights, track_stats=track_now)
+        else:
+            key = graphs.StepKey(stage, state.capacity, raster_cfg,
+                                 active_sh, track_now, batch, lambda_dssim,
+                                 reg_weights, graphs.switches())
+            aux = steps.run(key, state, cams, gts, bg)
 
         # NaN guard: roll back to the last healthy state. One host read
         # carries every number the guard and the cap growth look at.
@@ -520,4 +560,5 @@ def run_stage(
     return StageResult(state=state, history=history,
                        wall_time=time.perf_counter() - t0 - paused,
                        active_sh=active_sh, raster_cfg=raster_cfg,
-                       events=events)
+                       events=events,
+                       graphs=None if steps is None else steps.report())

@@ -16,7 +16,7 @@ and not `torch.optim.Adam`, because:
   * the moments sit in the parameters' tree ({'gauss': GaussianParams,
     'deform': {name: tensor}}), which the comparison with the JAX
     package's moments needs.
-The update runs in place on the parameters and the moments.
+The update runs in place on the parameters, the moments and the count.
 """
 from __future__ import annotations
 
@@ -110,8 +110,8 @@ def build_optimizer(opt, spatial_lr_scale: float, params: dict | None = None,
                     eps: float = 1e-15) -> GroupedAdam:
     """The grouped Adam. `update(grads, state, params)` takes the
     gradients as a list in `param_leaves(params)` order (None for a leaf
-    without one), updates `params` and the moments in place and returns
-    the state with the count advanced."""
+    without one), updates `params`, the moments and the count in place
+    and returns the state."""
     schedules = build_schedules(opt, spatial_lr_scale)
     del params  # the tree is read at each call (densify resizes buffers)
 
@@ -133,7 +133,9 @@ def build_optimizer(opt, spatial_lr_scale: float, params: dict | None = None,
     @torch.no_grad()
     def update_fn(grads: list, state: AdamGroupState,
                   params_: dict) -> AdamGroupState:
-        count = state.count + 1
+        # the count advances in place, as the moments do: a captured step
+        # (train/graphs.py) replays on the tensors it was captured with
+        count = state.count.add_(1)
         c = count.to(torch.float32)
         bc1 = 1.0 - b1 ** c
         bc2 = 1.0 - b2 ** c
@@ -152,7 +154,7 @@ def build_optimizer(opt, spatial_lr_scale: float, params: dict | None = None,
             mu.mul_(b1).add_((1 - b1) * g)
             nu.mul_(b2).add_((1 - b2) * (g * g))
             p.add_(-lrs[lab] * (mu / bc1) / (torch.sqrt(nu / bc2) + eps))
-        return state._replace(count=count)
+        return state
 
     return GroupedAdam(init_fn, update_fn)
 

@@ -73,3 +73,133 @@ def test_binner_parity(proj, case):
         assert int(b.overflow.sum()) == 0 and int(b.dropped_pairs) == 0
         # the corner cull removed pairs
         assert int(b.counts.sum()) < touched.sum()
+
+
+# ---- the edges of the static contract, on hand-made projections ----
+# W x H = 64 x 48 at tile 16: a 4 x 3 grid of 12 tiles
+
+def _hand_proj(rect_min, rect_max, pix, cull_r2, depth=None, seed=0):
+    """A projection with the given tile rects (exclusive max), centres and
+    corner-cull radii, distinct depths, and the counts the projection
+    derives from them (a rect of zero span touches nothing)."""
+    rect_min = np.asarray(rect_min, np.int32)
+    rect_max = np.asarray(rect_max, np.int32)
+    n = rect_min.shape[0]
+    spans = np.clip(rect_max - rect_min, 0, None)
+    touched = (spans[:, 0] * spans[:, 1]).astype(np.int32)
+    if depth is None:
+        depth = np.random.default_rng(seed).permutation(n) + 1.0
+    fields = dict(
+        pix=np.asarray(pix, np.float32).reshape(n, 2),
+        depth=np.asarray(depth, np.float32),
+        conic=np.ones((n, 3), np.float32),
+        radius=np.where(touched > 0, 8, 0).astype(np.int32),
+        rect_min=rect_min, rect_max=rect_max, tiles_touched=touched,
+        cull_r2=np.broadcast_to(np.asarray(cull_r2, np.int32),
+                                (n,)).copy())
+    return fields
+
+
+def _bin_both(fields, tile_cap, bin_chunk, bin_pairs_per_chunk, chunk=8):
+    from fourdgs_tpu.ops.projection import Projected as JProjected
+    import jax.numpy as jnp
+    kw = dict(img_width=W, img_height=H, tile_size=16, tile_cap=tile_cap,
+              chunk=chunk, bin_chunk=bin_chunk,
+              bin_pairs_per_chunk=bin_pairs_per_chunk)
+    a = jrt.bin_gaussians_count(
+        JProjected(**{k: jnp.asarray(v) for k, v in fields.items()}),
+        jrt.RasterConfig(**kw))
+    b = trt.bin_gaussians_count(
+        tproj.Projected(**{k: torch.from_numpy(v) for k, v in
+                           fields.items()}), trt.RasterConfig(**kw))
+    for f in ("gidx", "counts", "overflow", "num_pairs", "dropped_pairs",
+              "dropped_tile"):
+        bv = getattr(b, f).numpy()
+        assert bv.dtype == np.int32, f
+        np.testing.assert_array_equal(bv, np.asarray(getattr(a, f)),
+                                      err_msg=f)
+    return b
+
+
+def _edge_case(name):
+    """(fields, tile_cap, bin_chunk, bin_pairs_per_chunk) of one edge."""
+    big = 1 << 30
+    if name == "straddles_the_budget":
+        # six 2 x 2 rects: 24 pairs into 2 x 9 = 18 slots; the fifth in
+        # depth order runs from slot 16 over the end
+        rmin = [[0, 0], [1, 0], [2, 1], [0, 1], [1, 1], [2, 0]]
+        rmax = [[x + 2, y + 2] for x, y in rmin]
+        pix = [[16 * x + 16, 16 * y + 16] for x, y in rmin]
+        return _hand_proj(rmin, rmax, pix, big), 64, 4, 9
+    if name == "no_visible_gaussian":
+        rmin = [[1, 1]] * 5
+        return _hand_proj(rmin, rmin, [[30, 30]] * 5, big), 16, 4, 16
+    if name == "every_pair_culled":
+        # centres far up and left of their rects, no cull radius
+        rmin = [[1, 0], [2, 1], [0, 1], [1, 1]]
+        rmax = [[x + 2, y + 2] for x, y in rmin]
+        return _hand_proj(rmin, rmax, [[-200, -200]] * 4, 0), 16, 4, 32
+    if name == "one_tile_past_its_cap":
+        # nine gaussians in tile (1, 1) alone at tile_cap 8, one elsewhere
+        rmin = [[1, 1]] * 9 + [[3, 2]]
+        rmax = [[2, 2]] * 9 + [[4, 3]]
+        pix = [[24, 24]] * 9 + [[56, 40]]
+        return _hand_proj(rmin, rmax, pix, big), 8, 16, 32
+    if name == "every_gaussian_in_one_tile":
+        rmin = [[2, 1]] * 20
+        return (_hand_proj(rmin, [[3, 2]] * 20, [[40, 24]] * 20, big),
+                32, 8, 24)
+    raise KeyError(name)
+
+
+EDGES = ("straddles_the_budget", "no_visible_gaussian", "every_pair_culled",
+         "one_tile_past_its_cap", "every_gaussian_in_one_tile")
+
+
+@pytest.mark.parametrize("case", EDGES)
+def test_binner_edges_match_jax(case):
+    fields, cap, bchunk, bpc = _edge_case(case)
+    b = _bin_both(fields, cap, bchunk, bpc)
+    counts, over = b.counts.numpy(), b.overflow.numpy()
+    if case == "straddles_the_budget":
+        assert int(b.dropped_pairs) == 24 - 18
+        # the straddling gaussian keeps the two pairs inside the budget
+        assert counts.sum() == 18
+    elif case == "no_visible_gaussian":
+        assert counts.sum() == 0 and int(b.num_pairs) == 0
+        assert (b.gidx.numpy() == -1).all()
+    elif case == "every_pair_culled":
+        assert int(b.num_pairs) == 16 and counts.sum() == 0
+        assert (b.gidx.numpy() == -1).all()
+    elif case == "one_tile_past_its_cap":
+        assert over[5] == 1 and over.sum() == 1 and counts[5] == cap
+        assert int(b.dropped_tile) == 1
+    else:
+        assert counts[6] == 20 and counts.sum() == 20
+
+
+def test_binner_has_static_shapes():
+    """The binner runs on meta tensors, which refuse every operation whose
+    output size depends on the data (repeat_interleave without an output
+    size, boolean indexing, bincount): its shapes are static, so a CUDA
+    graph can capture it."""
+    n, cfg = 300, trt.RasterConfig(img_width=W, img_height=H, tile_size=16,
+                                   tile_cap=64, chunk=8, bin_chunk=128,
+                                   bin_pairs_per_chunk=512)
+    meta = torch.device("meta")
+    proj = tproj.Projected(
+        pix=torch.empty((n, 2), device=meta),
+        depth=torch.empty((n,), device=meta),
+        conic=torch.empty((n, 3), device=meta),
+        radius=torch.empty((n,), dtype=torch.int32, device=meta),
+        rect_min=torch.empty((n, 2), dtype=torch.int32, device=meta),
+        rect_max=torch.empty((n, 2), dtype=torch.int32, device=meta),
+        tiles_touched=torch.empty((n,), dtype=torch.int32, device=meta),
+        cull_r2=torch.empty((n,), dtype=torch.int32, device=meta))
+    b = trt.bin_gaussians_count(proj, cfg)
+    nt = cfg.num_tiles
+    assert b.gidx.shape == (nt, 64) and b.gidx.device.type == "meta"
+    assert b.counts.shape == (nt,) and b.overflow.shape == (nt,)
+    for f in ("num_pairs", "dropped_pairs", "dropped_tile"):
+        assert getattr(b, f).shape == ()
+    assert all(x.dtype == torch.int32 for x in b)

@@ -111,6 +111,33 @@ def test_const_t_sampler_matches_generic():
             rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("where", ["u", "v"])
+def test_nan_coordinate_samples_nan_in_range(where):
+    """A NaN coordinate (a NaN-poisoned model) samples what JAX's clamped
+    gather samples on the same inputs, the same rows NaN, instead of
+    gathering out of range, so that the stage's NaN guard can roll back."""
+    rng = np.random.default_rng(4)
+    plane = rng.normal(size=(25, 64, 8)).astype(np.float32)
+    u = np.array([0.3, -0.8, np.nan if where == "u" else 0.1, 1.0],
+                 np.float32)
+    v = np.float32(np.nan if where == "v" else 0.2)
+    vs = np.full(u.shape, v, np.float32)
+    pairs = [
+        (jhex.bilinear_sample_const_v(jnp.asarray(plane), jnp.asarray(u),
+                                      jnp.asarray(v)),
+         thex.bilinear_sample_const_v(torch.from_numpy(plane),
+                                      torch.from_numpy(u), torch.tensor(v))),
+        (jhex.bilinear_sample(jnp.asarray(plane), jnp.asarray(u),
+                              jnp.asarray(vs)),
+         thex.bilinear_sample(torch.from_numpy(plane), torch.from_numpy(u),
+                              torch.from_numpy(vs)))]
+    for want, got in pairs:
+        want, got = np.asarray(want), got.numpy()
+        assert np.isnan(want[2]).all()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
+
+
 def _run_both(kw, t, seed=0):
     jc, tc = _configs(kw)
     flat = _jax_params(jc, seed)
