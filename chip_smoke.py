@@ -15,16 +15,23 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              eagerly, equal bit for bit; each mode's ms/frame, FPS, peak
              memory and, from a profile of a few frames, its syncs, copies
              from the host, graph and kernel launches a frame (none of
-             the first two in a replay); and checks of the images against
-             the plain blend on the card and the CPU path on a small
-             image;
+             the first two in a replay; the eager one's raster.bin and
+             render.splats kernel time); the runs of K1, the binner
+             kernel and D1 a frame, counted over the replays; and checks
+             of the images against the plain blend on the card and the
+             CPU path on a small image;
   4. kernel: K1 (blend forward) against its plain PyTorch version, on the
              inputs that one of phase 3's frames gives it (the caps after
              the cap probe), with CUDA-event, device and host-enqueue
              times, and where its time can go
              (tools/profile_blend_split.py:blend_work: the tiles'
              occupancy, the heaviest tile's one-SM time, the evaluations
-             that warps of either shape issue);
+             that warps of either shape issue); on the same frame's
+             input, the binner kernel (csrc/binner.cu) against the plain
+             binner (equal) and D1 at each HexPlane gather of the frame
+             against `index_select` (equal), each with CUDA-event,
+             device and host times, its bound and the plain or library
+             route's time;
   5. train:  a TrainState of the same scene (capacity 1<<17, the first
              100,000 slots alive) takes --steps fine train_steps at
              800x800 toward four targets that eval_step rendered before
@@ -36,16 +43,19 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              (STEP_LOSS_RTOL); each mode's ms/step, rays/s, peak memory
              and, from a profile of a few steps, its syncs, copies from
              the host, graph and kernel launches and kernel time a step
-             (the eager one's spans too); and one step's gradients with
-             K2 must equal those with the plain backward on the card, on
-             each training view and on phase 6's view;
+             (the eager one's spans too: raster.bin and render.splats
+             printed); the binner kernel and D1 ran each step, counted
+             over the replays; and one step's gradients with K2 must
+             equal those with the plain backward on the card, on each
+             training view and on phase 6's view;
   6. kernel: K2 (blend backward) against its plain version on the step
              input of the trained state's frame at t = 0.5 (its
              cotangents, its caps), with CUDA-event, device and
              host-enqueue times, the float2 atomics, reduced warp
              batches and block chunks that a counting build of K2 tallies
              on that input, and where its sums can go
-             (tools/profile_blend_split.py:bwd_work);
+             (tools/profile_blend_split.py:bwd_work); on the same step
+             input, the binner kernel and D1 as in phase 4;
   7. driver: the training CLI (tools.train.main) on a synthetic D-NeRF
              scene (tools.make_synthetic_scene: 60 train and 10 test views
              at 800x800) at the D-NeRF width of dnerf_default.py, its
@@ -125,7 +135,14 @@ STEP_LOSS_RTOL = 1e-3
 REPORTED = {"blend_fwd": "blend_forward", "blend_bwd": "blend_backward",
             "blend_bwd_slots": "blend_backward_slots",
             "scatter_add_rows": "scatter_add_rows",
-            "scatter_set_scalars": "scatter_set_scalars"}
+            "scatter_set_scalars": "scatter_set_scalars",
+            "binner": "bin_tiles", "gather_rows": "gather_rows"}
+# the kernels of the serve and step paths, each run once a frame or step
+# (K1, K2 the step only, the binner), and the HexPlane's forward gathers
+# (D1): 12 for a level's three spatial planes, 6 for its three time planes
+# at one timestamp
+PATH_KERNELS = ("blend_fwd", "blend_bwd", "binner", "gather_rows")
+HEX_GATHERS_PER_LEVEL = 18
 TRAIN_CAPACITY = 1 << 17
 TRAIN_TIMES = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
 UNTIMED_STEPS = 3
@@ -357,21 +374,31 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
     outs = [renderer.render(c) for c in cams]
     torch.cuda.synchronize()
     t_frames = time.perf_counter() - t0
-    launches = {"blend_fwd": kernel_runs()["blend_fwd"]}
+    ran = kernel_runs()
+    launches = {k: ran[k] for k in ("blend_fwd", "binner", "gather_rows")}
     peak = torch.cuda.max_memory_allocated()
     (frame,) = renderer.frames.values()
     replays = frame.program.replays
 
     renders = renderer.probe_renders + graphs.WARMUP + 1 + frames
+    gathers = HEX_GATHERS_PER_LEVEL * len(cfg.hidden.multires)
     log(f"slice: from_snapshot {t_load:.3f} s ({renderer.probe_renders} "
         f"probe renders, caps {renderer.raster_cfg}); captured: first "
         f"frame (capture) {t_capture:.3f} s, {frames} frames in "
         f"{t_frames:.3f} s = {1e3 * t_frames / frames:.3f} ms/frame "
         f"({frames / t_frames:.2f} FPS); peak memory "
         f"{peak / 2**20:.1f} MiB; graph replays {replays}")
-    if launches["blend_fwd"] != renders or replays != frames + 1:
-        raise AssertionError(f"blend_fwd ran {launches['blend_fwd']} times "
-                             f"({replays} replays) for {renders} renders")
+    log(f"slice: kernel runs over {renders} renders (replays counted): "
+        f"{launches}; a frame: blend_fwd "
+        f"{launches['blend_fwd'] / renders:g}, binner "
+        f"{launches['binner'] / renders:g}, gather_rows "
+        f"{launches['gather_rows'] / renders:g}; the captured frame's "
+        f"launches {frame.program.launches}")
+    want = {"blend_fwd": renders, "binner": renders,
+            "gather_rows": gathers * renders}
+    if launches != want or replays != frames + 1:
+        raise AssertionError(f"kernel runs {launches} ({replays} replays) "
+                             f"for {renders} renders, not {want}")
 
     # ---- the same frames rendered eagerly, and both modes profiled ----
     eager = dataclasses.replace(renderer, capture=False)
@@ -391,6 +418,11 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
         modes[name] = {"ms_per_frame": 1e3 * seconds / frames,
                        "fps": frames / seconds, "peak_mib": pk / 2**20,
                        **host_calls(prof, "frame")}
+        if name == "eager":
+            modes[name]["spans"] = prof["spans"]
+            log("slice eager: kernels a frame by span: " + ", ".join(
+                f"{k} {prof['spans'][k]['kernel_ms']:.4f} ms"
+                for k in ("render.splats", "raster.bin")))
         log(f"slice {name}: {modes[name]['ms_per_frame']:.3f} ms/frame "
             f"({modes[name]['fps']:.2f} FPS); per frame: syncs "
             f"{modes[name]['syncs']:g}, copies from the host "
@@ -463,20 +495,155 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
 # phase 4: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def recorded_gathers(calls: list):
+    """Record the (table, idx) of each D1 call that the HexPlane's
+    forward makes in a block (models/hexplane.py:_GatherRows)."""
+    from fourdgs_tpu_torch.models import hexplane
+    real = hexplane.gather_rows
+
+    def record(table, idx):
+        calls.append((table, idx))
+        return real(table, idx)
+
+    hexplane.gather_rows = record
+    try:
+        yield calls
+    finally:
+        hexplane.gather_rows = real
+
+
+def check_binner(torch, label: str, proj, rc) -> dict:
+    """The binner on a path's projection: the kernel route
+    (`bin_gaussians_count` on the card: the depth sort and items in
+    PyTorch, then csrc/binner.cu) against the plain binner, every field
+    equal; its CUDA-event, device and host times beside the plain route's
+    and its byte bound (each input of the projection read once, the lists
+    and counts written once)."""
+    from fourdgs_tpu_torch.ops import rasterize_tiled as rt
+
+    def kernel():
+        return rt.bin_gaussians_count(proj, rc)
+
+    def plain():
+        return rt.bin_gaussians_count_plain(proj, rc)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    differ = [f for f in rt.BinnedTiles._fields
+              if not torch.equal(getattr(got, f), getattr(want, f))]
+    ms, plain_ms = time_pair(kernel, plain, launches=20)
+    dev = device_ms(kernel)
+    # csrc/binner.cu's own kernels: the items' gather, the rank, the counts
+    own_ms = sum(v for k, v in dev["kernels"].items()
+                 if k.startswith(("bin_", "rank_")))
+    n, nt = proj.depth.shape[0], rc.num_tiles
+    # pix 8, depth 4, rect_min 8, rect_max 8, tiles_touched 4, cull_r2 4
+    nbytes = 36 * n + 4 * nt * rc.tile_cap + 8 * nt + 12
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    pairs = int(want.num_pairs)
+    log(f"kernel binner ({label}) vs plain: {n} gaussians, {pairs} pairs, "
+        f"{int(want.counts.sum())} ranked into {nt} tiles x tile_cap "
+        f"{rc.tile_cap}, {int(want.dropped_pairs)} past the budget, "
+        f"{int(want.dropped_tile)} past tile_cap; equal on every field: "
+        f"{not differ}")
+    if differ:
+        raise AssertionError(f"binner ({label}) differs from plain in "
+                             f"{differ}")
+    log(f"binner ({label}): {ms:.4f} ms/call, device {dev['ms']:.4f} ms "
+        f"(csrc/binner.cu's kernels {own_ms:.4f} ms) "
+        f"{dev['kernels']}, host {dev['host_ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; {nbytes} bytes, bound {bound_ms:.4f} ms "
+        f"(hbm bytes)")
+    return {"ms": ms, "device_ms": dev["ms"], "own_device_ms": own_ms,
+            "device_kernels": dev["kernels"],
+            "device_records": dev["records"], "host_ms": dev["host_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "nbytes": nbytes,
+            "gaussians": n, "pairs": pairs,
+            "ranked": int(want.counts.sum()) + int(want.dropped_tile)}
+
+
+def check_gathers(torch, label: str, calls: list) -> dict:
+    """D1 on each HexPlane gather of a path's frame or step (`calls`, the
+    recorded (table, idx)): equal to `index_select`; the CUDA-event,
+    device and host times of all of them as one call, beside the plain
+    version's and index_select's, and each shape's alone; the byte bound
+    (the indices and each row named read once, the output written
+    once)."""
+    from fourdgs_tpu_torch.ops import gather
+
+    differ = [i for i, (t, x) in enumerate(calls)
+              if not torch.equal(gather.gather_rows(t, x),
+                                 torch.index_select(t, 0, x))]
+    torch.cuda.synchronize()
+    if differ:
+        raise AssertionError(f"gather_rows ({label}) differs from "
+                             f"index_select in calls {differ}")
+
+    def nbytes_of(t, x):
+        rows = int(torch.unique(x).numel())
+        return 4 * x.numel() + 4 * t.shape[1] * (rows + x.numel())
+
+    def timed(group):
+        def kernel():
+            return [gather.gather_rows(t, x) for t, x in group]
+
+        def plain():
+            return [gather.gather_rows_plain(t, x) for t, x in group]
+
+        def library():
+            return [torch.index_select(t, 0, x) for t, x in group]
+
+        ms, plain_ms = time_pair(kernel, plain, launches=20)
+        lib_ms = time_call(library)
+        dev, lib_dev = device_ms(kernel), device_ms(library)
+        nbytes = sum(nbytes_of(t, x) for t, x in group)
+        return {"ms": ms, "device_ms": dev["ms"], "host_ms": dev["host_ms"],
+                "device_records": dev["records"], "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_dev["ms"],
+                "library_host_ms": lib_dev["host_ms"], "nbytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_S * 1e3}
+
+    shapes = {}
+    for t, x in calls:
+        shapes.setdefault((t.shape[0], t.shape[1], x.numel()),
+                          []).append((t, x))
+    per_shape = {}
+    for (rows, w, m), group in sorted(shapes.items()):
+        rec = timed(group[:1])
+        per_shape[f"{rows}x{w} <- {m}"] = {"calls": len(group), **rec}
+        log(f"gather_rows ({label}) at a ({rows}, {w}) table, {m} indices "
+            f"({len(group)} calls a pass): {rec['ms']:.4f} ms, device "
+            f"{rec['device_ms']:.4f} ms, host {rec['host_ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, index_select "
+            f"{rec['library_ms']:.4f} ms (device "
+            f"{rec['library_device_ms']:.4f} ms); bound "
+            f"{rec['bound_ms']:.4f} ms")
+    rec = timed(calls)
+    log(f"kernel gather_rows ({label}) vs index_select: {len(calls)} "
+        f"HexPlane gathers, all equal; together {rec['ms']:.4f} ms, device "
+        f"{rec['device_ms']:.4f} ms, host {rec['host_ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms "
+        f"(device {rec['library_device_ms']:.4f} ms); {rec['nbytes']} "
+        f"bytes, bound {rec['bound_ms']:.4f} ms (hbm bytes)")
+    return {**rec, "calls": len(calls), "shapes": per_shape}
+
+
 def phase_kernels(torch, renderer, cam):
     """K1 against its plain version on the inputs that the main path's
     frame at `cam` gives it: the renderer's objects and its caps after
-    the cap probe."""
+    the cap probe; then the binner kernel and D1 on the same frame."""
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.ops.rasterize_tiled import prepare_blend
     from fourdgs_tpu_torch.render.render import splats_at
 
     rc = renderer.raster_cfg
     cam = cam.to(renderer.device)
-    with torch.no_grad():
+    with torch.no_grad(), recorded_gathers([]) as gathers:
         splats = splats_at(renderer.gauss, renderer.deform, cam,
                            renderer.aabb, renderer.sh_degree)
-        _, binned, table = prepare_blend(*splats, cam, rc, renderer.alive)
+        proj, binned, table = prepare_blend(*splats, cam, rc,
+                                            renderer.alive)
     gidx, counts = binned.gidx, binned.counts
     log(f"kernel input: frame at t={float(cam.time):g}, caps tile_cap "
         f"{rc.tile_cap}, bin_pairs_per_chunk {rc.bin_pairs_per_chunk}; "
@@ -545,7 +712,8 @@ def phase_kernels(torch, renderer, cam):
         "evaluations": work,
         **where,
         "ok": True,
-    }
+    }, {"binner": check_binner(torch, "serve", proj, rc),
+        "gather_rows": check_gathers(torch, "serve", gathers)}
 
 
 # ---------------------------------------------------------------------------
@@ -656,8 +824,7 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
         seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         ran = kernel_runs()
-        launches[mode] = {k: ran[k] - before[k]
-                          for k in ("blend_fwd", "blend_bwd")}
+        launches[mode] = {k: ran[k] - before[k] for k in PATH_KERNELS}
         ms = 1e3 * seconds / (steps - UNTIMED_STEPS)
         losses = [float(a.loss) for a in auxes]
         modes[mode] = {"ms_per_step": ms, "rays_per_s": SIZE * SIZE
@@ -684,15 +851,24 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
             raise AssertionError(f"{mode}: {nan} NaN parameter values")
 
     live = programs.live.program
-    want = {"eager": {"blend_fwd": steps, "blend_bwd": steps},
-            "captured": {"blend_fwd": steps + graphs.WARMUP,
-                         "blend_bwd": steps + graphs.WARMUP}}
+    gathers = HEX_GATHERS_PER_LEVEL * len(cfg.hidden.multires)
+    a_step = {"blend_fwd": 1, "blend_bwd": 1, "binner": 1,
+              "gather_rows": gathers}
+    want = {"eager": {k: v * steps for k, v in a_step.items()},
+            "captured": {k: v * (steps + graphs.WARMUP)
+                         for k, v in a_step.items()}}
+    runs = {mode: steps + (mode == "captured") * graphs.WARMUP
+            for mode in launches}
+    log("train: kernel runs a step (replays counted): " + "; ".join(
+        f"{mode} " + ", ".join(f"{k} {v / runs[mode]:g}"
+                               for k, v in launches[mode].items())
+        for mode in launches) + f"; the captured step's launches "
+        f"{live.launches}")
     if (launches != want or live.replays != steps
-            or live.launches != {"blend_forward": 1,
-                                 "blend_backward": 1}):
+            or live.launches != {REPORTED[k]: v for k, v in a_step.items()}):
         raise AssertionError(f"kernel runs {launches} ({live.replays} "
                              f"replays of {live.launches}) for {steps} "
-                             f"steps a mode")
+                             f"steps a mode, not {want}")
 
     # ---- the captured step against the eager one: every leaf after one
     # step, and the losses of the whole run ----
@@ -728,6 +904,9 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
                            runtime_calls=prof["runtime_calls_per_step"])
         if mode == "eager":
             modes[mode]["spans"] = prof["spans"]
+            log("train eager: kernels a step by span: " + ", ".join(
+                f"{k} {prof['spans'][k]['kernel_ms']:.4f} ms"
+                for k in ("render.splats", "raster.bin")))
     modes["captured"].update(replays=live.replays, capture_s=live.seconds)
     for mode, m in modes.items():
         log(f"train {mode}: per step: syncs {m['syncs']:g}, copies from the "
@@ -741,7 +920,7 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
         raise AssertionError(f"a replayed step synced or copied from the "
                              f"host: {modes['captured']}")
     launches = {k: launches["eager"][k] + launches["captured"][k]
-                for k in ("blend_fwd", "blend_bwd")}
+                for k in PATH_KERNELS}
 
     # ---- one step's gradients with K2 and with the plain backward, on
     # each training view and the kernel check's view ----
@@ -782,9 +961,9 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
     from fourdgs_tpu_torch.render.render import splats_at
 
     g = state.params["gauss"]
-    with torch.no_grad():
+    with torch.no_grad(), recorded_gathers([]) as gathers:
         splats = splats_at(g, state.params["deform"], cam, state.aabb, sh)
-        _, binned, table = prepare_blend(*splats, cam, rc, state.alive)
+        proj, binned, table = prepare_blend(*splats, cam, rc, state.alive)
         out = blend.blend_forward(binned.gidx, binned.counts, table, rc)
     leaves = [o.clone().requires_grad_(True) for o in out]
     color = _untile(leaves[0], rc) + _untile(leaves[2], rc)[..., None] * bg
@@ -885,7 +1064,8 @@ def phase_kernels_bwd(torch, state, rc, bg, sh, cam, gt):
         "reduced_batches": batches,
         "block_chunks": chunks,
         "ok": True,
-    }, args, work
+    }, args, work, {"binner": check_binner(torch, "step", proj, rc),
+                    "gather_rows": check_gathers(torch, "step", gathers)}
 
 
 # ---------------------------------------------------------------------------
@@ -1125,7 +1305,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
         np.isfinite(v).all() for v in list(gauss.values())
         + list(flat.values()))
     for kernel in ("blend_fwd", "blend_bwd_slots", "scatter_add_rows",
-                   "scatter_set_scalars"):
+                   "scatter_set_scalars", "binner", "gather_rows"):
         checks[f"{kernel} launched"] = launches[kernel] > 0
     failed = [k for k, ok in checks.items() if not ok]
     log(f"driver checks: {len(checks) - len(failed)}/{len(checks)} hold"
@@ -1687,6 +1867,38 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
     return out
 
 
+def path_entries(serve: dict, step: dict, serve_runs: dict,
+                 step_runs: dict) -> list:
+    """The kernels-line entries of the binner kernel and of D1 as the
+    HexPlane's forward gather: their runs on the serve and step paths
+    (phases 3 and 5), and the checks on phase 4's frame and phase 6's
+    step input, the step's at the top level."""
+    out = []
+    for name, source, replaces, tpu_kernel in (
+            ("binner", "binner.cu", "scripts/exp_pallas_binner_proto.py:78",
+             "scripts/exp_pallas_binner_proto.py:29 (kernel), at "
+             "fourdgs_tpu/ops/rasterize_tiled.py:178 bin_gaussians_count's "
+             "contract"),
+            ("gather_rows", "gather.cu", "scripts/exp_pallas_gather.py:50",
+             "scripts/exp_pallas_gather.py:50, :75, :102, :125 (gather1-4), "
+             "as fourdgs_tpu/models/hexplane.py:71 _gather_rows")):
+        top = step[name]
+        out.append({
+            "name": f"{name} (main path)", "route": "cuda",
+            "source": f"fourdgs_tpu_torch/csrc/{source}",
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": serve_runs[name] + step_runs[name],
+            "launches_serve": serve_runs[name],
+            "launches_step": step_runs[name], "max_abs_err": 0.0,
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "host_ms": top["host_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "bound_resource": "hbm bytes",
+            "library_ms": top.get("library_ms"),
+            "step": step[name], "serve": serve[name], "ok": True})
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1721,15 +1933,15 @@ def main(argv=None) -> int:
     renderer, cams, launches, renders, serve = phase_slice(
         torch, scene, device, args.frames, work)
     cam = cams[round(KERNEL_CHECK_FRAME * args.frames)]
-    k1 = phase_kernels(torch, renderer, cam)
+    k1, serve_checks = phase_kernels(torch, renderer, cam)
     k1["launches"] = launches["blend_fwd"]
     k1["launches_per_frame"] = launches["blend_fwd"] / renders
     k1["serve"] = serve
     state, rc, bg, sh, check_cam, gt, train_launches, train = phase_train(
         torch, scene, renderer, device, args.steps, args.seed)
     k1["launches_train"] = train_launches["blend_fwd"]
-    k2, step_args, work_k2 = phase_kernels_bwd(torch, state, rc, bg, sh,
-                                               check_cam, gt)
+    k2, step_args, work_k2, step_checks = phase_kernels_bwd(
+        torch, state, rc, bg, sh, check_cam, gt)
     k2["launches"] = train_launches["blend_bwd"]
     k2["launches_per_step"] = train_launches["blend_bwd"] / (
         2 * args.steps + graphs.WARMUP)
@@ -1741,9 +1953,12 @@ def main(argv=None) -> int:
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)
     kernels[2]["driver"] = driver
+    kernels += path_entries(serve_checks, step_checks, launches,
+                            train_launches)
     kernels += phase_dev_kernels(torch, device, args.seed)
     for k in kernels:
-        if k["launches"] == 0:
+        if k["launches"] == 0 or k.get("launches_serve", 1) == 0 \
+                or k.get("launches_step", 1) == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

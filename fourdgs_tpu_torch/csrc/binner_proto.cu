@@ -11,7 +11,7 @@
 // its tile's counter. Plain version:
 // fourdgs_tpu_torch/ops/binner_proto.py:expand_rank_plain.
 //
-// The serial rank is rank_common.cuh's: a histogram per segment of 256
+// The serial rank is rank_common.cuh's: a histogram per segment of 128
 // gaussians, a scan per tile over the segments, and a warp per segment
 // that walks its pairs in order with __match_any_sync, so the rows are the
 // same from run to run and equal to the serial loop's. Gaussians without
@@ -32,15 +32,17 @@
 namespace {
 
 struct RectSource {
+    using Item = int4;                  // x0, y0, sx, sy
     const int *x0, *y0, *sx, *sy;
     int grid_x;
-    __device__ int count(long long i) const {
-        const int a = sx[i], b = sy[i];
-        return a > 0 && b > 0 ? a * b : 0;
+    __device__ Item load(long long i) const {
+        return make_int4(x0[i], y0[i], sx[i], sy[i]);
     }
-    __device__ int tile(long long i, int j) const {
-        const int a = sx[i];
-        return (y0[i] + j / a) * grid_x + x0[i] + j % a;
+    __device__ int count(const Item& it) const {
+        return it.z > 0 && it.w > 0 ? it.z * it.w : 0;
+    }
+    __device__ int tile(const Item& it, int j) const {
+        return (it.y + j / it.z) * grid_x + it.x + j % it.z;
     }
 };
 
@@ -48,7 +50,8 @@ struct RowEmit {
     const int *slot0, *gid;
     int g, pc, nt, tile_cap;
     int* out;
-    __device__ void operator()(long long i, int j, int t, int rank) const {
+    __device__ void operator()(long long i, const int4&, int j, int t,
+                               int rank) const {
         const long long s = (long long)slot0[i] + j;
         if (s < 0 || s >= pc) return;
         const int dest = t >= 0 && rank < tile_cap ? t * tile_cap + rank
@@ -65,9 +68,9 @@ extern "C" {
 
 // Launch on `stream`; return the cudaError_t of the launches (0 = ok).
 // x0, y0, sx, sy, slot0, gid: (n,) int32, chunk c's gaussians at
-// [c * g, (c + 1) * g); hist: (nt, rank segments of n) int32 scratch; out:
-// (n / g, pc, 8) int32 zero-filled. 1 <= nt <= 8192, nt * tile_cap and
-// (n / g) * pc * 8 below 2^31.
+// [c * g, (c + 1) * g); hist: (rank segments of n, nt) int32 scratch; out:
+// (n / g, pc, 8) int32 zero-filled. 1 <= nt <= MAX_TILES (ops/serial.py);
+// nt * tile_cap and (n / g) * pc * 8 below 2^31.
 int expand_rank_launch(const void* x0, const void* y0, const void* sx,
                        const void* sy, const void* slot0, const void* gid,
                        long long n, int g, int pc, int nt, int grid_x,

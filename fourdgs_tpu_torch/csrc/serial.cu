@@ -54,15 +54,18 @@ __global__ void store_winner_kernel(const int* __restrict__ dest,
 }
 
 struct TileSource {
+    using Item = int;                   // the pair's tile
     const int* tid;
-    __device__ int count(long long) const { return 1; }
-    __device__ int tile(long long i, int) const { return tid[i]; }
+    __device__ Item load(long long i) const { return tid[i]; }
+    __device__ int count(const Item&) const { return 1; }
+    __device__ int tile(const Item& t, int) const { return t; }
 };
 
 struct DestEmit {
     int tile_cap, n_out;
     int* dest;
-    __device__ void operator()(long long i, int, int t, int rank) const {
+    __device__ void operator()(long long i, const int&, int, int t,
+                               int rank) const {
         if (t < 0) {
             dest[i] = -1;
             return;
@@ -104,9 +107,10 @@ int scalar_store_launch(const void* idx, const void* val, int m, int n_out,
                            (int*)winner, (int*)out, (cudaStream_t)stream);
 }
 
-// tid, val (m,) int32; hist (n_tiles, rank segments of m) and dest (m,)
+// tid, val (m,) int32; hist (rank segments of m, n_tiles) and dest (m,)
 // int32 scratch; winner (n_out,) int32 scratch; cnt (n_tiles,) int32; out
-// (n_out,) int32 zero-filled. 1 <= n_tiles <= 8192.
+// (n_out,) int32 zero-filled. 1 <= n_tiles <= MAX_TILES
+// (ops/serial.py; rank_common.cuh: rank_pairs).
 int tile_counter_store_launch(const void* tid, const void* val, int m,
                               int n_tiles, int tile_cap, int n_out,
                               void* hist, void* dest, void* winner,

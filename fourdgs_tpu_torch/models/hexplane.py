@@ -25,6 +25,7 @@ import os
 import torch
 from torch import nn
 
+from fourdgs_tpu_torch.ops.gather import gather_rows
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))
@@ -49,19 +50,21 @@ def normalize_aabb(pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
 
 
 def _axis_coord(u: torch.Tensor, size: int):
-    """Align-corners coordinate in [-1, 1] -> (floor index, fraction),
-    border-clamped. A NaN coordinate keeps a NaN fraction and gathers
-    row 0 (the integer conversion of a NaN is undefined; JAX's gather
-    clamps it), so that the NaN guard sees it instead of an index out of
-    range."""
+    """Align-corners coordinate in [-1, 1] -> (floor index, int32 as in
+    JAX, and fraction), border-clamped. A NaN coordinate keeps a NaN
+    fraction and gathers row 0 (the integer conversion of a NaN is
+    undefined; JAX's gather clamps it), so that the NaN guard sees it
+    instead of an index out of range."""
     x = torch.clamp((u + 1.0) * 0.5 * (size - 1), 0.0, size - 1)
     x0 = torch.floor(x)
-    return torch.clamp(x0.long(), 0, size - 1), x - x0
+    return torch.clamp(x0.to(torch.int32), 0, size - 1), x - x0
 
 
 class _GatherRows(torch.autograd.Function):
     """table[idx] with a swappable backward (JAX: the custom VJP of
-    hexplane.py:_gather_rows). The backward is an atomic `index_add_` by
+    hexplane.py:_gather_rows). The forward is D1 (`ops/gather.py:
+    gather_rows`, csrc/gather.cu) on the card and its plain
+    `index_select` on the CPU. The backward is an atomic `index_add_` by
     default, and K4 (`ops/scatter.py:scatter_add_rows`) under the JAX
     package's FOURDGS_HEX_BWD=pallas, read at call time. The JAX package
     takes its kernel only for 128-wide rows whose table fits VMEM; the
@@ -74,22 +77,22 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
-        return table.index_select(0, idx)
+        return gather_rows(table, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         g = g.contiguous()
         if os.environ.get("FOURDGS_HEX_BWD") == "pallas":
-            return scatter_add_rows(idx.to(torch.int32), g,
-                                    n_out=ctx.n_rows), None
+            return scatter_add_rows(idx, g, n_out=ctx.n_rows), None
         out = torch.zeros((ctx.n_rows, g.shape[1]), dtype=g.dtype,
                           device=g.device)
         return out.index_add_(0, idx, g), None
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for (rows, C) tables and (N,) int64 indices."""
+    """table[idx] for (rows, C) float32 tables and (N,) int32 indices in
+    [0, rows)."""
     return _GatherRows.apply(table, idx)
 
 

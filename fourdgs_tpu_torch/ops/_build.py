@@ -132,6 +132,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.expand_rank_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i,
                                        i, i, vp, vp, vp]
     lib.expand_rank_launch.restype = i
+    lib.bin_items_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp, vp, vp,
+                                     ll, i, vp]
+    lib.bin_items_launch.restype = i
+    lib.bin_tiles_launch.argtypes = [vp, vp, ll, i, i, i, i, i, vp, vp, vp,
+                                     vp, vp, vp, vp, vp, vp]
+    lib.bin_tiles_launch.restype = i
     lib.blend_variant_launch.argtypes = [i, vp, vp, i, i, i, vp, vp]
     lib.blend_variant_launch.restype = i
     lib.cuda_error_string.argtypes = [i]

@@ -1,15 +1,19 @@
 """Row gather out[i] = table[idx[i]] (counterpart: the four Pallas gathers
-of scripts/exp_pallas_gather.py, D1).
+of scripts/exp_pallas_gather.py, D1; on the main path, the forward of the
+HexPlane's gathers, models/hexplane.py:_GatherRows).
 
 `gather_rows` launches the CUDA kernel of csrc/gather.cu for tensors on
 the card and runs `gather_rows_plain` for tensors on the CPU; a CUDA tensor
 that the kernel cannot take raises. `gather_rows.launches` counts kernel
-launches. The kernel reads 16 bytes a thread, four threads to a 64-byte
-row, so it takes tables whose width is a multiple of 4.
+launches. The kernel moves 16 bytes a thread, a row's width a template
+parameter, so it takes 16-byte aligned tables whose width is a multiple
+of 4.
 """
 from __future__ import annotations
 
 import torch
+
+from fourdgs_tpu_torch.ops._build import _launch, load_library
 
 
 def _check(table, idx):
@@ -38,14 +42,12 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if w % 4 or table.data_ptr() % 16:
         raise ValueError(f"the gather kernel needs W % 4 == 0 and a 16-byte "
                          f"aligned table (W {w})")
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
+    if m >= 2 ** 31:
+        raise ValueError(f"at most 2^31 - 1 indices, got {m}")
     lib = load_library()
-    with torch.cuda.device(table.device):
-        out = torch.empty((m, w), dtype=torch.float32, device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.gather_rows_launch(table.data_ptr(), idx.data_ptr(), m, w,
-                                     r, out.data_ptr(), stream)
-    check_launch(lib, "gather_rows", err)
+    out = table.new_empty((m, w))
+    _launch(lib, lib.gather_rows_launch, table, table.data_ptr(),
+            idx.data_ptr(), m, w, r, out.data_ptr())
     gather_rows.launches += 1
     return out
 

@@ -5,7 +5,8 @@
   2. bin_gaussians_count   — per-tile fixed-capacity index lists
      (num_tiles, tile_cap) in depth order, with the JAX package's global
      pair budget and exact corner cull; runs without autograd, as the
-     JAX package stops the gradient into the binner
+     JAX package stops the gradient into the binner (the binner kernel,
+     csrc/binner.cu, on the card; the plain torch version on the CPU)
   3. blend                 — front-to-back compositing over the lists and
      its backward (ops/blend.py: CUDA kernels K1 and K2, or K3 under
      FOURDGS_PALLAS_NO_FUSED_BWD, on the card; the plain torch versions
@@ -23,10 +24,12 @@ import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.ops._build import _launch, load_library
 from fourdgs_tpu_torch.ops.blend import blend, pack_attr_table
 from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
 from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
 from fourdgs_tpu_torch.ops.scatter import scatter_set_scalars
+from fourdgs_tpu_torch.ops.serial import MAX_TILES
 
 # corner-cull distance clamp: 2 * 23000^2 stays below the 2^30 no-cull
 # sentinel, as in the JAX binner
@@ -79,26 +82,152 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     in row-major order over the gaussian's tile rect; the first
     `total_slots` pairs of that expansion are kept, including the partial
     run of the gaussian that straddles the budget. The exact corner cull
-    then drops kept pairs whose whole tile lies beyond the gate radius.
+    then drops kept pairs whose whole tile lies beyond the gate radius,
+    and each remaining pair takes its rank among the earlier ones on its
+    tile.
 
-    Every shape is static and nothing is read to the host, as in the JAX
-    binner (so that a CUDA graph can capture it): slot s of the budget
-    takes its owner by a search over the depth-ordered run ends, invalid
-    and culled slots take the sentinel tile id `num_tiles`, a stable sort
-    by tile id over the depth-ordered slots gives each pair its in-tile
-    rank (the sentinel sorts last), and the lists are written through a
-    sacrificial last index. The mechanism differs from the JAX package's
-    rank scan, which works around TPU costs; the outputs are the same."""
+    Tensors on the card run the binner kernel (`bin_tiles`,
+    csrc/binner.cu); tensors on the CPU, and `meta` tensors (shape
+    checks), run `bin_gaussians_count_plain`. Both give the same
+    BinnedTiles bit for bit, every shape is static and nothing is read to
+    the host, so that a CUDA graph can capture it."""
+    kind = proj.depth.device.type
+    if kind == "cuda":
+        return bin_tiles(proj, cfg)
+    if kind in ("cpu", "meta"):
+        return bin_gaussians_count_plain(proj, cfg)
+    raise ValueError(f"no binner for device {proj.depth.device}")
+
+
+def _pair_budget(n: int, cfg: RasterConfig) -> int:
+    """The binner's slots for n gaussians: bin_pairs_per_chunk per
+    bin_chunk of them, as in the JAX binner."""
+    return -(-n // cfg.bin_chunk) * cfg.bin_pairs_per_chunk
+
+
+def _depth_order(proj: Projected) -> torch.Tensor:
+    """The gaussians in depth order, those that touch no tile last: a
+    stable sort, so that ties keep their index order."""
+    inf = torch.full_like(proj.depth, float("inf"))
+    return torch.sort(torch.where(proj.tiles_touched > 0, proj.depth, inf),
+                      stable=True).indices
+
+
+def depth_ordered_items(proj: Projected, cfg: RasterConfig
+                        ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The binner kernel's items, the plain version of its gather
+    (csrc/binner.cu: bin_items_kernel) and the run ends: each gaussian's
+    row in depth order -> rows (n, 8) int32 [rect x0, rect y0, sx,
+    touched, qpix x, qpix y, cull_r2, gid], the inclusive run ends (n,)
+    int32 (the cumulative sum of touched) and total_slots, the pair
+    budget."""
+    n = proj.depth.shape[0]
+    total_slots = _pair_budget(n, cfg)
+    order = _depth_order(proj)
+    qpix = torch.round(torch.clamp(proj.pix, -(1 << 20), 1 << 20)).to(
+        torch.int32)
+    sx = torch.clamp(proj.rect_max[:, 0] - proj.rect_min[:, 0], min=1)
+    table = torch.stack([
+        proj.rect_min[:, 0], proj.rect_min[:, 1], sx, proj.tiles_touched,
+        qpix[:, 0], qpix[:, 1], proj.cull_r2,
+        torch.arange(n, dtype=torch.int32, device=proj.depth.device)], 1)
+    rows = table.index_select(0, order)
+    ends = torch.cumsum(rows[:, 3], 0, dtype=torch.int32)
+    return rows, ends, total_slots
+
+
+def _aligned(x: torch.Tensor, what: str, nbytes: int) -> torch.Tensor:
+    x = x.contiguous()
+    if x.data_ptr() % nbytes:
+        raise ValueError(f"the binner kernel needs {what} {nbytes}-byte "
+                         f"aligned")
+    return x
+
+
+def bin_tiles(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
+    """The binner on the card: the depth sort in PyTorch, then
+    csrc/binner.cu: the depth-ordered items (bin_items_launch), their run
+    ends (a cumulative sum in PyTorch), and the rank (rank_common.cuh's
+    histogram, scan and walk) with the counts (bin_tiles_launch); K5
+    after it under FOURDGS_BIN_SCATTER=pallas. `bin_tiles.launches`
+    counts the binner's runs. Raises for what the kernels cannot take; it
+    never falls back."""
+    dev = proj.depth.device
+    if dev.type != "cuda":
+        raise ValueError(f"the binner kernel needs CUDA tensors, got {dev}")
+    n, nt, cap = proj.depth.shape[0], cfg.num_tiles, cfg.tile_cap
+    n_out = nt * cap
+    total_slots = _pair_budget(n, cfg)
+    if not 1 <= nt <= MAX_TILES:
+        raise ValueError(f"{nt} tiles outside [1, {MAX_TILES}]")
+    if n_out >= 2 ** 31 or total_slots >= 2 ** 31:
+        raise ValueError(f"{n_out} list slots or a budget of {total_slots} "
+                         f"pairs past int32")
+    ints = (proj.rect_min, proj.rect_max, proj.tiles_touched, proj.cull_r2)
+    if proj.pix.dtype != torch.float32 or any(x.dtype != torch.int32
+                                              for x in ints):
+        raise TypeError("the binner kernel needs float32 pix and int32 "
+                        "rects, tiles_touched and cull_r2")
+    lib = load_library()
+    order = _depth_order(proj)
+    rows = proj.tiles_touched.new_empty((n, 8))
+    touched_s = proj.tiles_touched.new_empty(n)
+    pallas = os.environ.get("FOURDGS_BIN_SCATTER") == "pallas"
+    if pallas:      # the gather fills dest with n_out, gidx with -1
+        gidx = None
+        dest, src = rows.new_empty(total_slots), rows.new_empty(total_slots)
+        ptrs, fill, value = (0, dest.data_ptr(), src.data_ptr()), dest, n_out
+    else:
+        gidx = rows.new_empty(n_out)
+        ptrs, fill, value = (gidx.data_ptr(), 0, 0), gidx, -1
+    _launch(lib, lib.bin_items_launch, rows, order.data_ptr(),
+            _aligned(proj.pix, "pix", 8).data_ptr(),
+            _aligned(proj.rect_min, "rect_min", 8).data_ptr(),
+            _aligned(proj.rect_max, "rect_max", 8).data_ptr(),
+            proj.tiles_touched.contiguous().data_ptr(),
+            proj.cull_r2.contiguous().data_ptr(), n, rows.data_ptr(),
+            touched_s.data_ptr(), fill.data_ptr(), fill.numel(), value)
+    ends = torch.cumsum(touched_s, 0, dtype=torch.int32)
+    seg = lib.rank_segment_items()
+    scratch = rows.new_empty(max(-(-n // seg), 1) * nt + nt)
+    hist, cnt = scratch[:-nt], scratch[-nt:]
+    out = rows.new_empty(2 * nt + 3)
+    counts, overflow, scalars = out[:nt], out[nt:2 * nt], out[2 * nt:]
+    _launch(lib, lib.bin_tiles_launch, rows, rows.data_ptr(),
+            ends.data_ptr(), n, total_slots, nt, cfg.grid_x, cfg.tile_size,
+            cap, hist.data_ptr(), cnt.data_ptr(), *ptrs, counts.data_ptr(),
+            overflow.data_ptr(), scalars.data_ptr())
+    bin_tiles.launches += 1
+    if pallas:
+        # the JAX package's switch (rasterize_tiled.py:383-393): K5 over
+        # each budget slot's pair, the culled, past-tile_cap and empty
+        # slots sent to n_out, which it drops
+        gidx = scatter_set_scalars(dest, src, n_out=n_out)
+    return BinnedTiles(gidx=gidx.reshape(nt, cap), counts=counts,
+                       num_pairs=scalars[0], dropped_pairs=scalars[1],
+                       dropped_tile=scalars[2], overflow=overflow)
+
+
+bin_tiles.launches = 0
+
+
+def bin_gaussians_count_plain(proj: Projected,
+                              cfg: RasterConfig) -> BinnedTiles:
+    """The binner in PyTorch: slot s of the budget takes its owner by a
+    search over the depth-ordered run ends, invalid and culled slots take
+    the sentinel tile id `num_tiles`, a stable sort by tile id over the
+    depth-ordered slots gives each pair its in-tile rank (the sentinel
+    sorts last), and the lists are written through a sacrificial last
+    index. The mechanism differs from the JAX package's rank scan, which
+    works around TPU costs; the outputs are the same. Every shape is
+    static and nothing is read to the host."""
     dev = proj.depth.device
     n = proj.depth.shape[0]
     nt = cfg.num_tiles
     ts = cfg.tile_size
-    total_slots = -(-n // cfg.bin_chunk) * cfg.bin_pairs_per_chunk
+    total_slots = _pair_budget(n, cfg)
 
-    visible = proj.tiles_touched > 0
-    inf = torch.full_like(proj.depth, float("inf"))
-    order = torch.sort(torch.where(visible, proj.depth, inf),
-                       stable=True).indices
+    order = _depth_order(proj)
     touched_s = proj.tiles_touched[order].long()
     off = torch.cumsum(touched_s, 0)                    # run ends
     total = off[-1:].sum()                              # 0 when n == 0

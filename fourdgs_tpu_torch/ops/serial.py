@@ -18,7 +18,11 @@ from __future__ import annotations
 
 import torch
 
-MAX_TILES = 8192   # csrc/rank_common.cuh: kMaxTiles, the shared counters
+# The counting kernels' tile limit: one array of MAX_TILES int counters, a
+# segment's staged items (32 bytes each for the binner's) and the kernels'
+# 16 static bytes in the H100's 227 KB of opt-in shared memory
+# (csrc/rank_common.cuh: rank_pairs, which checks the card's own limit)
+MAX_TILES = 56_956
 
 
 def _check_pairs(idx, val, what):

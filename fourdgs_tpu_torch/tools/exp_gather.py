@@ -8,8 +8,8 @@ seed.
         [--device cpu]
 
 The script timed four Pallas formulations of one gather against XLA's. On
-the card one kernel (csrc/gather.cu) computes it, with 16-byte loads, four
-threads to a row. The tool prints `torch.index_select` (the library call),
+the card one kernel (csrc/gather.cu) computes it, with 16-byte loads, the
+row width a template parameter and four rows a thread. The tool prints `torch.index_select` (the library call),
 the kernel and the plain version, whether the kernel equals the library
 call, and the byte bound. `main` returns the numbers and the inputs. On
 the CPU only the plain version runs, and its times are host times.

@@ -52,7 +52,7 @@ import torch
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
-from fourdgs_tpu_torch.ops import blend, scatter
+from fourdgs_tpu_torch.ops import blend, gather, rasterize_tiled, scatter
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.train import optim
 from fourdgs_tpu_torch.train.state import TrainState
@@ -66,7 +66,8 @@ WARMUP = 2
 # the kernel wrappers whose launches a program records, by `__name__`
 WRAPPERS = (blend.blend_forward, blend.blend_backward,
             blend.blend_backward_slots, scatter.scatter_add_rows,
-            scatter.scatter_set_scalars)
+            scatter.scatter_set_scalars, rasterize_tiled.bin_tiles,
+            gather.gather_rows)
 REPLAYED: collections.Counter = collections.Counter()
 _CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 

@@ -203,3 +203,170 @@ def test_binner_has_static_shapes():
     for f in ("num_pairs", "dropped_pairs", "dropped_tile"):
         assert getattr(b, f).shape == ()
     assert all(x.dtype == torch.int32 for x in b)
+
+
+# ---- the binner kernel's decomposition (csrc/binner.cu), on the CPU ----
+# The kernel ranks the items that `depth_ordered_items` prepares through
+# rank_common.cuh; here the same items go through its Source (the budget
+# clamp, the rect walk, the corner cull) written in PyTorch, the serial
+# ranks of ops/serial.py:serial_ranks, and either Emit: the lists written
+# in place, or each budget slot's (dest, src) scattered by K5's plain
+# version (FOURDGS_BIN_SCATTER=pallas). Every field must equal the plain
+# binner's and JAX's.
+
+def _decomposed(proj, cfg, emit):
+    from fourdgs_tpu_torch.ops.scatter import scatter_set_scalars_plain
+    from fourdgs_tpu_torch.ops.serial import serial_ranks
+    rows, ends, total_slots = trt.depth_ordered_items(proj, cfg)
+    x0, y0, sx, touched, qx, qy, r2, gid = rows.long().unbind(1)
+    nt, cap, ts = cfg.num_tiles, cfg.tile_cap, cfg.tile_size
+    start = ends.long() - touched
+    count = torch.clamp(torch.minimum(total_slots - start, touched), min=0)
+    owner = torch.repeat_interleave(torch.arange(rows.shape[0]), count)
+    j = torch.arange(owner.shape[0]) - (torch.cumsum(count, 0) - count)[owner]
+    dy = torch.div(j, sx[owner], rounding_mode="floor")
+    tx, ty = x0[owner] + j - dy * sx[owner], y0[owner] + dy
+    ddx = torch.clamp(torch.maximum(tx * ts - qx[owner],
+                                    qx[owner] - (tx * ts + ts - 1)) - 1,
+                      0, trt._CULL_CLAMP)
+    ddy = torch.clamp(torch.maximum(ty * ts - qy[owner],
+                                    qy[owner] - (ty * ts + ts - 1)) - 1,
+                      0, trt._CULL_CLAMP)
+    tile = torch.where(ddx * ddx + ddy * ddy <= r2[owner], ty * cfg.grid_x
+                       + tx, -1)
+    rank, cnt = serial_ranks(tile, nt)
+    ok = (rank >= 0) & (rank < cap)
+    dest = torch.where(ok, tile * cap + rank, nt * cap)
+    if emit == "lists":
+        gidx = torch.full((nt * cap + 1,), -1, dtype=torch.int32)
+        gidx[dest] = gid[owner].to(torch.int32)
+        gidx = gidx[:-1]
+    else:
+        slot_dest = torch.full((total_slots,), nt * cap, dtype=torch.int32)
+        slot_src = torch.zeros(total_slots, dtype=torch.int32)
+        slot = start[owner] + j
+        slot_dest[slot] = dest.to(torch.int32)
+        slot_src[slot] = gid[owner].to(torch.int32)
+        gidx = scatter_set_scalars_plain(slot_dest, slot_src, n_out=nt * cap)
+    overflow = torch.clamp(cnt - cap, min=0)
+    total = ends[-1] if rows.shape[0] else torch.tensor(0, dtype=torch.int32)
+    return trt.BinnedTiles(
+        gidx=gidx.reshape(nt, cap), counts=torch.clamp(cnt, max=cap),
+        num_pairs=total.to(torch.int32),
+        dropped_pairs=torch.clamp(total - total_slots, min=0).to(torch.int32),
+        dropped_tile=overflow.sum().to(torch.int32),
+        overflow=overflow.to(torch.int32))
+
+
+def _case_inputs(case, proj):
+    """(JAX projection, torch projection, keyword config) of a case of
+    either table above."""
+    from fourdgs_tpu.ops.projection import Projected as JProjected
+    import jax.numpy as jnp
+    if case in CASES:
+        cap, chunk, bchunk, bpc = CASES[case]
+        jp, tp = proj, _to_torch(proj)
+    else:
+        fields, cap, bchunk, bpc = _edge_case(case)
+        chunk = 8
+        jp = JProjected(**{k: jnp.asarray(v) for k, v in fields.items()})
+        tp = tproj.Projected(**{k: torch.from_numpy(v)
+                                for k, v in fields.items()})
+    kw = dict(img_width=W, img_height=H, tile_size=16, tile_cap=cap,
+              chunk=chunk, bin_chunk=bchunk, bin_pairs_per_chunk=bpc)
+    return jp, tp, kw
+
+
+@pytest.mark.parametrize("emit", ["lists", "slots"])
+@pytest.mark.parametrize("case", list(CASES) + list(EDGES))
+def test_kernel_decomposition_matches_plain_and_jax(proj, case, emit):
+    jp, tp, kw = _case_inputs(case, proj)
+    want = jrt.bin_gaussians_count(jp, jrt.RasterConfig(**kw))
+    cfg = trt.RasterConfig(**kw)
+    plain = trt.bin_gaussians_count_plain(tp, cfg)
+    got = _decomposed(tp, cfg, emit)
+    for f in trt.BinnedTiles._fields:
+        g = getattr(got, f)
+        assert g.dtype == torch.int32, f
+        assert torch.equal(g, getattr(plain, f)), f
+        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    rows, ends, total_slots = trt.depth_ordered_items(tp, cfg)
+    assert rows.dtype == ends.dtype == torch.int32
+    assert rows.shape == (tp.depth.shape[0], 8)
+    if case in ("budget_drops", "straddles_the_budget"):
+        start = ends - rows[:, 3]
+        assert bool(((start < total_slots) & (ends > total_slots)).any())
+    if case in ("tile_overflow", "one_tile_past_its_cap"):
+        assert int(got.dropped_tile) > 0
+    if case == "every_pair_culled":
+        assert int(got.num_pairs) > 0 and int(got.counts.sum()) == 0
+
+
+def test_binner_refuses_another_device():
+    """The binner kernel takes CUDA tensors only: a call with CPU tensors
+    raises instead of running the plain version in its place."""
+    fields, cap, bchunk, bpc = _edge_case("straddles_the_budget")
+    tp = tproj.Projected(**{k: torch.from_numpy(v) for k, v in
+                            fields.items()})
+    cfg = trt.RasterConfig(img_width=W, img_height=H, tile_size=16,
+                           tile_cap=cap, bin_chunk=bchunk,
+                           bin_pairs_per_chunk=bpc)
+    before = trt.bin_tiles.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        trt.bin_tiles(tp, cfg)
+    assert trt.bin_tiles.launches == before
+
+
+# The counting kernels' walk keeps four, two or one set of nt shared
+# counters as the card's shared memory allows (csrc/rank_common.cuh:
+# walk_groups): up to 14,239, 28,478 and 56,956 tiles (MAX_TILES) for the
+# binner's items. One grid of each kind, at tile 16: 1536 x 1360 (96 x 85
+# tiles), a 2704 x 2028 DyNeRF view (169 x 127) and 7856 x 1856 (491 x 116,
+# the limit). Random rects up to 4 tiles a side, twelve gaussians on the
+# grid's last tile past its cap of 8.
+LARGE_GRIDS = {"8,160 tiles": (1536, 1360), "21,463 tiles": (2704, 2028),
+               "56,956 tiles": (7856, 1856)}
+
+
+def _large_grid_fields(width, height, n=400, seed=11):
+    rng = np.random.default_rng(seed)
+    gx, gy = -(-width // 16), -(-height // 16)
+    x0, y0 = rng.integers(0, gx, n), rng.integers(0, gy, n)
+    x0[-12:], y0[-12:] = gx - 1, gy - 1
+    rmin = np.stack([x0, y0], 1)
+    rmax = np.minimum(rmin + rng.integers(1, 5, (n, 2)), [gx, gy])
+    pix = (rmin + rmax) * 8 + rng.normal(0, 8, (n, 2))
+    r2 = np.where(rng.random(n) < 0.5, 1 << 30, rng.integers(0, 4096, n))
+    return _hand_proj(rmin, rmax, pix, r2, seed=seed), gx * gy
+
+
+@pytest.mark.parametrize("emit", ["lists", "slots"])
+@pytest.mark.parametrize("grid", list(LARGE_GRIDS))
+def test_large_tile_grids_match_plain_and_jax(grid, emit):
+    """The kernel's decomposition, the plain binner and JAX's on grids
+    that take each of the walk's counter layouts, up to MAX_TILES."""
+    from fourdgs_tpu.ops.projection import Projected as JProjected
+    import jax.numpy as jnp
+    from fourdgs_tpu_torch.ops.serial import MAX_TILES
+    width, height = LARGE_GRIDS[grid]
+    fields, nt = _large_grid_fields(width, height)
+    assert nt <= MAX_TILES
+    kw = dict(img_width=width, img_height=height, tile_size=16, tile_cap=8,
+              chunk=8, bin_chunk=4096, bin_pairs_per_chunk=8192)
+    cfg = trt.RasterConfig(**kw)
+    assert cfg.num_tiles == nt == int(grid.split()[0].replace(",", ""))
+    tp = tproj.Projected(**{k: torch.from_numpy(v)
+                            for k, v in fields.items()})
+    want = jrt.bin_gaussians_count(
+        JProjected(**{k: jnp.asarray(v) for k, v in fields.items()}),
+        jrt.RasterConfig(**kw))
+    plain = trt.bin_gaussians_count_plain(tp, cfg)
+    got = _decomposed(tp, cfg, emit)
+    for f in trt.BinnedTiles._fields:
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert int(got.overflow[nt - 1]) > 0
+    assert 0 < int(got.counts.sum()) < int(got.num_pairs)

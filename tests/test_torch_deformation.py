@@ -99,6 +99,38 @@ def test_hexplane_features(base, t):
     np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), **TOL)
 
 
+@pytest.mark.parametrize("hex_bwd", ["default", "pallas"])
+@pytest.mark.parametrize("t", [0.37, T_POINT], ids=["scalar_t", "point_t"])
+def test_hexplane_gradients_match_jax(base, t, hex_bwd, monkeypatch):
+    """The planes' gradients of a weighted sum of the features, through
+    the int32-indexed gathers (the forward's `index_select` on the CPU,
+    D1 on the card) and either backward (`index_add_`, or K4's plain
+    version under FOURDGS_HEX_BWD=pallas), against jax.grad of the same
+    sum. Sums over up to N points per plane cell in another order than
+    XLA's: rtol and atol 1e-5, as the features."""
+    if hex_bwd == "pallas":
+        monkeypatch.setenv("FOURDGS_HEX_BWD", "pallas")
+    jc, tc, flat, jparams = base
+    x = _inputs()["xyz"]
+    pts = np.array(jhex.normalize_aabb(jnp.asarray(x), jnp.asarray(AABB)))
+    w = np.random.default_rng(6).normal(size=(N, 64)).astype(np.float32)
+
+    def loss(grid):
+        f = jhex.hexplane_features(grid, jc.grid, jnp.asarray(pts),
+                                   jnp.asarray(t))
+        return jnp.sum(f * jnp.asarray(w))
+
+    want = jax.grad(loss)(jparams["grid"])
+    module = convert.deformation_from_flat(flat, tc, device="cpu")
+    feats = module.grid(torch.as_tensor(pts), torch.as_tensor(t))
+    (feats * torch.as_tensor(w)).sum().backward()
+    for key, p in module.grid.planes.items():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want[key]),
+                                   **TOL, err_msg=key)
+    x0, _ = thex._axis_coord(torch.as_tensor(pts[:, 0]), 64)
+    assert x0.dtype == torch.int32
+
+
 def test_const_t_sampler_matches_generic():
     rng = np.random.default_rng(3)
     plane = torch.as_tensor(rng.normal(size=(25, 64, 8)).astype(np.float32))

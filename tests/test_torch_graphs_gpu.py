@@ -36,6 +36,9 @@ GRAD_TOL = 1e-4
 # the atomics' order moves the last bits of each step, and Adam's
 # division by sqrt(nu) carries them on (tests/test_torch_stage.py)
 LOSS_RTOL = 1e-3
+# the kernels a frame runs once each (K1, the binner), and the HexPlane's
+# forward gathers (D1): 18 a level at one timestamp, two levels (_cfg)
+FRAME_LAUNCHES = {"blend_forward": 1, "bin_tiles": 1, "gather_rows": 36}
 
 
 @pytest.fixture
@@ -66,7 +69,7 @@ def test_captured_frame_equals_the_eager_frame(cuda):
     graphs.zero_counts()
     outs = [rend.render(c) for c in cams]
     (frame,) = rend.frames.values()
-    assert frame.program.launches == {"blend_forward": 1}
+    assert frame.program.launches == FRAME_LAUNCHES
     # the warm-up's renders ran; the capture's did not
     assert blend.blend_forward.launches == graphs.WARMUP
     assert graphs.REPLAYED["blend_forward"] == len(cams)
@@ -101,7 +104,7 @@ def test_one_captured_step_matches_the_eager_step(cuda):
     aux_e = step_fn(key)(eager, cams, gt, bg)
     steps = graphs.StepPrograms(step_fn)
     aux_c = steps.run(key, captured, cams, gt, bg)
-    assert steps.live.program.launches == {"blend_forward": 1,
+    assert steps.live.program.launches == {**FRAME_LAUNCHES,
                                            "blend_backward": 1}
     errs, want = {}, _tensors(eager)
     for name, a in _tensors(captured).items():

@@ -17,7 +17,13 @@ tolerance: each column group divided by its largest magnitude, atol 1e-4
 and is held per column, over the slots that hold a gaussian, to the same
 tolerance; the row scatter-add (K4) adds with atomics, max |a - b| /
 max |b| 1e-5; the scalar scatter-set (K5) is exact. The dev tools'
-kernels (D1, D2, D4a, D4b) are exact, D6's sums held to rtol 1e-5.
+kernels (D1, D2, D4a, D4b) are exact, D6's sums held to rtol 1e-5. The
+binner kernel (csrc/binner.cu) is integer work and must equal the plain
+binner on every field; D1 as the HexPlane's forward gather must equal
+`index_select`, the HexPlane forward on the card the CPU path's (the same
+IEEE elementwise operations around exact gathers), and its gradients
+the CPU path's within 1e-5 of each plane's largest magnitude (the order
+of `index_add_`'s atomics).
 """
 from types import SimpleNamespace
 
@@ -31,12 +37,16 @@ from fourdgs_tpu_torch.models.gaussians import GaussianParams
 from fourdgs_tpu_torch.ops import blend, blend_variants
 from fourdgs_tpu_torch.ops.binner_proto import expand_rank, expand_rank_plain
 from fourdgs_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from fourdgs_tpu_torch.models.hexplane import HexPlaneConfig, HexPlaneField
+from fourdgs_tpu_torch.ops import rasterize_tiled
+from fourdgs_tpu_torch.ops.projection import Projected
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, prepare_blend
 from fourdgs_tpu_torch.ops.scatter import (scatter_add_rows,
                                            scatter_add_rows_plain,
                                            scatter_set_scalars,
                                            scatter_set_scalars_plain)
-from fourdgs_tpu_torch.ops.serial import (scalar_store, scalar_store_plain,
+from fourdgs_tpu_torch.ops.serial import (MAX_TILES, scalar_store,
+                                          scalar_store_plain,
                                           tile_counter_store,
                                           tile_counter_store_plain)
 from fourdgs_tpu_torch.render.render import splats_at
@@ -981,11 +991,13 @@ def test_scatter_set_scalars_kernel_edges(cuda, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,w,m", [(1000, 16, 70_000), (37, 4, 999),
+                                      (300, 12, 5000), (200, 128, 3001),
                                       (5, 3, 64)])
 def test_gather_rows_kernel_matches_plain(cuda, rows, w, m):
     """Indices below 0 and past the table clamp to its first and last
-    rows: equal. A width that is no multiple of 4 raises, launching
-    nothing."""
+    rows: equal, at row widths of 1, 4 and 32 float4s (the width-templated
+    kernel) and 3 (the generic one). A width that is no multiple of 4
+    raises, launching nothing."""
     rng = np.random.default_rng(rows)
     table = torch.from_numpy(rng.normal(size=(rows, w)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(-3, rows + 3, m).astype(np.int32))
@@ -1022,6 +1034,8 @@ def _rect_inputs(n, g, nt, grid_x, max_side, seed):
     (131_072, 4096, 16384, 625, 25, 1536, 3),   # the script's shapes
     (16_384, 4096, 6000, 625, 25, 40, 3),       # past pc and tile_cap
     (3000, 1000, 50_000, 4096, 64, 300, 9),     # long rects, big grid
+    (20_000, 4000, 40_000, 21_463, 169, 64, 4),  # the walk's two groups
+    (20_000, 4000, 40_000, 56_956, 491, 64, 4),  # one group, MAX_TILES
 ])
 def test_expand_rank_kernel_matches_plain(cuda, n, g, pc, nt, grid_x,
                                           tile_cap, side):
@@ -1061,6 +1075,8 @@ def test_scalar_store_kernel_matches_plain(cuda, m, n_out):
     (262_144, 625, 1536, 960_000),   # the script's shapes
     (40_000, 8, 1536, 5000),         # the clamp to n_out - 1
     (9000, 3, 1000, 2500),           # ranks past tile_cap, then the clamp
+    (262_144, 8160, 8, 50_000),      # four groups past 48 KB
+    (262_144, 56_956, 8, 400_000),   # one group, MAX_TILES
 ])
 def test_tile_counter_store_kernel_matches_plain(cuda, m, nt, tile_cap,
                                                  n_out):
@@ -1113,6 +1129,218 @@ def test_dev_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="n_tiles"):
         tile_counter_store(torch.zeros(2, dtype=torch.int32, device=cuda),
                            torch.zeros(2, dtype=torch.int32, device=cuda),
-                           n_tiles=9000, tile_cap=4, n_out=8)
+                           n_tiles=MAX_TILES + 1, tile_cap=4, n_out=8)
     assert counts == [fn.launches for fn in (gather_rows,
                                              blend_variants.slices)]
+
+
+# ---------------------------------------------------------------------------
+# The binner kernel (csrc/binner.cu: D2's rank at the binner's contract) and
+# D1 as the HexPlane's forward gather, both on the main path.
+# ---------------------------------------------------------------------------
+
+def _proj_fields(n, n_visible, grid, ts, max_side, seed, far=False):
+    """A projection of n gaussians, the first n_visible touching tile
+    rects of up to max_side tiles a side (clipped to the grid), centres
+    near their rects (or far up and left of them), corner-cull radii from
+    none to past the rect, and distinct depths."""
+    rng = np.random.default_rng(seed)
+    gx, gy = grid
+    x0 = rng.integers(0, gx, n)
+    y0 = rng.integers(0, gy, n)
+    x1 = np.minimum(x0 + rng.integers(1, max_side + 1, n), gx)
+    y1 = np.minimum(y0 + rng.integers(1, max_side + 1, n), gy)
+    touched = (x1 - x0) * (y1 - y0)
+    touched[n_visible:] = 0
+    x1 = np.where(touched > 0, x1, x0)
+    y1 = np.where(touched > 0, y1, y0)
+    pix = np.stack([(x0 + x1) * ts / 2, (y0 + y1) * ts / 2], 1)
+    pix = pix + rng.normal(0, ts / 2, (n, 2))
+    if far:
+        pix[:] = -200.0
+    r2 = rng.integers(0, (ts * max_side) ** 2, n)
+    r2[rng.random(n) < 0.2] = 1 << 30
+    if far:
+        r2[:] = 0
+    return dict(
+        pix=pix.astype(np.float32),
+        depth=(rng.permutation(n) + 1.0).astype(np.float32),
+        conic=np.ones((n, 3), np.float32),
+        radius=np.where(touched > 0, 8, 0).astype(np.int32),
+        rect_min=np.stack([x0, y0], 1).astype(np.int32),
+        rect_max=np.stack([x1, y1], 1).astype(np.int32),
+        tiles_touched=touched.astype(np.int32),
+        cull_r2=r2.astype(np.int32))
+
+
+# name -> (n, n_visible, image side or (width, height), tile, max_side,
+#          tile_cap, bin_chunk,
+#          bin_pairs_per_chunk, far)
+BIN_CASES = {
+    "drop_free": (3000, 2500, 96, 16, 3, 256, 4096, 32768, False),
+    "budget_straddled": (3000, 3000, 96, 16, 4, 512, 1024, 2000, False),
+    "tile_overflow": (5000, 4000, 96, 16, 3, 40, 4096, 32768, False),
+    "every_pair_culled": (2000, 2000, 96, 16, 3, 64, 4096, 32768, True),
+    "no_visible_gaussian": (700, 0, 96, 16, 3, 64, 4096, 32768, False),
+    "segments_and_blocks": (40_000, 39_000, 800, 32, 5, 768, 4096, 18432,
+                            False),
+    # phase 5's step: 100,000 live gaussians in a 131,072-slot buffer at
+    # 800x800, tile 32, tile_cap 768, the probed budget
+    "phase 5's step": (131_072, 100_000, 800, 32, 4, 768, 4096, 36864, False),
+    # grids past the 48 KB of static shared memory, one for each layout of
+    # the walk's counters (rank_common.cuh: walk_groups): four sets at
+    # 96 x 85 tiles, two at a 2704 x 2028 DyNeRF view (169 x 127), one at
+    # MAX_TILES (491 x 116)
+    "8,160 tiles": (40_000, 38_000, (1536, 1360), 16, 4, 64, 4096, 32768,
+                    False),
+    "21,463 tiles": (40_000, 38_000, (2704, 2028), 16, 4, 64, 4096, 32768,
+                     False),
+    "56,956 tiles": (40_000, 38_000, (7856, 1856), 16, 4, 64, 4096, 32768,
+                     False),
+}
+
+
+def _bin_case(dev, case):
+    n, vis, side, ts, max_side, cap, bchunk, bpc, far = BIN_CASES[case]
+    width, height = side if isinstance(side, tuple) else (side, side)
+    cfg = RasterConfig(img_width=width, img_height=height, tile_size=ts,
+                       tile_cap=cap, chunk=32, bin_chunk=bchunk,
+                       bin_pairs_per_chunk=bpc)
+    fields = _proj_fields(n, vis, (cfg.grid_x, cfg.grid_y), ts, max_side,
+                          n, far)
+    proj = Projected(**{k: torch.from_numpy(v).to(dev)
+                        for k, v in fields.items()})
+    return proj, cfg
+
+
+def _assert_binned_equal(got, want):
+    for f in rasterize_tiled.BinnedTiles._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype == torch.int32, f
+        assert a.shape == b.shape, f
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("switch", ["default", "pallas"])
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_binner_kernel_matches_plain(cuda, monkeypatch, case, switch):
+    """Every BinnedTiles field equal to the plain binner's on the same
+    card tensors, with the budget straddled, tiles past their cap, every
+    pair culled, no visible gaussian, at phase 5's shape and on grids of
+    up to MAX_TILES tiles; under
+    FOURDGS_BIN_SCATTER=pallas through K5. The same twice."""
+    if switch == "pallas":
+        monkeypatch.setenv("FOURDGS_BIN_SCATTER", "pallas")
+    proj, cfg = _bin_case(cuda, case)
+    before = (rasterize_tiled.bin_tiles.launches,
+              scatter_set_scalars.launches)
+    got = rasterize_tiled.bin_gaussians_count(proj, cfg)
+    again = rasterize_tiled.bin_gaussians_count(proj, cfg)
+    torch.cuda.synchronize()
+    assert rasterize_tiled.bin_tiles.launches == before[0] + 2
+    assert scatter_set_scalars.launches == before[1] + (
+        2 if switch == "pallas" else 0)
+    want = rasterize_tiled.bin_gaussians_count_plain(proj, cfg)
+    _assert_binned_equal(got, want)
+    _assert_binned_equal(again, got)
+    if case == "budget_straddled":
+        assert int(got.dropped_pairs) > 0
+    if case == "tile_overflow":
+        assert int(got.dropped_tile) > 0
+    if case in ("every_pair_culled", "no_visible_gaussian"):
+        assert int(got.counts.sum()) == 0
+        assert bool((got.gidx == -1).all())
+    if case == "phase 5's step":
+        assert int(got.counts.sum()) > 100_000
+    if case.endswith(" tiles"):
+        assert cfg.num_tiles == int(case.split()[0].replace(",", ""))
+        assert cfg.num_tiles <= MAX_TILES
+        assert int(got.counts.sum()) > 100_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["segments_and_blocks", "8,160 tiles",
+                                  "21,463 tiles", "56,956 tiles"])
+def test_binner_kernel_replays_in_a_graph(cuda, case):
+    """The binner captured in a CUDA graph (static shapes, no host sync)
+    and replayed on new depths and rects gives what an eager call gives,
+    also where the walk raises its shared-memory limit during capture."""
+    proj, cfg = _bin_case(cuda, case)
+    fresh = Projected(**{k: v.clone() for k, v in proj._asdict().items()})
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            rasterize_tiled.bin_gaussians_count(proj, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rasterize_tiled.bin_gaussians_count(proj, cfg)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        perm = torch.from_numpy(rng.permutation(proj.depth.shape[0])).to(
+            cuda)
+        for name, v in fresh._asdict().items():
+            getattr(proj, name).copy_(v[perm])
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_binned_equal(out, rasterize_tiled.bin_gaussians_count(proj,
+                                                                      cfg))
+
+
+# the HexPlane's gathers at the D-NeRF width: planes of 64 x 64 and
+# 128 x 128 rows (the two levels), a time plane's lerped row of 64 or 128,
+# rows of 32 floats; 131,072 indices a step, 100,000 a frame
+HEX_GATHERS = [(rows, m) for rows in (4096, 16384, 64, 128)
+               for m in (131_072, 100_000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m", HEX_GATHERS)
+def test_gather_rows_kernel_at_hexplane_shapes(cuda, rows, m):
+    rng = np.random.default_rng(rows + m)
+    table = torch.from_numpy(rng.normal(size=(rows, 32)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, rows, m).astype(np.int32)).to(
+        cuda)
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, torch.index_select(table, 0, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", ["scalar", "point"])
+def test_hexplane_forward_on_card_matches_cpu(cuda, t):
+    """The D-NeRF HexPlane (two levels, 32 features) on the card, its
+    gathers through D1, against the CPU path: the features equal, the
+    planes' gradients within 1e-5 of each plane's largest magnitude."""
+    cfg = HexPlaneConfig(resolution=(64, 64, 64, 25), out_dim=32,
+                         multires=(1, 2))
+    cpu = HexPlaneField(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in cpu.planes.values():
+            p.add_(torch.randn(p.shape, generator=torch.Generator()
+                               .manual_seed(p.numel())) * 0.3)
+    card = HexPlaneField(cfg).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    n = 20_000
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(np.float32))
+    tt = (torch.tensor(0.37) if t == "scalar" else torch.from_numpy(
+        rng.uniform(0, 1, n).astype(np.float32)))
+    w = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+    before = gather_rows.launches
+    got = card(pts.to(cuda), tt.to(cuda))
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + (36 if t == "scalar" else 48)
+    want = cpu(pts, tt)
+    assert torch.equal(got.detach().cpu(), want.detach())
+    (got * w.to(cuda)).sum().backward()
+    (want * w).sum().backward()
+    for key, p in cpu.planes.items():
+        a, b = card.planes[key].grad.cpu(), p.grad
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-5, (key, err)
