@@ -90,7 +90,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              then each kernel against its plain version on its tool's
              inputs (D1, D2, D4a, D4b equal; D3 to SCATTER_TOL; D5, K1 at
              tile 16, to TOL; D6 to DEV_TOL), with the tools' CUDA-event
-             times and bounds.
+             times and bounds, and for D4 and D6 the device time
+             (torch.profiler, or where it keeps no record, CUDA events
+             behind a held stream) and the held stream's time beside it.
 The second-to-last line of stdout is the kernels JSON, the last line the
 result JSON. It imports nothing of JAX or the JAX package.
 """
@@ -114,9 +116,10 @@ from fourdgs_tpu_torch.tools.profile_blend_split import (BLEND_FP32_INSTR,
                                                          blend_work,
                                                          bwd_work)
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
-                                            MUFU_OP_S, kernel_records,
-                                            per_call_ms, time_call,
-                                            time_pair)
+                                            HELD_STREAM, MUFU_OP_S,
+                                            NoKernelRecords, held_stream_ms,
+                                            kernel_records, per_call_ms,
+                                            time_call, time_pair)
 
 ROOT = Path(__file__).resolve().parent
 N_GAUSS = 100_000
@@ -1346,8 +1349,19 @@ def device_ms(fn, n: int = 20) -> dict:
     (`records`; where it kept fewer, each kernel's time is the mean of
     the records it kept times its launches a call, and the reading is
     flagged in the log); and the host's ms per call to enqueue it, what
-    events time when it is the larger."""
-    records, launched = kernel_records(fn, n)
+    events time when it is the larger. Where the profiler kept no record
+    in any window, the time is `held_stream_ms`'s, flagged in the log and
+    under `records["held_stream"]`."""
+    try:
+        records, launched = kernel_records(fn, n)
+    except NoKernelRecords as e:
+        held = held_stream_ms(fn, n)
+        log(f"device_ms: {e}; timed instead by {HELD_STREAM}: {held:.4f} "
+            f"ms a call")
+        return {"ms": held, "host_ms": host_ms(fn),
+                "kernels": {HELD_STREAM: round(held, 5)},
+                "records": {"kept": {}, "launched": e.launched,
+                            "held_stream": True}}
     kernels = per_call_ms(records, n)
     kept = {k: len(v) for k, v in records.items()}
     if sum(kept.values()) != launched:
@@ -1696,6 +1710,20 @@ def dev_entry(kid: str, name: str, source: str, replaces: str,
             "library_ms": library_ms, "ok": True, **extra}
 
 
+def device_share(fn, rec: dict) -> dict:
+    """A dev kernel's device time a call (`device_ms`: by kernel, the
+    records kept, the host's enqueue time), the same time taken without
+    the profiler (`held_stream_ms`, what `device_ms` falls back on), and
+    its bound's share of the events time (rec's ms) and of the device
+    time."""
+    dev = device_ms(fn)
+    return {"device_ms": dev["ms"], "device_kernels": dev["kernels"],
+            "device_records": dev["records"], "host_ms": dev["host_ms"],
+            "held_stream_ms": held_stream_ms(fn),
+            "bound_share_events": rec["bound_ms"] / rec["ms"],
+            "bound_share_device": rec["bound_ms"] / dev["ms"]}
+
+
 def phase_dev_kernels(torch, device, seed: int) -> list:
     """Each tool of fourdgs_tpu_torch/tools that ports a Pallas prototype
     of scripts/ runs through its `main` at its script's shapes, with the
@@ -1800,6 +1828,10 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
         f"{res['D4']['repeats']} repeated indices): equal {equal}")
     if not all(equal.values()):
         raise AssertionError(f"serial stores disagree with plain: {equal}")
+    calls = {"D4a": lambda: serial.scalar_store(i["idx"], i["val"],
+                                                n_out=exp_serial.TABLE),
+             "D4b": lambda: serial.tile_counter_store(i["tid"], i["val"],
+                                                      **kw)}
     for kid, name, line, body in (("D4a", "scalar_store", 70, "store_kernel"
                                    " :31"),
                                   ("D4b", "tile_counter_store", 77,
@@ -1809,7 +1841,7 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
             kid, name, "serial.cu", f"scripts/exp_pallas_serial.py:{line}",
             f"scripts/exp_pallas_serial.py:{body}", launches[name], 0.0,
             rec, pairs_per_s=rec["pairs_per_s"], passes_ms=rec["passes_ms"],
-            device_ms=rec["device_ms"],
+            **device_share(calls[kid], rec),
             library_note="no single PyTorch call: indexed assignment leaves "
                          "the winner among repeated indices undefined"))
 
@@ -1859,11 +1891,18 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
             "scripts/profile_kernel_variants.py:50",
             f"scripts/profile_kernel_variants.py:{line} (k_{name})",
             launches[name], float((a - b).abs().max()), rec,
-            max_rel_err=err))
+            max_rel_err=err, clocks=rec.get("clocks"),
+            sass_loop=res["D6"].get("sass_loop", {}).get(name),
+            **device_share(lambda: fn(i["attrs"], i["px"]), rec)))
     for e in out:
         log(f"{e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
             f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_resource']}); launches {e['launches']}")
+            f"({e['bound_resource']}); launches {e['launches']}" + (
+                f"; device {e['device_ms']:.4f} ms (held stream "
+                f"{e['held_stream_ms']:.4f} ms), bound share "
+                f"{e['bound_share_events']:.1%} by events, "
+                f"{e['bound_share_device']:.1%} on the device"
+                if "bound_share_device" in e else ""))
     return out
 
 

@@ -9,48 +9,69 @@
 //
 // D4a computes out[idx[i]] = val[i] in order i over a zeroed (n_out,)
 // table, so among repeated indices the last write wins; an index outside
-// [0, n_out) is dropped. Blocks run in no order on the card, so it takes
-// two passes: winner[d] = atomicMax of i over the pairs on element d (an
-// integer maximum, the same from run to run), then the winner stores its
-// value.
+// [0, n_out) is dropped. Blocks run in no order on the card, so the last
+// writer of each element is found first: winner[d] = atomicMax of i over
+// the pairs on element d (an integer maximum, the same from run to run),
+// then the winner stores its value.
 //
 // D4b computes r = cnt[t]++ in serial order (the rank of rank_common.cuh)
 // and out[min(t * tile_cap + r, n_out - 1)] = val[i]; where the clamp, or
 // a rank past tile_cap that runs into the next tile's range, lands two
-// pairs on one element, the last one wins, through D4a's two passes. cnt
-// is each tile's total. A tid outside [0, n_tiles) is dropped: not
-// counted, not stored.
+// pairs on one element, the last one wins, through D4a's stores. cnt is
+// each tile's total. A tid outside [0, n_tiles) is dropped: not counted,
+// not stored.
 //
 // Bound on an H100: bytes, the indices and values read once and out (and
 // cnt) written once: 5.9 MB at the script's shapes (2^18 pairs into a
 // 960,000-element table), 0.0018 ms at 3.35 TB/s. The winner table and
-// D4b's histograms are scratch, which the bound leaves out.
+// D4b's histograms are scratch, which the bound leaves out. At that size a
+// call is a few microseconds of device work, so launches and fills, not
+// bytes, set its time: the stores are one cooperative kernel
+// (store_last_kernel) whose grid-stride phases fill winner with -1, take
+// the atomic maxima, and write each element of out once, its winner's
+// value or 0, with a grid barrier between phases (scattered stores of the
+// winners over a zero-filled out took 0.0158 ms on the device against
+// 0.0109 for this). No PyTorch fill and no memset run beside it,
+// and out and winner are the two halves of one buffer that the wrapper
+// allocates, so D4a's call is one allocation, one ctypes call and one
+// kernel. The grid is as many blocks as the card holds at once (the
+// occupancy API), never more, so the cooperative launch cannot be refused
+// for its size.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "rank_common.cuh"
 
 namespace {
 
-__global__ void last_writer_kernel(const int* __restrict__ dest, int m,
-                                   int n_out, int* __restrict__ winner) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    const int d = dest[i];
-    if (d < 0 || d >= n_out) return;
-    atomicMax(&winner[d], i);
-}
+namespace cg = cooperative_groups;
 
-__global__ void store_winner_kernel(const int* __restrict__ dest,
-                                    const int* __restrict__ val, int m,
-                                    int n_out,
-                                    const int* __restrict__ winner,
-                                    int* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    const int d = dest[i];
-    if (d < 0 || d >= n_out || winner[d] != i) return;
-    out[d] = val[i];
+constexpr int kStoreThreads = 1024;
+
+// out[dest[i]] = val[i] over zeros, the largest i winning on each element;
+// out and winner (n_out,) int32 each, written whole.
+__global__ void __launch_bounds__(kStoreThreads)
+store_last_kernel(const int* __restrict__ dest, const int* __restrict__ val,
+                  int m, int n_out, int* __restrict__ out,
+                  int* __restrict__ winner) {
+    cg::grid_group grid = cg::this_grid();
+    const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long k = first; k < n_out; k += stride) winner[k] = -1;
+    grid.sync();
+    for (long long i = first; i < m; i += stride) {
+        const int d = dest[i];
+        if (d >= 0 && d < n_out) atomicMax(&winner[d], (int)i);
+    }
+    grid.sync();
+    // each element takes its winner's value, or 0: out is written once, in
+    // order, with no fill before it; past the barrier the winners are read
+    // from L2, where the atomics left them, not from L1
+    for (long long k = first; k < n_out; k += stride) {
+        const int w = __ldcg(&winner[k]);
+        out[k] = w >= 0 ? val[w] : 0;
+    }
 }
 
 struct TileSource {
@@ -75,20 +96,45 @@ struct DestEmit {
     }
 };
 
-constexpr int kThreads = 256;
+// The blocks of store_last_kernel that the current card holds at once.
+cudaError_t resident_blocks(int* blocks) {
+    static int cached[64] = {0};
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && cached[dev] > 0) {
+        *blocks = cached[dev];
+        return cudaSuccess;
+    }
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, store_last_kernel, kStoreThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    *blocks = sms * per_sm;
+    if (dev < 64) cached[dev] = *blocks;
+    return cudaSuccess;
+}
 
-// out[dest[i]] = val[i], the largest i winning on each element; winner
-// (n_out,) int32 scratch.
+// out[dest[i]] = val[i] over zeros, the largest i winning on each element;
+// buf (2 n_out,) int32: out, then winner (scratch).
 cudaError_t store_last(const int* dest, const int* val, int m, int n_out,
-                       int* winner, int* out, cudaStream_t stream) {
-    if (m == 0) return cudaSuccess;
-    cudaMemsetAsync(winner, 0xff, sizeof(int) * (size_t)n_out, stream);
-    const int blocks = (m + kThreads - 1) / kThreads;
-    last_writer_kernel<<<blocks, kThreads, 0, stream>>>(dest, m, n_out,
-                                                        winner);
-    store_winner_kernel<<<blocks, kThreads, 0, stream>>>(dest, val, m, n_out,
-                                                         winner, out);
-    return cudaGetLastError();
+                       int* buf, cudaStream_t stream) {
+    int resident;
+    cudaError_t err = resident_blocks(&resident);
+    if (err != cudaSuccess) return err;
+    const long long work = m > n_out ? m : n_out;
+    const long long wanted = (work + kStoreThreads - 1) / kStoreThreads;
+    const int blocks = (int)(wanted < resident ? wanted : resident);
+    int* out = buf;
+    int* winner = buf + n_out;
+    void* args[] = {(void*)&dest, (void*)&val, (void*)&m, (void*)&n_out,
+                    (void*)&out, (void*)&winner};
+    return cudaLaunchCooperativeKernel((const void*)store_last_kernel,
+                                       dim3(blocks), dim3(kStoreThreads),
+                                       args, 0, stream);
 }
 
 }  // namespace
@@ -98,30 +144,30 @@ extern "C" {
 // The serial ranks' segment length, which sizes their scratch.
 int rank_segment_items(void) { return fourdgs::rank::kSegItems; }
 
-// Launch on `stream`; return the cudaError_t of the launches (0 = ok).
-// idx, val (m,) int32; winner (n_out,) int32 scratch; out (n_out,) int32
-// zero-filled.
+// Launch on `stream`; return the cudaError_t of the launch (0 = ok).
+// idx, val (m,) int32; buf (2 n_out,) int32: out (n_out,), then winner
+// scratch. Writes every element of out.
 int scalar_store_launch(const void* idx, const void* val, int m, int n_out,
-                        void* winner, void* out, void* stream) {
+                        void* buf, void* stream) {
     return (int)store_last((const int*)idx, (const int*)val, m, n_out,
-                           (int*)winner, (int*)out, (cudaStream_t)stream);
+                           (int*)buf, (cudaStream_t)stream);
 }
 
 // tid, val (m,) int32; hist (rank segments of m, n_tiles) and dest (m,)
-// int32 scratch; winner (n_out,) int32 scratch; cnt (n_tiles,) int32; out
-// (n_out,) int32 zero-filled. 1 <= n_tiles <= MAX_TILES
-// (ops/serial.py; rank_common.cuh: rank_pairs).
+// int32 scratch; cnt (n_tiles,) int32; buf (2 n_out,) int32: out (n_out,),
+// then winner scratch. 1 <= n_tiles <= MAX_TILES (ops/serial.py;
+// rank_common.cuh: rank_pairs).
 int tile_counter_store_launch(const void* tid, const void* val, int m,
                               int n_tiles, int tile_cap, int n_out,
-                              void* hist, void* dest, void* winner,
-                              void* cnt, void* out, void* stream) {
+                              void* hist, void* dest, void* cnt, void* buf,
+                              void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = fourdgs::rank::rank_pairs(
         TileSource{(const int*)tid}, m, n_tiles, (int*)hist, (int*)cnt,
         DestEmit{tile_cap, n_out, (int*)dest}, s);
     if (err != cudaSuccess) return (int)err;
     return (int)store_last((const int*)dest, (const int*)val, m, n_out,
-                           (int*)winner, (int*)out, s);
+                           (int*)buf, s);
 }
 
 }  // extern "C"

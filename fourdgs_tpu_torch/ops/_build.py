@@ -124,10 +124,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gather_rows_launch.restype = i
     lib.rank_segment_items.argtypes = []
     lib.rank_segment_items.restype = i
-    lib.scalar_store_launch.argtypes = [vp, vp, i, i, vp, vp, vp]
+    lib.scalar_store_launch.argtypes = [vp, vp, i, i, vp, vp]
     lib.scalar_store_launch.restype = i
     lib.tile_counter_store_launch.argtypes = [vp, vp, i, i, i, i, vp, vp,
-                                              vp, vp, vp, vp]
+                                              vp, vp, vp]
     lib.tile_counter_store_launch.restype = i
     lib.expand_rank_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i,
                                        i, i, vp, vp, vp]

@@ -54,19 +54,14 @@ def _run(wrapper, plain, attrs, px, chunk):
                          f"a tile, got chunk {chunk}, {n_pix} pixels")
     attrs, px = attrs.contiguous(), px.contiguous()
     if attrs.data_ptr() % 16:
-        raise ValueError("the kernel reads attrs as float4: its data must be "
-                         "16-byte aligned")
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
+        raise ValueError("the kernel reads attrs with 16-byte copies: its data "
+                         "must be 16-byte aligned")
+    from fourdgs_tpu_torch.ops._build import _launch, load_library
     lib = load_library()
-    nt = attrs.shape[0]
-    with torch.cuda.device(attrs.device):
-        out = torch.empty_like(px)
-        stream = torch.cuda.current_stream(attrs.device).cuda_stream
-        err = lib.blend_variant_launch(BODIES.index(wrapper.__name__),
-                                       attrs.data_ptr(), px.data_ptr(), nt,
-                                       attrs.shape[1] // chunk, n_pix,
-                                       out.data_ptr(), stream)
-    check_launch(lib, wrapper.__name__, err)
+    out = torch.empty_like(px)
+    _launch(lib, lib.blend_variant_launch, attrs,
+            BODIES.index(wrapper.__name__), attrs.data_ptr(), px.data_ptr(),
+            attrs.shape[0], attrs.shape[1] // chunk, n_pix, out.data_ptr())
     wrapper.launches += 1
     return out
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops._build import _launch, load_library
+
 # The counting kernels' tile limit: one array of MAX_TILES int counters, a
 # segment's staged items (32 bytes each for the binner's) and the kernels'
 # 16 static bytes in the H100's 227 KB of opt-in shared memory
@@ -64,19 +66,13 @@ def scalar_store(idx: torch.Tensor, val: torch.Tensor, *,
         return scalar_store_plain(idx, val, n_out=n_out)
     if idx.device.type != "cuda":
         raise ValueError(f"no serial-store kernel for device {idx.device}")
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
     lib = load_library()
     idx, val = idx.contiguous(), val.contiguous()
-    with torch.cuda.device(idx.device):
-        out = torch.zeros(n_out, dtype=torch.int32, device=idx.device)
-        winner = torch.empty(n_out, dtype=torch.int32, device=idx.device)
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = lib.scalar_store_launch(idx.data_ptr(), val.data_ptr(),
-                                      idx.shape[0], n_out, winner.data_ptr(),
-                                      out.data_ptr(), stream)
-    check_launch(lib, "scalar_store", err)
+    buf = idx.new_empty(2 * n_out)      # out, then the kernel's winners
+    _launch(lib, lib.scalar_store_launch, idx, idx.data_ptr(), val.data_ptr(),
+            idx.shape[0], n_out, buf.data_ptr())
     scalar_store.launches += 1
-    return out
+    return buf[:n_out]
 
 
 scalar_store.launches = 0
@@ -114,27 +110,19 @@ def tile_counter_store(tid: torch.Tensor, val: torch.Tensor, *, n_tiles: int,
                                         tile_cap=tile_cap, n_out=n_out)
     if tid.device.type != "cuda":
         raise ValueError(f"no tile-counter kernel for device {tid.device}")
-    from fourdgs_tpu_torch.ops._build import check_launch, load_library
     lib = load_library()
     tid, val = tid.contiguous(), val.contiguous()
     m = tid.shape[0]
     seg = lib.rank_segment_items()
-    dev = tid.device
-    with torch.cuda.device(dev):
-        out = torch.zeros(n_out, dtype=torch.int32, device=dev)
-        cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-        hist = torch.empty(n_tiles * max(-(-m // seg), 1), dtype=torch.int32,
-                           device=dev)
-        dest = torch.empty(m, dtype=torch.int32, device=dev)
-        winner = torch.empty(n_out, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tile_counter_store_launch(
-            tid.data_ptr(), val.data_ptr(), m, n_tiles, tile_cap, n_out,
-            hist.data_ptr(), dest.data_ptr(), winner.data_ptr(),
-            cnt.data_ptr(), out.data_ptr(), stream)
-    check_launch(lib, "tile_counter_store", err)
+    cnt = tid.new_empty(n_tiles)
+    hist = tid.new_empty(n_tiles * max(-(-m // seg), 1))
+    dest = tid.new_empty(m)
+    buf = tid.new_empty(2 * n_out)      # out, then the kernel's winners
+    _launch(lib, lib.tile_counter_store_launch, tid, tid.data_ptr(),
+            val.data_ptr(), m, n_tiles, tile_cap, n_out, hist.data_ptr(),
+            dest.data_ptr(), cnt.data_ptr(), buf.data_ptr())
     tile_counter_store.launches += 1
-    return out, cnt
+    return buf[:n_out], cnt
 
 
 tile_counter_store.launches = 0

@@ -19,9 +19,10 @@ import torch
 # FP32 instructions issued per clock per SM (a fused multiply-add is one)
 # and 16 SFU results (expf's MUFU.EX2), x 132 SMs x 1.98 GHz
 HBM_BYTES_S = 3.35e12
-FP32_ISSUE_SM_S = 128 * 1.98e9     # one SM
+BOOST_HZ = 1.98e9                  # the SM clock the peaks assume
+FP32_ISSUE_SM_S = 128 * BOOST_HZ   # one SM
 FP32_ISSUE_S = FP32_ISSUE_SM_S * 132
-MUFU_OP_S = 16 * 132 * 1.98e9
+MUFU_OP_S = 16 * 132 * BOOST_HZ
 
 
 def _on_card(device) -> bool:
@@ -106,34 +107,82 @@ def recorded_call(name: str) -> bool:
     return _RECORDED_CALL.match(name) is not None
 
 
-def kernel_records(fn, n: int = 5) -> tuple[dict, int]:
+class NoKernelRecords(RuntimeError):
+    """torch.profiler kept no record of the kernels the host launched in
+    any window that `kernel_records` took; `launched` is the launches of
+    the last window."""
+
+    def __init__(self, message: str, launched: int):
+        super().__init__(message)
+        self.launched = launched
+
+
+# the name under which `kernel_times` reports a time from `held_stream_ms`
+HELD_STREAM = "all kernels (CUDA events behind a held stream)"
+
+
+def kernel_records(fn, n: int = 5, windows: int = 3) -> tuple[dict, int]:
     """Each kernel's recorded launch times (ms) over n calls of fn on the
     card, by the kernel's function name (templates and arguments
     stripped), from torch.profiler; and the calls the host made in those n
     calls that each leave one record (launches, fills, copies): the
-    records the profiler should have kept."""
+    records the profiler should have kept. A window in which the
+    profiler kept no kernel record at all (seen on an H100, with and
+    without the host's launch calls) is taken again, up to `windows` in
+    all; then this raises NoKernelRecords, rather than report no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    records: dict[str, list[float]] = {}
-    launched = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            bare = re.sub(r"^void\s+|\(anonymous namespace\)::", "", e.name)
-            m = re.search(r"(\w+)\s*[<(]", bare)
-            name = m.group(1) if m else e.name
-            records.setdefault(name, []).append(e.time_range.elapsed_us()
-                                                / 1e3)
-        elif recorded_call(e.name):
-            launched += 1
-    return records, launched
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        records: dict[str, list[float]] = {}
+        launched = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                bare = re.sub(r"^void\s+|\(anonymous namespace\)::", "",
+                              e.name)
+                m = re.search(r"(\w+)\s*[<(]", bare)
+                name = m.group(1) if m else e.name
+                records.setdefault(name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+            elif recorded_call(e.name):
+                launched += 1
+        if records:
+            return records, launched
+    raise NoKernelRecords(f"torch.profiler kept no kernel record in "
+                          f"{windows} windows of {n} calls ({launched} "
+                          f"launches each)", launched)
+
+
+def held_stream_ms(fn, n: int = 20) -> float:
+    """Device ms per call of fn without torch.profiler: CUDA events around
+    n calls that the host enqueues while a sleep kernel holds the stream,
+    so that the device runs them back to back once it is released and the
+    events time its work alone (the device's own gaps between launches
+    included), not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0      # enqueue and device, drained
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * BOOST_HZ))
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
 
 
 def kernel_times(fn, n: int = 5) -> dict:
@@ -141,8 +190,13 @@ def kernel_times(fn, n: int = 5) -> dict:
     torch.profiler over n calls on the card (`kernel_records`). The
     profiler can drop a launch's record (on an H100, up to 9 of 20
     launches of one kernel in a window), so each kernel's time is taken
-    from the records it kept (`per_call_ms`)."""
-    return per_call_ms(kernel_records(fn, n)[0], n)
+    from the records it kept (`per_call_ms`). Where it kept none in any
+    window, the time of all of fn's kernels together is taken from
+    `held_stream_ms` instead, under the name HELD_STREAM."""
+    try:
+        return per_call_ms(kernel_records(fn, n)[0], n)
+    except NoKernelRecords:
+        return {HELD_STREAM: held_stream_ms(fn, max(n, 20))}
 
 
 def per_call_ms(records: dict, n: int) -> dict:

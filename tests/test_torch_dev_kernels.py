@@ -191,6 +191,31 @@ def test_scalar_store_plain_matches_pallas(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want[:, 0])
 
 
+@pytest.mark.parametrize("case", ["every pair on one element",
+                                  "pairs on three elements"])
+def test_scalar_store_plain_matches_pallas_on_few_elements(monkeypatch,
+                                                           case):
+    """1,024 stores on one element (the last one in order wins, the rest
+    of the table stays 0), or spread over three: equal. JAX's store_kernel
+    does not define an index outside the table, so the GPU tests hold that
+    case against the plain version."""
+    monkeypatch.setattr(jserial, "CHUNK", 64)
+    monkeypatch.setattr(jserial, "TABLE", 500)
+    m = 1024
+    rng = np.random.default_rng(len(case))
+    targets = [123] if case == "every pair on one element" else [0, 250, 499]
+    idx = rng.choice(np.array(targets, np.int32), m)
+    val = rng.integers(1, 1 << 20, m).astype(np.int32)
+    want = np.asarray(_serial_call(jserial.store_kernel, m, False)(idx, val))
+    before = scalar_store.launches
+    got = scalar_store(_t(idx), _t(val), n_out=jserial.TABLE).numpy()
+    assert scalar_store.launches == before
+    np.testing.assert_array_equal(got, want[:, 0])
+    assert np.count_nonzero(got) == len(targets)
+    for d in targets:
+        assert got[d] == val[np.flatnonzero(idx == d)[-1]]
+
+
 @pytest.mark.parametrize("nt,table,m", [
     (8, 5000, 1024),     # tiles 4-7 start past the table: all clamp
     (2, 3072, 4096),     # ranks past 1536 run into tile 1, then clamp
@@ -267,11 +292,11 @@ def test_blend_split_scene_matches_jax():
 # D6: the stripped blend bodies
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("body", blend_variants.BODIES)
-def test_blend_variant_plain_matches_pallas(body, monkeypatch):
-    """16 tiles x 2 chunks of 32 rows x 256 pixels (the script's
-    structure, T_BLK 8), rtol 1e-5: other association of the same sums."""
-    sizes = dict(NT=16, NCH=2, K=32, P=256, T_BLK=8)
+def _variant_against_pallas(body, monkeypatch, p):
+    """The plain version of `body` against the script's Pallas body in
+    interpret mode, built as make_call builds it: 16 tiles x 2 chunks of
+    32 rows x p pixels (T_BLK 8), rtol 1e-5."""
+    sizes = dict(NT=16, NCH=2, K=32, P=p, T_BLK=8)
     for k, v in sizes.items():
         monkeypatch.setattr(jvariants, k, v)
     nt, nch, k, p, t_blk, attr = (*sizes.values(), jvariants.ATTR)
@@ -296,6 +321,20 @@ def test_blend_variant_plain_matches_pallas(body, monkeypatch):
     assert fn.launches == before
     assert got.shape == (nt, 1, p)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("body", blend_variants.BODIES)
+def test_blend_variant_plain_matches_pallas(body, monkeypatch):
+    """16 tiles x 2 chunks of 32 rows x 256 pixels (the script's
+    structure, T_BLK 8), rtol 1e-5: other association of the same sums."""
+    _variant_against_pallas(body, monkeypatch, 256)
+
+
+@pytest.mark.parametrize("body", blend_variants.BODIES)
+def test_blend_variant_plain_matches_pallas_at_100_pixels(body, monkeypatch):
+    """100 pixels a tile, a count that fills no whole thread's pixels in
+    the CUDA kernel (8 a thread): rtol 1e-5."""
+    _variant_against_pallas(body, monkeypatch, 100)
 
 
 def test_blend_variants_reject_bad_inputs():

@@ -1056,7 +1056,8 @@ def test_expand_rank_kernel_matches_plain(cuda, n, g, pc, nt, grid_x,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n_out", [(262_144, 960_000), (50_000, 777),
-                                     (3, 1)])
+                                     (3, 1), (0, 1000), (5000, 1),
+                                     (1 << 22, 960_000)])
 def test_scalar_store_kernel_matches_plain(cuda, m, n_out):
     """Repeated indices (the last store wins) and indices outside
     [0, n_out) (dropped): equal."""
@@ -1112,6 +1113,55 @@ def test_blend_variant_kernel_matches_plain(cuda, body, nt, p):
     assert got.shape == ref.shape == (nt, 1, p)
     err = float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
     assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,nt,nch,p", [
+    ("the script's shape", 2504, 24, 256),
+    ("one tile", 1, 24, 256),
+    ("100 pixels", 64, 5, 100),
+    ("1,000 pixels", 50, 5, 1000),
+    ("one chunk", 9, 1, 256),
+    ("past one resident wave", 4000, 2, 256),
+])
+@pytest.mark.parametrize("body", blend_variants.BODIES)
+def test_blend_variant_kernel_at_shapes(cuda, body, case, nt, nch, p):
+    """The script's full shape (24 chunks through a two-stage ring), a lone
+    tile, pixel counts that fill no whole thread's pixels, fewer chunks
+    than the ring's stages, and more tiles than the card holds at once:
+    within 1e-5 of the largest magnitude of the plain version on the
+    card."""
+    rng = np.random.default_rng(nt + p)
+    attrs = torch.from_numpy(rng.uniform(
+        0, 1, (nt, nch * blend_variants.CHUNK, 16)).astype(np.float32)).to(
+            cuda)
+    px = torch.from_numpy(rng.uniform(0, 1, (nt, 1, p)).astype(
+        np.float32)).to(cuda)
+    fn = getattr(blend_variants, body)
+    before = fn.launches
+    got = fn(attrs, px)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = getattr(blend_variants, body + "_plain")(attrs, px)
+    assert got.shape == ref.shape == (nt, 1, p)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_scalar_store_kernel_all_pairs_on_one_element(cuda):
+    """100,000 stores on element 7 of 50: the last one wins, the rest of
+    the table stays 0, and a second call gives the same table."""
+    rng = np.random.default_rng(7)
+    idx = torch.full((100_000,), 7, dtype=torch.int32)
+    val = torch.from_numpy(rng.integers(1, 1 << 20, 100_000).astype(np.int32))
+    got = scalar_store(idx.to(cuda), val.to(cuda), n_out=50)
+    again = scalar_store(idx.to(cuda), val.to(cuda), n_out=50)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), scalar_store_plain(idx, val, n_out=50))
+    assert int(got[7]) == int(val[-1])
+    assert int(got.count_nonzero()) == 1
+    assert torch.equal(again, got)
 
 
 @pytest.mark.gpu
