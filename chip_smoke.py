@@ -47,7 +47,10 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              printed); the binner kernel and D1 ran each step, counted
              over the replays; and one step's gradients with K2 must
              equal those with the plain backward on the card, on each
-             training view and on phase 6's view;
+             training view and on phase 6's view; then batch 2, two
+             cameras a step, eagerly and captured from copies of the
+             state (leaves after one step to GRAD_TOL, losses to
+             STEP_LOSS_RTOL);
   6. kernel: K2 (blend backward) against its plain version on the step
              input of the trained state's frame at t = 0.5 (its
              cotangents, its caps), with CUDA-event, device and
@@ -73,6 +76,15 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              seconds of each key, the recaptures, the rebinds after
              surgeries and the replays; the kernels' runs are read around
              the whole phase;
+ 10. eval:   run right after phase 7, on its trained model: the render
+             CLI (tools.render) writes the train, test and video splits'
+             PNGs, each frame a replay of the captured frame, and prints
+             each split's FPS; the metrics CLI (tools.metrics) scores the
+             test renders into results.json and per_view.json, with LPIPS
+             skipped unless its weights are present; the kernels' runs are
+             read around both, every render must have run K1, the binner
+             kernel and D1, and the post-hoc test PSNR must read phase 7's
+             last in-loop eval within RENDER_PSNR_TOL;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -102,6 +114,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -134,6 +147,7 @@ GRAD_TOL = 1e-4                # gradients, normalised by their max |.|
 # the two backward passes sum with float atomics in different orders, and
 # Adam's division by sqrt(nu) carries the last bits on from step to step
 STEP_LOSS_RTOL = 1e-3
+BATCH_TWO_STEPS = 6            # phase 5's batch-2 check, steps a mode
 # the kernels of the main paths: reported name -> wrapper name
 REPORTED = {"blend_fwd": "blend_forward", "blend_bwd": "blend_backward",
             "blend_bwd_slots": "blend_backward_slots",
@@ -176,11 +190,6 @@ BLEND_BWD_FP32_INSTR = {"eval": 12, "exp": 9, "used": 53}
 # chain; its per-slot sums over the tile's pixels need the same 10
 # additions per used pixel x slot, so its bound counts K2's instructions.
 
-# phase 7: the switches of the per-slot path, read at call time by
-# ops/blend.py, ops/scatter.py's callers and models/hexplane.py
-SWITCHES = {"FOURDGS_PALLAS_NO_FUSED_BWD": "1",
-            "FOURDGS_PALLAS_GRAD_SCATTER": "1",
-            "FOURDGS_HEX_BWD": "pallas", "FOURDGS_BIN_SCATTER": "pallas"}
 DRIVER_SIZE = 800              # data/blender.py RESOLUTION
 DRIVER_VIEWS = (60, 10)        # train, test: the JAX scene script's defaults
 RESUME_ITERS = 20
@@ -946,10 +955,68 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
     log(f"train: one step's gradients, K2 vs plain backward on the card: "
         f"{len(plain)} leaves, normalised max abs err per view "
         f"{', '.join(f'{e:.3g}' for e in errs)} (tol {GRAD_TOL:g})")
+    batch_two = check_batch_two(torch, state, step_fn, key, cams, gts, bg,
+                                leaves, a_step)
     return state, rc, bg, sh, check_cam, gts[-1], launches, {
         **modes, "captured_vs_eager": {"one_step_leaves": one_step,
                                        "losses": loss_err},
-        "step_grad_errs": errs}
+        "step_grad_errs": errs, "batch_two": batch_two}
+
+
+def check_batch_two(torch, state, step_fn, key, cams, gts, bg, leaves,
+                    a_step: dict):
+    """Batch 2: BATCH_TWO_STEPS steps of two cameras each, eagerly and as
+    replays of the captured step, from copies of `state` (left as it
+    is): every leaf after one step within GRAD_TOL normalised, the losses
+    within STEP_LOSS_RTOL."""
+    from fourdgs_tpu_torch.train import graphs
+
+    key = key._replace(batch=2)
+    device = state.alive.device
+    programs = graphs.StepPrograms(step_fn)
+    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg),
+           "captured": lambda st, c, g: programs.run(key, st, c, g, bg)}
+    losses, after_one, ms = {}, {}, {}
+    for mode in ("eager", "captured"):
+        st = state.to(device)
+        losses[mode] = []
+        for i in range(BATCH_TWO_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            views = [(2 * i + j) % len(cams) for j in range(2)]
+            aux = run[mode](st, [cams[v] for v in views],
+                            torch.stack([gts[v] for v in views]))
+            losses[mode].append(aux.loss)
+            if i == 0:
+                after_one[mode] = st.to(device)
+        torch.cuda.synchronize()
+        ms[mode] = 1e3 * (time.perf_counter() - t0) / (BATCH_TWO_STEPS - 1)
+        losses[mode] = [float(x) for x in losses[mode]]
+        del st
+    one_step = max(grads_agree(a.detach(), b.detach()) for a, b in zip(
+        leaves(after_one["captured"]), leaves(after_one["eager"]),
+        strict=True))
+    le, lc = np.array(losses["eager"]), np.array(losses["captured"])
+    loss_err = float(np.max(np.abs(lc - le) / np.abs(le)))
+    live = programs.live.program
+    log(f"train batch 2: {BATCH_TWO_STEPS} steps a mode, eager "
+        f"{ms['eager']:.3f} ms/step, captured {ms['captured']:.3f} ms/step "
+        f"({live.replays} replays of {live.launches}); captured against "
+        f"eager: after one step every leaf within {one_step:.3g} normalised "
+        f"(tol {GRAD_TOL:g}), losses within {loss_err:.3g} relative (tol "
+        f"{STEP_LOSS_RTOL:g})")
+    want = {REPORTED[k]: 2 * v for k, v in a_step.items()}
+    if live.launches != want or live.replays != BATCH_TWO_STEPS:
+        raise AssertionError(f"batch 2: {live.replays} replays of "
+                             f"{live.launches}, not {BATCH_TWO_STEPS} of "
+                             f"{want}")
+    if not one_step <= GRAD_TOL:
+        raise AssertionError(f"batch 2: captured leaves off by {one_step}")
+    if not loss_err <= STEP_LOSS_RTOL:
+        raise AssertionError(f"batch 2: captured losses off by {loss_err}")
+    return {"ms_per_step": ms, "one_step_leaves": one_step,
+            "losses": loss_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1171,7 +1238,7 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
               "--seed", str(seed), "--device", device.type]
 
     # ---- the main path, with the launch counts read around it ----
-    with switches_set(SWITCHES):
+    with switches_set(graphs.SWITCHES_ON):
         torch.cuda.synchronize()
         graphs.zero_counts()
         t0 = time.perf_counter()
@@ -1318,6 +1385,114 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
     stats.update(render_psnr=psnr, render_psnr_at_eval_caps=twin_psnr,
                  eval_psnr_view0=view0, test_view0_drops=drops)
     return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 10 (after phase 7): the render and metrics CLIs on phase 7's model
+# ---------------------------------------------------------------------------
+
+def phase_eval(torch, device, work: Path, fine: int, in_loop_psnr: float):
+    """tools/render.py on phase 7's trained model (its train, test and
+    video splits, each frame a replay of the captured frame), then
+    tools/metrics.py on the renders, with the kernels' runs read around
+    both. Returns the launch counts and what it measured."""
+    from fourdgs_tpu_torch.ops import lpips
+    from fourdgs_tpu_torch.tools import metrics as metrics_cli
+    from fourdgs_tpu_torch.tools import render as render_cli
+    from fourdgs_tpu_torch.train import graphs
+
+    scene, model = work / "scene", work / "driver"
+    for split in ("train", "test", "video"):
+        shutil.rmtree(model / split, ignore_errors=True)
+
+    # ---- the main path, with the launch counts read around it ----
+    torch.cuda.synchronize()
+    graphs.zero_counts()
+    printed = {"render": io.StringIO(), "metrics": io.StringIO()}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed["render"]):
+        rendered = render_cli.main([
+            "-m", str(model), "-s", str(scene), "--image_size",
+            str(DRIVER_SIZE), str(DRIVER_SIZE), "--device", device.type])
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed["metrics"]):
+        (results,) = metrics_cli.main(["-m", str(model), "--device",
+                                       device.type]).values()
+    t_metrics = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = kernel_runs()
+    printed = {k: v.getvalue() for k, v in printed.items()}
+    print(printed["render"] + printed["metrics"], end="", flush=True)
+
+    splits = rendered["splits"]
+    method = f"ours_{fine}"
+    views = {"train": DRIVER_VIEWS[0], "test": DRIVER_VIEWS[1],
+             "video": splits["video"]["views"]}
+    for name, res in splits.items():
+        log(f"eval: {name}: {res['views']} views at {DRIVER_SIZE}x"
+            f"{DRIVER_SIZE}, {res['passes']} passes ({res['renders']} "
+            f"renders), the last {res['seconds']:.3f} s, {res['fps']:.2f} "
+            f"FPS; max dropped_pairs {res['max_dropped_pairs']}, max "
+            f"dropped_tile {res['max_dropped_tile']} "
+            f"({res['views_dropping']} views)")
+    renders = (rendered["probe_renders"] + graphs.WARMUP
+               * rendered["captures"] + rendered["replays"])
+    gathers = HEX_GATHERS_PER_LEVEL * 2        # DRIVER_CONFIG's multires
+    want = {"blend_fwd": renders, "binner": renders,
+            "gather_rows": gathers * renders}
+    got = {k: launches[k] for k in want}
+    psnr = results[method]["PSNR"]
+    weights = [n for n in metrics_cli.LPIPS_NETS
+               if lpips.load_weights(n) is not None]
+    lpips_keys = sorted(k for k in results[method] if k.startswith("lpips"))
+    log(f"eval: render CLI {t_render:.2f} s (iteration "
+        f"{rendered['iteration']}, {rendered['probe_renders']} probe renders "
+        f"on train view 0, caps tile_cap "
+        f"{rendered['raster_cfg']['tile_cap']} bin_pairs_per_chunk "
+        f"{rendered['raster_cfg']['bin_pairs_per_chunk']}; "
+        f"{rendered['captures']} captures, {rendered['replays']} replays); "
+        f"kernel runs {got} over {renders} renders; metrics CLI "
+        f"{t_metrics:.2f} s: {results[method]}; post-hoc test PSNR "
+        f"{psnr:.4f} dB against phase 7's last in-loop eval "
+        f"{in_loop_psnr:.4f} (tol {RENDER_PSNR_TOL})")
+
+    def pngs(split, sub):
+        d = model / split / method / sub
+        return len([f for f in os.listdir(d) if f.endswith(".png")])
+
+    checks = {
+        "every split rendered": sorted(splits) == ["test", "train", "video"]
+        and rendered["iteration"] == fine,
+        "the PNG counts": all(
+            pngs(sp, "renders") == n and pngs(sp, "gt") == (
+                0 if sp == "video" else n) for sp, n in views.items()),
+        "every frame a replay": rendered["captures"] >= 1
+        and rendered["replays"] == sum(r["renders"] for r in splits.values()),
+        "the kernels ran every render": got == want,
+        "an FPS printed for each split": all(
+            r["fps"] > 0 and f"{sp}: {r['views']} views, FPS: "
+            in printed["render"] for sp, r in splits.items()),
+        "results.json": (model / "results.json").exists()
+        and (model / "per_view.json").exists(),
+        "finite metrics": all(np.isfinite(results[method][k]) for k in (
+            "PSNR", "SSIM", "MS-SSIM", "D-SSIM")),
+        "LPIPS as its weights allow": (
+            lpips_keys == [f"lpips-{n}" for n in sorted(weights)]
+            and (bool(weights) or "LPIPS: skipped" in printed["metrics"])),
+        "the post-hoc PSNR matches the run's eval":
+            abs(psnr - in_loop_psnr) <= RENDER_PSNR_TOL,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"eval checks: {len(checks) - len(failed)}/{len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"eval phase: {failed}")
+    return got, {
+        "seconds_render_cli": t_render, "seconds_metrics_cli": t_metrics,
+        "splits": splits, "probe_renders": rendered["probe_renders"],
+        "replays": rendered["replays"], "results": results[method],
+        "in_loop_test_psnr": in_loop_psnr}
 
 
 # ---------------------------------------------------------------------------
@@ -1907,11 +2082,12 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
 
 
 def path_entries(serve: dict, step: dict, serve_runs: dict,
-                 step_runs: dict) -> list:
+                 step_runs: dict, eval_runs: dict) -> list:
     """The kernels-line entries of the binner kernel and of D1 as the
     HexPlane's forward gather: their runs on the serve and step paths
-    (phases 3 and 5), and the checks on phase 4's frame and phase 6's
-    step input, the step's at the top level."""
+    (phases 3 and 5) and the render CLI's (phase 10), and the checks on
+    phase 4's frame and phase 6's step input, the step's at the top
+    level."""
     out = []
     for name, source, replaces, tpu_kernel in (
             ("binner", "binner.cu", "scripts/exp_pallas_binner_proto.py:78",
@@ -1928,7 +2104,8 @@ def path_entries(serve: dict, step: dict, serve_runs: dict,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
             "launches": serve_runs[name] + step_runs[name],
             "launches_serve": serve_runs[name],
-            "launches_step": step_runs[name], "max_abs_err": 0.0,
+            "launches_step": step_runs[name],
+            "launches_eval": eval_runs[name], "max_abs_err": 0.0,
             "ms": top["ms"], "device_ms": top["device_ms"],
             "host_ms": top["host_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",
@@ -1988,16 +2165,21 @@ def main(argv=None) -> int:
     driver_launches, driver = phase_driver(torch, device, work, args.coarse,
                                            args.fine, args.seed)
     k1["launches_driver"] = driver_launches["blend_fwd"]
+    eval_launches, evaluation = phase_eval(
+        torch, device, work, args.fine,
+        driver["stages"]["fine"]["test_psnr"][-1][1])
+    k1["launches_eval"] = eval_launches["blend_fwd"]
+    k1["eval"] = evaluation
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)
     kernels[2]["driver"] = driver
     kernels += path_entries(serve_checks, step_checks, launches,
-                            train_launches)
+                            train_launches, eval_launches)
     kernels += phase_dev_kernels(torch, device, args.seed)
     for k in kernels:
-        if k["launches"] == 0 or k.get("launches_serve", 1) == 0 \
-                or k.get("launches_step", 1) == 0:
+        if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
+                                     for path in ("serve", "step", "eval")):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

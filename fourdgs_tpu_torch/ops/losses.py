@@ -112,7 +112,12 @@ _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def _ssim_and_cs(img1, img2, window_size=11):
-    """SSIM mean and contrast-sensitivity mean with valid padding."""
+    """SSIM mean and contrast-sensitivity mean with valid padding. An
+    image smaller than the window has no valid position: both are the mean
+    of an empty map, NaN, as in the JAX package."""
+    if min(img1.shape[1], img1.shape[2]) < window_size:
+        nan = img1.new_full(img1.shape[:1], float("nan"))
+        return nan, nan
     mu1_sq, mu2_sq, mu1_mu2, s1, s2, s12 = _ssim_terms(img1, img2,
                                                        window_size, 0)
     cs_map = (2 * s12 + _C2) / (s1 + s2 + _C2)
@@ -121,7 +126,10 @@ def _ssim_and_cs(img1, img2, window_size=11):
 
 
 def _avg_pool2(img: torch.Tensor) -> torch.Tensor:
-    """2x2 mean pool with stride 2 over (B, H, W, C), odd edges dropped."""
+    """2x2 mean pool with stride 2 over (B, H, W, C), odd edges dropped
+    (an edge under 2 pools to an empty image)."""
+    if min(img.shape[1], img.shape[2]) < 2:
+        return img[:, :img.shape[1] // 2, :img.shape[2] // 2]
     return F.avg_pool2d(img.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 

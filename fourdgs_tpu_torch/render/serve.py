@@ -42,10 +42,18 @@ from fourdgs_tpu_torch.train import graphs
 from fourdgs_tpu_torch.utils.device import resolve_device
 
 # cap probe bounds (as in the JAX render CLI)
-_PROBE_ROUNDS = 5
+PROBE_ROUNDS = 5
 _TILE_CAP_MAX = 8192
 _PAIRS_PER_CHUNK_MAX = 1 << 18
 _FRAMES_HELD = 2     # captured frames a renderer keeps, the newest
+
+
+def overflows(dropped_pairs: int, dropped_tile: int,
+              num_pairs: int) -> tuple[bool, bool]:
+    """Whether a render dropped pairs to the pair budget, and whether its
+    tile-cap drops pass 0.5 % of its pairs (at least 64): the counter is an
+    upper bound, so fewer are not worth a larger cap."""
+    return dropped_pairs > 0, dropped_tile > max(64, num_pairs // 200)
 
 
 def _full_float32():
@@ -68,6 +76,8 @@ class Renderer:
     iteration: int = -1
     probe_renders: int = 0   # renders the cap probe made
     capture: bool | None = None   # None: capture frames on the card
+    captured: int = 0        # frames captured, and renders replayed
+    replayed: int = 0
     frames: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
@@ -76,10 +86,12 @@ class Renderer:
                       device: str | torch.device | None = None,
                       width: int = 800, height: int = 800,
                       configs: str = "",
-                      capture: bool | None = None) -> "Renderer":
+                      capture: bool | None = None,
+                      probe_camera: Camera | None = None) -> "Renderer":
         """Load the newest (or the given) snapshot under `model_path`, with
         configs from its `cfg_args.json` (plus an optional config file),
-        and run the cap probe on the look-at camera (eagerly)."""
+        and run the cap probe (eagerly) on `probe_camera`, by default the
+        look-at camera."""
         dev = resolve_device(device)
         _full_float32()
         cfg_path = os.path.join(model_path, "cfg_args.json")
@@ -100,31 +112,36 @@ class Renderer:
                            cfg, width, height),
                        sh_degree=cfg.model.sh_degree, device=dev,
                        iteration=it, capture=capture)
-        renderer.probe_caps(look_at_camera(device=dev))
+        renderer.probe_caps(probe_camera if probe_camera is not None
+                            else look_at_camera(device=dev))
         return renderer
 
     def probe_caps(self, camera: Camera) -> None:
         """The snapshot may hold far more gaussians than the saved binner
         caps were sized for: render one view and double the overflowing
         cap until the render is drop-free."""
-        for _ in range(_PROBE_ROUNDS):
+        for _ in range(PROBE_ROUNDS):
             out = self.render_eager(camera)
             self.probe_renders += 1
             dp, dt = int(out.dropped_pairs), int(out.dropped_tile)
-            dt_thresh = max(64, int(out.num_pairs) // 200)
-            if not (dp or dt > dt_thresh):
-                return
-            rc = self.raster_cfg
-            changes = {}
-            if dt > dt_thresh and rc.tile_cap < _TILE_CAP_MAX:
-                changes["tile_cap"] = rc.tile_cap * 2
-            if dp and rc.bin_pairs_per_chunk < _PAIRS_PER_CHUNK_MAX:
-                changes["bin_pairs_per_chunk"] = rc.bin_pairs_per_chunk * 2
+            changes = self.grow_caps(*overflows(dp, dt, int(out.num_pairs)))
             if not changes:
                 return
             print(f"binner overflow at saved caps ({dp} pairs/{dt} tile): "
                   f"growing {changes}")
+
+    def grow_caps(self, pairs: bool, tile: bool) -> dict:
+        """Double the pair budget (`pairs`) and the tile cap (`tile`) below
+        their limits; returns what changed."""
+        rc = self.raster_cfg
+        changes = {}
+        if tile and rc.tile_cap < _TILE_CAP_MAX:
+            changes["tile_cap"] = rc.tile_cap * 2
+        if pairs and rc.bin_pairs_per_chunk < _PAIRS_PER_CHUNK_MAX:
+            changes["bin_pairs_per_chunk"] = rc.bin_pairs_per_chunk * 2
+        if changes:
             self.raster_cfg = dataclasses.replace(rc, **changes)
+        return changes
 
     def captures(self) -> bool:
         return self.device.type == "cuda" if self.capture is None \
@@ -159,6 +176,8 @@ class Renderer:
                 key, lambda cam: self.render_eager(cam, stage), camera,
                 inputs, f"frame {stage} {rc.img_width}x{rc.img_height} "
                 f"tile_cap {rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
+            self.captured += 1
+        self.replayed += 1
         return frame(camera)
 
 

@@ -1,15 +1,27 @@
 """A synthetic animated scene in the Blender (D-NeRF) layout
-(counterpart: scripts/make_synthetic_scene.py, its monocular protocol).
+(counterpart: scripts/make_synthetic_scene.py).
 
     python -m fourdgs_tpu_torch.tools.make_synthetic_scene <out_dir> \\
-        [--size 800] [--n_train 60] [--n_test 10] [--device cpu]
+        [--size 800] [--n_train 60] [--n_test 10] [--device cpu] \\
+        [--protocol monocular|multiview] [--n_cams 6] [--n_times 30] \\
+        [--holdout_every N]
 
 Twelve coloured blobs of gaussians on sinusoidal paths (`ball_scene`) are
-rendered with the port's rasterizer from cameras on a circle around the
-origin (`lookat_c2w`), one view per timestamp, into
-transforms_{train,test}.json and RGBA PNGs written by the port's own codec
-(data/png.py). The default size is the Blender reader's RESOLUTION, so the
-scene trains at its stored size.
+rendered with the port's rasterizer from cameras looking at the origin
+(`lookat_c2w`) into transforms_{train,test}.json and RGBA PNGs written by
+the port's own codec (data/png.py). Three protocols, as in the JAX script:
+
+  * monocular (the default): one view per timestamp on a spiral, the test
+    split a second spiral offset by 0.13 rad;
+  * monocular with `--holdout_every N`: one pool of n_train + n_test views
+    under pool/, every N-th view held out as the test split, so that test
+    views come from the training views' distribution;
+  * multiview: a fixed rig of `--n_cams` cameras at staggered elevations,
+    each seeing all `--n_times` timestamps; camera 0 is held out as the
+    test split (the DyNeRF protocol).
+
+The default size is the Blender reader's RESOLUTION, so the scene trains
+at its stored size.
 """
 from __future__ import annotations
 
@@ -75,32 +87,77 @@ def lookat_c2w(theta: float, phi: float = -0.4, radius: float = 4.0):
 
 
 @torch.no_grad()
-def write_split(out_dir: str, name: str, n_views: int, theta_offset: float,
-                size: int, device):
-    """Render n_views views at times i / (n_views - 1) over a white
-    background into <out_dir>/<name>/ and write transforms_<name>.json."""
+def _write_view(out_dir: str, name: str, stem: str, c2w: np.ndarray,
+                t: float, size: int, device) -> dict:
+    """Render the scene at time t from c2w over a white background into
+    <out_dir>/<name>/<stem>.png; returns its transforms frame."""
+    R, T = blender_matrix_to_rt(c2w)
+    camera = make_camera(R, T, FOVX, FOVX, time=t, device=device)
+    m, s, q, o, c = (torch.from_numpy(x).to(device) for x in ball_scene(t))
     cfg = RasterConfig(img_width=size, img_height=size, tile_size=16,
                        tile_cap=512, chunk=32)
-    bg = torch.ones(3, device=device)
+    img = rasterize(m, s, q, o, c, camera, torch.ones(3, device=device),
+                    cfg).color.cpu().numpy()
+    rgba = np.concatenate([np.clip(img, 0, 1),
+                           np.ones((size, size, 1), np.float32)], -1)
+    write_png(os.path.join(out_dir, name, f"{stem}.png"),
+              (rgba * 255).astype(np.uint8))
+    return {"file_path": f"./{name}/{stem}", "time": t,
+            "transform_matrix": c2w.tolist()}
+
+
+def _write_transforms(out_dir: str, name: str, frames: list) -> None:
+    with open(os.path.join(out_dir, f"transforms_{name}.json"), "w") as f:
+        json.dump({"camera_angle_x": FOVX, "frames": frames}, f)
+
+
+def write_split(out_dir: str, name: str, n_views: int, theta_offset: float,
+                size: int, device):
+    """Render n_views views at times i / (n_views - 1), one per angle of
+    a spiral, into <out_dir>/<name>/ and write transforms_<name>.json."""
     os.makedirs(os.path.join(out_dir, name), exist_ok=True)
     frames = []
     for i in range(n_views):
         t = i / max(n_views - 1, 1)
         theta = 2 * np.pi * (i * 7 % n_views) / n_views + theta_offset
-        c2w = lookat_c2w(theta)
-        R, T = blender_matrix_to_rt(c2w)
-        camera = make_camera(R, T, FOVX, FOVX, time=t, device=device)
-        m, s, q, o, c = (torch.from_numpy(x).to(device)
-                         for x in ball_scene(t))
-        img = rasterize(m, s, q, o, c, camera, bg, cfg).color.cpu().numpy()
-        rgba = np.concatenate([np.clip(img, 0, 1),
-                               np.ones((size, size, 1), np.float32)], -1)
-        write_png(os.path.join(out_dir, f"{name}/r_{i}.png"),
-                  (rgba * 255).astype(np.uint8))
-        frames.append({"file_path": f"./{name}/r_{i}", "time": t,
-                       "transform_matrix": c2w.tolist()})
-    with open(os.path.join(out_dir, f"transforms_{name}.json"), "w") as f:
-        json.dump({"camera_angle_x": FOVX, "frames": frames}, f)
+        frames.append(_write_view(out_dir, name, f"r_{i}", lookat_c2w(theta),
+                                  t, size, device))
+    _write_transforms(out_dir, name, frames)
+
+
+def write_rig_split(out_dir: str, name: str, cam_ids: list, n_cams: int,
+                    n_times: int, size: int, device):
+    """The multiview rig: camera ci of n_cams at angle 2 pi ci / n_cams and
+    a staggered elevation sees every time ti / (n_times - 1)."""
+    os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+    frames = []
+    for ci in cam_ids:
+        theta = 2 * np.pi * ci / n_cams
+        phi = -0.55 + 0.3 * (ci % 3) / 2.0
+        c2w = lookat_c2w(theta, phi=phi)
+        for ti in range(n_times):
+            frames.append(_write_view(out_dir, name, f"cam{ci:02d}_t{ti:04d}",
+                                      c2w, ti / max(n_times - 1, 1), size,
+                                      device))
+        print(f"{name}: cam {ci} done ({n_times} frames)", flush=True)
+    _write_transforms(out_dir, name, frames)
+
+
+def write_holdout(out_dir: str, n_views: int, every: int, size: int,
+                  device) -> tuple[int, int]:
+    """One spiral of n_views views under pool/; every `every`-th view (0,
+    every, ...) is the test split, the rest the train split. Returns the
+    two splits' sizes."""
+    write_split(out_dir, "pool", n_views, 0.0, size, device)
+    pool_json = os.path.join(out_dir, "transforms_pool.json")
+    with open(pool_json) as f:
+        frames = json.load(f)["frames"]
+    os.remove(pool_json)
+    train = [fr for i, fr in enumerate(frames) if i % every != 0]
+    test = [fr for i, fr in enumerate(frames) if i % every == 0]
+    _write_transforms(out_dir, "train", train)
+    _write_transforms(out_dir, "test", test)
+    return len(train), len(test)
 
 
 def main(argv=None) -> None:
@@ -111,10 +168,31 @@ def main(argv=None) -> None:
     parser.add_argument("--n_test", type=int, default=10)
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain path")
+    parser.add_argument("--protocol", choices=["monocular", "multiview"],
+                        default="monocular")
+    parser.add_argument("--n_cams", type=int, default=6,
+                        help="multiview: cameras of the rig (0 is the test)")
+    parser.add_argument("--n_times", type=int, default=30,
+                        help="multiview: timestamps each camera sees")
+    parser.add_argument("--holdout_every", type=int, default=0,
+                        help="monocular: hold out every N-th view of one "
+                        "pool as the test split (0: a separate spiral)")
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
-    write_split(args.out_dir, "train", args.n_train, 0.0, args.size, dev)
-    write_split(args.out_dir, "test", args.n_test, 0.13, args.size, dev)
+    os.makedirs(args.out_dir, exist_ok=True)
+    if args.protocol == "multiview":
+        write_rig_split(args.out_dir, "train", list(range(1, args.n_cams)),
+                        args.n_cams, args.n_times, args.size, dev)
+        write_rig_split(args.out_dir, "test", [0], args.n_cams,
+                        args.n_times, args.size, dev)
+    elif args.holdout_every:
+        n_train, n_test = write_holdout(
+            args.out_dir, args.n_train + args.n_test, args.holdout_every,
+            args.size, dev)
+        print(f"holdout split: {n_train} train / {n_test} test")
+    else:
+        write_split(args.out_dir, "train", args.n_train, 0.0, args.size, dev)
+        write_split(args.out_dir, "test", args.n_test, 0.13, args.size, dev)
     print(f"synthetic dynamic scene written to {args.out_dir}")
 
 

@@ -57,9 +57,12 @@ from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.train import optim
 from fourdgs_tpu_torch.train.state import TrainState
 
-# the environment switches that the step and the frame read at call time
-SWITCHES = ("FOURDGS_PALLAS_NO_FUSED_BWD", "FOURDGS_PALLAS_GRAD_SCATTER",
-            "FOURDGS_HEX_BWD", "FOURDGS_BIN_SCATTER")
+# the environment switches that the step and the frame read at call time,
+# with the values that turn on the per-slot path (K3, K4, K5)
+SWITCHES_ON = {"FOURDGS_PALLAS_NO_FUSED_BWD": "1",
+               "FOURDGS_PALLAS_GRAD_SCATTER": "1",
+               "FOURDGS_HEX_BWD": "pallas", "FOURDGS_BIN_SCATTER": "pallas"}
+SWITCHES = tuple(SWITCHES_ON)
 # eager runs before a capture: the first call of each kernel sets its
 # attributes and the libraries' handles, which a capture must not do
 WARMUP = 2

@@ -183,9 +183,10 @@ def scene(tmp_path_factory):
                              eval_split=True, resolution=(32, 32))
 
 
-def _stage_cfg(densify_until=1020):
+def _stage_cfg(densify_until=1020, batch=1):
     cfg = _cfg(cap=2048)
     o = cfg.opt
+    o.batch_size = batch
     o.densify_from_iter = 4
     o.densification_interval = 10
     o.densify_until_iter = densify_until
@@ -225,19 +226,21 @@ def _run(cfg, scene, capture, nan_at=1005):
         start_iteration=970, capture=capture)
 
 
-@pytest.mark.parametrize("densify_until", [1020, 1400],
-                         ids=["statistics_stop", "bucket_ahead"])
+@pytest.mark.parametrize("densify_until,batch", [(1020, 1), (1400, 1),
+                                                 (1020, 2)],
+                         ids=["statistics_stop", "bucket_ahead", "batch_two"])
 def test_captured_stage_follows_the_eager_stage(scene, monkeypatch,
-                                                densify_until):
+                                                densify_until, batch):
     """run_stage with the captured step, each step a replay on bound
     buffers, against the eager step: the same events, logged values and
     final state, bit for bit, through every surgery, bucket changes, the
     SH ramp, tile_cap growth and a rollback. Each change of key captures
     once, when its step comes: the densify statistics stop inside the run
     (statistics_stop) or go on past it (bucket_ahead: only the buckets,
-    the caps and the ramp change the key)."""
+    the caps and the ramp change the key); batch_two steps two cameras a
+    step."""
     monkeypatch.setattr(graphs, "Program", ReplayEagerly)
-    cfg = _stage_cfg(densify_until)
+    cfg = _stage_cfg(densify_until, batch)
     eager = _run(cfg, scene, capture=False)
     captured = _run(cfg, scene, capture=True)
 

@@ -82,30 +82,34 @@ def test_captured_frame_equals_the_eager_frame(cuda):
     assert not torch.equal(outs[0].color, outs[1].color)
 
 
-def _step_state(dev):
+def _step_state(dev, batch=1):
     cfg = _cfg()
     st = _state(cfg).to(dev)
     tx = optim.build_optimizer(cfg.opt, 1.0)
     st.opt_state = tx.init(st.params)
     rc = tconfig.raster_config_from(cfg, 96, 96)
-    cam = look_at_camera(theta=0.3, time=0.4, device=dev)
-    gt = torch.rand((1, 96, 96, 3), device=dev,
+    cams = [look_at_camera(theta=0.3 + 0.5 * i, time=0.4 + 0.2 * i,
+                           device=dev) for i in range(batch)]
+    gt = torch.rand((batch, 96, 96, 3), device=dev,
                     generator=torch.Generator(dev).manual_seed(1))
     bg = torch.ones(3, device=dev)
-    key = graphs.StepKey("fine", st.capacity, rc, 1, True, 1, 0.0,
+    key = graphs.StepKey("fine", st.capacity, rc, 1, True, batch, 0.0,
                          (0.01, 1e-4, 1e-4), graphs.switches())
-    return st, loop.step_of_key(tx), key, [cam], gt, bg
+    return st, loop.step_of_key(tx), key, cams, gt, bg
 
 
-@pytest.mark.gpu
-def test_one_captured_step_matches_the_eager_step(cuda):
-    st, step_fn, key, cams, gt, bg = _step_state(cuda)
-    eager, captured = st.to(cuda), st.to(cuda)
+def _captured_step_matches_eager(dev, batch):
+    """One step eagerly and one captured from the same state: every leaf
+    within GRAD_TOL normalised, the loss to 1e-5; a step renders each
+    camera of the batch once, forward and backward."""
+    st, step_fn, key, cams, gt, bg = _step_state(dev, batch)
+    eager, captured = st.to(dev), st.to(dev)
     aux_e = step_fn(key)(eager, cams, gt, bg)
     steps = graphs.StepPrograms(step_fn)
     aux_c = steps.run(key, captured, cams, gt, bg)
-    assert steps.live.program.launches == {**FRAME_LAUNCHES,
-                                           "blend_backward": 1}
+    assert steps.live.program.launches == {
+        **{k: batch * v for k, v in FRAME_LAUNCHES.items()},
+        "blend_backward": batch}
     errs, want = {}, _tensors(eager)
     for name, a in _tensors(captured).items():
         b = want[name]
@@ -121,6 +125,19 @@ def test_one_captured_step_matches_the_eager_step(cuda):
     # a second replay advances the count and the step in place
     steps.run(key, captured, cams, gt, bg)
     assert int(captured.opt_state.count) == 2 and int(captured.step) == 2
+
+
+@pytest.mark.gpu
+def test_one_captured_step_matches_the_eager_step(cuda):
+    _captured_step_matches_eager(cuda, 1)
+
+
+@pytest.mark.gpu
+def test_a_captured_batch_two_step_matches_the_eager_step(cuda):
+    """Batch 2 (the dynerf configs' batch): the two cameras share one
+    ndc_offset, and the densify statistics take the radii's max and the
+    visibility's any over the two, in the graph as eagerly."""
+    _captured_step_matches_eager(cuda, 2)
 
 
 @pytest.mark.gpu

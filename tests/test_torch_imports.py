@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
 chip_smoke.py imports jax, jaxlib or the JAX package, and importing the
-serving, training and data modules, the training driver and its CLI, and
+serving, training and data modules, the training driver and its CLI, the
+render and metrics CLIs with LPIPS, and
 the dev tools' kernels and tools leaves jax out of sys.modules; importing
 the dev tools touches neither nvcc nor CUDA."""
 import ast
@@ -70,6 +71,9 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.tools.profile_render, "
             "fourdgs_tpu_torch.tools.train, "
             "fourdgs_tpu_torch.tools.make_synthetic_scene, "
+            "fourdgs_tpu_torch.tools.render, "
+            "fourdgs_tpu_torch.tools.metrics, "
+            "fourdgs_tpu_torch.ops.lpips, "
             "fourdgs_tpu_torch.data.scene, fourdgs_tpu_torch.data.blender, "
             "fourdgs_tpu_torch.data.png, fourdgs_tpu_torch.ops.scatter, "
             "fourdgs_tpu_torch.train.densify, "

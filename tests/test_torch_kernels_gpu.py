@@ -1394,3 +1394,52 @@ def test_hexplane_forward_on_card_matches_cpu(cuda, t):
         a, b = card.planes[key].grad.cpu(), p.grad
         err = float((a - b).abs().max()) / float(b.abs().max())
         assert err <= 1e-5, (key, err)
+
+
+def _lpips_params(rng, net):
+    """Random weights in the npz layout of ops/lpips.py (the shapes of
+    torchvision's VGG16 and AlexNet convolutions)."""
+    from fourdgs_tpu_torch.ops import lpips
+    if net == "vgg":
+        widths = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
+                  512)
+        convs = list(zip((3,) + widths[:-1], widths, [3] * 13))
+        channels = lpips.VGG_CHANNELS
+    else:
+        convs = [(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3),
+                 (256, 256, 3)]
+        channels = lpips.ALEX_CHANNELS
+    params = {}
+    for i, (cin, cout, k) in enumerate(convs):
+        params[f"conv{i}/w"] = (rng.normal(size=(cout, cin, k, k))
+                                * 0.05).astype(np.float32)
+        params[f"conv{i}/b"] = (rng.normal(size=(cout,))
+                                * 0.1).astype(np.float32)
+    for lvl, c in enumerate(channels):
+        params[f"lin{lvl}/w"] = rng.uniform(0, 1, (c,)).astype(np.float32)
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["vgg", "alex"])
+def test_lpips_on_the_card_matches_the_cpu(cuda, net):
+    """LPIPS (ops/lpips.py, cuDNN convolutions in full float32) on the
+    card against the CPU on the same random weights and images: 1e-5
+    relative."""
+    from fourdgs_tpu_torch.ops.lpips import LPIPS
+    rng = np.random.default_rng(0)
+    model = LPIPS(_lpips_params(rng, net), net).eval()
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 128, 128))
+                         .astype(np.float32))
+    y = (x + torch.from_numpy(rng.normal(0, 0.1, x.shape)
+                              .astype(np.float32))).clamp(0, 1)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # the model must not use it
+    try:
+        with torch.no_grad():
+            want = model(x, y)
+            got = model.to(cuda)(x.to(cuda), y.to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert bool((want > 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

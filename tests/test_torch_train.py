@@ -143,6 +143,18 @@ def test_ms_ssim_matches_jax():
     _ssim_close(tlosses.d_ssim, jlosses.d_ssim, a[0], b[0], "d_ssim", True)
 
 
+@pytest.mark.parametrize("size", [8, 32, 175, 176])
+def test_ms_ssim_of_a_small_image_is_nan_like_jax(size):
+    """Under 176 px (11 x 2^4) a level of MS-SSIM has no valid window
+    position: JAX's mean over the empty map is NaN, and so is the port's
+    (which raised in conv2d before)."""
+    a, b = _images((2, size, size + 3, 3), 4, near_white=False)
+    port = tlosses.ms_ssim(_t(a), _t(b)).numpy()
+    ref = np.asarray(jlosses.ms_ssim(a, b))
+    assert np.isnan(port).all() == np.isnan(ref).all() == (size < 176)
+    np.testing.assert_allclose(port, ref, atol=2e-6)
+
+
 def test_schedules_match_jax():
     cfg = tiny_config()
     steps = [0, 1, 1000, cfg.opt.position_lr_max_steps]
@@ -339,8 +351,8 @@ def test_create_from_points_matches_jax():
 # the gate: one fine and one coarse train_step from one state
 # ---------------------------------------------------------------------------
 
-def _look_at(make, t):
-    pos = np.array([4.0 * np.sin(0.3), 0.2, 4.0 * np.cos(0.3)])
+def _look_at(make, t, theta=0.3):
+    pos = np.array([4.0 * np.sin(theta), 0.2, 4.0 * np.cos(theta)])
     fwd = -pos / np.linalg.norm(pos)
     right = np.cross([0.0, 1.0, 0.0], fwd)
     right /= np.linalg.norm(right)
@@ -348,21 +360,30 @@ def _look_at(make, t):
     return make(r_w2c.T, -r_w2c @ pos, 0.9, 0.9, time=t)
 
 
-STEP_CASES = [("fine", 0.0), ("fine", 0.2), ("coarse", 0.0), ("coarse", 0.2)]
+# (stage, lambda_dssim, batch): JAX renders a batch of 2 unrolled and a
+# batch of 4 under vmap; the port loops over the cameras. Every camera of
+# a batch shares one ndc_offset, and the densify statistics take the
+# radii's max and the visibility's any over the batch.
+STEP_CASES = [("fine", 0.0, 1), ("fine", 0.2, 1), ("coarse", 0.0, 1),
+              ("coarse", 0.2, 1), ("fine", 0.0, 2), ("fine", 0.0, 4)]
+# the batch's cameras: (time, angle) around the scene
+BATCH_VIEWS = ((0.4, 0.3), (0.7, 0.8), (0.1, -0.4), (0.9, 1.3))
 
 
 @pytest.fixture(scope="module", params=STEP_CASES,
-                ids=[f"{s}-dssim{l}" for s, l in STEP_CASES])
+                ids=[f"{s}-dssim{l}" + (f"-batch{b}" if b > 1 else "")
+                     for s, l, b in STEP_CASES])
 def two_steps(request):
-    """Two steps of each package from one JAX-built state, on one camera
-    and target: the JAX step is compiled once per case."""
-    stage, lam = request.param
+    """Two steps (one at batch 2 and 4) of each package from one JAX-built
+    state, on a batch of cameras and targets: the JAX step is compiled
+    once per case."""
+    stage, lam, batch = request.param
     cfg = tiny_config(cap=256)
     pcfg = _port_cfg(cfg)
     st = _noisy_jax_state(cfg)
     port = _port_state(st, cfg)
     target = np.random.default_rng(7).uniform(
-        0.0, 1.0, (1, IMG, IMG, 3)).astype(np.float32)
+        0.0, 1.0, (batch, IMG, IMG, 3)).astype(np.float32)
     bg = np.array([1.0, 1.0, 1.0], np.float32)
     reg = (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
            cfg.hidden.plane_tv_weight)
@@ -370,11 +391,17 @@ def two_steps(request):
     trc = tconfig.raster_config_from(pcfg, IMG, IMG)
     tx_j = joptim.build_optimizer(cfg.opt, 1.0, st.params)
     tx_t = toptim.build_optimizer(pcfg.opt, 1.0)
-    jcam_ = jax.tree.map(lambda x: x[None], _look_at(jcam.make_camera, 0.4))
-    tcam_ = _look_at(lambda *a, **k: tcam.make_camera(*a, device="cpu", **k),
-                     0.4)
+    views = BATCH_VIEWS[:batch]
+    jcam_ = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        _look_at(jcam.make_camera, t, theta) for t, theta in views])
+    tcams = [_look_at(lambda *a, **k: tcam.make_camera(*a, device="cpu",
+                                                       **k), t, theta)
+             for t, theta in views]
     jax_states, jax_aux, port_states, port_aux = [st], [], [], []
-    for _ in range(2):
+    # batch 1 takes a second step, at count 2's learning rates; a batch
+    # takes one (the second step's image would carry the first update's
+    # noise-gradient entries, which move by lr either way, see above)
+    for _ in range(2 if batch == 1 else 1):
         st, aux = jloop.train_step(
             st, jcam_, jnp.asarray(target), jnp.asarray(bg), jnp.int32(1),
             stage=stage, raster_cfg=jrc,
@@ -383,7 +410,7 @@ def two_steps(request):
         jax_states.append(jckpt._flatten(st._asdict()))
         jax_aux.append(aux)
         port, aux = tloop.train_step(
-            port, [tcam_], _t(target), _t(bg), 1, stage=stage,
+            port, tcams, _t(target), _t(bg), 1, stage=stage,
             raster_cfg=trc, tx=tx_t, lambda_dssim=lam, reg_weights=reg)
         port_aux.append(aux)
         port_states.append({
@@ -395,8 +422,8 @@ def two_steps(request):
             "stats": {k: getattr(port, k).clone() for k in
                       ("xyz_gradient_accum", "denom", "max_radii2d", "step")},
             "count": int(port.opt_state.count)})
-    return dict(stage=stage, jax_states=jax_states, jax_aux=jax_aux,
-                port_states=port_states, port_aux=port_aux)
+    return dict(stage=stage, batch=batch, jax_states=jax_states,
+                jax_aux=jax_aux, port_states=port_states, port_aux=port_aux)
 
 
 def test_train_step_loss_matches_jax(two_steps):
