@@ -85,6 +85,29 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              read around both, every render must have run K1, the binner
              kernel and D1, and the post-hoc test PSNR must read phase 7's
              last in-loop eval within RENDER_PSNR_TOL;
+ 11. nerfies: run after phase 10: a vrig-like HyperNeRF capture of the
+             ball scene (write_nerfies_scene: two cameras x 40 timestamps,
+             rgb/2x at 536x960, covisible masks, 2,000 random points)
+             trained by the train CLI at configs/hypernerf/default.py's
+             widths and batch 2, its schedule cut (LAYOUTS), then the
+             render and metrics CLIs; the kernels' runs read around each
+             (K2 batch times a step, K1 and the binner every render, D1
+             every fine render), the post-hoc test PSNR within
+             RENDER_PSNR_TOL of the last in-loop eval; then on the trained
+             model K1 on a test frame (as phase 4), one step's gradients
+             with K2 against the plain backward's (GRAD_TOL) and its 54
+             16-wide HexPlane gathers against index_select;
+ 12. dynerf: the same on a DyNeRF (Neu3D) capture (write_dynerf_scene:
+             poses_bounds.npy for four cameras, cam00 held out, 24 frames
+             a camera at 1352x1014 under camNN/images/, empty camNN.mp4
+             placeholders) at configs/dynerf/default.py's widths and batch
+             4 (36 gathers a view); then the bank check: the train split's
+             device, host and lazy banks equal bit for bit over every
+             view, and BANK_STEPS captured steps of run_stage from one
+             state with the device bank and with the lazy bank and its
+             prefetch, losses within STEP_LOSS_RTOL, with each one's ms a
+             step and the lazy bank's decode ms a view, prefetched
+             batches and wait a step;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -1496,6 +1519,584 @@ def phase_eval(torch, device, work: Path, fine: int, in_loop_psnr: float):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-12 (after phase 10): the nerfies (HyperNeRF) and DyNeRF layouts
+# ---------------------------------------------------------------------------
+
+# the scenes: the ball scene (tools/make_synthetic_scene.py:ball_scene)
+# seen through the layouts' cameras at their datasets' sizes
+NERFIES_SIZE = (536, 960)      # rgb/2x (W, H): a HyperNeRF vrig view
+NERFIES_TIMES = 40             # timestamps, each seen by both cameras
+DYNERF_SIZE = (1352, 1014)     # data/dynerf.py IMG_WH
+DYNERF_CAMS = 4                # cam00 is the test camera
+DYNERF_FRAMES = 24             # frames a camera, at t = index / 300
+SCENE_FOVX = 0.9               # radians, at each layout's width
+SCENE_POINTS = 2000            # the initial cloud, as synth_mv's
+# a DyNeRF rig faces its scene from near the origin, as LLFF captures do,
+# so the ball scene is moved in front of it
+DYNERF_OFFSET = (0.0, 0.0, -4.0)
+DYNERF_RIG = ((0.0, 0.0, 0.0), (-0.5, 0.1, 0.1), (0.5, 0.1, 0.1),
+              (0.0, -0.35, 0.05))
+BANK_STEPS = 20                # phase 12: captured steps a bank mode
+DECODE_VIEWS = 8               # phase 12: views decoded on one thread
+# the layouts' config files; the overlay cuts only the schedule to the
+# run's length: iterations, densify and prune every `every` iterations
+# until `until`, prune above 1,000 live points, buckets from 1,024 (so
+# that the few thousand points cross one)
+LAYOUTS = {
+    "nerfies": dict(config="hypernerf/default.py", size=NERFIES_SIZE,
+                    views=dict(n_times=NERFIES_TIMES),
+                    coarse=200, fine=400, every=50, until=300),
+    "dynerf": dict(config="dynerf/default.py", size=DYNERF_SIZE,
+                   views=dict(n_frames=DYNERF_FRAMES),
+                   coarse=100, fine=200, every=25, until=150),
+}
+LAYOUT_CONFIG = """\
+_base_ = {base!r}
+OptimizationParams = dict(
+    coarse_iterations={coarse},
+    iterations={fine},
+    densify_from_iter={every},
+    densification_interval={every},
+    pruning_from_iter={every},
+    pruning_interval={every},
+    densify_until_iter={until},
+    prune_min_points=1000,
+)
+RasterParams = dict(min_bucket=1024)
+"""
+
+
+def look_at(pos, target=(0.0, 0.0, 0.0)):
+    """The rows right, down, forward (OpenCV axes) of a camera at `pos`
+    looking at `target`, world up +y."""
+    fwd = np.asarray(target, np.float64) - np.asarray(pos, np.float64)
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    return np.stack([right, np.cross(fwd, right), fwd])
+
+
+def render_ball(torch, camera, t: float, size, device,
+                offset=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """The ball scene at time t through `camera`, over white, as (H, W, 3)
+    uint8 (truncated, as tools/make_synthetic_scene.py writes it)."""
+    from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, rasterize
+    from fourdgs_tpu_torch.tools.make_synthetic_scene import ball_scene
+
+    m, s, q, o, c = ball_scene(t)
+    m = m + np.asarray(offset, np.float32)
+    cfg = RasterConfig(img_width=size[0], img_height=size[1], tile_size=16,
+                       tile_cap=1024, chunk=32)
+    with torch.no_grad():
+        img = rasterize(*(torch.from_numpy(x).to(device)
+                          for x in (m, s, q, o, c)),
+                        camera, torch.ones(3, device=device), cfg).color
+    return (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+
+
+def write_cloud(path: Path, seed: int, offset=(0.0, 0.0, 0.0)) -> None:
+    """SCENE_POINTS random points around the ball scene, random colours
+    (the layouts' points3D_downsample2.ply)."""
+    from fourdgs_tpu_torch.data import ply
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.3, 1.3, (SCENE_POINTS, 3)) + np.asarray(offset)
+    rgb = rng.uniform(0.0, 255.0, (SCENE_POINTS, 3))
+    cols = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
+    cols.update({n: np.zeros(SCENE_POINTS) for n in ("nx", "ny", "nz")})
+    cols.update(red=rgb[:, 0], green=rgb[:, 1], blue=rgb[:, 2])
+    ply._write_ply(str(path), {k: v.astype(np.float32)
+                               for k, v in cols.items()})
+
+
+def write_nerfies_scene(torch, root: Path, device, size=NERFIES_SIZE,
+                        n_times: int = NERFIES_TIMES, seed: int = 0) -> None:
+    """A vrig-like HyperNeRF capture: a pair of cameras 0.3 apart sweeping
+    one radian around the scene over n_times timestamps, the left camera's
+    views the train split and the right's the val split; rgb/2x images of
+    `size` (the camera JSONs' image_size twice it), covisible masks for
+    the val views, and the initial cloud. Each image is rendered through
+    the camera that data/hyper.py reads for it, at its time."""
+    import concurrent.futures
+
+    from fourdgs_tpu_torch.data.hyper import HyperScene
+    from fourdgs_tpu_torch.data.png import write_png
+    from fourdgs_tpu_torch.data.scene import camera_from_info
+
+    w, h = size
+    focal = 2 * w / (2 * np.tan(SCENE_FOVX / 2))
+    for d in ("camera", "rgb/2x", "covisible/2x/val"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    ids, meta, split = [], {}, {"left": [], "right": []}
+    for i in range(n_times):
+        theta = -0.5 + i / max(n_times - 1, 1)
+        rig = 4.0 * np.array([np.sin(theta) * np.cos(0.3), np.sin(0.3),
+                              np.cos(theta) * np.cos(0.3)])
+        right = look_at(rig)[0]
+        for cam_id, side in enumerate(("left", "right")):
+            pos = rig + (cam_id - 0.5) * 0.3 * right
+            iid = f"{side}_{i:05d}"
+            with open(root / "camera" / f"{iid}.json", "w") as f:
+                json.dump({"orientation": look_at(pos).tolist(),
+                           "position": pos.tolist(), "focal_length": focal,
+                           "principal_point": [w, h],
+                           "image_size": [2 * w, 2 * h], "skew": 0.0,
+                           "pixel_aspect_ratio": 1.0,
+                           "radial_distortion": [0.0, 0.0, 0.0],
+                           "tangential_distortion": [0.0, 0.0]}, f)
+            ids.append(iid)
+            split[side].append(iid)
+            meta[iid] = {"camera_id": cam_id, "warp_id": i,
+                         "appearance_id": i}
+    for name, body in (
+            ("metadata.json", meta),
+            ("dataset.json", {"count": len(ids), "num_exemplars": n_times,
+                              "ids": ids, "train_ids": split["left"],
+                              "val_ids": split["right"]}),
+            ("scene.json", {"scale": 1.0, "center": [0.0, 0.0, 0.0],
+                            "near": 0.1, "far": 10.0})):
+        with open(root / name, "w") as f:
+            json.dump(body, f)
+    write_cloud(root / "points3D_downsample2.ply", seed)
+    mask = np.full((h, w), 255, np.uint8)
+    mask[:, : w // 8] = 0                 # a band the left camera misses
+    hs = HyperScene(str(root))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futures = []
+        for idx, iid in enumerate(hs.all_img_ids):
+            info = hs.camera_info(idx, image_sized=False)
+            img = render_ball(torch, camera_from_info(info, device),
+                              info.time, size, device)
+            futures.append(pool.submit(write_png, hs.all_img[idx], img))
+            if iid in split["right"]:
+                futures.append(pool.submit(
+                    write_png, str(root / "covisible/2x/val" / f"{iid}.png"),
+                    mask))
+        for f in futures:
+            f.result()
+
+
+def write_dynerf_scene(torch, root: Path, device, size=DYNERF_SIZE,
+                       n_frames: int = DYNERF_FRAMES, seed: int = 0) -> None:
+    """A DyNeRF (Neu3D) capture: poses_bounds.npy for DYNERF_RIG's cameras
+    (cam00 the test camera), each looking at the ball scene moved to
+    DYNERF_OFFSET, an empty camNN.mp4 placeholder each, n_frames frames a
+    camera under camNN/images/%04d.png at `size`, rendered at t = index /
+    300 through the camera that data/dynerf.py reads, and the initial
+    cloud. The frames have Paeth rows, as PIL writes the frames that a
+    DyNeRF preprocessing extracts, so that they decode at the rate real
+    frames do. The field of view is SCENE_FOVX across the width."""
+    import concurrent.futures
+
+    from fourdgs_tpu_torch.data import dynerf
+    from fourdgs_tpu_torch.data.llff_poses import c2w_to_rt
+    from fourdgs_tpu_torch.data.png import write_png
+    from fourdgs_tpu_torch.data.scene import camera_from_info
+    from fourdgs_tpu_torch.data.scene_info import CameraInfo
+    from fourdgs_tpu_torch.ops.transforms import focal2fov
+
+    root.mkdir(parents=True, exist_ok=True)
+    hwf = [2028.0, 2704.0, 2704.0 / (2 * np.tan(SCENE_FOVX / 2))]
+    rows = []
+    for pos in DYNERF_RIG:
+        right, down, fwd = look_at(pos, DYNERF_OFFSET)
+        # LLFF's columns: down, right, back, position; then h, w, focal
+        llff = np.stack([down, right, -fwd, np.asarray(pos), hwf], 1)
+        rows.append(np.concatenate([llff.ravel(), [2.5, 5.5]]))
+    np.save(root / "poses_bounds.npy", np.stack(rows))
+    for i in range(len(DYNERF_RIG)):
+        (root / f"cam{i:02d}.mp4").touch()
+        (root / f"cam{i:02d}" / "images").mkdir(parents=True, exist_ok=True)
+    write_cloud(root / "points3D_downsample2.ply", seed, DYNERF_OFFSET)
+    poses, _, focal = dynerf.camera_poses(str(root), size)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futures = []
+        for i in range(len(DYNERF_RIG)):
+            R, T = c2w_to_rt(poses[i])
+            for idx in range(n_frames):
+                info = CameraInfo(
+                    uid=idx, R=R, T=T, fovx=focal2fov(focal, size[0]),
+                    fovy=focal2fov(focal, size[1]), image=None,
+                    image_path=None, image_name=None, width=size[0],
+                    height=size[1], time=idx / dynerf.N_FRAMES)
+                img = render_ball(torch, camera_from_info(info, device),
+                                  info.time, size, device, DYNERF_OFFSET)
+                futures.append(pool.submit(
+                    write_png, str(root / f"cam{i:02d}" / "images"
+                                   / f"{idx:04d}.png"), img, 4))
+        for f in futures:
+            f.result()
+
+
+@contextlib.contextmanager
+def dot_free_dir(path: Path):
+    """`path`, or where its absolute path has a dot (which the DyNeRF
+    reader's `video_path.split(".")[0]` cuts at) a fresh temporary
+    directory, removed after the block."""
+    import tempfile
+    if "." not in str(path.resolve()):
+        yield path
+        return
+    tmp = Path(tempfile.mkdtemp(prefix="fourdgs_"))
+    if "." in str(tmp):
+        raise RuntimeError(f"neither {path} nor {tmp} is free of dots")
+    try:
+        yield tmp / path.name
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def step_checks(torch, kind: str, state, cams, gts, bg, sh, rc,
+                cfg) -> dict:
+    """One eager step of the trained state on a batch: its gradients with
+    K2 against the plain backward's (every leaf within GRAD_TOL
+    normalised), and its HexPlane forward gathers, which must be
+    HEX_GATHERS_PER_LEVEL a level a view and 16 wide, against
+    index_select (check_gathers)."""
+    from fourdgs_tpu_torch.train import loop
+
+    reg = (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
+           cfg.hidden.plane_tv_weight)
+    kw = dict(stage="fine", raster_cfg=rc, lambda_dssim=cfg.opt.lambda_dssim,
+              reg_weights=reg)
+
+    def grads():
+        sg = loop.step_gradients(state, cams, gts, bg, sh, **kw)
+        return [x for x in sg.grads + [sg.ndc_grad] if x is not None]
+
+    with recorded_gathers([]) as gathers:
+        with_k2 = grads()
+    with plain_version("blend_backward"):
+        plain = grads()
+    errs = [grads_agree(a, b) for a, b in zip(with_k2, plain, strict=True)]
+    want = HEX_GATHERS_PER_LEVEL * len(cfg.hidden.multires) * len(cams)
+    widths = sorted({t.shape[1] for t, _ in gathers})
+    log(f"{kind}: one step of batch {len(cams)} at {rc.img_width}x"
+        f"{rc.img_height}: gradients with K2 against the plain backward, "
+        f"{len(plain)} leaves, normalised max abs err {max(errs):.3g} (tol "
+        f"{GRAD_TOL:g}); {len(gathers)} HexPlane gathers (want {want}), "
+        f"widths {widths}")
+    if not max(errs) <= GRAD_TOL:
+        raise AssertionError(f"{kind}: K2 step gradients off by {max(errs)}"
+                             f" in leaf {int(np.argmax(errs))}")
+    if len(gathers) != want or widths != [16]:
+        raise AssertionError(f"{kind}: {len(gathers)} gathers of widths "
+                             f"{widths}, not {want} of 16")
+    return {"grad_err": max(errs),
+            "gather_rows": check_gathers(torch, f"{kind} step", gathers)}
+
+
+def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
+               seed: int) -> dict:
+    """The DyNeRF train split in each bank mode (stack_cameras with the
+    budgets that pick it): every view equal bit for bit across the three;
+    then BANK_STEPS captured steps of run_stage from one state with the
+    device bank and with a lazy bank and its prefetch, whose losses must
+    agree within STEP_LOSS_RTOL. Prints each mode's ms a step (the loss
+    read after every step), one view's decode ms on one thread, and the
+    lazy bank's prefetched batches and wait a step."""
+    from fourdgs_tpu_torch.data.scene import (DECODE_WORKERS, _load_u8,
+                                              load_scene_info, stack_cameras)
+    from fourdgs_tpu_torch.train import loop, optim
+
+    infos = load_scene_info(scene)[0].train_cameras
+    budgets = {"device": {}, "host": {"device_budget": 0},
+               "lazy": {"device_budget": 0, "host_budget": 0}}
+    t0 = time.perf_counter()
+    splits = {m: stack_cameras(infos, device, **b) for m, b in budgets.items()}
+    t_stack = time.perf_counter() - t0
+    banks = {m: s.images for m, s in splits.items()}
+    if [b.mode for b in banks.values()] != list(budgets):
+        raise AssertionError(f"bank modes {[b.mode for b in banks.values()]}")
+    n, batch = len(infos), cfg.opt.batch_size
+    differ = []
+    for start in range(0, n, batch):
+        idxs = np.arange(start, min(n, start + batch))
+        ref = banks["device"][idxs]
+        differ += [(m, start) for m in ("host", "lazy")
+                   if not torch.equal(banks[m][idxs], ref)]
+    banks["host"].close()
+    banks["lazy"].close()
+    # one view's decode on one thread (the frames have Paeth rows)
+    t0 = time.perf_counter()
+    for info in infos[:DECODE_VIEWS]:
+        _load_u8(info)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / DECODE_VIEWS
+    log(f"dynerf banks: {n} train views at {splits['device'].width}x"
+        f"{splits['device'].height} in device, host and lazy modes "
+        f"({t_stack:.2f} s to stack the three); equal bit for bit over "
+        f"every view: {not differ}; one view decodes on one thread in "
+        f"{decode_ms:.3f} ms")
+    if differ:
+        raise AssertionError(f"bank batches differ: {differ[:5]}")
+
+    quiet = copy.deepcopy(cfg)
+    quiet.opt.densify_until_iter = 0       # no surgery: steps only
+    cams = splits["device"].cameras
+    runs = {}
+    for mode in ("device", "lazy"):
+        bank = (banks["device"] if mode == "device" else stack_cameras(
+            infos, device, with_images=True, **budgets["lazy"]).images)
+        stamps = []
+        st = state.to(device)
+        tx = optim.build_optimizer(quiet.opt, extent)
+        res = loop.run_stage(
+            quiet, st, "fine", BANK_STEPS, cams, bank, tx, rc,
+            rng=np.random.default_rng(seed), log_every=1,
+            cameras_extent=extent, initial_active_sh=sh,
+            on_iteration=lambda it, s, a: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        # each step ends with its loss read; the first two capture
+        ms = 1e3 * float(np.median(np.diff(stamps[2:])))
+        runs[mode] = {"ms_per_step": ms,
+                      "losses": [r["loss"] for r in res.history],
+                      "replays": res.graphs["replays"],
+                      "stats": dict(bank.stats) if mode == "lazy" else None}
+        bank.close()
+        del st, res
+    le = np.array(runs["device"]["losses"])
+    ll = np.array(runs["lazy"]["losses"])
+    loss_err = float(np.max(np.abs(ll - le) / np.abs(le)))
+    s = runs["lazy"]["stats"]
+    waits = 1e3 * np.array(s.pop("waits"))
+    wait_ms = float(np.median(waits))
+    log(f"dynerf banks: {BANK_STEPS} captured steps of batch {batch} from "
+        f"one state: device bank {runs['device']['ms_per_step']:.3f} "
+        f"ms/step, lazy bank {runs['lazy']['ms_per_step']:.3f} ms/step "
+        f"(median, each step's loss read); lazy: {s['decoded']} views "
+        f"decoded by {DECODE_WORKERS} worker processes, "
+        f"{s['prefetched']} of {s['batches']} batches prefetched, the "
+        f"training thread waited {wait_ms:.3f} ms a step (median; mean "
+        f"{waits.mean():.3f}, the first {waits[0]:.3f}, the workers' "
+        f"start included); losses within "
+        f"{loss_err:.3g} relative (tol {STEP_LOSS_RTOL:g})")
+    if not all(r["replays"] == BANK_STEPS for r in runs.values()):
+        raise AssertionError(f"bank steps replayed {runs}")
+    if not loss_err <= STEP_LOSS_RTOL:
+        raise AssertionError(f"lazy-bank losses off by {loss_err}")
+    return {"views": n, "equal": True, "loss_err": loss_err,
+            "decode_ms_per_view": decode_ms, "wait_ms_per_step": wait_ms,
+            "wait_ms_per_step_mean": float(waits.mean()),
+            **{f"{m}_ms_per_step": r["ms_per_step"] for m, r in runs.items()},
+            "lazy_stats": s}
+
+
+def phase_layout(torch, device, work: Path, kind: str, seed: int):
+    """The train CLI on a synthetic scene in the `kind` layout at its
+    config's widths and batch, its schedule cut (LAYOUTS), then the render
+    and metrics CLIs, with the kernels' runs read around each; then K1 on
+    a test frame and one step's K2 gradients and gathers against their
+    plain versions at the layout's size, and for dynerf the bank check.
+    Returns the launch counts (training and evaluation summed) and what
+    it measured."""
+    from fourdgs_tpu_torch.data.scene import Scene
+    from fourdgs_tpu_torch.ops import losses
+    from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from fourdgs_tpu_torch.render.serve import Renderer
+    from fourdgs_tpu_torch.tools import metrics as metrics_cli
+    from fourdgs_tpu_torch.tools import render as render_cli
+    from fourdgs_tpu_torch.tools import train as train_cli
+    from fourdgs_tpu_torch.train import checkpoint, graphs
+    from fourdgs_tpu_torch.train import config as config_mod
+
+    spec = LAYOUTS[kind]
+    w, h = spec["size"]
+    t_phase = time.perf_counter()
+    with dot_free_dir(work / kind) as scene:
+        shutil.rmtree(scene, ignore_errors=True)
+        model = work / f"{kind}_model"
+        shutil.rmtree(model, ignore_errors=True)
+        t0 = time.perf_counter()
+        writer = write_nerfies_scene if kind == "nerfies" else \
+            write_dynerf_scene
+        writer(torch, scene, device, size=spec["size"], seed=seed,
+               **spec["views"])
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+        config = work / f"{kind}_smoke.py"
+        config.write_text(LAYOUT_CONFIG.format(
+            base=str(ROOT / "fourdgs_tpu" / "configs" / spec["config"]),
+            **{k: spec[k] for k in ("coarse", "fine", "every", "until")}))
+        cfg = config_mod.apply_config_file(config_mod.Config(), str(config))
+        batch, levels = cfg.opt.batch_size, len(cfg.hidden.multires)
+        log(f"{kind}: scene written in {t_write:.2f} s at {w}x{h}; config "
+            f"{spec['config']}: batch {batch}, multires "
+            f"{cfg.hidden.multires}, kplanes {cfg.hidden.kplanes_config}, "
+            f"net_width {cfg.hidden.net_width}, defor_depth "
+            f"{cfg.hidden.defor_depth}")
+
+        # ---- the main path: the train CLI, then the render and metrics
+        # CLIs, with the launch counts read around each ----
+        torch.cuda.synchronize()
+        graphs.zero_counts()
+        t0 = time.perf_counter()
+        summary = train_cli.main([
+            "-s", str(scene), "-m", str(model), "--configs", str(config),
+            "--quiet", "--seed", str(seed), "--device", device.type,
+            "--test_iterations", str(spec["coarse"]), str(spec["fine"]),
+            "--save_iterations", str(spec["fine"]),
+            "--checkpoint_iterations", str(spec["fine"])])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_runs = kernel_runs()
+        graphs.zero_counts()
+        t0 = time.perf_counter()
+        rendered = render_cli.main(["-m", str(model), "-s", str(scene),
+                                    "--device", device.type])
+        t_render = time.perf_counter() - t0
+        (results,) = metrics_cli.main(["-m", str(model), "--device",
+                                       device.type]).values()
+        torch.cuda.synchronize()
+        eval_runs = kernel_runs()
+
+        # ---- what the runs report ----
+        stages = {}
+        for st in summary["stages"]:
+            n_it = st["iterations"] - st["start"]
+            g, kinds = st["graphs"], [e["kind"] for e in st["events"]]
+            stages[st["stage"]] = {
+                "iterations": n_it,
+                "ms_per_iteration": 1e3 * st["wall_time"] / n_it,
+                "loss_first": st["history"][0]["loss"],
+                "loss_last": st["history"][-1]["loss"],
+                "points_last": st["history"][-1]["points"],
+                "capacity_last": st["history"][-1]["capacity"],
+                "test_psnr": st["test_psnr"],
+                "events": {k: kinds.count(k) for k in sorted(set(kinds))},
+                "captures": len(g["captures"]), "replays": g["replays"],
+                "capture_s": sum(c["seconds"] for c in g["captures"]),
+                "peak_mib": (st["peak_bytes"] or 0) / 2**20}
+            r = stages[st["stage"]]
+            log(f"{kind} {st['stage']}: {n_it} iterations, "
+                f"{r['ms_per_iteration']:.3f} ms/iteration; loss "
+                f"{r['loss_first']:.6f} -> {r['loss_last']:.6f}; test PSNR "
+                f"{r['test_psnr']}; points {r['points_last']} in "
+                f"{r['capacity_last']}; events {r['events']}; "
+                f"{r['captures']} captures ({r['capture_s']:.2f} s), "
+                f"{r['replays']} replays; peak {r['peak_mib']:.1f} MiB")
+        splits = rendered["splits"]
+        method = f"ours_{spec['fine']}"
+        in_loop = summary["stages"][-1]["test_psnr"][-1][1]
+        psnr = results[method]["PSNR"]
+        for name, res in splits.items():
+            log(f"{kind} eval: {name}: {res['views']} views at {w}x{h}, "
+                f"{res['passes']} passes, {res['fps']:.2f} FPS; max "
+                f"dropped_pairs {res['max_dropped_pairs']}, max dropped_tile "
+                f"{res['max_dropped_tile']}")
+        log(f"{kind} eval: metrics {results[method]}; post-hoc test PSNR "
+            f"{psnr:.4f} dB against the last in-loop eval {in_loop:.4f} "
+            f"(tol {RENDER_PSNR_TOL}); train CLI {t_train:.2f} s, render "
+            f"CLI {t_render:.2f} s; kernel runs: training {train_runs}, "
+            f"evaluation {eval_runs}")
+
+        # ---- the test split evaluated as the run's eval does, at the SH
+        # degree the render CLI renders (the model's): a cut schedule ends
+        # below it, and where the deformation moves the SH rest bands
+        # (no_dshs False, the dynerf configs) the two degrees differ ----
+        sc = Scene.load(str(scene), device=device)
+        state, _, _, sh = checkpoint.load_checkpoint(
+            str(model / f"chkpnt_fine_{spec['fine']}.npz"),
+            config_mod.deform_config_from(cfg), device)
+        rc = RasterConfig(**summary["stages"][-1]["raster_cfg"])
+        bg = torch.ones(3, device=device) if cfg.model.white_background \
+            else torch.zeros(3, device=device)
+        degree = cfg.model.sh_degree
+        at_degree = float(np.mean([float(losses.psnr(torch.clamp(
+            train_cli.eval_render(state, cam, bg, "fine", degree, rc)[0], 0,
+            1)[None], sc.test.images[[i]])[0])
+            for i, cam in enumerate(sc.test.cameras)]))
+        log(f"{kind} eval: the run ended at SH degree {sh} of {degree} "
+            f"(no_dshs {cfg.hidden.no_dshs}); its state's test PSNR at "
+            f"degree {degree}, as the run's eval renders: {at_degree:.4f} dB "
+            f"(the post-hoc {psnr:.4f}, the in-loop eval at degree {sh} "
+            f"{in_loop:.4f})")
+
+        # ---- the kernels' runs and the run's checks ----
+        co, fi = stages["coarse"], stages["fine"]
+        stepped = {s: r["replays"] + graphs.WARMUP * r["captures"]
+                   for s, r in stages.items()}
+        gathers = HEX_GATHERS_PER_LEVEL * levels
+        renders = (rendered["probe_renders"] + graphs.WARMUP
+                   * rendered["captures"] + rendered["replays"])
+        ev = {k: co["events"].get(k, 0) + fi["events"].get(k, 0)
+              for k in ("densify", "prune", "resize")}
+
+        def pngs(split, sub):
+            d = model / split / method / sub
+            return len([f for f in os.listdir(d) if f.endswith(".png")])
+
+        views = {sp: r["views"] for sp, r in splits.items()}
+        checks = {
+            "every iteration replayed a captured step":
+                co["replays"] == co["iterations"]
+                and fi["replays"] == fi["iterations"],
+            "a densify, a prune and a bucket change":
+                min(ev.values()) >= 1,
+            "test evaluations": bool(co["test_psnr"])
+                and bool(fi["test_psnr"]),
+            "K2 ran batch times every step": train_runs["blend_bwd"]
+                == batch * sum(stepped.values()),
+            "K1 and the binner ran every render":
+                train_runs["blend_fwd"] == train_runs["binner"]
+                > train_runs["blend_bwd"],
+            "D1 ran every fine render": train_runs["gather_rows"] % gathers
+                == 0 and train_runs["gather_rows"]
+                >= gathers * batch * stepped["fine"],
+            "the evaluation's kernels ran every render":
+                eval_runs["blend_fwd"] == eval_runs["binner"] == renders
+                and eval_runs["gather_rows"] == gathers * renders
+                and eval_runs["blend_bwd"] == 0,
+            "the PNG counts": sorted(splits) == ["test", "train", "video"]
+                and all(pngs(sp, "renders") == n and pngs(sp, "gt") == (
+                    0 if sp == "video" else n) for sp, n in views.items()),
+            "finite metrics": all(np.isfinite(results[method][k]) for k in (
+                "PSNR", "SSIM", "MS-SSIM", "D-SSIM")),
+            "the post-hoc PSNR matches an eval at the render's degree":
+                abs(psnr - at_degree) <= RENDER_PSNR_TOL,
+        }
+        if sh == degree or cfg.hidden.no_dshs:
+            # the rest bands are the run's: the degrees render alike
+            checks["the post-hoc PSNR matches the run's eval"] = \
+                abs(psnr - in_loop) <= RENDER_PSNR_TOL
+        failed = [k for k, ok in checks.items() if not ok]
+        log(f"{kind} checks: {len(checks) - len(failed)}/{len(checks)} hold"
+            + (f"; FAILED: {failed}" if failed else ""))
+        if failed:
+            raise AssertionError(f"{kind} phase: {failed}")
+
+        # ---- the kernels against their plain versions at this size ----
+        renderer = Renderer.from_snapshot(
+            str(model), device=device, width=sc.train.width,
+            height=sc.train.height, probe_camera=sc.train.cameras[0])
+        k1, frame = phase_kernels(torch, renderer, sc.test.cameras[0])
+        idxs = np.arange(batch)
+        step = step_checks(torch, kind, state, [sc.train.cameras[i]
+                                                for i in idxs],
+                           sc.train.images[idxs], bg, sh, rc, cfg)
+        out = {"size": [w, h], "batch": batch, "multires":
+               cfg.hidden.multires, "seconds_write": t_write,
+               "seconds_train_cli": t_train, "seconds_render_cli": t_render,
+               "stages": stages, "splits": splits,
+               "results": results[method], "in_loop_test_psnr": in_loop,
+               "test_psnr_at_render_degree": at_degree,
+               "sh_degree_at_end": sh,
+               "k1": {k: k1[k] for k in ("ms", "device_ms", "host_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "max_abs_err")},
+               "binner_frame": frame["binner"], "gathers_frame":
+               frame["gather_rows"], **step}
+        if kind == "dynerf":
+            out["banks"] = bank_check(
+                torch, device, str(scene), state, cfg, rc, bg, sh,
+                sc.cameras_extent, seed)
+        del sc, renderer, state
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"{kind}: phase {out['seconds']:.2f} s")
+    runs = {k: train_runs[k] + eval_runs[k] for k in train_runs}
+    return runs, out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: K3, K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2082,12 +2683,14 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
 
 
 def path_entries(serve: dict, step: dict, serve_runs: dict,
-                 step_runs: dict, eval_runs: dict) -> list:
+                 step_runs: dict, eval_runs: dict, layout_runs: dict,
+                 layouts: dict) -> list:
     """The kernels-line entries of the binner kernel and of D1 as the
     HexPlane's forward gather: their runs on the serve and step paths
-    (phases 3 and 5) and the render CLI's (phase 10), and the checks on
-    phase 4's frame and phase 6's step input, the step's at the top
-    level."""
+    (phases 3 and 5), the render CLI's (phase 10) and the layouts'
+    (phases 11-12), and the checks on phase 4's frame and phase 6's step
+    input, the step's at the top level (the layouts' under their
+    names)."""
     out = []
     for name, source, replaces, tpu_kernel in (
             ("binner", "binner.cu", "scripts/exp_pallas_binner_proto.py:78",
@@ -2105,7 +2708,14 @@ def path_entries(serve: dict, step: dict, serve_runs: dict,
             "launches": serve_runs[name] + step_runs[name],
             "launches_serve": serve_runs[name],
             "launches_step": step_runs[name],
-            "launches_eval": eval_runs[name], "max_abs_err": 0.0,
+            "launches_eval": eval_runs[name],
+            **{f"launches_{kind}": runs[name]
+               for kind, runs in layout_runs.items()},
+            **{kind: {"step_gathers" if name == "gather_rows" else "frame":
+                      rec["gather_rows"] if name == "gather_rows"
+                      else rec["binner_frame"]}
+               for kind, rec in layouts.items()},
+            "max_abs_err": 0.0,
             "ms": top["ms"], "device_ms": top["device_ms"],
             "host_ms": top["host_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",
@@ -2130,7 +2740,7 @@ def main(argv=None) -> int:
         parser.error(f"--steps must exceed {UNTIMED_STEPS + 5}")
 
     import torch
-    name = phase_device(torch)
+    phase_device(torch)
     from fourdgs_tpu_torch.train import graphs
     # Full float32 everywhere: the deformation MLP heads must not run in
     # TF32 (three decimal digits) for parity with the reference.
@@ -2170,20 +2780,29 @@ def main(argv=None) -> int:
         driver["stages"]["fine"]["test_psnr"][-1][1])
     k1["launches_eval"] = eval_launches["blend_fwd"]
     k1["eval"] = evaluation
+    layouts, layout_runs = {}, {}
+    for kind in LAYOUTS:
+        layout_runs[kind], layouts[kind] = phase_layout(torch, device, work,
+                                                        kind, args.seed)
+        for entry, kernel in ((k1, "blend_fwd"), (k2, "blend_bwd")):
+            entry[f"launches_{kind}"] = layout_runs[kind][kernel]
+        k1[kind] = layouts[kind]
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)
     kernels[2]["driver"] = driver
     kernels += path_entries(serve_checks, step_checks, launches,
-                            train_launches, eval_launches)
+                            train_launches, eval_launches, layout_runs,
+                            layouts)
     kernels += phase_dev_kernels(torch, device, args.seed)
     for k in kernels:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
-                                     for path in ("serve", "step", "eval")):
+                                     for path in ("serve", "step", "eval",
+                                                  *LAYOUTS)):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

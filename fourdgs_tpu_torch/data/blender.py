@@ -7,9 +7,10 @@ to [0, 1] over the union of the train and test times, a spherical video
 path (160 poses, phi -30 degrees, radius 4), and a random 2,000-point
 initial cloud when the scene has no fused.ply.
 
-Images are decoded by the port's own PNG codec (data/png.py). The JAX
-package resizes an image of another size than `resolution` with PIL; here
-that raises, naming the file.
+Images are decoded by the port's own PNG codec (data/png.py); an image of
+another size than `resolution` is quantised by truncation and resized with
+Pillow's default filter, BICUBIC (data/resample.py), as the JAX reader
+does with PIL.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 
 from fourdgs_tpu_torch.data import ply
 from fourdgs_tpu_torch.data.png import read_png
+from fourdgs_tpu_torch.data.resample import resize
 from fourdgs_tpu_torch.data.scene_info import (CameraInfo, PointCloud,
                                                SceneInfo,
                                                blender_matrix_to_rt,
@@ -35,7 +37,9 @@ def _load_image(path: str, white_background: bool,
                 resolution=RESOLUTION) -> np.ndarray:
     """(H, W, 3) float32 in [0, 1], RGBA composited over the background.
     The composite runs in float64 (the background is float64, as in the
-    JAX package) and is cast to float32 at the end."""
+    JAX package) and is cast to float32 at the end. An image whose (H, W)
+    is not `resolution` is resized to `resolution` taken as (W, H), the
+    JAX reader's comparison and PIL's order."""
     img = read_png(path)
     if img.shape[2] == 3:       # what PIL's convert("RGBA") does to RGB
         img = np.concatenate(
@@ -44,10 +48,8 @@ def _load_image(path: str, white_background: bool,
     bg = np.array([1.0, 1, 1] if white_background else [0.0, 0, 0])
     rgb = im_data[:, :, :3] * im_data[:, :, 3:4] + bg * (1 - im_data[:, :, 3:4])
     if resolution is not None and (rgb.shape[0], rgb.shape[1]) != resolution:
-        raise ValueError(
-            f"{path} is {rgb.shape[1]}x{rgb.shape[0]}, not "
-            f"{resolution[0]}x{resolution[1]}: the port does not resize "
-            f"images")
+        rgb = resize((rgb * 255).astype(np.uint8), resolution,
+                     "bicubic").astype(np.float32) / 255.0
     return rgb.astype(np.float32)
 
 

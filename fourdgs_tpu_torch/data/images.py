@@ -1,0 +1,42 @@
+"""A view's image as the image banks hold it, in numpy alone (the
+counterpart of fourdgs_tpu/data/scene.py `_load_image`).
+
+A lazy bank decodes in worker processes, which import this module and
+what it needs (the PNG codec and the resampling) but not torch.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from fourdgs_tpu_torch.data.png import read_rgb
+from fourdgs_tpu_torch.data.resample import resize
+
+
+def load_image(image: np.ndarray | None, path: str | None, size,
+               downscale: int = 1) -> np.ndarray:
+    """(H, W, 3) float32 in [0, 1]: `image` (a view the reader decoded), or
+    the file at `path` decoded and resized with LANCZOS to `size` (W, H)
+    where it has another (the dynerf reader's rule); `downscale` > 1
+    quantises by truncation and resizes with LANCZOS, as the JAX
+    package's `_load_image` does."""
+    if image is not None:
+        img = image
+    else:
+        img = resize(read_rgb(path), size, "lanczos").astype(np.float32) / 255.0
+    if downscale > 1:
+        h, w = img.shape[:2]
+        u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        img = resize(u8, (w // downscale, h // downscale),
+                     "lanczos").astype(np.float32) / 255.0
+    return img
+
+
+def load_u8(image: np.ndarray | None, path: str | None, size,
+            downscale: int = 1) -> np.ndarray:
+    """(H, W, 3) uint8: `np.rint(load_image(...) * 255)`, which for a file
+    at downscale 1 is its decoded 8-bit pixels (the float32 round trip of
+    any byte gives the byte back)."""
+    if image is None and downscale == 1:
+        return resize(read_rgb(path), size, "lanczos")
+    return np.rint(load_image(image, path, size, downscale)
+                   * 255.0).astype(np.uint8)

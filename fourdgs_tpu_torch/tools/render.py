@@ -20,10 +20,12 @@ is timed over the split's last pass after one untimed frame, each frame
 copied to the host as the JAX script's `np.asarray` does; on the card every
 frame is a replay of the captured frame (train/graphs.py).
 
-The scene is read in the Blender (D-NeRF) layout at 800x800 unless
-`--image_size` names its images' size (the JAX reader resizes other sizes
-with PIL, which the port does not carry). `--mesh` is not ported yet and
-raises.
+The scene is read through `data.scene.Scene.load` at the model's
+`resolution` divisor (cfg_args.json), the Blender layout at 800x800 or
+`--image_size`. Every split renders at the train split's size, as in the
+JAX script (a HyperNeRF video view's full-resolution size is not used);
+DyNeRF's video split is its 300 spiral poses. A host or lazy image bank
+serves the targets view by view. `--mesh` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -155,6 +157,7 @@ def main(argv=None) -> dict:
                        white_background=cfg.model.white_background,
                        eval_split=cfg.model.eval,
                        extension=cfg.model.extension, device=dev,
+                       downscale=max(cfg.model.resolution, 1),
                        resolution=(tuple(args.image_size)
                                    if args.image_size else None))
     renderer = Renderer.from_snapshot(

@@ -14,9 +14,14 @@ state's capacity and what each view's render dropped at which caps
 <out>/point_cloud/ and checkpoints at <out>/chkpnt_{stage}_{iter}.npz, in
 the JAX package's layouts.
 
-The scene is read in the Blender (D-NeRF) layout at 800x800 unless
-`--image_size` names the size its images have (the JAX script resizes them
-with PIL, which the port does not carry). `--mesh`, `--distributed` and
+The scene is read through `data.scene.Scene.load`: the Blender (D-NeRF)
+layout, its images resized to 800x800 or to `--image_size`, and the
+nerfies (HyperNeRF) and dynerf (DyNeRF) layouts at their images' size,
+divided by `--resolution` where it is above 1 (the JAX script's `-r`).
+A split too large for the device trains from a host or lazy image bank,
+its next batch prefetched (a lazy bank decodes in spawned processes,
+which import the main module again: a script that calls `main` keeps the
+call under `if __name__ == "__main__":`). `--mesh`, `--distributed` and
 `--gui` are not ported yet and raise; `--profile` runs the fine stage
 eagerly, so that its spans show (a replayed CUDA graph opens none), wraps
 it in `torch.profiler` and writes a Chrome trace under <out>/trace/.

@@ -28,6 +28,7 @@ import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.data.scene import ImageBank
 from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
 from fourdgs_tpu_torch.models.regularization import compute_regulation
 from fourdgs_tpu_torch.ops import losses
@@ -265,7 +266,7 @@ def run_stage(
     stage: str,
     iterations: int,
     cameras: Sequence[Camera],        # one Camera per training view
-    images,                           # (n_views, H, W, 3) on the device
+    images,                           # an ImageBank, or (n_views, H, W, 3)
     tx: optim.GroupedAdam,
     raster_cfg: RasterConfig,
     rng: np.random.Generator,
@@ -310,6 +311,8 @@ def run_stage(
         raise NotImplementedError("multi-GPU training is not ported yet")
     opt = cfg.opt
     dev = state.alive.device
+    if not isinstance(images, ImageBank):
+        images = ImageBank("device", dev, images=images)
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
     n_views = len(cameras)
@@ -371,9 +374,11 @@ def run_stage(
         idxs = perm[ptr:ptr + batch]
         ptr += batch
         cams = [cameras[int(i)] for i in idxs]
-        # views picked on the host, gathered on the device: an index from
-        # the host would be copied over with a sync
-        gts = torch.stack([images[int(i)] for i in idxs])
+        # a host or lazy bank starts the next batch's bytes while this
+        # step runs (not at an epoch's end, whose next permutation is not
+        # drawn yet) and uploads this one on the training thread's stream
+        gts = images.batch(idxs, perm[ptr:ptr + batch]
+                           if ptr + batch <= len(perm) else None)
         track_now = it < opt.densify_until_iter
         if steps is None:
             state, aux = train_step(

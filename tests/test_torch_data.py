@@ -133,12 +133,13 @@ def test_png_decodes_every_filter(tmp_path, channels, filters):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    """16-bit, palette, greyscale and interlaced files raise."""
+    """16-bit, palette, greyscale-with-alpha and interlaced files raise
+    (8-bit greyscale is read: tests/test_torch_readers.py)."""
     rgb = _image(3)
     cases = {
         "i16.png": Image.fromarray(rgb[..., 0].astype(np.uint16) * 257),
         "p.png": Image.fromarray(rgb, "RGB").convert("P"),
-        "l.png": Image.fromarray(rgb[..., 0], "L"),
+        "la.png": Image.fromarray(rgb[..., 0], "L").convert("LA"),
     }
     for name, im in cases.items():
         im.save(tmp_path / name)
@@ -227,16 +228,23 @@ def test_scene_load_matches_jax(tmp_path):
 
 
 def test_readers_refuse_what_is_not_ported(tmp_path):
+    """The Colmap, MultipleView and PanopticSports layouts (JPEG images)
+    raise, and without a card so does the default device. (The Blender
+    resize and `downscale`, which raised before the port had Pillow's
+    resampling, are held against JAX in tests/test_torch_readers.py.)"""
     write_blender_fixture(tmp_path, n_frames=2)
-    with pytest.raises(ValueError, match="r_0.png is 32x32, not 800x800"):
-        tblender.read_blender_scene(str(tmp_path), True, True)
-    with pytest.raises(NotImplementedError, match="downscale"):
-        tscene.Scene.load(str(tmp_path), downscale=2, device="cpu",
-                          resolution=(32, 32))
-    colmap = tmp_path / "colmap"
-    (colmap / "sparse").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Colmap"):
-        tscene.load_scene_info(str(colmap))
+    for kind, marker in (("Colmap", "sparse"),
+                         ("MultipleView", "points3D_multipleview.ply"),
+                         ("PanopticSports", "train_meta.json")):
+        root = tmp_path / kind
+        root.mkdir()
+        if marker == "sparse":
+            (root / marker).mkdir()
+        else:
+            (root / marker).touch()
+        assert tscene.detect_scene_type(str(root)) == kind
+        with pytest.raises(NotImplementedError, match=f"{kind}.*JPEG"):
+            tscene.load_scene_info(str(root))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tscene.Scene.load(str(tmp_path), resolution=(32, 32))

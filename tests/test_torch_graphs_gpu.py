@@ -207,6 +207,42 @@ def test_captured_stage_follows_the_eager_stage(gpu_scene):
 
 
 @pytest.mark.gpu
+def test_captured_steps_from_a_lazy_bank_follow_the_device_bank(gpu_scene):
+    """Captured steps of batch 2 whose targets come from a lazy bank with
+    its prefetch (decoded in the bank's processes while a step replays,
+    uploaded on the training thread) against the same steps from the
+    device bank: the batches are equal (8-bit images), so the logged
+    losses follow to LOSS_RTOL."""
+    cfg = _cfg()
+    cfg.opt.batch_size = 2
+    cfg.opt.densify_until_iter = 0           # steps only
+    split = gpu_scene.train
+    infos = gpu_scene.info.train_cameras
+    dev = split.cameras[0].time.device
+    lazy = tscene.stack_cameras(infos, dev, device_budget=0, host_budget=0)
+    assert lazy.images.mode == "lazy" and split.images.mode == "device"
+    idxs = np.array([4, 1])
+    assert torch.equal(lazy.images[idxs], split.images[idxs])
+    runs = {}
+    for name, bank in (("device", split.images), ("lazy", lazy.images)):
+        st = _state(cfg).to(dev)
+        tx = optim.build_optimizer(cfg.opt, gpu_scene.cameras_extent)
+        st.opt_state = tx.init(st.params)
+        runs[name] = loop.run_stage(
+            cfg, st, "fine", 12, split.cameras, bank, tx,
+            tconfig.raster_config_from(cfg, 32, 32), np.random.default_rng(1),
+            log_every=1, cameras_extent=gpu_scene.cameras_extent,
+            capture=True)
+    lazy.images.close()
+    assert all(r.graphs["replays"] == 12 for r in runs.values())
+    # three batches an epoch: the first of each is not prefetched
+    assert lazy.images.stats["prefetched"] == 8
+    la = np.array([h["loss"] for h in runs["lazy"].history])
+    lb = np.array([h["loss"] for h in runs["device"].history])
+    np.testing.assert_allclose(la, lb, rtol=LOSS_RTOL)
+
+
+@pytest.mark.gpu
 def test_a_capture_that_cannot_succeed_raises(cuda):
     """The plain blend reads the tiles' largest count to the host, which
     a capture cannot hold: capturing a frame through it raises, and does

@@ -56,6 +56,9 @@ from fourdgs_tpu_torch.train.state import create_state
 
 TOL = {"color": 1e-5, "depth": 1e-4, "t": 1e-5}
 W, H = 96, 80
+# edges of 8 columns and 22 rows at tile 32 (and 8 and 6 at tile 16), as
+# 1352 x 1014 leaves: part of a 16-pixel sub-tile row and column
+RAGGED_WH = (104, 86)
 
 
 @pytest.fixture
@@ -104,10 +107,10 @@ def ragged_scene(rng, width, height, fovx, fovy, n_faint=18):
             for x in (means, scales, quats, opac, colors)]
 
 
-def _scene(kind, n, seed):
+def _scene(kind, n, seed, size=(W, H)):
     rng = np.random.default_rng(seed)
     if kind == "ragged":
-        return ragged_scene(rng, W, H, 1.0, 0.85)
+        return ragged_scene(rng, size[0], size[1], 1.0, 0.85)
     if kind == "random":
         means = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.2, 1.2, n),
                           rng.uniform(2.0, 6.0, n)], -1)
@@ -124,11 +127,12 @@ def _scene(kind, n, seed):
             for x in (means, scales, quats, opac, colors)]
 
 
-def _inputs(dev, kind, ts, tile_cap=128, chunk=8, n=400, seed=0):
-    cfg = RasterConfig(img_width=W, img_height=H, tile_size=ts,
+def _inputs(dev, kind, ts, tile_cap=128, chunk=8, n=400, seed=0,
+            size=(W, H)):
+    cfg = RasterConfig(img_width=size[0], img_height=size[1], tile_size=ts,
                        tile_cap=tile_cap, chunk=chunk)
     means, scales, quats, opac, colors = (
-        torch.from_numpy(x).to(dev) for x in _scene(kind, n, seed))
+        torch.from_numpy(x).to(dev) for x in _scene(kind, n, seed, size))
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.85, device=dev)
     _, binned, table = prepare_blend(means, scales, quats, opac, colors, cam,
                                      cfg)
@@ -159,6 +163,24 @@ def test_blend_kernel_matches_plain(cuda, kind, ts):
     if kind == "ragged":   # tiles that hold both saturated and live pixels
         t = out[2]
         assert bool(((t.amin(1) <= 1e-3) & (t.amax(1) > 0.5)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
+def test_blend_kernel_at_a_ragged_size(cuda, kind, ts):
+    """K1 at RAGGED_WH, whose last tile row and column end inside a
+    sub-tile: every pixel against the plain blend, and the pixels past the
+    image's edge in the edge tiles as the plain blend leaves them."""
+    binned, table, cfg = _inputs(cuda, kind, ts, size=RAGGED_WH)
+    assert (cfg.img_width % 16, cfg.img_height % 16) == (8, 6)
+    out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    torch.cuda.synchronize()
+    _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
+                                                 table, cfg))
+    color = rasterize_tiled._untile(out[0], cfg)
+    assert color.shape == (RAGGED_WH[1], RAGGED_WH[0], 3)
+    assert bool(torch.isfinite(color).all())
 
 
 @pytest.mark.gpu
@@ -346,6 +368,16 @@ def test_blend_backward_kernel_on_ragged_k1_outputs(cuda, ts):
     out = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
     _assert_close(out, blend.blend_forward_plain(binned.gidx, binned.counts,
                                                  table, cfg))
+    _check_backward(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
+def test_blend_backward_kernel_at_a_ragged_size(cuda, kind, ts):
+    """K2 at RAGGED_WH (partial sub-tile rows and columns at the edges)
+    against the plain backward on K1's outputs."""
+    binned, table, cfg = _inputs(cuda, kind, ts, size=RAGGED_WH)
     _check_backward(cuda, binned, table, cfg)
 
 
@@ -594,6 +626,15 @@ def _check_slots(dev, binned, table, cfg):
 def test_blend_slots_kernel_matches_plain(cuda, kind, ts):
     binned, table, cfg = _inputs(cuda, kind, ts)
     assert int(binned.counts.max()) > cfg.chunk     # several chunks
+    _check_slots(cuda, binned, table, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("kind", ["random", "saturating", "ragged"])
+def test_blend_slots_kernel_at_a_ragged_size(cuda, kind, ts):
+    """K3 at RAGGED_WH against the plain per-slot table and K2's rows."""
+    binned, table, cfg = _inputs(cuda, kind, ts, size=RAGGED_WH)
     _check_slots(cuda, binned, table, cfg)
 
 
