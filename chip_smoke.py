@@ -108,6 +108,23 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              prefetch, losses within STEP_LOSS_RTOL, with each one's ms a
              step and the lazy bank's decode ms a view, prefetched
              batches and wait a step;
+ 13. multipleview: the same on a MultipleView rig (write_multipleview_
+             scene: DYNERF_RIG's four cameras in sparse_/ x 20 frames at
+             960x540, camNN/frame_*.jpg, poses_bounds_multipleview.npy for
+             the 300-pose spiral) at configs/multipleview/default.py
+             (16-wide planes, multires [1, 2], batch 1);
+ 14. panoptic: a PanopticSports sequence (write_panoptic_scene: four
+             train cameras and one test camera x 20 timesteps at 640x360,
+             each K's principal point off centre by up to 6 % of the width
+             and height, ims/<cam>/<t>.jpg, init_pt_cld.npz) at the config
+             defaults (32-wide planes, multires [1, 2, 4, 8]);
+ 15. colmap: a monocular COLMAP capture (write_colmap_scene: 24 views of
+             an orbit at 1008x756, a PINHOLE camera with fx != fy,
+             sparse/0/ binary, images/*.jpg, llffhold 8) at the config
+             defaults, 100 + 100 iterations. Phases 13-15 write their
+             JPEGs with data/jpeg.py's encoder (quality 95, 4:2:0) and
+             print one view's decode ms on one thread and Scene.load's
+             seconds beside the checks of phases 11-12;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -1519,7 +1536,8 @@ def phase_eval(torch, device, work: Path, fine: int, in_loop_psnr: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 11-12 (after phase 10): the nerfies (HyperNeRF) and DyNeRF layouts
+# phases 11-15 (after phase 10): the nerfies (HyperNeRF), DyNeRF,
+# MultipleView, PanopticSports and Colmap layouts
 # ---------------------------------------------------------------------------
 
 # the scenes: the ball scene (tools/make_synthetic_scene.py:ball_scene)
@@ -1538,6 +1556,23 @@ DYNERF_RIG = ((0.0, 0.0, 0.0), (-0.5, 0.1, 0.1), (0.5, 0.1, 0.1),
               (0.0, -0.35, 0.05))
 BANK_STEPS = 20                # phase 12: captured steps a bank mode
 DECODE_VIEWS = 8               # phase 12: views decoded on one thread
+# phases 13-15: JPEG layouts, written with data/jpeg.py's encoder
+JPEG_QUALITY = 95              # 4:2:0
+MULTIVIEW_SIZE = (960, 540)
+MULTIVIEW_FRAMES = 20          # frames a camera; DYNERF_RIG's four cameras
+PANOPTIC_SIZE = (640, 360)
+PANOPTIC_TIMES = 20
+# the Panoptic dome: (angle, height) of each camera on a circle of radius
+# 4 around the scene, the last the test camera, and each one's principal
+# point moved off centre by these fractions of the width and the height
+PANOPTIC_CAMS = ((-0.7, 0.4), (-0.25, -0.3), (0.25, 0.5), (0.7, -0.2),
+                 (0.05, 0.1))
+PANOPTIC_SHIFT = ((0.06, -0.04), (-0.05, 0.06), (0.03, 0.05),
+                  (-0.06, -0.03), (0.045, -0.06))
+COLMAP_SIZE = (1008, 756)      # LLFF's images_4
+COLMAP_VIEWS = 24
+COLMAP_FY = 1.04               # fy / fx of the PINHOLE camera
+LAYOUT_VIEWS = 4               # phases 11-15: views decoded on one thread
 # the layouts' config files; the overlay cuts only the schedule to the
 # run's length: iterations, densify and prune every `every` iterations
 # until `until`, prune above 1,000 live points, buckets from 1,024 (so
@@ -1549,10 +1584,20 @@ LAYOUTS = {
     "dynerf": dict(config="dynerf/default.py", size=DYNERF_SIZE,
                    views=dict(n_frames=DYNERF_FRAMES),
                    coarse=100, fine=200, every=25, until=150),
+    "multipleview": dict(config="multipleview/default.py",
+                         size=MULTIVIEW_SIZE,
+                         views=dict(n_frames=MULTIVIEW_FRAMES),
+                         coarse=100, fine=200, every=25, until=150),
+    # Colmap and PanopticSports have no config file: the config defaults
+    "panoptic": dict(config=None, size=PANOPTIC_SIZE,
+                     views=dict(n_times=PANOPTIC_TIMES),
+                     coarse=100, fine=200, every=25, until=150),
+    "colmap": dict(config=None, size=COLMAP_SIZE,
+                   views=dict(n_views=COLMAP_VIEWS),
+                   coarse=100, fine=100, every=25, until=75),
 }
 LAYOUT_CONFIG = """\
-_base_ = {base!r}
-OptimizationParams = dict(
+{base}OptimizationParams = dict(
     coarse_iterations={coarse},
     iterations={fine},
     densify_from_iter={every},
@@ -1727,6 +1772,162 @@ def write_dynerf_scene(torch, root: Path, device, size=DYNERF_SIZE,
             f.result()
 
 
+def write_views(torch, infos, device, size, offset=(0.0, 0.0, 0.0)) -> None:
+    """Render each view's image through the Camera the port's reader gives
+    it, at its time, and write it to its path as a JPEG (JPEG_QUALITY,
+    4:2:0; 8 threads)."""
+    import concurrent.futures
+
+    from fourdgs_tpu_torch.data.jpeg import write_jpeg
+    from fourdgs_tpu_torch.data.scene import camera_from_info
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futures = []
+        for info in infos:
+            img = render_ball(torch, camera_from_info(info, device),
+                              info.time, size, device, offset)
+            os.makedirs(os.path.dirname(info.image_path), exist_ok=True)
+            futures.append(pool.submit(write_jpeg, info.image_path, img,
+                                       JPEG_QUALITY))
+        for f in futures:
+            f.result()
+
+
+def colmap_pose(pos, target=(0.0, 0.0, 0.0)):
+    """COLMAP's (qvec, tvec) of a camera at `pos` looking at `target`."""
+    from fourdgs_tpu_torch.data.colmap import rotmat2qvec
+    r = look_at(pos, target)
+    return rotmat2qvec(r), -r @ np.asarray(pos, np.float64)
+
+
+def write_multipleview_scene(torch, root: Path, device, size=MULTIVIEW_SIZE,
+                             n_frames: int = MULTIVIEW_FRAMES,
+                             seed: int = 0) -> None:
+    """A MultipleView rig: DYNERF_RIG's cameras looking at the ball scene
+    moved to DYNERF_OFFSET, in sparse_/ (camera 1 a SIMPLE_PINHOLE of
+    SCENE_FOVX across the width; image frameNN.jpg is camNN), the same
+    poses in poses_bounds_multipleview.npy for the spiral, the initial
+    cloud, and n_frames frames a camera, camNN/frame_00001.jpg, ..., at
+    `size`, rendered at time index / n_frames through the cameras that
+    data/multiview.py reads."""
+    from fourdgs_tpu_torch.data import colmap, multiview
+
+    w, h = size
+    focal = w / (2 * np.tan(SCENE_FOVX / 2))
+    (root / "sparse_").mkdir(parents=True, exist_ok=True)
+    colmap.write_cameras_binary({1: colmap.ColmapCamera(
+        id=1, model="SIMPLE_PINHOLE", width=w, height=h,
+        params=np.array([focal, w / 2, h / 2]))},
+        str(root / "sparse_" / "cameras.bin"))
+    images, rows = {}, []
+    for c, pos in enumerate(DYNERF_RIG):
+        q, t = colmap_pose(pos, DYNERF_OFFSET)
+        images[c + 1] = colmap.ColmapImage(
+            id=c + 1, qvec=q, tvec=t, camera_id=1,
+            name=f"frame{c + 1:02d}.jpg", xys=np.zeros((0, 2)),
+            point3D_ids=np.zeros(0, np.int64))
+        right, down, fwd = look_at(pos, DYNERF_OFFSET)
+        llff = np.stack([down, right, -fwd, np.asarray(pos), [h, w, focal]],
+                        1)
+        rows.append(np.concatenate([llff.ravel(), [2.5, 5.5]]))
+        # the reader counts cam01's files: the frames' names come first
+        d = root / f"cam{c + 1:02d}"
+        d.mkdir(exist_ok=True)
+        for i in range(n_frames):
+            (d / f"frame_{i + 1:05d}.jpg").touch()
+    colmap.write_images_binary(images, str(root / "sparse_" / "images.bin"))
+    np.save(root / "poses_bounds_multipleview.npy", np.stack(rows))
+    write_cloud(root / "points3D_multipleview.ply", seed, DYNERF_OFFSET)
+    info = multiview.read_multipleview_scene(str(root))
+    write_views(torch, info.train_cameras, device, size, DYNERF_OFFSET)
+
+
+def write_panoptic_scene(torch, root: Path, device, size=PANOPTIC_SIZE,
+                         n_times: int = PANOPTIC_TIMES,
+                         seed: int = 0) -> None:
+    """A PanopticSports sequence: PANOPTIC_CAMS on a dome of radius 4
+    around the ball scene (the last one the test split), each with K's
+    focal of SCENE_FOVX across the width and its principal point moved off
+    centre by PANOPTIC_SHIFT; train_meta.json and test_meta.json for
+    n_times timesteps, init_pt_cld.npz of SCENE_POINTS points, and
+    ims/<camera>/<t>.jpg at `size`, rendered at time t / n_times through
+    the K-built cameras that data/panoptic.py reads."""
+    from fourdgs_tpu_torch.data import panoptic
+
+    w, h = size
+    focal = w / (2 * np.tan(SCENE_FOVX / 2))
+    ks, w2cs = [], []
+    for (theta, height), (dx, dy) in zip(PANOPTIC_CAMS, PANOPTIC_SHIFT):
+        pos = np.array([4 * np.sin(theta), height, 4 * np.cos(theta)])
+        w2c = np.eye(4)
+        w2c[:3, :3] = look_at(pos)
+        w2c[:3, 3] = -w2c[:3, :3] @ pos
+        ks.append([[focal, 0.0, w / 2 + dx * w], [0.0, focal, h / 2 + dy * h],
+                   [0.0, 0.0, 1.0]])
+        w2cs.append(w2c.tolist())
+    n_train = len(PANOPTIC_CAMS) - 1
+    root.mkdir(parents=True, exist_ok=True)
+    for name, cams in (("train_meta.json", range(n_train)),
+                       ("test_meta.json", [n_train])):
+        meta = {"w": w, "h": h,
+                "fn": [[f"{c}/{t}.jpg" for c in cams] for t in range(n_times)],
+                "k": [[ks[c] for c in cams] for _ in range(n_times)],
+                "w2c": [[w2cs[c] for c in cams] for _ in range(n_times)],
+                "cam_id": [list(cams) for _ in range(n_times)]}
+        with open(root / name, "w") as f:
+            json.dump(meta, f)
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.3, 1.3, (SCENE_POINTS, 3))
+    np.savez(root / "init_pt_cld.npz", data=np.concatenate(
+        [xyz, rng.uniform(0, 1, (SCENE_POINTS, 3)),
+         np.ones((SCENE_POINTS, 1))], 1))
+    info = panoptic.read_panoptic_scene(str(root))
+    write_views(torch, info.train_cameras + info.test_cameras, device, size)
+
+
+def write_colmap_scene(torch, root: Path, device, size=COLMAP_SIZE,
+                       n_views: int = COLMAP_VIEWS, seed: int = 0) -> None:
+    """A monocular COLMAP capture: n_views poses orbiting the ball scene
+    (1.6 radians at radius 4, rising), a PINHOLE camera with fy = COLMAP_FY
+    fx, in sparse/0/ as binary files with SCENE_POINTS points in
+    points3D.bin, and images/00000.jpg, ... at `size`, each rendered at
+    time index / n_views through the camera that data/colmap_scene.py
+    reads. The points' PLY is left for the first load to write."""
+    from fourdgs_tpu_torch.data import colmap, colmap_scene
+
+    w, h = size
+    fx = w / (2 * np.tan(SCENE_FOVX / 2))
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True, exist_ok=True)
+    colmap.write_cameras_binary({1: colmap.ColmapCamera(
+        id=1, model="PINHOLE", width=w, height=h,
+        params=np.array([fx, COLMAP_FY * fx, w / 2, h / 2]))},
+        str(sparse / "cameras.bin"))
+    images = {}
+    for i in range(n_views):
+        theta = -0.8 + 1.6 * i / max(n_views - 1, 1)
+        pos = [4 * np.sin(theta), -0.3 + 0.6 * i / max(n_views - 1, 1),
+               4 * np.cos(theta)]
+        q, t = colmap_pose(pos)
+        images[i + 1] = colmap.ColmapImage(
+            id=i + 1, qvec=q, tvec=t, camera_id=1, name=f"{i:05d}.jpg",
+            xys=np.zeros((0, 2)), point3D_ids=np.zeros(0, np.int64))
+    colmap.write_images_binary(images, str(sparse / "images.bin"))
+    rng = np.random.default_rng(seed)
+    colmap.write_points3d_binary(rng.uniform(-1.3, 1.3, (SCENE_POINTS, 3)),
+                                 rng.uniform(0, 255, (SCENE_POINTS, 3)),
+                                 str(sparse / "points3D.bin"))
+    (root / "images").mkdir(exist_ok=True)
+    info = colmap_scene.read_colmap_scene(str(root), None, True)
+    os.remove(info.ply_path)
+    write_views(torch, info.train_cameras + info.test_cameras, device, size)
+
+
+WRITERS = {"nerfies": write_nerfies_scene, "dynerf": write_dynerf_scene,
+           "multipleview": write_multipleview_scene,
+           "panoptic": write_panoptic_scene, "colmap": write_colmap_scene}
+
+
 @contextlib.contextmanager
 def dot_free_dir(path: Path):
     """`path`, or where its absolute path has a dot (which the DyNeRF
@@ -1750,8 +1951,9 @@ def step_checks(torch, kind: str, state, cams, gts, bg, sh, rc,
     """One eager step of the trained state on a batch: its gradients with
     K2 against the plain backward's (every leaf within GRAD_TOL
     normalised), and its HexPlane forward gathers, which must be
-    HEX_GATHERS_PER_LEVEL a level a view and 16 wide, against
-    index_select (check_gathers)."""
+    HEX_GATHERS_PER_LEVEL a level a view and as wide as the config's
+    planes (16, or 32 at the defaults), against index_select
+    (check_gathers)."""
     from fourdgs_tpu_torch.train import loop
 
     reg = (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
@@ -1778,9 +1980,10 @@ def step_checks(torch, kind: str, state, cams, gts, bg, sh, rc,
     if not max(errs) <= GRAD_TOL:
         raise AssertionError(f"{kind}: K2 step gradients off by {max(errs)}"
                              f" in leaf {int(np.argmax(errs))}")
-    if len(gathers) != want or widths != [16]:
+    width = cfg.hidden.kplanes_config["output_coordinate_dim"]
+    if len(gathers) != want or widths != [width]:
         raise AssertionError(f"{kind}: {len(gathers)} gathers of widths "
-                             f"{widths}, not {want} of 16")
+                             f"{widths}, not {want} of {width}")
     return {"grad_err": max(errs),
             "gather_rows": check_gathers(torch, f"{kind} step", gathers)}
 
@@ -1889,7 +2092,7 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
     plain versions at the layout's size, and for dynerf the bank check.
     Returns the launch counts (training and evaluation summed) and what
     it measured."""
-    from fourdgs_tpu_torch.data.scene import Scene
+    from fourdgs_tpu_torch.data.scene import Scene, _load_u8
     from fourdgs_tpu_torch.ops import losses
     from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
     from fourdgs_tpu_torch.render.serve import Renderer
@@ -1907,20 +2110,22 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
         model = work / f"{kind}_model"
         shutil.rmtree(model, ignore_errors=True)
         t0 = time.perf_counter()
-        writer = write_nerfies_scene if kind == "nerfies" else \
-            write_dynerf_scene
-        writer(torch, scene, device, size=spec["size"], seed=seed,
-               **spec["views"])
+        WRITERS[kind](torch, scene, device, size=spec["size"], seed=seed,
+                      **spec["views"])
         torch.cuda.synchronize()
         t_write = time.perf_counter() - t0
         config = work / f"{kind}_smoke.py"
+        base = ""
+        if spec["config"]:
+            path = ROOT / "fourdgs_tpu" / "configs" / spec["config"]
+            base = f"_base_ = {str(path)!r}\n"
         config.write_text(LAYOUT_CONFIG.format(
-            base=str(ROOT / "fourdgs_tpu" / "configs" / spec["config"]),
+            base=base,
             **{k: spec[k] for k in ("coarse", "fine", "every", "until")}))
         cfg = config_mod.apply_config_file(config_mod.Config(), str(config))
         batch, levels = cfg.opt.batch_size, len(cfg.hidden.multires)
         log(f"{kind}: scene written in {t_write:.2f} s at {w}x{h}; config "
-            f"{spec['config']}: batch {batch}, multires "
+            f"{spec['config'] or 'defaults'}: batch {batch}, multires "
             f"{cfg.hidden.multires}, kplanes {cfg.hidden.kplanes_config}, "
             f"net_width {cfg.hidden.net_width}, defor_depth "
             f"{cfg.hidden.defor_depth}")
@@ -1993,7 +2198,18 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
         # degree the render CLI renders (the model's): a cut schedule ends
         # below it, and where the deformation moves the SH rest bands
         # (no_dshs False, the dynerf configs) the two degrees differ ----
+        t0 = time.perf_counter()
         sc = Scene.load(str(scene), device=device)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for info in sc.info.train_cameras[:LAYOUT_VIEWS]:
+            _load_u8(info)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / LAYOUT_VIEWS
+        log(f"{kind} data: Scene.load {t_load:.3f} s (the train CLI's "
+            f"{summary['scene_load_s']:.3f} s), {len(sc.train)} train and "
+            f"{len(sc.test)} test views, banks {sc.train.images.mode}/"
+            f"{sc.test.images.mode}; one view decodes on one thread in "
+            f"{decode_ms:.3f} ms")
         state, _, _, sh = checkpoint.load_checkpoint(
             str(model / f"chkpnt_fine_{spec['fine']}.npz"),
             config_mod.deform_config_from(cfg), device)
@@ -2079,7 +2295,9 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
                "stages": stages, "splits": splits,
                "results": results[method], "in_loop_test_psnr": in_loop,
                "test_psnr_at_render_degree": at_degree,
-               "sh_degree_at_end": sh,
+               "sh_degree_at_end": sh, "seconds_scene_load": t_load,
+               "seconds_scene_load_train_cli": summary["scene_load_s"],
+               "decode_ms_per_view": decode_ms,
                "k1": {k: k1[k] for k in ("ms", "device_ms", "host_ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "max_abs_err")},

@@ -29,6 +29,11 @@ class Camera:
                          for f in dataclasses.fields(self)})
 
 
+def f32_tensor(x, device) -> torch.Tensor:
+    """x as a float32 tensor on `device` (cast from numpy on the host)."""
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
                 time: float = 0.0, znear: float = 0.01, zfar: float = 100.0,
                 trans=None, scale: float = 1.0,
@@ -42,15 +47,12 @@ def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
     P = transforms.projection_matrix(znear, zfar, fovx, fovy)
     full = P @ W
     center = np.linalg.inv(W)[:3, 3]
-
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-    return Camera(world_view=f32(W), full_proj=f32(full),
-                  cam_center=f32(center),
-                  tanfovx=f32(np.tan(fovx * 0.5)),
-                  tanfovy=f32(np.tan(fovy * 0.5)),
-                  time=f32(time))
+    return Camera(world_view=f32_tensor(W, device),
+                  full_proj=f32_tensor(full, device),
+                  cam_center=f32_tensor(center, device),
+                  tanfovx=f32_tensor(np.tan(fovx * 0.5), device),
+                  tanfovy=f32_tensor(np.tan(fovy * 0.5), device),
+                  time=f32_tensor(time, device))
 
 
 def look_at_camera(theta: float = 0.3, radius: float = 4.0, fov: float = 0.9,

@@ -2,14 +2,27 @@
 counterpart of fourdgs_tpu/data/scene.py `_load_image`).
 
 A lazy bank decodes in worker processes, which import this module and
-what it needs (the PNG codec and the resampling) but not torch.
+what it needs (the PNG and JPEG codecs and the resampling) but not torch.
+A file's codec is picked by its signature, not its extension.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from fourdgs_tpu_torch.data.png import read_rgb
+from fourdgs_tpu_torch.data import jpeg, png
 from fourdgs_tpu_torch.data.resample import resize
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 of a PNG (data/png.py) or JPEG (data/jpeg.py) file,
+    as `Image.open(path).convert("RGB")` decodes it."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(b"\x89PNG"):
+        return png.read_rgb(path)
+    if head.startswith(b"\xff\xd8"):
+        return jpeg.read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def load_image(image: np.ndarray | None, path: str | None, size,

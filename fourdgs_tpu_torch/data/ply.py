@@ -85,6 +85,16 @@ def _write_ply(path: str, arrays: dict[str, np.ndarray]):
         f.write(rec.tobytes())
 
 
+def store_point_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray):
+    """A coloured point cloud with zero normals; rgb as given (COLMAP's
+    0..255), written as float32."""
+    normals = np.zeros_like(xyz)
+    _write_ply(path, {
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "nx": normals[:, 0], "ny": normals[:, 1], "nz": normals[:, 2],
+        "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+
+
 def save_gaussians(path: str, xyz, features_dc, features_rest, opacity,
                    scaling, rotation):
     """Write the 3DGS attribute layout. features_dc (N,1,3) and

@@ -1,21 +1,24 @@
 """Scene facade: dataset-type detection, loading and image residency
 (counterpart: fourdgs_tpu/data/scene.py).
 
-The Blender (D-NeRF), nerfies (HyperNeRF) and dynerf (DyNeRF / Neu3D)
-layouts are read; Colmap, PanopticSports and MultipleView, whose images
-are JPEGs, raise `NotImplementedError`. A split's images live in an
-`ImageBank` whose mode the decoded split's size picks, with the JAX
-package's budgets: on the device as float32, in host memory as uint8, or
-on disk, decoded on demand.
+All six layouts are read: Blender (D-NeRF), Colmap, dynerf (DyNeRF /
+Neu3D), nerfies (HyperNeRF), PanopticSports and MultipleView. A split's
+images live in an `ImageBank` whose mode the decoded split's size picks,
+with the JAX package's budgets: on the device as float32, in host memory
+as uint8, or on disk, decoded on demand.
 
 One difference from the JAX package: its `load_scene_info` asks the
-nerfies and dynerf readers to decode every image at read time, which for a
-DyNeRF scene's train split is some 94 GB of float32 before any budget
-applies. Here those readers keep each view's path and size, and the bank
-decodes what its mode holds; every number it serves is the same.
+readers to decode every image at read time, which for a DyNeRF scene's
+train split is some 94 GB of float32 before any budget applies. Here the
+readers other than Blender's keep each view's path and size, and the bank
+decodes what its mode holds; every number it serves is the same. A device
+or host split whose files hold more than STACK_POOL_PIXELS pixels is
+decoded by DECODE_WORKERS processes (the decoders are Python and numpy),
+started at the first such split and kept for the process.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
 import multiprocessing
@@ -28,6 +31,8 @@ import torch
 
 from fourdgs_tpu_torch.data.camera import Camera, make_camera
 from fourdgs_tpu_torch.data.images import load_image, load_u8
+from fourdgs_tpu_torch.data.panoptic import (PanopticCameraInfo,
+                                             camera_from_k_w2c)
 from fourdgs_tpu_torch.data.scene_info import CameraInfo, SceneInfo
 from fourdgs_tpu_torch.utils.device import resolve_device
 
@@ -38,9 +43,13 @@ HOST_IMAGE_BUDGET = 16 << 30
 # decoded views a lazy bank keeps, and prefetched batches it holds
 LAZY_CACHE = 64
 PENDING = 4
-# processes that decode a lazy bank's views; the numbers served do not
-# depend on it
+# processes that decode a lazy bank's views, or a large split's when it is
+# stacked; the numbers served do not depend on it
 DECODE_WORKERS = 4
+# a device or host split whose files hold more pixels than this is decoded
+# by the stacking pool's processes (below it, on the calling thread)
+STACK_POOL_PIXELS = 1 << 23
+_stack_pool = None
 
 
 def detect_scene_type(path: str) -> str:
@@ -61,13 +70,16 @@ def detect_scene_type(path: str) -> str:
 
 def load_scene_info(path: str, *, white_background: bool = True,
                     eval_split: bool = True, extension: str = ".png",
+                    images: str | None = None, llffhold: int = 8,
                     resolution=None,
                     rng: np.random.Generator | None = None
                     ) -> tuple[SceneInfo, str]:
     """The scene's info and its type. `resolution` (None: the Blender
-    reader's RESOLUTION) is the size Blender images are resized to. The
-    nerfies and dynerf readers keep each view's path for the image bank to
-    decode (the Blender reader decodes every image)."""
+    reader's RESOLUTION) is the size Blender images are resized to;
+    `images` (None: "images") is the Colmap layout's image directory and
+    `llffhold` its test-view stride. The readers other than Blender's keep
+    each view's path for the image bank to decode (the Blender reader
+    decodes every image)."""
     kind = detect_scene_type(path)
     if kind == "Blender":
         from fourdgs_tpu_torch.data.blender import (RESOLUTION,
@@ -82,15 +94,24 @@ def load_scene_info(path: str, *, white_background: bool = True,
     elif kind == "nerfies":
         from fourdgs_tpu_torch.data.hyper import read_hyper_scene
         info = read_hyper_scene(path)
+    elif kind == "Colmap":
+        from fourdgs_tpu_torch.data.colmap_scene import read_colmap_scene
+        info = read_colmap_scene(path, images, eval_split, llffhold)
+    elif kind == "PanopticSports":
+        from fourdgs_tpu_torch.data.panoptic import read_panoptic_scene
+        info = read_panoptic_scene(path)
     else:
-        raise NotImplementedError(
-            f"the {kind} reader is not ported yet (its images are JPEGs, "
-            f"which need a JPEG decoder); the port reads the Blender, "
-            f"nerfies and dynerf layouts")
+        from fourdgs_tpu_torch.data.multiview import read_multipleview_scene
+        info = read_multipleview_scene(path)
     return info, kind
 
 
-def camera_from_info(info: CameraInfo, device) -> Camera:
+def camera_from_info(info, device) -> Camera:
+    """The view's Camera on `device`: from (R, T) and the fields of view,
+    or for a PanopticSports view from its K and w2c."""
+    if isinstance(info, PanopticCameraInfo):
+        return camera_from_k_w2c(info.k, info.w2c, info.width, info.height,
+                                 time=info.time, device=device)
     return make_camera(info.R, info.T, info.fovx, info.fovy, time=info.time,
                        device=device)
 
@@ -299,11 +320,40 @@ class StackedCameras:
         return int(np.asarray(self.times).shape[0])
 
 
-def _info_dims(info: CameraInfo, downscale: int) -> tuple[int, int]:
+def _info_dims(info, downscale: int) -> tuple[int, int]:
     w, h = info.width, info.height
     if downscale > 1:
         w, h = w // downscale, h // downscale
     return int(w), int(h)
+
+
+def close_stack_pool() -> None:
+    """Stop the stacking pool's processes (at exit, or sooner)."""
+    global _stack_pool
+    if _stack_pool is not None:
+        _stack_pool.shutdown(wait=True, cancel_futures=True)
+        _stack_pool = None
+
+
+def _pooled_u8(infos: list, downscale: int):
+    """Every view's uint8 image decoded by the stacking pool's processes
+    where every view is a file and together they hold more than
+    STACK_POOL_PIXELS pixels, else None. For a file, `_load_image` is this
+    divided by 255 (load_u8's 8-bit round trip), so the split's numbers do
+    not depend on the route."""
+    global _stack_pool
+    if not all(i.image is None and i.image_path for i in infos) or sum(
+            i.width * i.height for i in infos) <= STACK_POOL_PIXELS:
+        return None
+    if _stack_pool is None:
+        _stack_pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=DECODE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"))
+        atexit.register(close_stack_pool)
+    futures = [_stack_pool.submit(load_u8, None, i.image_path,
+                                  (i.width, i.height), downscale)
+               for i in infos]
+    return [f.result() for f in futures]
 
 
 def stack_cameras(infos: list, device, with_images: bool = True,
@@ -313,8 +363,9 @@ def stack_cameras(infos: list, device, with_images: bool = True,
     """The split's cameras on `device` and its image bank, whose mode the
     split's decoded size picks against the budgets as the JAX package's
     does: device while float32 fits device_budget, else host while uint8
-    fits host_budget (or a view has no file), else lazy. `downscale`
-    divides the image sizes (the fields of view stay)."""
+    fits host_budget (or a view has no file), else lazy. A device or host
+    split of many pixels decodes in the stacking pool (_pooled_u8).
+    `downscale` divides the image sizes (the fields of view stay)."""
     cams = [camera_from_info(i, device) for i in infos]
     w, h = _info_dims(infos[0], downscale)
     times = np.array([i.time for i in infos], np.float32)
@@ -325,11 +376,16 @@ def stack_cameras(infos: list, device, with_images: bool = True,
         u8_bytes = n * h * w * 3
         can_lazy = all(i.image is not None or i.image_path for i in infos)
         if f32_bytes <= device_budget:
-            images = ImageBank("device", device, images=torch.from_numpy(
-                np.stack([_load_image(i, downscale) for i in infos])
-            ).to(device))
+            pooled = _pooled_u8(infos, downscale)
+            host = (np.stack(pooled).astype(np.float32) / 255.0
+                    if pooled is not None else
+                    np.stack([_load_image(i, downscale) for i in infos]))
+            images = ImageBank("device", device,
+                               images=torch.from_numpy(host).to(device))
         elif u8_bytes <= host_budget or not can_lazy:
+            pooled = _pooled_u8(infos, downscale)
             images = ImageBank("host", device, images=np.stack(
+                pooled if pooled is not None else
                 [_load_u8(i, downscale) for i in infos]))
         else:
             images = ImageBank("lazy", device, infos=infos,

@@ -24,8 +24,10 @@ The scene is read through `data.scene.Scene.load` at the model's
 `resolution` divisor (cfg_args.json), the Blender layout at 800x800 or
 `--image_size`. Every split renders at the train split's size, as in the
 JAX script (a HyperNeRF video view's full-resolution size is not used);
-DyNeRF's video split is its 300 spiral poses. A host or lazy image bank
-serves the targets view by view. `--mesh` is not ported yet and raises.
+DyNeRF's and MultipleView's video split is their 300 spiral poses,
+PanopticSports' its test split, Colmap's its train split. A host or lazy
+image bank serves the targets view by view. `--mesh` is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -156,7 +158,9 @@ def main(argv=None) -> dict:
     scene = Scene.load(args.source_path or cfg.model.source_path,
                        white_background=cfg.model.white_background,
                        eval_split=cfg.model.eval,
-                       extension=cfg.model.extension, device=dev,
+                       extension=cfg.model.extension,
+                       images=cfg.model.images or None,
+                       llffhold=cfg.model.llffhold, device=dev,
                        downscale=max(cfg.model.resolution, 1),
                        resolution=(tuple(args.image_size)
                                    if args.image_size else None))

@@ -16,8 +16,10 @@ the JAX package's layouts.
 
 The scene is read through `data.scene.Scene.load`: the Blender (D-NeRF)
 layout, its images resized to 800x800 or to `--image_size`, and the
-nerfies (HyperNeRF) and dynerf (DyNeRF) layouts at their images' size,
-divided by `--resolution` where it is above 1 (the JAX script's `-r`).
+Colmap (the config's `images` directory and `llffhold`), nerfies
+(HyperNeRF), dynerf (DyNeRF), PanopticSports and MultipleView layouts at
+their images' size, divided by `--resolution` where it is above 1 (the JAX
+script's `-r`).
 A split too large for the device trains from a host or lazy image bank,
 its next batch prefetched (a lazy bank decodes in spawned processes,
 which import the main module again: a script that calls `main` keeps the
@@ -144,12 +146,15 @@ def main(argv=None) -> dict:
                        white_background=cfg.model.white_background,
                        eval_split=cfg.model.eval,
                        extension=cfg.model.extension,
+                       images=cfg.model.images or None,
+                       llffhold=cfg.model.llffhold,
                        downscale=max(cfg.model.resolution, 1), device=dev,
                        resolution=(tuple(args.image_size)
                                    if args.image_size else None))
+    t_load = time.time() - t_setup
     print(f"  type={scene.dataset_type} train={len(scene.train)} "
           f"test={len(scene.test)} extent={scene.cameras_extent:.3f} "
-          f"({time.time() - t_setup:.1f}s)", flush=True)
+          f"({t_load:.1f}s)", flush=True)
 
     pcd = scene.info.point_cloud
     st = state_mod.create_state(
@@ -245,7 +250,8 @@ def main(argv=None) -> dict:
             start_stage = 1
             print("start from fine stage, skip coarse stage.")
 
-    summary = {"model_path": cfg.model.model_path, "stages": []}
+    summary = {"model_path": cfg.model.model_path, "scene_load_s": t_load,
+               "stages": []}
     total_time = 0.0
     active_sh = 0   # carried across stages
     for si, (stage, iters) in enumerate(stages):

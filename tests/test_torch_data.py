@@ -228,23 +228,26 @@ def test_scene_load_matches_jax(tmp_path):
 
 
 def test_readers_refuse_what_is_not_ported(tmp_path):
-    """The Colmap, MultipleView and PanopticSports layouts (JPEG images)
-    raise, and without a card so does the default device. (The Blender
-    resize and `downscale`, which raised before the port had Pillow's
-    resampling, are held against JAX in tests/test_torch_readers.py.)"""
+    """What the data layer still refuses: a progressive JPEG (SOF2), in a
+    reader's view as anywhere, raises NotImplementedError naming the
+    marker; a directory of no known layout raises ValueError; and without
+    a card so does the default device. (The Colmap, MultipleView and
+    PanopticSports layouts, refused before the port had a JPEG decoder,
+    are held against JAX in tests/test_torch_colmap_readers.py; the
+    Blender resize and `downscale` in tests/test_torch_readers.py.)"""
+    import io
+
+    from fourdgs_tpu_torch.data import images
     write_blender_fixture(tmp_path, n_frames=2)
-    for kind, marker in (("Colmap", "sparse"),
-                         ("MultipleView", "points3D_multipleview.ply"),
-                         ("PanopticSports", "train_meta.json")):
-        root = tmp_path / kind
-        root.mkdir()
-        if marker == "sparse":
-            (root / marker).mkdir()
-        else:
-            (root / marker).touch()
-        assert tscene.detect_scene_type(str(root)) == kind
-        with pytest.raises(NotImplementedError, match=f"{kind}.*JPEG"):
-            tscene.load_scene_info(str(root))
+    b = io.BytesIO()
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
+        b, "JPEG", progressive=True)
+    (tmp_path / "p.jpg").write_bytes(b.getvalue())
+    with pytest.raises(NotImplementedError, match="SOF2"):
+        images.load_image(None, str(tmp_path / "p.jpg"), (16, 16))
+    (tmp_path / "unknown").mkdir()
+    with pytest.raises(ValueError, match="could not recognize"):
+        tscene.load_scene_info(str(tmp_path / "unknown"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tscene.Scene.load(str(tmp_path), resolution=(32, 32))

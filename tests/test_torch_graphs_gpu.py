@@ -258,3 +258,98 @@ def test_a_capture_that_cannot_succeed_raises(cuda):
         blend.blend_forward = saved
     assert not rend.frames
     torch.cuda.synchronize()
+
+
+# a PanopticSports camera (data/panoptic.py): projection from K, the
+# principal point moved off centre by 6 % of the width and of the height,
+# at a ragged size (8 columns and 22 rows past the 32-pixel tiles)
+OFF_CENTRE_WH = (104, 86)
+OFF_CENTRE_SHIFT = (0.06, -0.06)
+# chip_smoke.py's rule for the card against the CPU path (SMALL_TOL_*)
+CPU_TOL_MEAN, CPU_TOL_MAX = 1e-5, 5e-3
+
+
+def _off_centre_camera(dev, theta=0.3, time=0.4):
+    from fourdgs_tpu_torch.data.panoptic import camera_from_k_w2c
+    w, h = OFF_CENTRE_WH
+    focal = w / (2 * np.tan(0.45))
+    pos = 4.0 * np.array([np.sin(theta), 0.1, np.cos(theta)])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    w2c = np.eye(4)
+    w2c[:3, :3] = np.stack([right, np.cross(fwd, right), fwd])
+    w2c[:3, 3] = -w2c[:3, :3] @ pos
+    k = [[focal, 0.0, w / 2 + OFF_CENTRE_SHIFT[0] * w],
+         [0.0, focal, h / 2 + OFF_CENTRE_SHIFT[1] * h], [0.0, 0.0, 1.0]]
+    return camera_from_k_w2c(k, w2c, w, h, time=time, device=dev)
+
+
+@pytest.mark.gpu
+def test_off_centre_served_frame_matches_the_cpu_path(cuda):
+    """A frame served (a replay of the captured frame) through a K-built
+    camera with its principal point off centre, at 104x86: equal to the
+    eager frame bit for bit, and to the CPU path's frame within the 160x160
+    check's tolerances."""
+    cfg = _cfg()
+    st = _state(cfg)
+    rc = tconfig.raster_config_from(cfg, *OFF_CENTRE_WH)
+
+    def renderer(dev, capture):
+        s = st.to(dev)
+        return Renderer(gauss=s.params["gauss"], alive=s.alive,
+                        deform=s.params["deform"].eval(), aabb=s.aabb,
+                        bg=torch.ones(3, device=dev), sh_degree=1,
+                        device=dev, raster_cfg=rc, capture=capture)
+
+    served = renderer(cuda, True)
+    graphs.zero_counts()
+    cams = [_off_centre_camera(cuda, theta=0.3 * i, time=i / 4)
+            for i in range(4)]
+    outs = [served.render(c) for c in cams]
+    assert graphs.REPLAYED["blend_forward"] == len(cams)
+    eager = dataclasses.replace(served, capture=False)
+    cpu = renderer(torch.device("cpu"), False)
+    for i, got in enumerate(outs):
+        assert torch.equal(got.color, eager.render(cams[i]).color)
+        want = cpu.render(_off_centre_camera(
+            torch.device("cpu"), theta=0.3 * i, time=i / 4)).color
+        d = (got.color.cpu() - want).abs()
+        assert float(d.mean()) <= CPU_TOL_MEAN, float(d.mean())
+        assert float(d.max()) <= CPU_TOL_MAX, float(d.max())
+    assert float(outs[0].color.mean()) < 0.99     # splats in the frame
+
+
+@pytest.mark.gpu
+def test_off_centre_step_gradients_with_k2_match_the_plain_backward(cuda):
+    """One step's gradients behind the off-centre camera at 104x86, with K2
+    and with the plain backward: every leaf within GRAD_TOL of its largest
+    magnitude."""
+    cfg = _cfg()
+    st = _state(cfg).to(cuda)
+    rc = tconfig.raster_config_from(cfg, *OFF_CENTRE_WH)
+    cam = _off_centre_camera(cuda)
+    w, h = OFF_CENTRE_WH
+    gt = torch.rand((1, h, w, 3), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    kw = dict(stage="fine", raster_cfg=rc, lambda_dssim=0.2,
+              reg_weights=(0.01, 1e-4, 1e-4))
+
+    def grads():
+        sg = loop.step_gradients(st, [cam], gt, torch.ones(3, device=cuda),
+                                 1, **kw)
+        return [x for x in sg.grads + [sg.ndc_grad] if x is not None]
+
+    before = blend.blend_backward.launches
+    with_k2 = grads()
+    assert blend.blend_backward.launches == before + 1
+    saved = blend.blend_backward
+    blend.blend_backward = blend.blend_backward_plain
+    try:
+        plain = grads()
+    finally:
+        blend.blend_backward = saved
+    assert any(float(p.abs().max()) > 0 for p in plain)
+    for i, (a, b) in enumerate(zip(with_k2, plain, strict=True)):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert err <= GRAD_TOL, (i, err)

@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
-chip_smoke.py imports jax, jaxlib or the JAX package, and importing the
-serving, training and data modules, the training driver and its CLI, the
-render and metrics CLIs with LPIPS, and
-the dev tools' kernels and tools leaves jax out of sys.modules; importing
-the dev tools touches neither nvcc nor CUDA."""
+chip_smoke.py imports jax, jaxlib, the JAX package or PIL (the card's
+machine has no PIL), and importing the serving, training and data modules
+(the readers and the codecs among them), the training driver and its CLI,
+the render and metrics CLIs with LPIPS, and the dev tools' kernels and
+tools leaves jax and PIL out of sys.modules; importing the dev tools
+touches neither nvcc nor CUDA."""
 import ast
 import subprocess
 import sys
@@ -36,6 +37,13 @@ def _imported_roots(path: Path):
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pil_imports(path):
+    assert "PIL" not in set(_imported_roots(path)), \
+        f"{path.relative_to(ROOT)} imports PIL"
 
 
 # the dev tools' kernels (D1-D6): wrappers, tools and the timing helpers
@@ -76,6 +84,11 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.ops.lpips, "
             "fourdgs_tpu_torch.data.scene, fourdgs_tpu_torch.data.blender, "
             "fourdgs_tpu_torch.data.png, fourdgs_tpu_torch.ops.scatter, "
+            "fourdgs_tpu_torch.data.jpeg, fourdgs_tpu_torch.data.images, "
+            "fourdgs_tpu_torch.data.colmap, "
+            "fourdgs_tpu_torch.data.colmap_scene, "
+            "fourdgs_tpu_torch.data.multiview, "
+            "fourdgs_tpu_torch.data.panoptic, "
             "fourdgs_tpu_torch.train.densify, "
             "fourdgs_tpu_torch.train.checkpoint, "
             "fourdgs_tpu_torch.train.sampler, "
@@ -83,7 +96,7 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.render.state_at_time, "
             + _DEV_MODULES + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'fourdgs_tpu')]; "
+            "('jax', 'jaxlib', 'fourdgs_tpu', 'PIL')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -337,16 +337,18 @@ def test_blender_reader_resizes_as_jax(tmp_path, resolution):
                                               3)
 
 
-CONFIGS = sorted(str(p.relative_to(ROOT)) for layout in ("hypernerf",
-                                                      "dynerf")
-                 for p in (ROOT / "fourdgs_tpu/configs" / layout).glob("*.py"))
+CONFIGS = sorted(str(p.relative_to(ROOT)) for layout in (
+    "hypernerf", "dynerf", "multipleview", "dycheck")
+    for p in (ROOT / "fourdgs_tpu/configs" / layout).glob("*.py"))
 
 
 @pytest.mark.parametrize("path", CONFIGS)
 def test_layout_configs_match_jax(path):
-    """configs/hypernerf and configs/dynerf through apply_config_file:
-    every field equal (chicken.py's ModelParams.kplanes_config ignored in
-    both, dynerf/default.py's no_do and no_dshs False)."""
+    """configs/hypernerf, dynerf, multipleview and dycheck through
+    apply_config_file: every field equal (chicken.py's
+    ModelParams.kplanes_config ignored in both, dynerf/default.py's no_do
+    and no_dshs False, multipleview/default.py's 16-wide planes at
+    multires [1, 2])."""
     full = str(ROOT / path)
     a = jconfig.apply_config_file(jconfig.Config(), full)
     b = tconfig.apply_config_file(tconfig.Config(), full)
@@ -358,6 +360,9 @@ def test_layout_configs_match_jax(path):
     if path.endswith("dynerf/default.py"):
         assert (b.hidden.no_do, b.hidden.no_dshs, b.opt.batch_size) == (
             False, False, 4)
+    if path.endswith("multipleview/default.py"):
+        assert (b.hidden.multires, b.hidden.kplanes_config[
+            "output_coordinate_dim"], b.opt.batch_size) == ([1, 2], 16, 1)
     if path.endswith("hypernerf/chicken.py"):
         assert b.hidden.kplanes_config["resolution"] == [64, 64, 64, 150]
 
