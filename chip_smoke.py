@@ -125,6 +125,24 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              JPEGs with data/jpeg.py's encoder (quality 95, 4:2:0) and
              print one view's decode ms on one thread and Scene.load's
              seconds beside the checks of phases 11-12;
+ 16. tools:  (a) the viewer bridge (viewer/network_gui.py) on a loopback
+             port serving phase 3's snapshot through its Renderer
+             (Renderer.gui_frame, captured frames) to a client thread, 30
+             frames at 800x800 and 10 at 1280x720: every reply's size,
+             one 800x800 reply equal to the Renderer's frame, the
+             bridge's ms a frame at each size; (b) the train CLI with
+             --gui and render_process on phase 7's scene, 50 + 150
+             iterations, a client asking for 20 frames without `train`
+             and then one an iteration: the run's end, the triptychs
+             (H, 3W, 3), the served frames' ms, the stages' ms an
+             iteration against phase 7's; (c) tools/export_perframe.py
+             on phase 3's snapshot at 4 timestamps, one PLY against
+             get_state_at_time on the card; (d) tools/merge_many.py on
+             that snapshot twice (offsets +-0.6) over 12 of phase 7's
+             video cameras, frame 0 through K1 against the plain blend
+             (TOL), ms a frame and the drops; (e) the train CLI with
+             empty_voxel, 50 + 100 iterations: finite losses, the leaf
+             in the snapshot, read back equal;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -136,6 +154,12 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              tiles' occupied chunks, its reduced warp batches, equal to
              phase 6's count of K2's, and the chunks its blocks walk,
              against those of K2's sub-tile blocks: the coupled exit);
+             and the reduction without FOURDGS_PALLAS_GRAD_SCATTER (the
+             reassociation over the binner's BlendSlots) on K3's table:
+             against index_add_ (SCATTER_TOL), bit for bit twice, finite
+             over a table that was NaN before K3's launch, one step's
+             gradients through it against K2's (GRAD_TOL), and its,
+             index_add_'s and K4's time by CUDA events;
   9. dev:    the six tools of fourdgs_tpu_torch/tools that port the Pallas
              prototypes of scripts/ (D1-D6), each through its `main` at its
              script's shapes, with the launch counts read around the six;
@@ -582,8 +606,9 @@ def check_binner(torch, label: str, proj, rc) -> dict:
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    differ = [f for f in rt.BinnedTiles._fields
-              if not torch.equal(getattr(got, f), getattr(want, f))]
+    # every field but `slots`, which neither route was asked for
+    differ = [f for f in rt.BinnedTiles._fields if f != "slots"
+              and not torch.equal(getattr(got, f), getattr(want, f))]
     ms, plain_ms = time_pair(kernel, plain, launches=20)
     dev = device_ms(kernel)
     # csrc/binner.cu's own kernels: the items' gather, the rank, the counts
@@ -2682,7 +2707,505 @@ def phase_kernels_slots(torch, args, work_k2, state, rc, bg, sh, cam, gt,
     if not err <= GRAD_TOL:
         raise AssertionError(f"K3 + K4 step gradients disagree: {err}")
     k3["step_grad_err_vs_k2"] = err
+    k3["reassociation"] = check_reassociation(
+        torch, args, got, gauss, state, rc, sh, cam, grads, with_k2)
     return [k3, k4, k5]
+
+
+def check_reassociation(torch, args, got, gauss, state, rc, sh, cam, grads,
+                        with_k2) -> dict:
+    """The per-slot backward's reduction without FOURDGS_PALLAS_GRAD_SCATTER
+    (ops/rasterize_tiled.py:reassociate_pair_grads over the binner's
+    BlendSlots, the JAX package's default) on phase 6's step input: K3's
+    table `got` reduced against `index_add_`'s sums (SCATTER_TOL), two
+    runs of K3 and the reduction bit for bit, sums finite over a table
+    that was NaN before K3's launch, one step's gradients through it
+    against K2's (`with_k2`, GRAD_TOL), and the reduction's, `index_add_`'s
+    and K4's time on the table by CUDA events."""
+    from fourdgs_tpu_torch.ops import blend, scatter
+    from fourdgs_tpu_torch.ops.rasterize_tiled import prepare_blend
+    from fourdgs_tpu_torch.render.render import splats_at
+
+    gidx = args[0]
+    n = args[2].shape[0] - 1
+    with torch.no_grad():
+        splats = splats_at(gauss, state.params["deform"], cam, state.aabb, sh)
+        _, binned, _ = prepare_blend(*splats, cam, rc, state.alive,
+                                     slots=True)
+    if not torch.equal(binned.gidx, gidx):
+        raise AssertionError("the binning with slots gave other lists")
+    slots = binned.slots
+    with switches_set({"FOURDGS_PALLAS_NO_FUSED_BWD": "1"}):
+        if os.environ.get("FOURDGS_PALLAS_GRAD_SCATTER"):
+            raise AssertionError("FOURDGS_PALLAS_GRAD_SCATTER is set")
+        red = blend.reduce_slots(gidx, got, n, slots)
+        ref = blend.reduce_slots(gidx, got, n)
+        again = blend.reduce_slots(
+            gidx, blend.blend_backward_slots(*args), n, slots)
+        poisoned = torch.full_like(got, float("nan"))
+        blend.blend_backward_slots(*args, out=poisoned)
+        nan_in = blend.reduce_slots(gidx, poisoned, n, slots)
+        torch.cuda.synchronize()
+        err = scatter_rel_err(red, ref)
+        stable = bool(torch.equal(red, again))
+        finite = bool(torch.isfinite(nan_in).all())
+        unwritten = int(torch.isnan(poisoned).any(-1).sum())
+        before = kernel_runs()
+        with_re = grads()
+        torch.cuda.synchronize()
+        after = kernel_runs()
+    ran = {k: after[k] - before[k] for k in after}
+    grad_err = max(grads_agree(x, y) for x, y in zip(with_re, with_k2))
+    flat = gidx.reshape(-1)
+    idx = torch.where(flat >= 0, flat, n).to(torch.int32)
+    rows = got.reshape(-1, blend.GRAD_W)
+    times = {
+        "reassociation": time_call(
+            lambda: blend.reduce_slots(gidx, got, n, slots)),
+        "index_add_": time_call(lambda: blend.reduce_slots(gidx, got, n)),
+        "K4 (fill included)": time_call(
+            lambda: scatter.scatter_add_rows(idx, rows, n_out=n + 1))}
+    log(f"reassociation on K3's table ({tuple(got.shape)}, {unwritten} "
+        f"rows left unwritten by K3; budget {tuple(slots.dest.shape)}): "
+        f"max |a - b| / max |b| against index_add_ {err:.3g} (tol "
+        f"{SCATTER_TOL:g}); two runs bit for bit {stable}; finite over a "
+        f"NaN table {finite}; step gradients through K3 + reassociation vs "
+        f"K2 {grad_err:.3g} (tol {GRAD_TOL:g}), launches {ran}; ms by "
+        f"events: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    if not (err <= SCATTER_TOL and stable and finite
+            and grad_err <= GRAD_TOL and unwritten > 0):
+        raise AssertionError(f"reassociation: err {err}, stable {stable}, "
+                             f"finite {finite}, grad_err {grad_err}, "
+                             f"unwritten rows {unwritten}")
+    if (ran["blend_bwd_slots"] != 1 or ran["blend_bwd"]
+            or ran["scatter_add_rows"] or ran["scatter_set_scalars"] != 1):
+        raise AssertionError(f"the reassociated step ran {ran}")
+    return {"max_rel_err_vs_index_add": err, "bit_stable": stable,
+            "finite_over_nan": finite, "unwritten_rows": unwritten,
+            "step_grad_err_vs_k2": grad_err, "ms": times, "ok": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 16 (after phase 15): the viewer bridge, the triptychs, the per-frame
+# export, the merge tool and the empty-voxel grid
+# ---------------------------------------------------------------------------
+
+VIEWER_FRAMES = ((30, (800, 800)), (10, (1280, 720)))   # phase 16(a)
+VIEWER_FOV = 0.9                # radians, across the width
+GUI_ITERS = (50, 150)           # phase 16(b): coarse, fine
+GUI_STILL_FRAMES = 20           # frames served before training goes on
+EXPORT_FRAMES = 4
+MERGE_FRAMES = 12
+MERGE_OFFSET = 0.6
+VOXEL_ITERS = (50, 100)         # phase 16(e)
+EXPORT_TOL = 1e-6
+
+
+def viewer_request(torch, w: int, h: int, theta: float, train=False,
+                   keep_alive=False) -> bytes:
+    """A viewer's request for the look-at camera at `theta`, at w x h."""
+    from fourdgs_tpu_torch.data.camera import look_at_camera
+    from fourdgs_tpu_torch.viewer import network_gui
+    cam = look_at_camera(theta=theta, fov=VIEWER_FOV, device="cpu")
+    view, proj = network_gui.client_matrices(cam)
+    fov_y = 2 * np.arctan(np.tan(VIEWER_FOV / 2) * h / w)
+    return network_gui.request_bytes(w, h, VIEWER_FOV, fov_y, view, proj,
+                                     train=train, keep_alive=keep_alive)
+
+
+def viewer_client(torch, port: int, requests, replies: list, errors: list):
+    """A client thread's body: connect to the bridge on `port` (retrying
+    while it starts), send each request of `requests` (an iterable of
+    (w, h, bytes)) after the previous reply, and keep (frame bytes,
+    verify string, seconds from the request to its reply's end) in
+    `replies`; stop when the requests or the bridge end."""
+    import socket
+
+    from fourdgs_tpu_torch.viewer import network_gui
+    try:
+        for _ in range(1200):
+            try:
+                sock = socket.create_connection(("127.0.0.1", port), 5)
+                break
+            except OSError:
+                time.sleep(0.05)
+        else:
+            raise ConnectionError(f"no bridge on port {port}")
+        sock.settimeout(300)
+        with sock:
+            for w, h, data in requests:
+                t0 = time.perf_counter()
+                try:
+                    sock.sendall(data)
+                    frame, verify = network_gui.recv_reply(sock, w, h)
+                except ConnectionError:         # the run ended
+                    return
+                replies.append((frame, verify, time.perf_counter() - t0))
+    except Exception as e:          # raised again by the phase
+        errors.append(e)
+
+
+def start_client(torch, port, requests):
+    import threading
+    replies, errors = [], []
+    thread = threading.Thread(target=viewer_client, daemon=True,
+                              args=(torch, port, requests, replies, errors))
+    thread.start()
+    return thread, replies, errors
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ms_stats(seconds: list) -> dict:
+    ms = np.asarray(seconds, np.float64) * 1e3
+    return {"frames": int(ms.size), "ms_median": float(np.median(ms)),
+            "ms_mean": float(ms.mean()), "ms_min": float(ms.min()),
+            "ms_max": float(ms.max())}
+
+
+def tools_viewer(torch, device, renderer) -> dict:
+    """16(a): the bridge serving phase 3's snapshot through its Renderer
+    (each size a captured frame), a client thread asking for
+    VIEWER_FRAMES; every reply's size, one 800x800 reply against the
+    Renderer's frame, the bridge's ms a frame at each size."""
+    from fourdgs_tpu_torch.train import graphs
+    from fourdgs_tpu_torch.viewer.network_gui import NetworkGui, frame_bytes
+
+    gui = NetworkGui(device)
+    gui.init("127.0.0.1", 0)
+    port = gui.listener.getsockname()[1]
+    requests, sizes = [], []
+    for count, (w, h) in VIEWER_FRAMES:
+        for i in range(count):
+            requests.append((w, h, viewer_request(
+                torch, w, h, 2 * np.pi * i / count)))
+            sizes.append((w, h))
+    thread, replies, errors = start_client(torch, port, requests)
+    seen = []
+
+    def frame(camera, w, h, sm):
+        seen.append((camera, w, h))
+        return renderer.gui_frame(camera, w, h, sm)
+
+    torch.cuda.synchronize()
+    graphs.zero_counts()
+    t0 = time.perf_counter()
+    while thread.is_alive() and time.perf_counter() - t0 < 120:
+        gui.poll(frame, "chip_smoke", time=0.5)
+    thread.join(10)
+    gui.close()
+    runs = kernel_runs()
+    if thread.is_alive():
+        raise AssertionError("the viewer client did not finish")
+    if errors:
+        raise errors[0]
+    if len(replies) != len(requests):
+        raise AssertionError(f"the viewer got {len(replies)} of "
+                             f"{len(requests)} replies")
+    for (data, verify, _), (w, h) in zip(replies, sizes):
+        if len(data) != w * h * 3 or verify != "chip_smoke":
+            raise AssertionError(f"a {w}x{h} reply of {len(data)} bytes, "
+                                 f"verify {verify!r}")
+    # one 800x800 reply against the Renderer's frame at the camera the
+    # bridge decoded
+    k = VIEWER_FRAMES[0][0] - 1
+    camera, w, h = seen[k]
+    want = frame_bytes(renderer.gui_frame(camera, w, h))
+    equal = replies[k][0] == want
+    out, start = {}, 0
+    for count, (w, h) in VIEWER_FRAMES:
+        # the first two frames of a size capture and warm its frame
+        out[f"{w}x{h}"] = ms_stats([r[2] for r in
+                                    replies[start + 2:start + count]])
+        start += count
+    for size, st in out.items():
+        log(f"tools (a) viewer: {size}: {st['frames']} frames, bridge "
+            f"{st['ms_median']:.3f} ms a frame median ({st['ms_min']:.3f}"
+            f"-{st['ms_max']:.3f}), {1e3 / st['ms_median']:.1f} FPS")
+    log(f"tools (a) viewer: {len(replies)} replies; the 800x800 reply "
+        f"equal to the Renderer's frame {equal}; kernel runs {runs}; "
+        f"renderer captured {renderer.captured}, replayed "
+        f"{renderer.replayed}")
+    if not equal:
+        raise AssertionError("the bridge's bytes differ from the "
+                             "Renderer's frame")
+    if min(runs[k] for k in PATH_KERNELS if k != "blend_bwd") < len(requests):
+        raise AssertionError(f"the served frames ran {runs}")
+    return {"sizes": out, "replies": len(replies), "kernel_runs": runs}
+
+
+def tools_gui_training(torch, device, work: Path, seed: int,
+                       phase7_fine_ms: float) -> dict:
+    """16(b): the train CLI with --gui and render_process on phase 7's
+    scene: a client asks for GUI_STILL_FRAMES frames without `train`,
+    then one an iteration with `train` and `keep_alive` until the run
+    ends; the run's end, the triptychs, the served frames' ms."""
+    from fourdgs_tpu_torch.data.jpeg import read_jpeg
+    from fourdgs_tpu_torch.tools import train as train_cli
+    from fourdgs_tpu_torch.train import graphs
+
+    coarse, fine = GUI_ITERS
+    model = work / "gui"
+    shutil.rmtree(model, ignore_errors=True)
+    config = work / "dnerf_gui.py"
+    config.write_text(DRIVER_CONFIG.format(coarse=coarse, fine=fine)
+                      + "ModelParams = dict(render_process=True)\n")
+    port = free_port()
+    w, h = DRIVER_SIZE, DRIVER_SIZE
+
+    def requests():
+        for i in range(100_000):
+            train = i >= GUI_STILL_FRAMES
+            yield w, h, viewer_request(torch, w, h, 0.05 * i, train, train)
+
+    thread, replies, errors = start_client(torch, port, requests())
+    torch.cuda.synchronize()
+    graphs.zero_counts()
+    t0 = time.perf_counter()
+    summary = train_cli.main([
+        "-s", str(work / "scene"), "-m", str(model), "--configs",
+        str(config), "--quiet", "--seed", str(seed), "--device",
+        device.type, "--gui", "--port", str(port), "--test_iterations",
+        str(coarse), str(fine), "--save_iterations", str(fine)])
+    seconds = time.perf_counter() - t0
+    thread.join(30)
+    runs = kernel_runs()
+    if thread.is_alive():
+        raise AssertionError("the viewer client did not finish")
+    if errors:
+        raise errors[0]
+    stages = {st["stage"]: st for st in summary["stages"]}
+    ms_it = {k: 1e3 * st["wall_time"] / (st["iterations"] - st["start"])
+             for k, st in stages.items()}
+    still = ms_stats([r[2] for r in replies[2:GUI_STILL_FRAMES]])
+    per_it = ms_stats([r[2] for r in replies[GUI_STILL_FRAMES:]])
+    trips = {}
+    for stage, it in (("coarse", coarse), ("fine", fine)):
+        path = model / "train_render" / f"{stage}test" / f"{it:05d}.jpg"
+        trips[str(path.relative_to(work))] = (
+            read_jpeg(str(path)).shape if path.exists() else None)
+    checks = {
+        "the run reached its last iteration":
+            stages["fine"]["history"][-1]["iter"] == fine,
+        "a frame each iteration after the still ones":
+            len(replies) >= GUI_STILL_FRAMES + coarse + fine - 1,
+        "every reply a frame": all(len(r[0]) == w * h * 3
+                                   for r in replies),
+        "the triptychs": all(s == (h, 3 * w, 3) for s in trips.values()),
+        "K2 ran each step": runs["blend_bwd"] >= coarse + fine,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"tools (b) viewer in training: {len(replies)} frames served "
+        f"({GUI_STILL_FRAMES} without train: {still['ms_median']:.3f} ms "
+        f"median, {still['ms_min']:.3f}-{still['ms_max']:.3f}; one an "
+        f"iteration: {per_it['ms_median']:.3f} ms median from request to "
+        f"reply, a step included); coarse {ms_it['coarse']:.3f}, fine "
+        f"{ms_it['fine']:.3f} ms an iteration, the bridge left out "
+        f"(phase 7's fine {phase7_fine_ms:.3f}); CLI {seconds:.2f} s; "
+        f"triptychs {trips}; kernel runs {runs}; checks "
+        f"{len(checks) - len(failed)}/{len(checks)}")
+    if failed:
+        raise AssertionError(f"phase 16(b): {failed}")
+    return {"still_frames": still, "per_iteration_frames": per_it,
+            "ms_per_iteration": ms_it, "phase7_fine_ms": phase7_fine_ms,
+            "seconds": seconds, "triptychs": {k: list(v) for k, v
+                                              in trips.items()},
+            "kernel_runs": runs}
+
+
+def tools_export(torch, device, work: Path) -> dict:
+    """16(c): tools/export_perframe.py on phase 3's snapshot at
+    EXPORT_FRAMES timestamps; one PLY read back against
+    get_state_at_time on the card (EXPORT_TOL)."""
+    from fourdgs_tpu_torch.data import ply
+    from fourdgs_tpu_torch.render.state_at_time import get_state_at_time
+    from fourdgs_tpu_torch.tools import export_perframe
+    from fourdgs_tpu_torch.train import checkpoint
+
+    model = work / "model"
+    t0 = time.perf_counter()
+    paths = export_perframe.main(["-m", str(model), "--n_frames",
+                                  str(EXPORT_FRAMES), "--device",
+                                  device.type])
+    seconds = time.perf_counter() - t0
+    sizes = [os.path.getsize(p) for p in paths]
+    k = 1
+    _, gauss, alive, deform, aabb, _ = checkpoint.load_model(
+        str(model), -1, device)
+    t = float(np.linspace(0, 1, EXPORT_FRAMES)[k])
+    keep = alive.cpu().numpy()
+    want = dict(zip(("xyz", "scaling", "rotation", "opacity", "shs"), (
+        x.cpu().numpy()[keep]
+        for x in get_state_at_time(gauss, deform, aabb, t))))
+    want["features_dc"] = want["shs"][:, :1]
+    want["features_rest"] = want.pop("shs")[:, 1:]
+    got = ply.load_gaussians(paths[k], 3)
+    err = max(float(np.abs(got[f] - want[f]).max()) for f in want)
+    shutil.rmtree(model / "gaussian_pertimestamp")
+    log(f"tools (c) export: {len(paths)} frames of {int(keep.sum())} "
+        f"gaussians, {np.mean(sizes) / 1e6:.2f} MB each, "
+        f"{seconds / len(paths):.3f} s a frame (the model's load "
+        f"included); frame {k} read back against get_state_at_time on the "
+        f"card: max abs err {err:.3g} (tol {EXPORT_TOL:g})")
+    if len(paths) != EXPORT_FRAMES or not err <= EXPORT_TOL:
+        raise AssertionError(f"export: {len(paths)} frames, err {err}")
+    return {"frames": len(paths), "mb_per_frame": float(np.mean(sizes)) / 1e6,
+            "s_per_frame": seconds / len(paths), "max_abs_err": err}
+
+
+def tools_merge(torch, device, work: Path) -> dict:
+    """16(d): tools/merge_many.py on phase 3's snapshot twice (offsets
+    +-MERGE_OFFSET in x) over MERGE_FRAMES of phase 7's video cameras;
+    frame 0 through K1 against the plain blend on the card (TOL), its PNG
+    against the kernel's frame, ms a frame and the drops."""
+    from fourdgs_tpu_torch.data.blender import (
+        generate_spherical_video_cameras, read_timeline)
+    from fourdgs_tpu_torch.data.png import read_png
+    from fourdgs_tpu_torch.data.scene import camera_from_info
+    from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, rasterize
+    from fourdgs_tpu_torch.tools import merge_many
+    from fourdgs_tpu_torch.tools import render as render_cli
+    from fourdgs_tpu_torch.train import checkpoint, graphs
+
+    model, out = str(work / "model"), work / "merged"
+    shutil.rmtree(out, ignore_errors=True)
+    offsets = (f"{MERGE_OFFSET},0,0", f"{-MERGE_OFFSET},0,0")
+    torch.cuda.synchronize()
+    graphs.zero_counts()
+    t0 = time.perf_counter()
+    summary = merge_many.main(["-m", model, model, "-s", str(work / "scene"),
+                               "--offsets", *offsets, "--out", str(out),
+                               "--n_frames", str(MERGE_FRAMES),
+                               "--device", device.type])
+    seconds = time.perf_counter() - t0
+    runs = kernel_runs()
+    # frame 0 again, through K1 and through the plain blend
+    models = []
+    for off in offsets:
+        _, gauss, alive, deform, aabb, _ = checkpoint.load_model(
+            model, -1, device)
+        models.append((gauss, torch.nonzero(alive)[:, 0], deform, aabb,
+                       torch.tensor([float(x) for x in off.split(",")],
+                                    device=device), 1.0))
+    # the scene's first video camera, as Scene.load makes it, without
+    # decoding the scene's images again
+    _, max_time = read_timeline(str(work / "scene"))
+    info = generate_spherical_video_cameras(
+        str(work / "scene"), "transforms_train.json", max_time,
+        resolution=(DRIVER_SIZE, DRIVER_SIZE))[0]
+    cam = camera_from_info(info, device)
+    rc = RasterConfig(img_width=info.width, img_height=info.height)
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        splats = merge_many.merged_splats(models, cam, float(info.time))
+        a = rasterize(*splats, cam, bg, rc)
+        with plain_version("blend_forward"):
+            b = rasterize(*splats, cam, bg, rc)
+    torch.cuda.synchronize()
+    errs = {"color": float((a.color - b.color).abs().max()),
+            "depth": float((a.depth - b.depth).abs().max()),
+            "t": float((a.alpha - b.alpha).abs().max())}
+    png_equal = bool(np.array_equal(read_png(str(out / "00000.png")),
+                                    render_cli.quantise(a.color)))
+    frames = ms_stats(summary["seconds"][1:])
+    log(f"tools (d) merge: {summary['gaussians']} gaussians, "
+        f"{summary['frames']} frames at {rc.img_width}x{rc.img_height}, "
+        f"{frames['ms_median']:.3f} ms a frame median "
+        f"({frames['ms_min']:.3f}-{frames['ms_max']:.3f}; the first "
+        f"{1e3 * summary['seconds'][0]:.3f}), CLI {seconds:.2f} s; drops "
+        f"{summary['drops']}; frame 0 K1 vs plain {errs} (tol {TOL}); its "
+        f"PNG equal to the kernel's frame {png_equal}; kernel runs {runs}")
+    if not (all(errs[k] <= TOL[k] for k in TOL) and png_equal):
+        raise AssertionError(f"merge: frame 0 errs {errs}, PNG {png_equal}")
+    if min(runs[k] for k in ("blend_fwd", "binner", "gather_rows")) == 0:
+        raise AssertionError(f"the merge ran {runs}")
+    shutil.rmtree(out)
+    return {"gaussians": summary["gaussians"], "frames": frames,
+            "first_frame_ms": 1e3 * summary["seconds"][0],
+            "drops": summary["drops"], "frame0_err": errs,
+            "kernel_runs": runs}
+
+
+def tools_empty_voxel(torch, device, work: Path, seed: int) -> dict:
+    """16(e): the train CLI with empty_voxel on phase 7's scene; finite
+    losses, and the empty_voxel leaf in the snapshot, read back equal."""
+    from fourdgs_tpu_torch.tools import train as train_cli
+    from fourdgs_tpu_torch.train import checkpoint
+    from fourdgs_tpu_torch.train import config as config_mod
+
+    coarse, fine = VOXEL_ITERS
+    model = work / "voxel"
+    shutil.rmtree(model, ignore_errors=True)
+    config = work / "dnerf_voxel.py"
+    config.write_text(DRIVER_CONFIG.format(coarse=coarse, fine=fine).replace(
+        "ModelHiddenParams = dict(\n",
+        "ModelHiddenParams = dict(\n    empty_voxel=True,\n"))
+    t0 = time.perf_counter()
+    summary = train_cli.main([
+        "-s", str(work / "scene"), "-m", str(model), "--configs",
+        str(config), "--quiet", "--seed", str(seed), "--device",
+        device.type, "--test_iterations", str(fine), "--save_iterations",
+        str(fine)])
+    seconds = time.perf_counter() - t0
+    losses = [r["loss"] for st in summary["stages"] for r in st["history"]]
+    snap = model / "point_cloud" / f"iteration_{fine}"
+    _, flat, _ = checkpoint.load_snapshot(str(snap))
+    cfg = config_mod.load_cfg(str(model / "cfg_args.json"))
+    leaf = flat.get("empty_voxel")
+    back = checkpoint.deform_params_from_flat(
+        flat, config_mod.deform_config_from(cfg), device)
+    checks = {
+        "finite losses": bool(np.isfinite(losses).all()),
+        "the leaf in the snapshot": leaf is not None
+        and leaf.shape == (64, 64, 64, 1),
+        "the leaf trained": leaf is not None and bool(np.abs(leaf).max() > 0),
+        "read back equal": leaf is not None and np.array_equal(
+            back.empty_voxel.detach().cpu().numpy(), leaf),
+        "the fine stage ran": summary["stages"][-1]["history"][-1]["iter"]
+        == fine,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"tools (e) empty_voxel: {coarse} + {fine} iterations in "
+        f"{seconds:.2f} s, loss first {losses[0]:.6f} last "
+        f"{losses[-1]:.6f}, fine test PSNR "
+        f"{summary['stages'][-1]['test_psnr']}; leaf |max| "
+        f"{float(np.abs(leaf).max()) if leaf is not None else None}; checks "
+        f"{len(checks) - len(failed)}/{len(checks)}")
+    if failed:
+        raise AssertionError(f"phase 16(e): {failed}")
+    return {"seconds": seconds, "loss_first": losses[0],
+            "loss_last": losses[-1],
+            "test_psnr": summary["stages"][-1]["test_psnr"]}
+
+
+def phase_tools(torch, device, work: Path, renderer, seed: int,
+                phase7_fine_ms: float) -> dict:
+    """Phase 16: the viewer bridge on the served snapshot and inside
+    training, the triptychs, the per-frame export, the merge and the
+    empty-voxel grid, each timed."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (
+            ("viewer", lambda: tools_viewer(torch, device, renderer)),
+            ("gui_training", lambda: tools_gui_training(
+                torch, device, work, seed, phase7_fine_ms)),
+            ("export", lambda: tools_export(torch, device, work)),
+            ("merge", lambda: tools_merge(torch, device, work)),
+            ("empty_voxel", lambda: tools_empty_voxel(torch, device, work,
+                                                      seed))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        out[name]["phase_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools: phase 16 in {out['seconds']:.2f} s (" + ", ".join(
+        f"{k} {v['phase_s']:.2f}" for k, v in out.items()
+        if isinstance(v, dict)) + ")")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3005,6 +3528,9 @@ def main(argv=None) -> int:
         for entry, kernel in ((k1, "blend_fwd"), (k2, "blend_bwd")):
             entry[f"launches_{kind}"] = layout_runs[kind][kernel]
         k1[kind] = layouts[kind]
+    k1["tools"] = phase_tools(
+        torch, device, work, renderer, args.seed,
+        driver["stages"]["fine"]["ms_per_iteration"])
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)

@@ -5,8 +5,9 @@ port's modules.
     of field name -> array) -> the port's GaussianParams.
   * `deformation_from_flat`: the flat dict that `deformation.npz` holds
     (and that the JAX checkpoint module's `_flatten(params["deform"])`
-    returns), with keys such as `grid/l0_p0`, `mlp/pos/h0/w` and
-    `mlp/feature_out/fo0/b` -> a `Deformation` module.
+    returns), with keys such as `grid/l0_p0`, `mlp/pos/h0/w`,
+    `mlp/feature_out/fo0/b` and, with `empty_voxel`, `empty_voxel` -> a
+    `Deformation` module.
   * `deformation_to_flat`: the inverse, for writing snapshots.
   * `train_state_from_numpy`: a whole JAX `TrainState` in the flat layout
     of the JAX checkpoint (`_flatten(state._asdict())`, keys such as
@@ -57,7 +58,10 @@ def gaussians_from_numpy(fields: Mapping[str, np.ndarray],
 
 def _module_key(flat_key: str) -> tuple[str, bool]:
     """'grid/l0_p0' -> ('grid.planes.l0_p0', False);
-    'mlp/pos/h0/w' -> ('pos.h0.weight', True)."""
+    'mlp/pos/h0/w' -> ('pos.h0.weight', True); 'empty_voxel' keeps its
+    name."""
+    if flat_key == "empty_voxel":
+        return "empty_voxel", False
     parts = flat_key.split("/")
     if parts[0] == "grid":
         return "grid.planes." + "/".join(parts[1:]), False
@@ -102,6 +106,8 @@ def _flat_key(name: str) -> tuple[str, bool]:
     False); 'pos.h0.weight' -> ('mlp/pos/h0/w', True)."""
     if name.startswith("grid.planes."):
         return "grid/" + name[len("grid.planes."):], False
+    if name == "empty_voxel":
+        return name, False
     *path, leaf = name.split(".")
     if leaf not in ("weight", "bias"):
         raise KeyError(f"unknown deformation parameter {name!r}")

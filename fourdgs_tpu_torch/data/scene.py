@@ -408,14 +408,18 @@ class Scene:
 
     @classmethod
     def load(cls, path: str, downscale: int = 1,
-             device: str | torch.device | None = None, **kwargs) -> "Scene":
+             device: str | torch.device | None = None,
+             load_images: bool = True, **kwargs) -> "Scene":
         """The scene's splits on `device` (None: cuda, which raises without
         a card). `downscale` divides the image resolution (the `-r` flag);
-        `kwargs` go to `load_scene_info`."""
+        `load_images=False` stacks the cameras only, with no image bank
+        (the export and merge tools); `kwargs` go to `load_scene_info`."""
         dev = resolve_device(device)
         info, kind = load_scene_info(path, **kwargs)
-        train = stack_cameras(info.train_cameras, dev, downscale=downscale)
-        test = (stack_cameras(info.test_cameras, dev, downscale=downscale)
+        train = stack_cameras(info.train_cameras, dev,
+                              with_images=load_images, downscale=downscale)
+        test = (stack_cameras(info.test_cameras, dev,
+                              with_images=load_images, downscale=downscale)
                 if info.test_cameras else train)
         video = (stack_cameras(info.video_cameras, dev, with_images=False,
                                downscale=downscale)

@@ -12,6 +12,9 @@ Parity notes:
     Linear(W,W)]; depth <= 1 means a single Linear.
   * `timenet` holds parameters that the forward never uses; they are kept
     so that snapshots enumerate the same parameter groups.
+  * `empty_voxel` adds a (64, 64, 64, 1) grid parameter
+    (models/dense_grid.py) whose trilinear sample at the normalised
+    position is the mask, unless `static_mlp` gives it.
   * The JAX package stores each weight as (fan_in, fan_out); here they sit
     in `nn.Linear` as (fan_out, fan_in). `convert.deformation_from_flat`
     transposes them.
@@ -23,6 +26,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from fourdgs_tpu_torch.models.dense_grid import (dense_grid_sample,
+                                                 init_dense_grid)
 from fourdgs_tpu_torch.models.hexplane import (HexPlaneConfig, HexPlaneField,
                                                normalize_aabb)
 from fourdgs_tpu_torch.ops.transforms import quat_multiply
@@ -84,10 +89,6 @@ class Deformation(nn.Module):
     def __init__(self, cfg: DeformConfig,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.empty_voxel:
-            raise NotImplementedError(
-                "empty_voxel needs models/dense_grid.py, which a later slice "
-                "of the port brings (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         w = cfg.net_width
         in_dim = 4 if cfg.no_grid else cfg.grid.feat_dim
@@ -107,6 +108,10 @@ class Deformation(nn.Module):
             "t1": _linear(cfg.timenet_width, cfg.timenet_output, generator),
         })
         self.static = Head(w, 1, generator) if cfg.static_mlp else None
+        # the (64, 64, 64, 1) mask grid, zeros at init; a parameter of the
+        # deformation group, under the JAX package's key `empty_voxel`
+        self.empty_voxel = (nn.Parameter(init_dense_grid())
+                            if cfg.empty_voxel else None)
 
     def _hidden(self, feat: torch.Tensor) -> torch.Tensor:
         x = self.feature_out["fo0"](feat)
@@ -128,8 +133,14 @@ class Deformation(nn.Module):
         else:
             feat = self.grid(normalize_aabb(xyz, aabb), t)
         hidden = self._hidden(feat)
-        mask = (self.static(hidden) if self.static is not None
-                else torch.ones((n, 1), dtype=xyz.dtype, device=xyz.device))
+        # the mask: the static head, else the empty-voxel grid, else ones
+        if self.static is not None:
+            mask = self.static(hidden)
+        elif self.empty_voxel is not None:
+            mask = dense_grid_sample(self.empty_voxel,
+                                     normalize_aabb(xyz, aabb))
+        else:
+            mask = torch.ones((n, 1), dtype=xyz.dtype, device=xyz.device)
 
         def bound(x, s):
             return torch.tanh(x / s) * s if s else x

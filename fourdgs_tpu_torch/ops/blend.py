@@ -14,7 +14,8 @@ that a kernel cannot take raises. `.launches` on each wrapper counts
 kernel launches. `blend` is the differentiable blend (the role of the JAX
 package's custom VJP) over them; its backward takes K2, or K3 and a
 per-gaussian reduction under the JAX package's switches
-(`_Blend.backward`).
+(`_Blend.backward`, `reduce_slots`: K4, or the reassociated reduction
+over the binner's slot runs).
 
 Inputs (every version):
   gidx   (num_tiles, tile_cap) int32, depth-ordered gaussian ids, -1 padded
@@ -363,7 +364,8 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
                          depth: torch.Tensor, trans: torch.Tensor,
                          g_color: torch.Tensor, g_depth: torch.Tensor,
                          g_t: torch.Tensor, cfg,
-                         tally: torch.Tensor | None = None) -> torch.Tensor:
+                         tally: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """The per-slot gradients (num_tiles, tile_cap, GRAD_W) of the blend,
     unreduced: row (t, s) sums slot s's gradient over tile t's pixels.
     Rows of occupied chunks past the count, and of chunks after a tile
@@ -375,18 +377,28 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
     `tally`, for measurement: a (3,) int64 tensor on the table's card, to
     which a counting build adds the float2 stores it issued, the batches
     its warps reduced and the chunks its blocks walked (each block of a
-    tile's cluster walks the tile's)."""
+    tile's cluster walks the tile's). `out`, for checks of what the kernel
+    leaves unwritten: a contiguous float32 (num_tiles, tile_cap, GRAD_W)
+    tensor on the table's device to write into and return."""
     _check_inputs(gidx, counts, table, cfg)
     _check_outputs(table, color, depth, trans, cfg, "output")
     _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
     _check_tally(tally, table, "the plain per-slot backward issues no "
                  "stores to tally")
+    shape = (cfg.num_tiles, cfg.tile_cap, GRAD_W)
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.float32
+                            or out.device != table.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
+                         f"on the table's device")
     if table.device.type == "cpu":
-        return blend_backward_slots_plain(gidx, counts, table, color, depth,
-                                          trans, g_color, g_depth, g_t, cfg)
+        plain = blend_backward_slots_plain(gidx, counts, table, color, depth,
+                                           trans, g_color, g_depth, g_t, cfg)
+        return plain if out is None else out.copy_(plain)
     _check_kernel(table, cfg, _MAX_CHUNK_BWD)
     lib = load_library()
-    slots = table.new_empty((cfg.num_tiles, cfg.tile_cap, GRAD_W))
+    slots = table.new_empty(shape) if out is None else out
     _launch(lib, lib.blend_bwd_slots_launch, table, gidx.data_ptr(),
             counts.data_ptr(), table.data_ptr(), table.shape[0] - 1,
             cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
@@ -418,19 +430,36 @@ def blend_backward_slots_plain(gidx: torch.Tensor, counts: torch.Tensor,
     return slots
 
 
-def reduce_slots(gidx: torch.Tensor, slots: torch.Tensor,
-                 n: int) -> torch.Tensor:
-    """The per-gaussian sum (n, GRAD_W) of a per-slot table, with -1 slots
-    sent to a sacrificial row (JAX: blend.py:588-619). K4
-    (`scatter_add_rows`) under FOURDGS_PALLAS_GRAD_SCATTER, else
-    `index_add_`, which stands in for the JAX package's XLA reduction."""
-    flat = gidx.reshape(-1)
-    idx = torch.where(flat >= 0, flat, n).to(torch.int32)
-    rows = slots.reshape(-1, GRAD_W)
+def reassociates() -> bool:
+    """Whether the per-slot backward reduces by reassociation: under
+    FOURDGS_PALLAS_NO_FUSED_BWD without FOURDGS_PALLAS_GRAD_SCATTER (JAX:
+    blend.py:583-611), read at call time."""
+    return bool(os.environ.get("FOURDGS_PALLAS_NO_FUSED_BWD")
+                and not os.environ.get("FOURDGS_PALLAS_GRAD_SCATTER"))
+
+
+def reduce_slots(gidx: torch.Tensor, table: torch.Tensor, n: int,
+                 slots=None) -> torch.Tensor:
+    """The per-gaussian sum (n, GRAD_W) of a per-slot table, by the JAX
+    package's route (blend.py:588-619): K4 (`scatter_add_rows`, -1 slots
+    sent to a sacrificial row) under FOURDGS_PALLAS_GRAD_SCATTER; else,
+    given the binner's BlendSlots `slots`, the reassociated reduction
+    (rasterize_tiled.reassociate_pair_grads, JAX's default); else one
+    `index_add_`, as JAX's fallback for callers without a global slot
+    space."""
+    rows = table.reshape(-1, GRAD_W)
     if os.environ.get("FOURDGS_PALLAS_GRAD_SCATTER"):
+        flat = gidx.reshape(-1)
+        idx = torch.where(flat >= 0, flat, n).to(torch.int32)
         return scatter_add_rows(idx, rows, n_out=n + 1)[:n]
+    if slots is not None:
+        from fourdgs_tpu_torch.ops.rasterize_tiled import \
+            reassociate_pair_grads
+        return reassociate_pair_grads(rows, slots, n)
+    flat = gidx.reshape(-1)
+    idx = torch.where(flat >= 0, flat, n)
     acc = torch.zeros((n + 1, GRAD_W), dtype=torch.float32,
-                      device=slots.device)
+                      device=table.device)
     return acc.index_add_(0, idx.long(), rows)[:n]
 
 
@@ -439,11 +468,13 @@ class _Blend(torch.autograd.Function):
     the custom VJP of `_make_blend` and Pallas `make_blend`)."""
 
     @staticmethod
-    def forward(ctx, gidx, counts, cfg, pix, conic, color, opacity, depth):
+    def forward(ctx, gidx, counts, cfg, slots, pix, conic, color, opacity,
+                depth):
         with record_function("raster.pack"):
             table = pack_attr_table(pix, conic, color, opacity, depth)
         out = blend_forward(gidx, counts, table, cfg)
         ctx.cfg = cfg
+        ctx.slots = slots
         ctx.save_for_backward(gidx, counts, table, *out)
         return out
 
@@ -461,17 +492,20 @@ class _Blend(torch.autograd.Function):
             # slots), so only the switch selects K3.
             if os.environ.get("FOURDGS_PALLAS_NO_FUSED_BWD"):
                 grads = reduce_slots(gidx, blend_backward_slots(*args),
-                                     table.shape[0] - 1)
+                                     table.shape[0] - 1, ctx.slots)
             else:
                 grads = blend_backward(*args)
-        return (None, None, None, grads[:, 0:2], grads[:, 2:5],
+        return (None, None, None, None, grads[:, 0:2], grads[:, 2:5],
                 grads[:, 5:8], grads[:, 8], grads[:, 9])
 
 
 def blend(gidx: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
           conic: torch.Tensor, color: torch.Tensor, opacity: torch.Tensor,
-          depth: torch.Tensor, cfg):
+          depth: torch.Tensor, cfg, slots=None):
     """Differentiable blend of every tile: packs the table, runs
-    `blend_forward`, and `blend_backward` in the backward. gidx and
-    counts carry no gradient. Returns (color, depth, transmittance)."""
-    return _Blend.apply(gidx, counts, cfg, pix, conic, color, opacity, depth)
+    `blend_forward`, and `blend_backward` in the backward (or the
+    per-slot backward and `reduce_slots`, which takes the binner's
+    BlendSlots `slots` where given). gidx and counts carry no gradient.
+    Returns (color, depth, transmittance)."""
+    return _Blend.apply(gidx, counts, cfg, slots, pix, conic, color,
+                        opacity, depth)

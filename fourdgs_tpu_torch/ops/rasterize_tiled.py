@@ -10,7 +10,9 @@
   3. blend                 — front-to-back compositing over the lists and
      its backward (ops/blend.py: CUDA kernels K1 and K2, or K3 under
      FOURDGS_PALLAS_NO_FUSED_BWD, on the card; the plain torch versions
-     on the CPU)
+     on the CPU). K3's table is reduced by K4 under
+     FOURDGS_PALLAS_GRAD_SCATTER, else by `reassociate_pair_grads` over
+     the binner's BlendSlots, as in the JAX package
 
 Blending numerics follow the spec in ops/rasterize_ref.py.
 """
@@ -25,7 +27,8 @@ from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.ops._build import _launch, load_library
-from fourdgs_tpu_torch.ops.blend import blend, pack_attr_table
+from fourdgs_tpu_torch.ops.blend import (blend, pack_attr_table,
+                                         reassociates)
 from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
 from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
 from fourdgs_tpu_torch.ops.scatter import scatter_set_scalars
@@ -64,6 +67,22 @@ class RasterConfig:
         return self.tile_size * self.tile_size
 
 
+class BlendSlots(NamedTuple):
+    """The binner's slot metadata for the reassociated blend backward
+    (JAX: rasterize_tiled.py:88-101). Each gaussian's pairs take one
+    contiguous run of the global pair budget, so its gradient sum is a
+    difference of prefix sums over slot space (`reassociate_pair_grads`).
+    Np = ceil(n / bin_chunk) * bin_chunk, n_chunks = Np / bin_chunk."""
+    dest: torch.Tensor   # (n_chunks, bin_pairs_per_chunk) int32: budget
+    #                      slot -> row t * tile_cap + rank of the per-slot
+    #                      table; num_tiles * tile_cap (out of bounds) for
+    #                      a dropped, culled, past-tile_cap or empty slot
+    slot0: torch.Tensor  # (Np,) int32 first slot of each depth-ordered
+    #                      gaussian's run, min(run start, budget)
+    alloc: torch.Tensor  # (Np,) int32 slots of its run inside the budget
+    gid: torch.Tensor    # (Np,) int32 its gaussian index (n for padding)
+
+
 class BinnedTiles(NamedTuple):
     gidx: torch.Tensor           # (num_tiles, tile_cap) int32, -1 padded
     counts: torch.Tensor         # (num_tiles,) int32
@@ -71,9 +90,11 @@ class BinnedTiles(NamedTuple):
     dropped_pairs: torch.Tensor  # () int32 pairs beyond the pair budget
     dropped_tile: torch.Tensor   # () int32 pairs beyond per-tile cap
     overflow: torch.Tensor       # (num_tiles,) int32 per-tile cap excess
+    slots: BlendSlots | None = None   # when the binner is asked for them
 
 
-def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
+def bin_gaussians_count(proj: Projected, cfg: RasterConfig,
+                        slots: bool = False) -> BinnedTiles:
     """Per-tile depth-ordered gaussian index lists, with the contract of
     the JAX package's counting binner.
 
@@ -90,12 +111,13 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     csrc/binner.cu); tensors on the CPU, and `meta` tensors (shape
     checks), run `bin_gaussians_count_plain`. Both give the same
     BinnedTiles bit for bit, every shape is static and nothing is read to
-    the host, so that a CUDA graph can capture it."""
+    the host, so that a CUDA graph can capture it. `slots` adds the
+    BlendSlots of the reassociated backward."""
     kind = proj.depth.device.type
     if kind == "cuda":
-        return bin_tiles(proj, cfg)
+        return bin_tiles(proj, cfg, slots)
     if kind in ("cpu", "meta"):
-        return bin_gaussians_count_plain(proj, cfg)
+        return bin_gaussians_count_plain(proj, cfg, slots)
     raise ValueError(f"no binner for device {proj.depth.device}")
 
 
@@ -111,6 +133,28 @@ def _depth_order(proj: Projected) -> torch.Tensor:
     inf = torch.full_like(proj.depth, float("inf"))
     return torch.sort(torch.where(proj.tiles_touched > 0, proj.depth, inf),
                       stable=True).indices
+
+
+def blend_slots(dest: torch.Tensor, touched_s: torch.Tensor,
+                order: torch.Tensor, cfg: RasterConfig) -> BlendSlots:
+    """The BlendSlots of a binning: `dest` (total_slots,) each budget
+    slot's row of the per-slot table (or num_tiles * tile_cap),
+    `touched_s` (n,) the depth-ordered gaussians' tiles touched and
+    `order` (n,) their indices. Static shapes, no host sync."""
+    n = order.shape[0]
+    n_pad = -(-n // cfg.bin_chunk) * cfg.bin_chunk
+    total_slots = _pair_budget(n, cfg)
+    touched = torch.zeros(n_pad, dtype=torch.int64, device=order.device)
+    touched[:n] = touched_s
+    start = torch.cumsum(touched, 0) - touched
+    gid = torch.full((n_pad,), n, dtype=torch.int32, device=order.device)
+    gid[:n] = order
+    return BlendSlots(
+        dest=dest.to(torch.int32).reshape(-1, cfg.bin_pairs_per_chunk),
+        slot0=torch.clamp(start, max=total_slots).to(torch.int32),
+        alloc=torch.clamp(torch.minimum(touched, total_slots - start),
+                          min=0).to(torch.int32),
+        gid=gid)
 
 
 def depth_ordered_items(proj: Projected, cfg: RasterConfig
@@ -144,14 +188,16 @@ def _aligned(x: torch.Tensor, what: str, nbytes: int) -> torch.Tensor:
     return x
 
 
-def bin_tiles(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
+def bin_tiles(proj: Projected, cfg: RasterConfig,
+              slots: bool = False) -> BinnedTiles:
     """The binner on the card: the depth sort in PyTorch, then
     csrc/binner.cu: the depth-ordered items (bin_items_launch), their run
     ends (a cumulative sum in PyTorch), and the rank (rank_common.cuh's
     histogram, scan and walk) with the counts (bin_tiles_launch); K5
-    after it under FOURDGS_BIN_SCATTER=pallas. `bin_tiles.launches`
-    counts the binner's runs. Raises for what the kernels cannot take; it
-    never falls back."""
+    after it under FOURDGS_BIN_SCATTER=pallas, or when `slots` asks for
+    the BlendSlots, whose `dest` is the budget slots' rows that K5
+    scatters. `bin_tiles.launches` counts the binner's runs. Raises for
+    what the kernels cannot take; it never falls back."""
     dev = proj.depth.device
     if dev.type != "cuda":
         raise ValueError(f"the binner kernel needs CUDA tensors, got {dev}")
@@ -172,8 +218,8 @@ def bin_tiles(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
     order = _depth_order(proj)
     rows = proj.tiles_touched.new_empty((n, 8))
     touched_s = proj.tiles_touched.new_empty(n)
-    pallas = os.environ.get("FOURDGS_BIN_SCATTER") == "pallas"
-    if pallas:      # the gather fills dest with n_out, gidx with -1
+    per_slot = slots or os.environ.get("FOURDGS_BIN_SCATTER") == "pallas"
+    if per_slot:    # the gather fills dest with n_out, gidx with -1
         gidx = None
         dest, src = rows.new_empty(total_slots), rows.new_empty(total_slots)
         ptrs, fill, value = (0, dest.data_ptr(), src.data_ptr()), dest, n_out
@@ -198,21 +244,24 @@ def bin_tiles(proj: Projected, cfg: RasterConfig) -> BinnedTiles:
             cap, hist.data_ptr(), cnt.data_ptr(), *ptrs, counts.data_ptr(),
             overflow.data_ptr(), scalars.data_ptr())
     bin_tiles.launches += 1
-    if pallas:
+    if per_slot:
         # the JAX package's switch (rasterize_tiled.py:383-393): K5 over
         # each budget slot's pair, the culled, past-tile_cap and empty
-        # slots sent to n_out, which it drops
+        # slots sent to n_out, which it drops (also the lists of a
+        # binning whose slots the reassociated backward reads)
         gidx = scatter_set_scalars(dest, src, n_out=n_out)
     return BinnedTiles(gidx=gidx.reshape(nt, cap), counts=counts,
                        num_pairs=scalars[0], dropped_pairs=scalars[1],
-                       dropped_tile=scalars[2], overflow=overflow)
+                       dropped_tile=scalars[2], overflow=overflow,
+                       slots=(blend_slots(dest, touched_s, order, cfg)
+                              if slots else None))
 
 
 bin_tiles.launches = 0
 
 
-def bin_gaussians_count_plain(proj: Projected,
-                              cfg: RasterConfig) -> BinnedTiles:
+def bin_gaussians_count_plain(proj: Projected, cfg: RasterConfig,
+                              slots: bool = False) -> BinnedTiles:
     """The binner in PyTorch: slot s of the budget takes its owner by a
     search over the depth-ordered run ends, invalid and culled slots take
     the sentinel tile id `num_tiles`, a stable sort by tile id over the
@@ -220,7 +269,8 @@ def bin_gaussians_count_plain(proj: Projected,
     sorts last), and the lists are written through a sacrificial last
     index. The mechanism differs from the JAX package's rank scan, which
     works around TPU costs; the outputs are the same. Every shape is
-    static and nothing is read to the host."""
+    static and nothing is read to the host. `slots` adds the BlendSlots,
+    each budget slot's row taken back from the sort's order."""
     dev = proj.depth.device
     n = proj.depth.shape[0]
     nt = cfg.num_tiles
@@ -284,7 +334,51 @@ def bin_gaussians_count_plain(proj: Projected,
         dropped_pairs=torch.clamp(total - total_slots, min=0).to(torch.int32),
         dropped_tile=overflow.sum().to(torch.int32),
         overflow=overflow,
+        slots=(blend_slots(torch.empty_like(dest).scatter_(0, perm, dest),
+                           touched_s, order, cfg) if slots else None),
     )
+
+
+def reassociate_pair_grads(packed: torch.Tensor, slots: BlendSlots,
+                           n: int) -> torch.Tensor:
+    """Per-gaussian sums (n, W) of the per-slot gradient rows `packed`
+    (num_tiles * tile_cap, W), without a scatter-add (JAX:
+    rasterize_tiled.py:567-602): each gaussian's slots are a contiguous
+    run of the global slot space, so the rows are gathered into slot
+    order (a dropped slot gives 0), summed by a cumulative sum within
+    each block of bin_pairs_per_chunk slots plus the exclusive sums of
+    the blocks before, and each run's sum is the difference of the
+    prefix sums at its ends. Plain torch ops: the JAX package runs this
+    as XLA, with no Pallas kernel. Only the rows that `slots.dest` names
+    are read; the table's other rows may hold anything (K3 leaves the
+    rows past a tile's occupied chunks unwritten). Deterministic: the
+    same sums from run to run."""
+    nblk, sblk = slots.dest.shape
+    total_slots = nblk * sblk
+    rows, w = packed.shape
+    zero = torch.zeros((), dtype=packed.dtype, device=packed.device)
+    dest = slots.dest.reshape(-1).long()
+    gs = torch.where((dest < rows)[:, None],
+                     packed[torch.clamp(dest, max=rows - 1)], zero)
+    # column-major, so that each scan runs along the innermost axis (a
+    # scan along an outer axis runs one thread a column on the card)
+    cs_in = torch.cumsum(gs.t().reshape(w, nblk, sblk), dim=2)
+    tot = cs_in[:, :, -1]                             # (w, nblk)
+    boff = torch.cumsum(tot, dim=1) - tot             # exclusive block base
+    cs = (cs_in + boff[:, :, None]).reshape(w, total_slots)
+
+    def csf(i):
+        """The sum of the slot rows before slot i, (w, len(i))."""
+        i = i.long()
+        return torch.where(i > 0, cs[:, torch.clamp(i - 1, min=0)], zero)
+
+    seg = (csf(slots.slot0 + slots.alloc) - csf(slots.slot0)).t() \
+        if total_slots else torch.zeros((slots.gid.shape[0], w),
+                                        dtype=packed.dtype,
+                                        device=packed.device)
+    idx = torch.where(slots.gid < n, slots.gid, n).long()
+    out = torch.zeros((n + 1, w), dtype=packed.dtype, device=packed.device)
+    return out.index_put_((idx,), seg)[:n]
 
 
 def _untile(x: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
@@ -307,15 +401,17 @@ def project_and_bin(
     ndc_offset: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    slots: bool = False,
 ) -> tuple[Projected, BinnedTiles]:
-    """Projection (differentiable) and binning (on detached values)."""
+    """Projection (differentiable) and binning (on detached values),
+    with the BlendSlots where `slots` asks for them."""
     with record_function("raster.project"):
         proj = project_gaussians(
             means3d, scales, quats, camera, cfg.img_width, cfg.img_height,
             cfg.tile_size, ndc_offset=ndc_offset, alive=alive,
             scale_modifier=scale_modifier, opacities=opacities)
     with record_function("raster.bin"), torch.no_grad():
-        binned = bin_gaussians_count(proj, cfg)
+        binned = bin_gaussians_count(proj, cfg, slots)
     return proj, binned
 
 
@@ -329,13 +425,16 @@ def prepare_blend(
     cfg: RasterConfig,
     alive: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    slots: bool = False,
 ) -> tuple[Projected, BinnedTiles, torch.Tensor]:
-    """Projection, binning and the packed attribute table: everything
-    the blend kernels take, for checking them on a render's input.
-    Returns (proj, binned, table)."""
+    """Projection, binning (with the BlendSlots where `slots` asks for
+    them) and the packed attribute table: everything the blend kernels
+    take, for checking them on a render's input. Returns (proj, binned,
+    table)."""
     proj, binned = project_and_bin(means3d, scales, quats, opacities, camera,
                                    cfg, alive=alive,
-                                   scale_modifier=scale_modifier)
+                                   scale_modifier=scale_modifier,
+                                   slots=slots)
     with torch.no_grad():
         table = pack_attr_table(proj.pix, proj.conic, colors, opacities,
                                 proj.depth)
@@ -358,12 +457,15 @@ def rasterize(
     """Differentiable render of one camera, in the means, scales, quats,
     opacities, colors and `ndc_offset` (whose gradient is the densify
     statistic)."""
+    # the binner's slot runs, for a backward that reassociates
+    slots = torch.is_grad_enabled() and reassociates()
     proj, binned = project_and_bin(means3d, scales, quats, opacities, camera,
-                                   cfg, ndc_offset, alive, scale_modifier)
+                                   cfg, ndc_offset, alive, scale_modifier,
+                                   slots)
     with record_function("raster.blend"):
         color_t, depth_t, t_t = blend(binned.gidx, binned.counts, proj.pix,
                                       proj.conic, colors, opacities,
-                                      proj.depth, cfg)
+                                      proj.depth, cfg, binned.slots)
     with record_function("raster.compose"):
         t_img = _untile(t_t, cfg)
         color = _untile(color_t, cfg) + t_img[..., None] * bg

@@ -94,20 +94,12 @@ class Renderer:
         look-at camera."""
         dev = resolve_device(device)
         _full_float32()
-        cfg_path = os.path.join(model_path, "cfg_args.json")
-        cfg = (config_mod.load_cfg(cfg_path) if os.path.exists(cfg_path)
-               else config_mod.Config())
-        if configs:
-            cfg = config_mod.apply_config_file(cfg, configs)
-        snap_dir, it = checkpoint.find_latest_snapshot(model_path, iteration)
-        gauss, alive, flat, aabb = checkpoint.restore_gaussians_from_snapshot(
-            snap_dir, cap=1, max_sh_degree=cfg.model.sh_degree, device=dev)
-        deform = checkpoint.deform_params_from_flat(
-            flat, config_mod.deform_config_from(cfg), dev).eval()
+        cfg, gauss, alive, deform, aabb, it = checkpoint.load_model(
+            model_path, iteration, dev, configs)
         bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                           else [0.0, 0.0, 0.0], device=dev)
-        renderer = cls(gauss=gauss, alive=alive, deform=deform,
-                       aabb=torch.as_tensor(aabb, device=dev), bg=bg,
+        renderer = cls(gauss=gauss, alive=alive, deform=deform, aabb=aabb,
+                       bg=bg,
                        raster_cfg=config_mod.raster_config_from(
                            cfg, width, height),
                        sh_degree=cfg.model.sh_degree, device=dev,
@@ -148,23 +140,25 @@ class Renderer:
             else self.capture
 
     @torch.no_grad()
-    def render_eager(self, camera: Camera,
-                     stage: str = "fine") -> RenderOutput:
+    def render_eager(self, camera: Camera, stage: str = "fine",
+                     scale_modifier: float = 1.0) -> RenderOutput:
         return render(self.gauss, self.deform, camera.to(self.device),
                       self.bg, self.raster_cfg, self.aabb, self.alive,
-                      self.sh_degree, stage=stage)
+                      self.sh_degree, stage=stage,
+                      scale_modifier=scale_modifier)
 
     @torch.no_grad()
-    def render(self, camera: Camera, stage: str = "fine") -> RenderOutput:
+    def render(self, camera: Camera, stage: str = "fine",
+               scale_modifier: float = 1.0) -> RenderOutput:
         """The frame at `camera`: a replay of the captured frame of the
         renderer's present key, or an eager render (`capture` False, or
         the CPU)."""
         if not self.captures():
-            return self.render_eager(camera, stage)
+            return self.render_eager(camera, stage, scale_modifier)
         camera = camera.to(self.device)
         inputs = tuple(getattr(self.gauss, f) for f in FIELDS) + (
             self.alive, self.aabb, self.bg, self.deform)
-        key = (self.raster_cfg, stage, self.sh_degree,
+        key = (self.raster_cfg, stage, self.sh_degree, scale_modifier,
                tuple(map(id, inputs)), blend.blend_forward,
                graphs.switches())
         frame = self.frames.get(key)
@@ -173,12 +167,27 @@ class Renderer:
                 del self.frames[next(iter(self.frames))]
             rc = self.raster_cfg
             frame = self.frames[key] = graphs.CapturedFrame(
-                key, lambda cam: self.render_eager(cam, stage), camera,
+                key, lambda cam: self.render_eager(cam, stage,
+                                                   scale_modifier), camera,
                 inputs, f"frame {stage} {rc.img_width}x{rc.img_height} "
                 f"tile_cap {rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
             self.captured += 1
         self.replayed += 1
         return frame(camera)
+
+
+    def gui_frame(self, camera: Camera, width: int, height: int,
+                  scaling_modifier: float = 1.0) -> torch.Tensor:
+        """The viewer bridge's render function
+        (viewer/network_gui.py:NetworkGui.poll): the (H, W, 3) frame at the
+        client's size and scaling modifier, the raster config resized to
+        it (its caps kept), each size and modifier a captured frame of its
+        own on the card."""
+        rc = self.raster_cfg
+        if (rc.img_width, rc.img_height) != (width, height):
+            self.raster_cfg = dataclasses.replace(rc, img_width=width,
+                                                  img_height=height)
+        return self.render(camera, scale_modifier=scaling_modifier).color
 
 
 def orbit_cameras(frames: int, device) -> list[Camera]:

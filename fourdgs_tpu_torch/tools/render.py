@@ -49,9 +49,12 @@ from fourdgs_tpu_torch.utils.device import resolve_device
 _WRITERS = 8
 
 
-def quantise(img: np.ndarray) -> np.ndarray:
+def quantise(img) -> np.ndarray:
     """A float image in [0, 1] as 8-bit, truncated (the JAX script's
-    `write_png`)."""
+    `write_png`); a tensor is converted on its device and only the bytes
+    are copied to the host."""
+    if isinstance(img, torch.Tensor):
+        return (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy()
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 

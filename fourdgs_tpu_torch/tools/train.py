@@ -23,10 +23,18 @@ script's `-r`).
 A split too large for the device trains from a host or lazy image bank,
 its next batch prefetched (a lazy bank decodes in spawned processes,
 which import the main module again: a script that calls `main` keeps the
-call under `if __name__ == "__main__":`). `--mesh`, `--distributed` and
-`--gui` are not ported yet and raise; `--profile` runs the fine stage
-eagerly, so that its spans show (a replayed CUDA graph opens none), wraps
-it in `torch.profiler` and writes a Chrome trace under <out>/trace/.
+call under `if __name__ == "__main__":`). `--mesh` and `--distributed`
+are not ported yet and raise; `--profile` runs the fine stage eagerly, so
+that its spans show (a replayed CUDA graph opens none), wraps it in
+`torch.profiler` and writes a Chrome trace under <out>/trace/.
+
+`--gui` opens the live viewer bridge (viewer/network_gui.py) on
+`--ip`:`--port`: after every iteration a poll serves the frames that a
+connected SIBR-protocol client asks for, each rendered eagerly at the
+client's size at the video timestamp of the iteration; with no client a
+poll is one non-blocking `accept`. With the config's `render_process`,
+every test evaluation writes test view 0's gt / render / depth triptych
+to <out>/train_render/<stage>test/<iteration>.jpg (utils/visualize.py).
 
 On the card each step is otherwise a replay of a captured CUDA graph
 (train/graphs.py), captured when the step's key changes.
@@ -36,6 +44,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -45,11 +54,13 @@ import torch
 
 from fourdgs_tpu_torch.data.scene import Scene
 from fourdgs_tpu_torch.ops import losses
+from fourdgs_tpu_torch.render.render import render
 from fourdgs_tpu_torch.render.serve import _full_float32
 from fourdgs_tpu_torch.train import checkpoint, loop, optim
 from fourdgs_tpu_torch.train import config as config_mod
 from fourdgs_tpu_torch.train import state as state_mod
 from fourdgs_tpu_torch.utils.device import resolve_device
+from fourdgs_tpu_torch.utils.visualize import render_training_image
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, config_mod.Config]:
@@ -76,7 +87,7 @@ def build_parser() -> tuple[argparse.ArgumentParser, config_mod.Config]:
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="torch.autograd anomaly detection (slow)")
     parser.add_argument("--gui", action="store_true",
-                        help="the viewer bridge (not ported yet)")
+                        help="serve the live viewer bridge on --ip:--port")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--device", default=None,
@@ -90,9 +101,16 @@ def build_parser() -> tuple[argparse.ArgumentParser, config_mod.Config]:
 
 
 def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
+    """One view with the live caps (`eval_output`). Returns the last
+    render's color, and what it dropped at which caps."""
+    out, drops = eval_output(state, cam, bg, stage, active_sh, rcfg, renders)
+    return out.color, drops
+
+
+def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4):
     """One view with the live caps; an overflowing view doubles the
     overflowing cap and renders again, up to `renders` renders. Returns the
-    last render's color, and what it dropped at which caps."""
+    last render's output, and what it dropped at which caps."""
     for i in range(renders):
         out = loop.eval_step(state, cam, bg, stage=stage,
                              active_sh=active_sh, raster_cfg=rcfg)
@@ -110,7 +128,7 @@ def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
         if all(getattr(rcfg, k) == v for k, v in changes.items()):
             break
         rcfg = dataclasses.replace(rcfg, **changes)
-    return out.color, {"dropped_pairs": dp, "dropped_tile": dt,
+    return out, {"dropped_pairs": dp, "dropped_tile": dt,
                        "num_pairs": npairs, "tile_cap": rcfg.tile_cap,
                        "bin_pairs_per_chunk": rcfg.bin_pairs_per_chunk}
 
@@ -121,7 +139,7 @@ def main(argv=None) -> dict:
     history, test PSNRs and, on the card, peak memory."""
     parser, cfg = build_parser()
     args = parser.parse_args(argv)
-    for flag in ("distributed", "mesh", "gui"):
+    for flag in ("distributed", "mesh"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
     if args.configs:
@@ -182,6 +200,39 @@ def main(argv=None) -> dict:
                   f"t={rec['elapsed']:.1f}s", flush=True)
         write_log(rec)
 
+    gui = None
+    if args.gui:
+        from fourdgs_tpu_torch.viewer.network_gui import NetworkGui
+        gui = NetworkGui(dev)
+        gui.init(args.ip, args.port)
+        print(f"viewer bridge listening on {args.ip}:{args.port}",
+              flush=True)
+
+    @functools.lru_cache(maxsize=4)
+    def gui_raster_cfg(w, h):
+        return config_mod.raster_config_from(cfg, w, h)
+
+    def make_on_iteration(stage):
+        """The viewer's poll after each iteration: each frame an eager
+        render of the live state (its identity changes at every surgery)
+        at the client's size, at the iteration's video timestamp."""
+        if gui is None:
+            return None
+
+        def on_iteration(it, state, active_sh):
+            n_video = max(len(scene.video), 1)
+            t = float(scene.video.times[it % n_video])
+
+            @torch.no_grad()
+            def gui_render(camera, w, h, scaling_modifier):
+                return render(state.params["gauss"], state.params["deform"],
+                              camera, bg, gui_raster_cfg(w, h), state.aabb,
+                              state.alive, active_sh, stage=stage,
+                              scale_modifier=scaling_modifier).color
+
+            gui.poll(gui_render, cfg.model.source_path, time=t)
+        return on_iteration
+
     epoch_order_fn = None
     if cfg.opt.custom_sampler:
         from fourdgs_tpu_torch.train.sampler import fine_sample_order
@@ -194,23 +245,33 @@ def main(argv=None) -> dict:
     test_psnrs: dict[str, list] = {"coarse": [], "fine": []}
 
     def make_on_test(stage):
-        def eval_split(split, it, state, active_sh, rcfg, n=None):
+        def eval_split(split, name, it, state, active_sh, rcfg, n=None,
+                       save_triptych=False):
             n = len(split) if n is None else min(len(split), n)
             out, renders = [], []
             for i in range(n):
-                color, drops = eval_render(state, split.cameras[i], bg,
-                                           stage, active_sh, rcfg)
-                img = torch.clamp(color, 0, 1)
-                out.append(losses.psnr(img, split.images[[i]][0])[0])
+                rendered, drops = eval_output(state, split.cameras[i], bg,
+                                              stage, active_sh, rcfg)
+                img = torch.clamp(rendered.color, 0, 1)
+                gt = split.images[[i]][0]
+                out.append(losses.psnr(img, gt)[0])
                 renders.append(drops)
+                if save_triptych and i == 0:
+                    render_training_image(
+                        os.path.join(cfg.model.model_path, "train_render",
+                                     f"{stage}{name}"),
+                        f"{stage}{name}", it, 0.0, gt.cpu().numpy(),
+                        img.cpu().numpy(), rendered.depth.cpu().numpy(),
+                        float(split.times[i]))
             return torch.stack(out).cpu().tolist(), renders
 
         def on_test(it, state, active_sh, raster_cfg):
             rcfg = raster_cfg
-            test, renders = eval_split(scene.test, it, state, active_sh,
-                                       rcfg)
-            train, _ = eval_split(scene.train, it, state, active_sh, rcfg,
-                                  n=5)
+            test, renders = eval_split(
+                scene.test, "test", it, state, active_sh, rcfg,
+                save_triptych=cfg.model.render_process)
+            train, _ = eval_split(scene.train, "train", it, state,
+                                  active_sh, rcfg, n=5)
             print(f"\n[ITER {it}] Evaluating test: PSNR "
                   f"{np.mean(test):.2f} over {len(test)} views "
                   f"(train probe {np.mean(train):.2f})", flush=True)
@@ -254,61 +315,65 @@ def main(argv=None) -> dict:
                "stages": []}
     total_time = 0.0
     active_sh = 0   # carried across stages
-    for si, (stage, iters) in enumerate(stages):
-        if si < start_stage:
-            continue
-        tx = optim.build_optimizer(cfg.opt, scene.cameras_extent)
-        st.opt_state = tx.init(st.params)
-        st.step = torch.zeros((), dtype=torch.int32, device=dev)
-        start_it = 0
-        if resumed is not None and si == start_stage:
-            st, start_it, _, active_sh = resumed
-            print(f"resumed {stage} stage at iteration {start_it} "
-                  f"(sh degree {active_sh})")
-        zmask = (scene.zerostamp_mask()
-                 if stage == "coarse" and cfg.opt.zerostamp_init else None)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        profile = args.profile and stage == "fine"
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with (torch.profiler.profile(activities=acts) if profile
-              else contextlib.nullcontext()) as prof:
-            res = loop.run_stage(
-                cfg, st, stage, iters, scene.train.cameras,
-                scene.train.images, tx, raster_cfg, rng=rng,
-                generator=torch.Generator(device=dev).manual_seed(
-                    cfg.seed + si),
-                log_fn=log_fn, zerostamp_view_mask=zmask,
-                cameras_extent=scene.cameras_extent,
-                test_iterations=tuple(args.test_iterations),
-                save_iterations=tuple(args.save_iterations) + (iters,),
-                checkpoint_iterations=tuple(args.checkpoint_iterations),
-                on_test=make_on_test(stage), on_save=make_on_save(stage),
-                on_checkpoint=make_on_ckpt(stage),
-                epoch_order_fn=None if stage == "coarse" else epoch_order_fn,
-                start_iteration=start_it, initial_active_sh=active_sh,
-                capture=False if profile else None)
-        if profile:
-            trace_dir = os.path.join(cfg.model.model_path, "trace")
-            os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace_dir, "fine.json"))
-        st = res.state
-        active_sh = res.active_sh
-        raster_cfg = res.raster_cfg
-        total_time += res.wall_time
-        summary["stages"].append(dict(
-            stage=stage, start=start_it, iterations=iters,
-            wall_time=res.wall_time, active_sh=res.active_sh,
-            events=res.events, graphs=res.graphs,
-            history=res.history, test_psnr=test_psnrs[stage],
-            raster_cfg=dataclasses.asdict(raster_cfg),
-            peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                        if dev.type == "cuda" else None)))
-        print(f"{stage} stage done in {res.wall_time:.1f}s "
-              f"({int(st.alive.sum())} points)", flush=True)
-
+    try:
+        for si, (stage, iters) in enumerate(stages):
+            if si < start_stage:
+                continue
+            tx = optim.build_optimizer(cfg.opt, scene.cameras_extent)
+            st.opt_state = tx.init(st.params)
+            st.step = torch.zeros((), dtype=torch.int32, device=dev)
+            start_it = 0
+            if resumed is not None and si == start_stage:
+                st, start_it, _, active_sh = resumed
+                print(f"resumed {stage} stage at iteration {start_it} "
+                      f"(sh degree {active_sh})")
+            zmask = (scene.zerostamp_mask()
+                     if stage == "coarse" and cfg.opt.zerostamp_init else None)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            profile = args.profile and stage == "fine"
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with (torch.profiler.profile(activities=acts) if profile
+                  else contextlib.nullcontext()) as prof:
+                res = loop.run_stage(
+                    cfg, st, stage, iters, scene.train.cameras,
+                    scene.train.images, tx, raster_cfg, rng=rng,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        cfg.seed + si),
+                    log_fn=log_fn, zerostamp_view_mask=zmask,
+                    cameras_extent=scene.cameras_extent,
+                    test_iterations=tuple(args.test_iterations),
+                    save_iterations=tuple(args.save_iterations) + (iters,),
+                    checkpoint_iterations=tuple(args.checkpoint_iterations),
+                    on_test=make_on_test(stage), on_save=make_on_save(stage),
+                    on_checkpoint=make_on_ckpt(stage),
+                    epoch_order_fn=None if stage == "coarse" else epoch_order_fn,
+                    on_iteration=make_on_iteration(stage),
+                    start_iteration=start_it, initial_active_sh=active_sh,
+                    capture=False if profile else None)
+            if profile:
+                trace_dir = os.path.join(cfg.model.model_path, "trace")
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(trace_dir, "fine.json"))
+            st = res.state
+            active_sh = res.active_sh
+            raster_cfg = res.raster_cfg
+            total_time += res.wall_time
+            summary["stages"].append(dict(
+                stage=stage, start=start_it, iterations=iters,
+                wall_time=res.wall_time, active_sh=res.active_sh,
+                events=res.events, graphs=res.graphs,
+                history=res.history, test_psnr=test_psnrs[stage],
+                raster_cfg=dataclasses.asdict(raster_cfg),
+                peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                            if dev.type == "cuda" else None)))
+            print(f"{stage} stage done in {res.wall_time:.1f}s "
+                  f"({int(st.alive.sum())} points)", flush=True)
+    finally:
+        if gui is not None:
+            gui.close()
     print(f"\nTraining complete in {total_time:.1f}s (excl. eval/saving).")
     return summary
 

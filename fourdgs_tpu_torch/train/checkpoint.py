@@ -94,6 +94,28 @@ def deform_params_from_flat(flat: dict, cfg: DeformConfig,
     return convert.deformation_from_flat(flat, cfg, device)
 
 
+def load_model(model_path: str, iteration: int = -1,
+               device: str | torch.device | None = None, configs: str = ""):
+    """A trained model's newest (or `iteration`'s) snapshot on `device`
+    (None: cuda), with the configs of its cfg_args.json (plus an optional
+    config file) -> (cfg, gauss, alive, deformation in eval mode, aabb
+    tensor, iteration)."""
+    from fourdgs_tpu_torch.train import config as config_mod
+    dev = resolve_device(device)
+    cfg_path = os.path.join(model_path, "cfg_args.json")
+    cfg = (config_mod.load_cfg(cfg_path) if os.path.exists(cfg_path)
+           else config_mod.Config())
+    if configs:
+        cfg = config_mod.apply_config_file(cfg, configs)
+    snap_dir, it = find_latest_snapshot(model_path, iteration)
+    gauss, alive, flat, aabb = restore_gaussians_from_snapshot(
+        snap_dir, cap=1, max_sh_degree=cfg.model.sh_degree, device=dev)
+    deform = deform_params_from_flat(
+        flat, config_mod.deform_config_from(cfg), dev).eval()
+    return (cfg, gauss, alive, deform,
+            torch.as_tensor(aabb, dtype=torch.float32, device=dev), it)
+
+
 def save_snapshot(model_path: str, iteration: int, gauss: GaussianParams,
                   alive: torch.Tensor, deform: Deformation,
                   aabb: np.ndarray, stage: str = "") -> str:

@@ -28,7 +28,8 @@ class ModelParams:
     white_background: bool = True
     data_device: str = "tpu"
     eval: bool = True
-    render_process: bool = False
+    render_process: bool = False   # a gt/render/depth triptych at each test
+    #                                eval (tools/train.py, utils/visualize.py)
     add_points: bool = False
     extension: str = ".png"
     llffhold: int = 8

@@ -15,6 +15,9 @@ from tests.test_rasterize import H, W, random_scene, simple_camera
 
 torch.set_num_threads(1)
 
+# the lists and counters; `slots` (BlendSlots, when asked for) has its own
+# test in test_torch_reassociate.py
+LIST_FIELDS = tuple(f for f in trt.BinnedTiles._fields if f != "slots")
 N = 160
 # name -> (tile_cap, chunk, bin_chunk, bin_pairs_per_chunk)
 CASES = {
@@ -202,7 +205,15 @@ def test_binner_has_static_shapes():
     assert b.counts.shape == (nt,) and b.overflow.shape == (nt,)
     for f in ("num_pairs", "dropped_pairs", "dropped_tile"):
         assert getattr(b, f).shape == ()
-    assert all(x.dtype == torch.int32 for x in b)
+    assert b.slots is None
+    assert all(x.dtype == torch.int32 for x in b if x is not None)
+    slots = trt.bin_gaussians_count(proj, cfg, slots=True).slots
+    n_chunks = -(-n // cfg.bin_chunk)
+    assert slots.dest.shape == (n_chunks, cfg.bin_pairs_per_chunk)
+    for x in slots[1:]:
+        assert x.shape == (n_chunks * cfg.bin_chunk,)
+    assert all(x.dtype == torch.int32 and x.device.type == "meta"
+               for x in slots)
 
 
 # ---- the binner kernel's decomposition (csrc/binner.cu), on the CPU ----
@@ -285,7 +296,7 @@ def test_kernel_decomposition_matches_plain_and_jax(proj, case, emit):
     cfg = trt.RasterConfig(**kw)
     plain = trt.bin_gaussians_count_plain(tp, cfg)
     got = _decomposed(tp, cfg, emit)
-    for f in trt.BinnedTiles._fields:
+    for f in LIST_FIELDS:
         g = getattr(got, f)
         assert g.dtype == torch.int32, f
         assert torch.equal(g, getattr(plain, f)), f
@@ -363,7 +374,7 @@ def test_large_tile_grids_match_plain_and_jax(grid, emit):
         jrt.RasterConfig(**kw))
     plain = trt.bin_gaussians_count_plain(tp, cfg)
     got = _decomposed(tp, cfg, emit)
-    for f in trt.BinnedTiles._fields:
+    for f in LIST_FIELDS:
         assert torch.equal(getattr(got, f), getattr(plain, f)), f
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)),

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from fourdgs_tpu.models import deformation as jdef
+from fourdgs_tpu.models import dense_grid as jdg
 from fourdgs_tpu.models import hexplane as jhex
 from fourdgs_tpu.train.checkpoint import _flatten
 from fourdgs_tpu_torch import convert
 from fourdgs_tpu_torch.models import deformation as tdef
+from fourdgs_tpu_torch.models import dense_grid as tdg
 from fourdgs_tpu_torch.models import hexplane as thex
 
 torch.set_num_threads(1)
@@ -219,7 +221,159 @@ def test_flat_round_trip():
             device="cpu")
 
 
-def test_empty_voxel_refused():
-    _, tc = _configs(BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdef.Deformation(dataclasses.replace(tc, empty_voxel=True))
+@pytest.mark.parametrize("channels", [1, 3])
+def test_dense_grid_sample_matches_jax(channels):
+    """models/dense_grid.py against JAX's at points inside and outside
+    [-1, 1] (the border clamp), within 1e-6."""
+    rng = np.random.default_rng(channels)
+    grid = rng.normal(size=(9, 7, 5, channels)).astype(np.float32)
+    pts = np.concatenate([rng.uniform(-1, 1, (200, 3)),
+                          rng.uniform(-2, 2, (56, 3)),
+                          [[-1, -1, -1], [1, 1, 1], [1, -1, 0.5]]]
+                         ).astype(np.float32)
+    want = jdg.dense_grid_sample(jnp.asarray(grid), jnp.asarray(pts))
+    got = tdg.dense_grid_sample(torch.from_numpy(grid), torch.from_numpy(pts))
+    assert got.shape == (len(pts), channels)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    assert tdg.init_dense_grid().shape == (64, 64, 64, 1)
+    assert not tdg.init_dense_grid().any()
+
+
+EMPTY_VOXEL = dict(BASE, empty_voxel=True)
+
+
+def _empty_voxel_params(jc, seed=0):
+    """init_deform's draws with a random mask grid in place of its zeros
+    (at zeros the mask would remove every raw value)."""
+    flat = _jax_params(jc, seed)
+    assert flat["empty_voxel"].shape == (64, 64, 64, 1)
+    flat["empty_voxel"] = np.random.default_rng(seed + 3).uniform(
+        0.2, 1.5, (64, 64, 64, 1)).astype(np.float32)
+    return flat
+
+
+@pytest.mark.parametrize("t", [0.37, T_POINT], ids=["scalar_t", "point_t"])
+def test_empty_voxel_matches_jax(t):
+    """Deformation with empty_voxel and a random converted grid against
+    `deform_apply`: outputs within 1e-5, and the gradients of a weighted
+    sum of the outputs (every parameter's, the grid's among them, and
+    the inputs'), each normalised by its largest magnitude, within 1e-4."""
+    jc, tc = _configs(EMPTY_VOXEL)
+    flat = _empty_voxel_params(jc)
+    jparams = jax.tree.map(jnp.asarray, _unflatten(flat))
+    inp = _inputs()
+    names = ("xyz", "scaling", "rotation", "opacity", "shs")
+    rng = np.random.default_rng(8)
+    weights = [rng.normal(size=inp[k].shape).astype(np.float32)
+               for k in names]
+
+    def jloss(params, xyz, scaling):
+        out = jdef.deform_apply(params, jc, jnp.asarray(AABB), xyz, scaling,
+                                jnp.asarray(inp["rotation"]),
+                                jnp.asarray(inp["opacity"]),
+                                jnp.asarray(inp["shs"]), jnp.asarray(t))
+        return sum(jnp.sum(o * w) for o, w in zip(out, weights)), out
+
+    (_, want), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jparams, jnp.asarray(inp["xyz"]), jnp.asarray(inp["scaling"]))
+    module = convert.deformation_from_flat(flat, tc, device="cpu")
+    xyz = torch.from_numpy(inp["xyz"]).requires_grad_(True)
+    scaling = torch.from_numpy(inp["scaling"]).requires_grad_(True)
+    got = module(torch.as_tensor(AABB), xyz, scaling,
+                 torch.from_numpy(inp["rotation"]),
+                 torch.from_numpy(inp["opacity"]),
+                 torch.from_numpy(inp["shs"]), torch.as_tensor(t))
+    for name, a, b in zip(names, got, want):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TOL,
+                                   err_msg=name)
+    # the mask is live: the positions differ from the ones-mask field's
+    ones = convert.deformation_from_flat(
+        {k: v for k, v in flat.items() if k != "empty_voxel"},
+        dataclasses.replace(tc, empty_voxel=False), device="cpu")
+    with torch.no_grad():
+        plain = ones(torch.as_tensor(AABB), xyz, scaling,
+                     *(torch.from_numpy(inp[k]) for k in names[2:]),
+                     torch.as_tensor(t))
+    assert not torch.allclose(plain[0], got[0])
+    sum((o * torch.from_numpy(w)).sum()
+        for o, w in zip(got, weights)).backward()
+    # unused heads (the timenet, opacity and SH) take no gradient here
+    # and zeros in JAX
+    grads = {}
+    for name, p in module.named_parameters():
+        key, transpose = convert._flat_key(name)
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads[key] = g.T if transpose else g
+    assert sorted(grads) == sorted(flat)
+    jflat = _flatten(jgrads[0])
+    for k, g in grads.items():
+        w = np.asarray(jflat[k])
+        scale = np.abs(w).max() + 1e-12
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, atol=1e-4,
+                                   err_msg=k)
+    assert np.abs(np.asarray(jflat["empty_voxel"])).max() > 0
+    for a, b in ((xyz.grad, jgrads[1]), (scaling.grad, jgrads[2])):
+        b = np.asarray(b)
+        scale = np.abs(b).max()
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=1e-4)
+
+
+def test_empty_voxel_snapshot_and_checkpoint_round_trip(tmp_path):
+    """The `empty_voxel` leaf under its JAX key: a snapshot's
+    deformation.npz read back by both packages, and a checkpoint with its
+    Adam moments in the `deformation` group, read back equal."""
+    from fourdgs_tpu.models.deformation import init_deform
+    from fourdgs_tpu.train import checkpoint as jckpt
+    from fourdgs_tpu.train import optim as joptim
+    from fourdgs_tpu_torch.models.gaussians import GaussianParams
+    from fourdgs_tpu_torch.train import checkpoint as tckpt
+    from fourdgs_tpu_torch.train import config as tconfig
+    from fourdgs_tpu_torch.train import optim as toptim
+    from fourdgs_tpu_torch.train import state as tstate
+    jc, tc = _configs(EMPTY_VOXEL)
+    flat = _empty_voxel_params(jc)
+    module = convert.deformation_from_flat(flat, tc, device="cpu")
+    rng = np.random.default_rng(1)
+    n = 16
+    gauss = GaussianParams(
+        xyz=torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
+        features_dc=torch.zeros((n, 1, 3)),
+        features_rest=torch.zeros((n, 15, 3)),
+        scaling=torch.full((n, 3), -3.0), rotation=torch.ones((n, 4)),
+        opacity=torch.zeros((n, 1)))
+    snap = tckpt.save_snapshot(str(tmp_path), 7, gauss,
+                               torch.ones(n, dtype=torch.bool), module, AABB)
+    _, back, _ = tckpt.load_snapshot(snap)
+    np.testing.assert_array_equal(back["empty_voxel"], flat["empty_voxel"])
+    again = tckpt.deform_params_from_flat(back, tc, device="cpu")
+    assert torch.equal(again.empty_voxel, module.empty_voxel)
+    jparams = jckpt.deform_params_from_flat(
+        init_deform(jax.random.key(0), jc), back)
+    np.testing.assert_array_equal(np.asarray(jparams["empty_voxel"]),
+                                  flat["empty_voxel"])
+    # the optimizer group, as the JAX package labels it
+    labels = toptim.param_labels({"gauss": gauss, "deform": module})
+    assert labels["deform"]["empty_voxel"] == "deformation"
+    assert joptim.param_labels({"deform": jparams})["deform"][
+        "empty_voxel"] == "deformation"
+    # a checkpoint of a training state with the leaf and its moments
+    cfg = tconfig.Config()
+    cfg.hidden.empty_voxel = True
+    cfg.raster.capacity = n
+    st = tstate.create_state(cfg, None, None, 1.0, aabb=AABB, deform=module,
+                             gauss=gauss, alive=torch.ones(n, dtype=bool),
+                             device="cpu")
+    st.opt_state.mu["deform"]["empty_voxel"].fill_(0.25)
+    path = str(tmp_path / "chkpnt_fine_7.npz")
+    tckpt.save_checkpoint(st, path, 7, "fine")
+    with np.load(path) as z:
+        assert "params/deform/empty_voxel" in z.files
+        assert "opt_state/mu/deform/empty_voxel" in z.files
+    loaded, it, stage, _ = tckpt.load_checkpoint(path, tc, device="cpu")
+    assert (it, stage) == (7, "fine")
+    assert torch.equal(loaded.params["deform"].empty_voxel,
+                       module.empty_voxel)
+    assert bool((loaded.opt_state.mu["deform"]["empty_voxel"] == 0.25).all())
+

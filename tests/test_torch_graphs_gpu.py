@@ -98,10 +98,11 @@ def _step_state(dev, batch=1):
     return st, loop.step_of_key(tx), key, cams, gt, bg
 
 
-def _captured_step_matches_eager(dev, batch):
+def _captured_step_matches_eager(dev, batch, backward=None):
     """One step eagerly and one captured from the same state: every leaf
     within GRAD_TOL normalised, the loss to 1e-5; a step renders each
-    camera of the batch once, forward and backward."""
+    camera of the batch once, forward and backward (`backward`: the
+    backward's launches, by default K2's)."""
     st, step_fn, key, cams, gt, bg = _step_state(dev, batch)
     eager, captured = st.to(dev), st.to(dev)
     aux_e = step_fn(key)(eager, cams, gt, bg)
@@ -109,7 +110,7 @@ def _captured_step_matches_eager(dev, batch):
     aux_c = steps.run(key, captured, cams, gt, bg)
     assert steps.live.program.launches == {
         **{k: batch * v for k, v in FRAME_LAUNCHES.items()},
-        "blend_backward": batch}
+        **(backward or {"blend_backward": batch})}
     errs, want = {}, _tensors(eager)
     for name, a in _tensors(captured).items():
         b = want[name]
@@ -138,6 +139,54 @@ def test_a_captured_batch_two_step_matches_the_eager_step(cuda):
     ndc_offset, and the densify statistics take the radii's max and the
     visibility's any over the two, in the graph as eagerly."""
     _captured_step_matches_eager(cuda, 2)
+
+
+@pytest.mark.gpu
+def test_a_captured_reassociated_step_matches_the_eager_step(cuda,
+                                                             monkeypatch):
+    """FOURDGS_PALLAS_NO_FUSED_BWD alone: K3's table reduced by
+    reassociation over the binner's slots, which the binner writes in the
+    graph (its budget slots' rows, and the lists through K5)."""
+    monkeypatch.setenv("FOURDGS_PALLAS_NO_FUSED_BWD", "1")
+    monkeypatch.delenv("FOURDGS_PALLAS_GRAD_SCATTER", raising=False)
+    monkeypatch.delenv("FOURDGS_BIN_SCATTER", raising=False)
+    _captured_step_matches_eager(cuda, 1, {"blend_backward_slots": 1,
+                                           "scatter_set_scalars": 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(96, 96), (128, 80)])
+def test_the_bridge_serves_the_renderers_frame(cuda, size):
+    """The viewer bridge on a captured Renderer: the reply's bytes are the
+    frame that Renderer.render_eager draws at the request's camera and
+    size, converted to uint8; the verify string follows."""
+    import socket
+
+    from fourdgs_tpu_torch.viewer import network_gui
+    rend = _renderer(cuda, capture=True)
+    gui = network_gui.NetworkGui(cuda)
+    server, client = socket.socketpair()
+    gui.conn = server
+    w, h = size
+    cam = look_at_camera(theta=0.5, time=0.3, device=cuda)
+    view, proj = network_gui.client_matrices(cam)
+    seen = []
+
+    def frame(camera, width, height, sm):
+        seen.append(camera)
+        return rend.gui_frame(camera, width, height, sm)
+
+    for _ in range(2):      # the second a replay of the captured frame
+        client.sendall(network_gui.request_bytes(w, h, 0.9, 0.9 * h / w,
+                                                 view, proj, train=True))
+        gui.poll(frame, "src", time=0.3)
+        got, verify = network_gui.recv_reply(client, w, h)
+        assert verify == "src" and len(got) == w * h * 3
+    assert rend.replayed == 2 and rend.captured == 1
+    want = dataclasses.replace(rend, capture=False).render_eager(seen[-1])
+    assert got == network_gui.frame_bytes(want.color)
+    client.close()
+    gui.disconnect()
 
 
 @pytest.mark.gpu

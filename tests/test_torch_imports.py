@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch port: nothing under fourdgs_tpu_torch/ or in
-chip_smoke.py imports jax, jaxlib, the JAX package or PIL (the card's
+chip_smoke.py and ab_smoke.py imports jax, jaxlib, the JAX package or PIL (the card's
 machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
-the render and metrics CLIs with LPIPS, and the dev tools' kernels and
-tools leaves jax and PIL out of sys.modules; importing the dev tools
+the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
+the dense grid, the per-frame export and the merge tool, and the dev
+tools' kernels and tools leaves jax and PIL out of sys.modules; importing the dev tools
 touches neither nvcc nor CUDA."""
 import ast
 import subprocess
@@ -18,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu")
 
 def _port_files():
     files = sorted((ROOT / "fourdgs_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "ab_smoke.py"]
     return files
 
 
@@ -94,6 +95,11 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.train.sampler, "
             "fourdgs_tpu_torch.utils.point_grow, "
             "fourdgs_tpu_torch.render.state_at_time, "
+            "fourdgs_tpu_torch.models.dense_grid, "
+            "fourdgs_tpu_torch.utils.visualize, "
+            "fourdgs_tpu_torch.viewer.network_gui, "
+            "fourdgs_tpu_torch.tools.export_perframe, "
+            "fourdgs_tpu_torch.tools.merge_many, "
             + _DEV_MODULES + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fourdgs_tpu', 'PIL')]; "

@@ -128,14 +128,14 @@ def _scene(kind, n, seed, size=(W, H)):
 
 
 def _inputs(dev, kind, ts, tile_cap=128, chunk=8, n=400, seed=0,
-            size=(W, H)):
+            size=(W, H), slots=False):
     cfg = RasterConfig(img_width=size[0], img_height=size[1], tile_size=ts,
                        tile_cap=tile_cap, chunk=chunk)
     means, scales, quats, opac, colors = (
         torch.from_numpy(x).to(dev) for x in _scene(kind, n, seed, size))
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.85, device=dev)
     _, binned, table = prepare_blend(means, scales, quats, opac, colors, cam,
-                                     cfg)
+                                     cfg, slots=slots)
     return binned, table, cfg
 
 
@@ -618,6 +618,39 @@ def _check_slots(dev, binned, table, cfg):
     fused = blend.blend_backward(*args)
     for name, (a, b) in GROUPS.items():
         _normalised_close(reduced[:, a:b], fused[:, a:b], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ragged", "random"])
+def test_reassociation_on_k3_table(cuda, kind):
+    """The reassociated reduction (plain torch on the card) of K3's table
+    over the binner kernel's BlendSlots, on a 104 x 86 frame: against
+    `index_add_` by the lists (max |a - b| / max |b| 1e-5), the same bits
+    from two runs, and finite and unchanged when K3's table was NaN
+    before the launch (every slot it reads is a row K3 writes)."""
+    binned, table, cfg = _inputs(cuda, kind, 32, size=RAGGED_WH, slots=True)
+    assert binned.slots is not None
+    out, cot = _backward_inputs(cuda, binned, table, cfg)
+    args = (binned.gidx, binned.counts, table, *out, *cot, cfg)
+    n = table.shape[0] - 1
+    tbl = blend.blend_backward_slots(*args)
+    got = blend.reduce_slots(binned.gidx, tbl, n, binned.slots)
+    want = blend.reduce_slots(binned.gidx, tbl, n)
+    again = blend.reduce_slots(binned.gidx, blend.blend_backward_slots(*args),
+                               n, binned.slots)
+    poisoned = torch.full_like(tbl, float("nan"))
+    blend.blend_backward_slots(*args, out=poisoned)
+    nan_in = blend.reduce_slots(binned.gidx, poisoned, n, binned.slots)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(poisoned).any())   # rows K3 leaves unwritten
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-5, err
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(nan_in).all()) and torch.equal(nan_in, got)
+    # every list entry is the row of one kept slot
+    dest = binned.slots.dest.reshape(-1).long()
+    kept = dest < cfg.num_tiles * cfg.tile_cap
+    assert int(kept.sum()) == int((binned.gidx >= 0).sum())
 
 
 @pytest.mark.gpu
@@ -1307,32 +1340,41 @@ def _bin_case(dev, case):
 def _assert_binned_equal(got, want):
     for f in rasterize_tiled.BinnedTiles._fields:
         a, b = getattr(got, f), getattr(want, f)
+        if f == "slots":
+            assert (a is None) == (b is None), f
+            for g, w in zip(a or (), b or ()):
+                assert g.dtype == w.dtype == torch.int32, f
+                assert torch.equal(g, w), f
+            continue
         assert a.dtype == b.dtype == torch.int32, f
         assert a.shape == b.shape, f
         assert torch.equal(a, b), f
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("switch", ["default", "pallas"])
+@pytest.mark.parametrize("switch", ["default", "pallas", "slots"])
 @pytest.mark.parametrize("case", list(BIN_CASES))
 def test_binner_kernel_matches_plain(cuda, monkeypatch, case, switch):
     """Every BinnedTiles field equal to the plain binner's on the same
     card tensors, with the budget straddled, tiles past their cap, every
     pair culled, no visible gaussian, at phase 5's shape and on grids of
     up to MAX_TILES tiles; under
-    FOURDGS_BIN_SCATTER=pallas through K5. The same twice."""
+    FOURDGS_BIN_SCATTER=pallas through K5; with the BlendSlots (the
+    budget slots' rows, then K5). The same twice."""
     if switch == "pallas":
         monkeypatch.setenv("FOURDGS_BIN_SCATTER", "pallas")
+    slots = switch == "slots"
     proj, cfg = _bin_case(cuda, case)
     before = (rasterize_tiled.bin_tiles.launches,
               scatter_set_scalars.launches)
-    got = rasterize_tiled.bin_gaussians_count(proj, cfg)
-    again = rasterize_tiled.bin_gaussians_count(proj, cfg)
+    got = rasterize_tiled.bin_gaussians_count(proj, cfg, slots)
+    again = rasterize_tiled.bin_gaussians_count(proj, cfg, slots)
     torch.cuda.synchronize()
     assert rasterize_tiled.bin_tiles.launches == before[0] + 2
     assert scatter_set_scalars.launches == before[1] + (
-        2 if switch == "pallas" else 0)
-    want = rasterize_tiled.bin_gaussians_count_plain(proj, cfg)
+        0 if switch == "default" else 2)
+    want = rasterize_tiled.bin_gaussians_count_plain(proj, cfg, slots)
+    assert (got.slots is None) == (not slots)
     _assert_binned_equal(got, want)
     _assert_binned_equal(again, got)
     if case == "budget_straddled":

@@ -283,4 +283,7 @@ def test_bin_scatter_switch_leaves_gidx_equal(monkeypatch):
     monkeypatch.setenv("FOURDGS_BIN_SCATTER", "pallas")
     got = binned()
     for a, b in zip(got, ref):
+        if a is None:       # slots, which neither binning was asked for
+            assert b is None
+            continue
         assert torch.equal(a, b)
