@@ -143,6 +143,27 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              (TOL), ms a frame and the drops; (e) the train CLI with
              empty_voxel, 50 + 100 iterations: finite losses, the leaf
              in the snapshot, read back equal;
+ 17. mesh:   run after phase 16 (fourdgs_tpu_torch/parallel): (a) one
+             rank over NCCL in this process, a (1, 1) mesh's sharded step
+             against train_step; (b) two ranks spawned on the one card
+             over gloo (NCCL takes one rank a card), each building phase
+             5's gaussians from the seed at tile 16 (50 x 50 tiles, two
+             bands), one sharded step at (1, 2) (the band route, the
+             gaussians split) and at (2, 1), each against the single-card
+             step from the same state (tests/test_parallel.py's
+             tolerances), the ranks' states equal, the kernels' runs
+             counted around each step, 3 more steps timed; the first
+             camera rendered tile-sharded against the single-card frame
+             (TOL); then on rank 1's band (tile0 1,250) K1, K2, K3 and the
+             band binner (the cull off) against their plain versions at
+             that offset, K3's table reduced over the band's BlendSlots
+             against K2, each timed; (c) the train CLI under
+             torch.distributed.run at --mesh 1,2 on phase 7's scene at
+             tile 16, 20 + 40 iterations, then the render CLI at
+             --mesh 1,2 on the test split: the ranks' final states equal,
+             the PNGs' PSNR within RENDER_PSNR_TOL of the in-loop eval,
+             and every rank's runs. Times of (b) and (c) are two ranks
+             sharing one card, not a scaling figure;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -3209,6 +3230,539 @@ def phase_tools(torch, device, work: Path, renderer, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the mesh (fourdgs_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+MESH_TILE = 16                 # 50 x 50 tiles at 800x800: two bands of 25 rows
+MESH_TIMES = (0.25, 0.75)      # the global batch of (b): two cameras
+MESH_SHAPES = ((1, 2), (2, 1))
+MESH_DSSIM = 0.2               # the SSIM term's gather over "tile" runs
+MESH_TIMED_STEPS = 3
+# (b)'s step against the single-card step: tests/test_parallel.py's
+# tolerances (the loss, the PSNR, the parameters, the statistics); the
+# parameters where |g| > 1e-3 max|g| of the leaf, since Adam moves a
+# parameter by about lr * sign(g) whatever g's size, and a gradient that
+# is round-off (K2 sums with atomics) may take either sign
+MESH_LOSS_RTOL, MESH_PSNR_RTOL = 1e-4, 1e-3
+MESH_PARAM_ATOL, MESH_ACCUM_ATOL = 5e-5, 1e-5
+MESH_CLI_ITERS = (20, 40)      # (c): coarse, fine; one eval, at the end
+MESH_RANKS_TIMEOUT = 300       # seconds (b)'s ranks may take
+# the CLIs' progress lines whose arrival (c) logs
+MESH_CLI_MARKS = ("Loading scene", "extent=", "stage done", "Evaluating",
+                  "Saved snapshot", "ranks' final", "rendering snapshot",
+                  "views, FPS")
+MESH_PATH = {"blend_fwd": "blend_forward", "blend_bwd": "blend_backward",
+             "binner": "bin_tiles", "gather_rows": "gather_rows"}
+
+
+def mesh_sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_inputs(torch, scene, seed: int, device):
+    """Phase 17's step inputs, built alike in every process from the seed:
+    phase 5's gaussians in their 131,072-slot buffer at tile 16, two
+    cameras, targets rendered before seeded noise moved the colors and
+    opacities (phase 5's rule), and caps probed drop-free on the first
+    camera with the tile cap then doubled, since a band's binning keeps
+    the pairs the whole grid's corner cull drops. Returns (cfg, state,
+    raster config, bg, SH degree, cameras, targets)."""
+    from fourdgs_tpu_torch.data.camera import look_at_camera
+    from fourdgs_tpu_torch.render.serve import overflows
+    from fourdgs_tpu_torch.train import config as config_mod
+    from fourdgs_tpu_torch.train import loop
+
+    if scene is None:
+        scene = make_scene(torch, seed, device)
+    cfg, state = make_train_state(torch, scene, device)
+    cfg.raster = dataclasses.replace(cfg.raster, tile_size=MESH_TILE)
+    rc = config_mod.raster_config_from(cfg, SIZE, SIZE)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=device)
+    sh = cfg.model.sh_degree
+    cams = [look_at_camera(theta=0.3 + 0.4 * i, time=t, device=device)
+            for i, t in enumerate(MESH_TIMES)]
+    for _ in range(4):
+        out = loop.eval_step(state, cams[0], bg, stage="fine", active_sh=sh,
+                             raster_cfg=rc)
+        pairs, tile = overflows(int(out.dropped_pairs),
+                                int(out.dropped_tile), int(out.num_pairs))
+        if not (pairs or tile):
+            break
+        rc = dataclasses.replace(
+            rc, tile_cap=rc.tile_cap * (2 if tile else 1),
+            bin_pairs_per_chunk=rc.bin_pairs_per_chunk * (2 if pairs else 1))
+    rc = dataclasses.replace(rc, tile_cap=2 * rc.tile_cap)
+    gts = torch.stack([loop.eval_step(state, c, bg, stage="fine",
+                                      active_sh=sh, raster_cfg=rc).color
+                       for c in cams])
+    rng = np.random.default_rng(seed + 1)
+    g = state.params["gauss"]
+    with torch.no_grad():
+        g.features_dc[:N_GAUSS] += torch.from_numpy(rng.normal(
+            0.0, NOISE_DC, (N_GAUSS, 1, 3)).astype(np.float32)).to(device)
+        g.opacity[:N_GAUSS] += torch.from_numpy(rng.normal(
+            0.0, NOISE_OPACITY, (N_GAUSS, 1)).astype(np.float32)).to(device)
+    return cfg, state, rc, bg, sh, cams, gts
+
+
+def mesh_reg(cfg) -> tuple:
+    return (cfg.hidden.time_smoothness_weight, cfg.hidden.l1_time_planes,
+            cfg.hidden.plane_tv_weight)
+
+
+def mesh_state_leaves(state) -> list:
+    from fourdgs_tpu_torch.train import optim
+    return optim.param_leaves(state.params) + [
+        state.alive, state.denom, state.xyz_gradient_accum,
+        state.max_radii2d]
+
+
+def mesh_vs_single(torch, state, loss, aux, single, saux) -> dict:
+    """A sharded step's state against the single-card step's from the same
+    state (MESH_* tolerances): the loss, the PSNR, every gaussian field
+    where its gradient is not round-off, every Adam first moment (the
+    step's gradient) normalised, denom and max_radii2d exact,
+    xyz_gradient_accum."""
+    from fourdgs_tpu_torch.models.gaussians import FIELDS
+    from fourdgs_tpu_torch.train import optim
+
+    param_err, grad_err = 0.0, 0.0
+    for f in FIELDS:
+        a = getattr(state.params["gauss"], f).detach()
+        b = getattr(single.params["gauss"], f).detach()
+        g = getattr(single.opt_state.mu["gauss"], f)
+        real = g.abs() > 1e-3 * g.abs().max()
+        param_err = max(param_err, float((a - b)[real].abs().max())
+                        if bool(real.any()) else 0.0)
+    for a, b in zip(optim.moment_leaves(state.opt_state.mu),
+                    optim.moment_leaves(single.opt_state.mu)):
+        grad_err = max(grad_err, grads_agree(a, b))
+    rec = {"loss": float(loss), "single_loss": float(saux.loss),
+           "psnr": float(aux.psnr), "single_psnr": float(saux.psnr),
+           "param_err": param_err, "grad_err": grad_err,
+           "accum_err": float((state.xyz_gradient_accum
+                               - single.xyz_gradient_accum).abs().max()),
+           "denom_equal": bool(torch.equal(state.denom, single.denom)),
+           "radii_equal": bool(torch.equal(state.max_radii2d,
+                                           single.max_radii2d)),
+           "dropped": [int(aux.dropped_pairs), int(aux.dropped_tile)]}
+    rec["ok"] = (abs(rec["loss"] - rec["single_loss"])
+                 <= MESH_LOSS_RTOL * abs(rec["single_loss"])
+                 and abs(rec["psnr"] - rec["single_psnr"])
+                 <= MESH_PSNR_RTOL * abs(rec["single_psnr"])
+                 and param_err <= MESH_PARAM_ATOL and grad_err <= GRAD_TOL
+                 and rec["accum_err"] <= MESH_ACCUM_ATOL
+                 and rec["denom_equal"] and rec["radii_equal"]
+                 and rec["dropped"] == [0, 0])
+    return rec
+
+
+def mesh_step_check(torch, mesh, inputs, device, timed: bool) -> dict:
+    """One sharded step of the mesh from the inputs' state, the kernels'
+    runs counted around it (the main path), MESH_TIMED_STEPS more timed,
+    the ranks' states compared by digest; on rank 0 the single-card
+    train_step from the same state, and the comparison."""
+    from fourdgs_tpu_torch.parallel.multihost import (host_batch_slice,
+                                                      ranks_agree)
+    from fourdgs_tpu_torch.parallel.sharded import sharded_train_step
+    from fourdgs_tpu_torch.train import graphs, loop, optim
+
+    cfg, start, rc, bg, sh, cams, gts = inputs
+    sl = host_batch_slice(len(cams), mesh)
+    kw = dict(mesh=mesh, stage="fine", raster_cfg=rc,
+              reg_weights=mesh_reg(cfg), lambda_dssim=MESH_DSSIM)
+
+    def step(state):
+        return sharded_train_step(
+            state, cams[sl], gts[sl], bg, sh,
+            tx=optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE), **kw)
+
+    state = start.to(device)
+    mesh_sync(torch, device)
+    graphs.zero_counts()
+    state, loss, aux = step(state)
+    mesh_sync(torch, device)
+    runs = graphs.kernel_runs()
+    rec = {"runs": {k: runs[w] for k, w in MESH_PATH.items()},
+           "ranks_equal": ranks_agree(mesh_state_leaves(state),
+                                      mesh.group)[0]}
+    if timed:
+        again = start.to(device)
+        for i in range(MESH_TIMED_STEPS + 1):
+            if i == 1:
+                mesh_sync(torch, device)
+                t0 = time.perf_counter()
+            step(again)
+        mesh_sync(torch, device)
+        rec["ms_per_step"] = 1e3 * (time.perf_counter() - t0) \
+            / MESH_TIMED_STEPS
+        del again
+    if mesh.rank == 0:
+        single = start.to(device)
+        _, saux = loop.train_step(
+            single, cams, gts, bg, sh, stage="fine", raster_cfg=rc,
+            tx=optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE),
+            lambda_dssim=MESH_DSSIM, reg_weights=mesh_reg(cfg))
+        rec["vs_single"] = mesh_vs_single(torch, state, loss, aux, single,
+                                          saux)
+    return rec
+
+
+def mesh_band_kernels(torch, inputs, mesh) -> dict:
+    """K1, K2, K3 and the binner on this rank's band of the first camera
+    (its rects clipped to the band, the cull off, `tile0` its first
+    tile), each against its plain version at the same offset (TOL,
+    GRAD_TOL, equal), K3's table reduced over the band's BlendSlots
+    against K2's rows, each kernel and plain version timed by CUDA
+    events."""
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops import rasterize_tiled as rt
+    from fourdgs_tpu_torch.ops.projection import project_gaussians
+    from fourdgs_tpu_torch.render.render import splats_at
+
+    cfg, state, rc, bg, sh, cams, gts = inputs
+    rows = rc.grid_y // mesh.n_tile
+    nt, tile0 = rows * rc.grid_x, mesh.tile * rows * rc.grid_x
+    with torch.no_grad():
+        xyz, scales, quats, opac, colors = splats_at(
+            state.params["gauss"], state.params["deform"], cams[0],
+            state.aabb, sh, "fine")
+        proj = project_gaussians(xyz, scales, quats, cams[0], rc.img_width,
+                                 rc.img_height, rc.tile_size,
+                                 alive=state.alive, opacities=opac)
+        band = rt.clip_proj_to_tile_rows(proj, mesh.tile * rows, rows)
+        binned = rt.bin_gaussians_count(band, rc, True, num_tiles=nt)
+        want = rt.bin_gaussians_count_plain(band, rc, True, num_tiles=nt)
+        binner_equal = all(
+            torch.equal(getattr(binned, f), getattr(want, f))
+            for f in ("gidx", "counts", "overflow", "num_pairs",
+                      "dropped_pairs", "dropped_tile")) and all(
+            torch.equal(a, b) for a, b in zip(binned.slots, want.slots))
+        table = blend.pack_attr_table(proj.pix, proj.conic, colors, opac,
+                                      proj.depth)
+        gidx, counts = binned.gidx, binned.counts
+        fwd = (gidx, counts, table, rc)
+        out = blend.blend_forward(*fwd, tile0=tile0)
+        ref = blend.blend_forward_plain(*fwd, tile0=tile0)
+        k1_err = {n: float((a - b).abs().max())
+                  for n, a, b in zip(("color", "depth", "t"), out, ref)}
+        gen = torch.Generator().manual_seed(7)
+        p = rc.pixels_per_tile
+        cot = [torch.randn(s, generator=gen).to(table.device)
+               for s in ((nt, p, 3), (nt, p), (nt, p))]
+        bwd = (*fwd[:3], *out, *cot, rc)
+        g = blend.blend_backward(*bwd, tile0=tile0)
+        gref = blend.blend_backward_plain(*bwd, tile0=tile0)
+        k2_err = max(grads_agree(g[:, c], gref[:, c])
+                     for c in range(blend.GRAD_W))
+        s = blend.blend_backward_slots(*bwd, tile0=tile0)
+        sref = blend.blend_backward_slots_plain(*bwd, tile0=tile0)
+        used = gidx >= 0
+        k3_err = max(grads_agree(s[..., c][used], sref[..., c][used])
+                     for c in range(blend.GRAD_W))
+        reduced = blend.reduce_slots(gidx, s, table.shape[0] - 1,
+                                     binned.slots)
+        k3_reduced_err = max(grads_agree(reduced[:, c], g[:, c])
+                             for c in range(blend.GRAD_W))
+        times = {}
+        for name, kernel, plain in (
+                ("binner", lambda: rt.bin_gaussians_count(
+                    band, rc, num_tiles=nt),
+                 lambda: rt.bin_gaussians_count_plain(band, rc,
+                                                      num_tiles=nt)),
+                ("blend_fwd", lambda: blend.blend_forward(*fwd, tile0=tile0),
+                 lambda: blend.blend_forward_plain(*fwd, tile0=tile0)),
+                ("blend_bwd", lambda: blend.blend_backward(*bwd,
+                                                           tile0=tile0),
+                 lambda: blend.blend_backward_plain(*bwd, tile0=tile0)),
+                ("blend_bwd_slots",
+                 lambda: blend.blend_backward_slots(*bwd, tile0=tile0),
+                 lambda: blend.blend_backward_slots_plain(*bwd,
+                                                          tile0=tile0))):
+            dev = table.device.type
+            times[name] = {"ms": time_call(kernel, 20, dev),
+                           "plain_ms": time_call(plain, 2, dev)}
+    ok = {"binner": binner_equal,
+          "blend_fwd": all(k1_err[n] <= TOL[n] for n in TOL),
+          "blend_bwd": k2_err <= GRAD_TOL,
+          "blend_bwd_slots": k3_err <= GRAD_TOL
+          and k3_reduced_err <= GRAD_TOL}
+    errs = {"binner": 0.0, "blend_fwd": max(k1_err.values()),
+            "blend_bwd": k2_err, "blend_bwd_slots": k3_err}
+    return {"tile0": tile0, "tiles": nt,
+            "pairs": int(band.tiles_touched.sum()),
+            "k1_err": k1_err, "k3_reduced_err": k3_reduced_err,
+            **{name: {**times[name], "max_abs_err": errs[name],
+                      "ok": ok[name]} for name in times}}
+
+
+def mesh_rank(rank: int, world: int, port: int, seed: int, out_dir: str,
+              settings: dict) -> None:
+    """Phase 17(b)'s rank process: two of them share cuda:0 over gloo.
+    Each builds phase 17's inputs from the seed, takes one sharded step
+    at each of MESH_SHAPES (rank 0 also the single-card step), renders
+    the first camera tile-sharded at (1, 2), and rank 1 (tile 1 of
+    (1, 2)) checks the kernels at its band offset. Writes
+    <out_dir>/rank<r>.json. `settings` holds the device ("cuda") and any
+    of this module's sizes to set in the rank (a CPU rehearsal cuts
+    them)."""
+    import torch
+    import torch.distributed as dist
+
+    settings = dict(settings)
+    device_type = settings.pop("device")
+    globals().update(settings)
+    from fourdgs_tpu_torch.parallel import multihost
+    from fourdgs_tpu_torch.parallel.mesh import make_mesh
+    from fourdgs_tpu_torch.parallel.sharded import sharded_eval_render
+    from fourdgs_tpu_torch.train import loop
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert multihost.initialize_distributed(device=device_type,
+                                            backend="gloo")
+    try:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if device_type == "cuda" else torch.device(device_type))
+        inputs = mesh_inputs(torch, None, seed, device)
+        out = {"rank": rank, "steps": {}}
+        for shape in MESH_SHAPES:
+            out["steps"]["x".join(map(str, shape))] = mesh_step_check(
+                torch, make_mesh(*shape), inputs, device, timed=True)
+        mesh = make_mesh(1, 2)
+        cfg, state, rc, bg, sh, cams, _ = inputs
+        color, _, _ = sharded_eval_render(state, cams[0], bg, mesh=mesh,
+                                          raster_cfg=rc, stage="fine",
+                                          active_sh=sh)
+        if rank == 0:
+            ref = loop.eval_step(state, cams[0], bg, stage="fine",
+                                 active_sh=sh, raster_cfg=rc).color
+            err = (color - ref).abs()
+            out["eval"] = {"max_abs_err": float(err.max()),
+                           "mean_abs_err": float(err.mean()),
+                           "pixels_over_tol": int((err.amax(-1)
+                                                   > TOL["color"]).sum())}
+        dist.barrier()      # rank 1 times its kernels on an idle card
+        if rank == 1:
+            out["band_kernels"] = mesh_band_kernels(torch, inputs, mesh)
+        dist.barrier()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_nccl(torch, scene, seed: int, device) -> dict:
+    """Phase 17(a): one rank over NCCL in this process, a (1, 1) mesh whose
+    groups are NCCL groups of one rank, its sharded step against the
+    single-card step."""
+    import torch.distributed as dist
+
+    from fourdgs_tpu_torch.parallel import multihost
+    from fourdgs_tpu_torch.parallel.mesh import make_mesh
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    os.environ.update(env)
+    try:
+        assert multihost.initialize_distributed(device=device.type)
+        mesh = make_mesh(1, 1)
+        backend = dist.get_backend(mesh.tile_group)
+        rec = mesh_step_check(torch, mesh, mesh_inputs(torch, scene, seed,
+                                                       device),
+                              device, timed=False)
+        rec["backend"] = backend
+        dist.destroy_process_group()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    return rec
+
+
+def mesh_cli(torch, device, work: Path, seed: int) -> dict:
+    """Phase 17(c): the train CLI under torch.distributed.run, two ranks
+    sharing the card over gloo at --mesh 1,2, on phase 7's scene at tile
+    16, its schedule cut; then the render CLI at --mesh 1,2 on the test
+    split, and its PNGs' PSNR against the last in-loop eval."""
+    from fourdgs_tpu_torch.data.png import read_png
+
+    scene, model = work / "scene", work / "mesh_driver"
+    shutil.rmtree(model, ignore_errors=True)
+    coarse, fine = MESH_CLI_ITERS
+    config = work / "mesh_smoke.py"
+    config.write_text(DRIVER_CONFIG.format(coarse=coarse, fine=fine).replace(
+        "RasterParams = dict(min_bucket=1024)",
+        f"RasterParams = dict(min_bucket=1024, tile_size={MESH_TILE})"))
+    env = {**os.environ, "FOURDGS_DIST_BACKEND": "gloo"}
+
+    def torchrun(module, *args):
+        """Run `module` on two ranks; returns its stdout and seconds, and
+        logs when each of its progress lines came (where the time goes)."""
+        t0 = time.perf_counter()
+        with subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "2", "-m", module,
+                 *map(str, args)], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT) as proc:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if any(k in line for k in MESH_CLI_MARKS):
+                    log(f"mesh (c) +{time.perf_counter() - t0:6.2f} s: "
+                        f"{line.strip()[:120]}")
+            rc = proc.wait(timeout=600)
+        printed = "".join(lines)
+        if rc != 0:
+            raise AssertionError(f"{module} over the mesh failed ({rc}):\n"
+                                 f"{printed[-6000:]}")
+        return printed, time.perf_counter() - t0
+
+    size = ["--image_size", DRIVER_SIZE, DRIVER_SIZE, "--device",
+            device.type]
+    printed, t_train = torchrun(
+        "fourdgs_tpu_torch.tools.train", "-s", scene, "-m", model, *size,
+        "--configs", config, "--quiet", "--seed", seed,
+        "--test_iterations", fine, "--save_iterations", fine,
+        "--distributed", "--mesh", "1,2")
+    with open(model / "train_log.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    mesh = records[-1]["mesh"]
+    ms = {r["stage"]: 1e3 * r["elapsed"] / r["iter"] for r in records
+          if "elapsed" in r}
+    evals = [r for r in records if r.get("eval") == "test"]
+    in_loop = evals[-1]["psnr"]
+    rendered, t_render = torchrun(
+        "fourdgs_tpu_torch.tools.render", "-m", model, "-s", scene, *size,
+        "--mesh", "1,2", "--skip_train", "--skip_video")
+    split = model / "test" / f"ours_{fine}"
+    psnrs = []
+    for f in sorted((split / "renders").glob("*.png")):
+        a = read_png(f).astype(np.float64) / 255.0
+        b = read_png(split / "gt" / f.name).astype(np.float64) / 255.0
+        psnrs.append(-10.0 * np.log10(((a - b) ** 2).mean()))
+    post_hoc = float(np.mean(psnrs))
+    return {"ms_per_iteration": ms, "seconds_train_cli": t_train,
+            "seconds_render_cli": t_render, "in_loop_psnr": in_loop,
+            "post_hoc_psnr": post_hoc, "test_views": len(psnrs),
+            "ranks_equal": mesh["ranks_equal"],
+            "kernel_runs": [{k: r[w] for k, w in MESH_PATH.items()}
+                            for r in mesh["kernel_runs"]],
+            "printed_mesh_line": "training on mesh data=1 tile=2" in printed,
+            "printed_render_mesh": "rendering on mesh data=1 tile=2"
+            in rendered}
+
+
+def phase_mesh(torch, device, work: Path, scene, seed: int,
+               rank_settings: dict | None = None) -> dict:
+    """Phase 17: (a) one NCCL rank, (b) two gloo ranks on the card, spawned
+    after phase 2's build, (c) the train and render CLIs over a 1 x 2
+    mesh. Raises when a check fails; returns what it measured, with each
+    path's kernel runs at a nonzero band and gaussian offset (rank 1's)."""
+    import torch.multiprocessing as mp
+
+    card = (subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+        if device.type == "cuda" else device.type)
+    t0 = time.perf_counter()
+    nccl = mesh_nccl(torch, scene, seed, device)
+    t_a = time.perf_counter() - t0
+    log(f"mesh (a): one NCCL rank ({nccl['backend']}), a 1x1 sharded step "
+        f"against train_step: {nccl['vs_single']}; runs {nccl['runs']}; "
+        f"{t_a:.2f} s")
+    out_dir = work / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(
+        mesh_rank, args=(2, free_port(), seed, str(out_dir),
+                         rank_settings or {"device": "cuda"}),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + MESH_RANKS_TIMEOUT
+    while not ctx.join(max(deadline - time.perf_counter(), 0.0)):
+        if time.perf_counter() >= deadline:    # a rank hung: stop both
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 17(b)'s ranks still running after "
+                                 f"{MESH_RANKS_TIMEOUT} s")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    t_b = time.perf_counter() - t1
+    two = {k: {"ms_per_step": [r["steps"][k]["ms_per_step"] for r in ranks],
+               "vs_single": ranks[0]["steps"][k]["vs_single"],
+               "runs_rank1": ranks[1]["steps"][k]["runs"],
+               "ranks_equal": ranks[0]["steps"][k]["ranks_equal"]}
+           for k in ranks[0]["steps"]}
+    band = ranks[1]["band_kernels"]
+    for k, v in two.items():
+        log(f"mesh (b) {k}: two ranks sharing one card ({card}; not a "
+            f"scaling figure): {v['ms_per_step'][0]:.3f} ms/step eager at "
+            f"{SIZE}x{SIZE}, tile {MESH_TILE}, batch {len(MESH_TIMES)}; "
+            f"against train_step {v['vs_single']}; rank 1's runs "
+            f"{v['runs_rank1']}; ranks equal {v['ranks_equal']}")
+    log(f"mesh (b): sharded_eval_render against the single-card frame "
+        f"{ranks[0]['eval']}; rank 1's band (tile0 {band['tile0']}, "
+        f"{band['tiles']} tiles, {band['pairs']} pairs): " + ", ".join(
+            f"{k} {band[k]['ms']:.4f} ms (plain {band[k]['plain_ms']:.3f}, "
+            f"err {band[k]['max_abs_err']:.3g}, ok {band[k]['ok']})"
+            for k in ("binner", "blend_fwd", "blend_bwd",
+                      "blend_bwd_slots")) + f"; {t_b:.2f} s")
+    t2 = time.perf_counter()
+    cli = mesh_cli(torch, device, work, seed)
+    t_c = time.perf_counter() - t2
+    seconds = time.perf_counter() - t0
+    log(f"mesh (c): train CLI over --mesh 1,2, two ranks sharing one card "
+        f"({card}; not a scaling figure): "
+        + ", ".join(f"{s} {v:.2f} ms/iteration"
+                    for s, v in cli["ms_per_iteration"].items())
+        + f"; ranks equal {cli['ranks_equal']}; in-loop test PSNR "
+        f"{cli['in_loop_psnr']:.4f}, post hoc {cli['post_hoc_psnr']:.4f} "
+        f"over {cli['test_views']} views (tol {RENDER_PSNR_TOL}); rank 1's "
+        f"runs {cli['kernel_runs'][1]}; train {cli['seconds_train_cli']:.2f} "
+        f"s, render {cli['seconds_render_cli']:.2f} s")
+    log(f"mesh: phase 17 in {seconds:.2f} s (a {t_a:.2f}, b {t_b:.2f}, "
+        f"c {t_c:.2f})")
+    checks = {
+        "(a) NCCL": nccl["backend"] == ("nccl" if device.type == "cuda"
+                                        else "gloo"),
+        "(a) 1x1 against train_step": nccl["vs_single"]["ok"],
+        "(a) ran the path": all(nccl["runs"][k] > 0 for k in MESH_PATH),
+        **{f"(b) {k} against train_step": v["vs_single"]["ok"]
+           for k, v in two.items()},
+        **{f"(b) {k} ranks equal": v["ranks_equal"] for k, v in two.items()},
+        **{f"(b) {k} rank 1 ran the path": all(
+            v["runs_rank1"][n] > 0 for n in MESH_PATH)
+           for k, v in two.items()},
+        "(b) eval render": ranks[0]["eval"]["max_abs_err"] <= TOL["color"],
+        **{f"(b) {k} at the band offset": band[k]["ok"]
+           for k in ("binner", "blend_fwd", "blend_bwd",
+                     "blend_bwd_slots")},
+        "(c) ranks equal": cli["ranks_equal"],
+        "(c) rank 1 ran the path": all(cli["kernel_runs"][1][n] > 0
+                                       for n in MESH_PATH),
+        "(c) the mesh lines": cli["printed_mesh_line"]
+        and cli["printed_render_mesh"],
+        "(c) post hoc within tol": abs(cli["post_hoc_psnr"]
+                                       - cli["in_loop_psnr"])
+        <= RENDER_PSNR_TOL}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 17 failed: {failed}")
+    # rank 1 of a 1 x 2 mesh blends its band from tile0 > 0, bins only
+    # its band and deforms the second half of the gaussians
+    offset_runs = {n: {"b": two["1x2"]["runs_rank1"][n],
+                       "c": cli["kernel_runs"][1][n]} for n in MESH_PATH}
+    return {"nccl": nccl, "two_ranks": two, "eval": ranks[0]["eval"],
+            "band_kernels": band, "cli": cli, "offset_runs": offset_runs,
+            "seconds": seconds, "seconds_abc": [t_a, t_b, t_c]}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the dev tools' kernels (D1-D6) at the scripts' shapes
 # ---------------------------------------------------------------------------
 
@@ -3531,6 +4085,7 @@ def main(argv=None) -> int:
     k1["tools"] = phase_tools(
         torch, device, work, renderer, args.seed,
         driver["stages"]["fine"]["ms_per_iteration"])
+    mesh = phase_mesh(torch, device, work, scene, args.seed)
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)
@@ -3539,6 +4094,19 @@ def main(argv=None) -> int:
                             train_launches, eval_launches, layout_runs,
                             layouts)
     kernels += phase_dev_kernels(torch, device, args.seed)
+    # phase 17: the band offset's check and times (K1, K2, K3, the
+    # binner) and the runs at a nonzero offset on the mesh's paths
+    band = mesh["band_kernels"]
+    for k in kernels:
+        name = k["name"].split(" (main path)")[0]
+        if name in band:
+            k["band_offset"] = {**band[name], "tile0": band["tile0"],
+                                "tiles": band["tiles"]}
+        if name in MESH_PATH:
+            k["launches_mesh_offset"] = mesh["offset_runs"][name]
+    k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
+                                             "cli", "seconds",
+                                             "seconds_abc")}
     for k in kernels:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
                                      for path in ("serve", "step", "eval",

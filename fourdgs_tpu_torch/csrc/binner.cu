@@ -20,7 +20,10 @@
 // exact corner cull drops it (the integer test of the JAX binner, :278-304:
 // the -1 absorbs qpix rounding, distances clamp to 23000). So a pair's
 // rank is the number of earlier kept pairs, in depth order, on its tile,
-// as in JAX, where the cull comes before the rank.
+// as in JAX, where the cull comes before the rank. A band of tile rows
+// (a tile-sharded step bins only its band, its rects clipped to band-local
+// rows) ranks over nt = rows x grid_x tiles with the cull off, as JAX's
+// binner with num_tiles set: its rect rows no longer give pixel rows.
 //
 // Emit: gidx[t * tile_cap + rank] = gid for rank < tile_cap, over a gidx
 // that the items' gather fills with -1. Under FOURDGS_BIN_SCATTER=pallas
@@ -56,6 +59,7 @@ struct BinSource {
     const int4* rows;       // (n, 2) int4: x0 y0 sx touched | qx qy r2 gid
     const int* ends;        // (n,) inclusive run ends
     int total_slots, ts, grid_x;
+    bool cull;              // the exact corner cull (off for a band)
     __device__ Item load(long long i) const {
         const int4 a = __ldg(rows + 2 * i), b = __ldg(rows + 2 * i + 1);
         const int start = __ldg(ends + i) - a.w;
@@ -66,6 +70,7 @@ struct BinSource {
     __device__ int tile(const Item& it, int j) const {
         const int dy = j / it.sx;
         const int tx = it.x0 + (j - dy * it.sx), ty = it.y0 + dy;
+        if (!cull) return ty * grid_x + tx;
         const int lox = tx * ts, loy = ty * ts;
         const int ddx = min(max(max(lox - it.qx, it.qx - (lox + ts - 1)) - 1,
                                 0), kCullClamp);
@@ -196,15 +201,16 @@ int bin_items_launch(const void* order, const void* pix, const void* rect_min,
 // tile_cap,) int32 not null, the ranks go there; else dest and src
 // (total_slots,) int32 take each budget slot's pair. bin_items_launch has
 // filled gidx with -1, or dest with nt * tile_cap. 1 <= nt <= MAX_TILES
-// (ops/serial.py); nt * tile_cap and total_slots below 2^31.
+// (ops/serial.py); nt * tile_cap and total_slots below 2^31. cull is 1 for
+// the exact corner cull, 0 for a band's binning.
 int bin_tiles_launch(const void* rows, const void* ends, long long n,
                      int total_slots, int nt, int grid_x, int tile_size,
-                     int tile_cap, void* hist, void* cnt, void* gidx,
+                     int tile_cap, int cull, void* hist, void* cnt, void* gidx,
                      void* dest, void* src, void* counts, void* overflow,
                      void* scalars, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     const BinSource source{(const int4*)rows, (const int*)ends, total_slots,
-                           tile_size, grid_x};
+                           tile_size, grid_x, cull != 0};
     const int n_out = nt * tile_cap;
     const cudaError_t err =
         gidx != nullptr

@@ -392,8 +392,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 blend_bwd_kernel(const int* __restrict__ gidx,
                  const int* __restrict__ counts,
                  const float4* __restrict__ table,
-                 int n_gauss, int tile_cap, int grid_x, int tile_size,
-                 int chunk, int list_len, const float* __restrict__ out_color,
+                 int n_gauss, int tile0, int tile_cap, int grid_x,
+                 int tile_size, int chunk, int list_len,
+                 const float* __restrict__ out_color,
                  const float* __restrict__ out_depth,
                  const float* __restrict__ out_t,
                  const float* __restrict__ g_color,
@@ -421,8 +422,11 @@ blend_bwd_kernel(const int* __restrict__ gidx,
     const int p = y * tile_size + x;
     const int* tile_gidx = gidx + (size_t)tile * tile_cap;
     float* tile_rows = grads + (size_t)tile * tile_cap * kGradW;  // K3
+    // pixel coordinates of global tile tile0 + tile; everything else is
+    // read and written at the band-local tile
     const BwdPixel q = load_bwd_pixel(
-        tile, p, grid_x, tile_size, (size_t)tile * tile_size * tile_size + p,
+        tile0 + tile, p, grid_x, tile_size,
+        (size_t)tile * tile_size * tile_size + p,
         out_color, out_depth, out_t, g_color, g_depth, g_t);
 
     stage_ids<kThreads>(s_list, tile_gidx, 0, min(list_len, count), n_gauss);
@@ -503,8 +507,8 @@ blend_bwd_kernel(const int* __restrict__ gidx,
 // memory first where it needs to; K3 as clusters of a tile's sub-tiles.
 template <bool kCount, bool kSlots>
 cudaError_t launch(const int* gidx, const int* counts, const float4* table,
-                   int n_gauss, int num_tiles, int tile_cap, int grid_x,
-                   int tile_size, int chunk, int list_len,
+                   int n_gauss, int num_tiles, int tile0, int tile_cap,
+                   int grid_x, int tile_size, int chunk, int list_len,
                    const float* const* fwd, float* out,
                    unsigned long long* tally, cudaStream_t s) {
     const size_t smem = kSlots ? slots_smem_bytes(chunk, list_len)
@@ -531,7 +535,8 @@ cudaError_t launch(const int* gidx, const int* counts, const float4* table,
         config.numAttrs = 1;
     }
     return cudaLaunchKernelEx(&config, blend_bwd_kernel<kCount, kSlots>,
-                              gidx, counts, table, n_gauss, tile_cap, grid_x,
+                              gidx, counts, table, n_gauss, tile0, tile_cap,
+                              grid_x,
                               tile_size, chunk, list_len, fwd[0], fwd[1],
                               fwd[2], fwd[3], fwd[4], fwd[5], out, tally);
 }
@@ -544,12 +549,14 @@ extern "C" {
 // the fill or the launch (0 = ok). table is (n_gauss + 1, 16) and grads
 // (n_gauss + 1, 10) float32 (8-byte aligned); the forward outputs and
 // their cotangents are tile-major (num_tiles, P[, 3]); tile_size is 16 or
-// 32; list_len, the slots staged at a time, is a multiple of chunk. tally
+// 32; list_len, the slots staged at a time, is a multiple of chunk; the
+// num_tiles lists are global tiles [tile0, tile0 + num_tiles). tally
 // is null, or three uint64 on the card to which the counting build adds
 // the float2 atomics it issued, the warp batches it reduced and the chunks
 // its blocks walked.
 int blend_bwd_launch(const void* gidx, const void* counts, const void* table,
-                     int n_gauss, int num_tiles, int tile_cap, int grid_x,
+                     int n_gauss, int num_tiles, int tile0, int tile_cap,
+                     int grid_x,
                      int tile_size, int chunk, int list_len,
                      const void* out_color, const void* out_depth,
                      const void* out_t, const void* g_color,
@@ -565,8 +572,9 @@ int blend_bwd_launch(const void* gidx, const void* counts, const void* table,
                            (const float*)g_depth, (const float*)g_t};
     auto build = tally ? &launch<true, false> : &launch<false, false>;
     return (int)build((const int*)gidx, (const int*)counts,
-                      (const float4*)table, n_gauss, num_tiles, tile_cap,
-                      grid_x, tile_size, chunk, list_len, fwd, (float*)grads,
+                      (const float4*)table, n_gauss, num_tiles, tile0,
+                      tile_cap, grid_x, tile_size, chunk, list_len, fwd,
+                      (float*)grads,
                       (unsigned long long*)tally, s);
 }
 
@@ -579,7 +587,7 @@ int blend_bwd_launch(const void* gidx, const void* counts, const void* table,
 // its blocks walked.
 int blend_bwd_slots_launch(const void* gidx, const void* counts,
                            const void* table, int n_gauss, int num_tiles,
-                           int tile_cap, int grid_x, int tile_size,
+                           int tile0, int tile_cap, int grid_x, int tile_size,
                            int chunk, int list_len, const void* out_color,
                            const void* out_depth, const void* out_t,
                            const void* g_color, const void* g_depth,
@@ -591,8 +599,9 @@ int blend_bwd_slots_launch(const void* gidx, const void* counts,
                            (const float*)g_depth, (const float*)g_t};
     auto build = tally ? &launch<true, true> : &launch<false, true>;
     return (int)build((const int*)gidx, (const int*)counts,
-                      (const float4*)table, n_gauss, num_tiles, tile_cap,
-                      grid_x, tile_size, chunk, list_len, fwd, (float*)slots,
+                      (const float4*)table, n_gauss, num_tiles, tile0,
+                      tile_cap, grid_x, tile_size, chunk, list_len, fwd,
+                      (float*)slots,
                       (unsigned long long*)tally, (cudaStream_t)stream);
 }
 

@@ -60,8 +60,9 @@ struct BwdPixel {
 // opacity, depth].
 constexpr int kGradW = 10;
 
-// The pixel's coordinates and what it carries into the backward, from the
-// tile-major forward outputs and cotangents at pixel o of the tile.
+// The pixel's coordinates (pixel p of global tile `tile`) and what it
+// carries into the backward, from the tile-major forward outputs and
+// cotangents at element o.
 __device__ __forceinline__ BwdPixel load_bwd_pixel(
     int tile, int p, int grid_x, int tile_size, size_t o,
     const float* out_color, const float* out_depth, const float* out_t,

@@ -129,8 +129,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 blend_fwd_kernel(const int* __restrict__ gidx,
                  const int* __restrict__ counts,
                  const float4* __restrict__ table,
-                 int n_gauss, int tile_cap, int grid_x, int tile_size,
-                 int chunk, int list_len, float* __restrict__ out_color,
+                 int n_gauss, int tile0, int tile_cap, int grid_x,
+                 int tile_size, int chunk, int list_len,
+                 float* __restrict__ out_color,
                  float* __restrict__ out_depth, float* __restrict__ out_t) {
     extern __shared__ float4 smem[];
     const int ring = ring_slots(chunk);
@@ -145,8 +146,10 @@ blend_fwd_kernel(const int* __restrict__ gidx,
                   + (warp % (kSubW / kPatchW)) * kPatchW + lane % kPatchW;
     const int y = (sub / subs_x) * kSubH
                   + (warp / (kSubW / kPatchW)) * kPatchH + lane / kPatchW;
-    const float px = (float)((tile % grid_x) * tile_size + x);
-    const float py = (float)((tile / grid_x) * tile_size + y);
+    // the pixel's coordinates are those of global tile tile0 + tile (a
+    // band of a tile-sharded render); lists and outputs stay band-local
+    const float px = (float)(((tile0 + tile) % grid_x) * tile_size + x);
+    const float py = (float)(((tile0 + tile) / grid_x) * tile_size + y);
     const int count = counts[tile];
     const int* tile_gidx = gidx + (size_t)tile * tile_cap;
 
@@ -233,9 +236,11 @@ extern "C" {
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // table is (n_gauss + 1, 16) float32 with the sentinel row at n_gauss;
 // tile_size is 16 or 32; list_len, the slots staged at a time, is a
-// multiple of chunk.
+// multiple of chunk. The num_tiles lists are those of global tiles
+// [tile0, tile0 + num_tiles) of a grid grid_x tiles wide.
 int blend_fwd_launch(const void* gidx, const void* counts, const void* table,
-                     int n_gauss, int num_tiles, int tile_cap, int grid_x,
+                     int n_gauss, int num_tiles, int tile0, int tile_cap,
+                     int grid_x,
                      int tile_size, int chunk, int list_len, void* out_color,
                      void* out_depth, void* out_t, void* stream) {
     const size_t smem = (size_t)ring_slots(chunk) * 6 * sizeof(float4)
@@ -250,7 +255,7 @@ int blend_fwd_launch(const void* gidx, const void* counts, const void* table,
     blend_fwd_kernel<<<num_tiles * subs, kThreads, smem,
                        (cudaStream_t)stream>>>(
         (const int*)gidx, (const int*)counts, (const float4*)table, n_gauss,
-        tile_cap, grid_x, tile_size, chunk, list_len, (float*)out_color,
+        tile0, tile_cap, grid_x, tile_size, chunk, list_len, (float*)out_color,
         (float*)out_depth, (float*)out_t);
     return (int)cudaGetLastError();
 }

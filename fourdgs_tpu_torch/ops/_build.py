@@ -107,10 +107,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """ctypes signatures: every pointer and the stream as c_void_p, so that
     no 64-bit address is cut to 32 bits."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i,
+    lib.blend_fwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i,
                                      vp, vp, vp, vp]
     lib.blend_fwd_launch.restype = i
-    lib.blend_bwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i,
+    lib.blend_bwd_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i,
                                      vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.blend_bwd_launch.restype = i
     lib.blend_bwd_slots_launch.argtypes = lib.blend_bwd_launch.argtypes
@@ -135,8 +135,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bin_items_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp, vp, vp,
                                      ll, i, vp]
     lib.bin_items_launch.restype = i
-    lib.bin_tiles_launch.argtypes = [vp, vp, ll, i, i, i, i, i, vp, vp, vp,
-                                     vp, vp, vp, vp, vp, vp]
+    lib.bin_tiles_launch.argtypes = [vp, vp, ll, i, i, i, i, i, i, vp, vp,
+                                     vp, vp, vp, vp, vp, vp, vp]
     lib.bin_tiles_launch.restype = i
     lib.blend_variant_launch.argtypes = [i, vp, vp, i, i, i, vp, vp]
     lib.blend_variant_launch.restype = i

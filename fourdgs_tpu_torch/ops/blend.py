@@ -27,6 +27,13 @@ Forward outputs, tile-major: color (num_tiles, P, 3), depth (num_tiles, P)
 and final transmittance (num_tiles, P), P = tile_size^2. The backward takes
 those and their cotangents and returns the (N, 10) per-gaussian gradient
 rows [pix(2), conic(3), color(3), opacity, depth].
+
+A band of a tile-sharded render (parallel/sharded.py) passes `tile0`: its
+lists are those of the nt = gidx.shape[0] global tiles [tile0, tile0 + nt)
+of cfg's grid, and every array above has nt rows in place of num_tiles.
+The kernels take their pixel coordinates from the global tile and read and
+write everything else at the band-local one; tile0 = 0 with nt = num_tiles
+is the whole image.
 """
 from __future__ import annotations
 
@@ -65,27 +72,34 @@ def pack_attr_table(pix, conic, color, opacity, depth) -> torch.Tensor:
     return table
 
 
-def tile_pixel_coords(cfg, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(num_tiles, P) integer pixel x and y coordinates as float32
-    (JAX: rasterize_tiled._tile_pixel_coords)."""
+def tile_pixel_coords(cfg, device, tile0: int = 0,
+                      nt: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nt, P) integer pixel x and y coordinates as float32 of the global
+    tiles [tile0, tile0 + nt), by default every tile (JAX:
+    rasterize_tiled._tile_pixel_coords, which the sharded step slices)."""
     t = cfg.tile_size
-    tile = torch.arange(cfg.num_tiles, device=device)
+    nt = cfg.num_tiles - tile0 if nt is None else nt
+    tile = torch.arange(tile0, tile0 + nt, device=device)
     pix = torch.arange(cfg.pixels_per_tile, device=device)
     px = (tile % cfg.grid_x)[:, None] * t + (pix % t)[None, :]
     py = (tile // cfg.grid_x)[:, None] * t + (pix // t)[None, :]
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def _check_inputs(gidx, counts, table, cfg):
-    nt, cap = cfg.num_tiles, cfg.tile_cap
+def _check_inputs(gidx, counts, table, cfg, tile0=0) -> int:
+    """Check the lists and the table; returns nt, the lists' tiles."""
+    cap = cfg.tile_cap
     if gidx.dtype != torch.int32 or counts.dtype != torch.int32:
         raise TypeError("gidx and counts must be int32")
     if table.dtype != torch.float32:
         raise TypeError("table must be float32")
-    if tuple(gidx.shape) != (nt, cap) or tuple(counts.shape) != (nt,):
+    nt = gidx.shape[0] if gidx.dim() == 2 else -1
+    if (nt < 0 or gidx.shape[1] != cap or tuple(counts.shape) != (nt,)
+            or not 0 <= tile0 <= tile0 + nt <= cfg.num_tiles):
         raise ValueError(f"gidx {tuple(gidx.shape)} / counts "
-                         f"{tuple(counts.shape)} do not match {nt} tiles x "
-                         f"tile_cap {cap}")
+                         f"{tuple(counts.shape)} from tile {tile0} do not "
+                         f"match {cfg.num_tiles} tiles x tile_cap {cap}")
     if table.dim() != 2 or table.shape[1] != ATTR_W:
         raise ValueError(f"table must be (N+1, {ATTR_W}), got "
                          f"{tuple(table.shape)}")
@@ -97,10 +111,11 @@ def _check_inputs(gidx, counts, table, cfg):
     if cap % cfg.chunk:
         raise ValueError(f"tile_cap {cap} is not a multiple of chunk "
                          f"{cfg.chunk}")
+    return nt
 
 
-def _check_outputs(table, color, depth, trans, cfg, what):
-    nt, p = cfg.num_tiles, cfg.pixels_per_tile
+def _check_outputs(table, color, depth, trans, cfg, what, nt):
+    p = cfg.pixels_per_tile
     for name, x, shape in (("color", color, (nt, p, 3)),
                            ("depth", depth, (nt, p)), ("t", trans, (nt, p))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
@@ -146,22 +161,23 @@ def _check_tally(tally, table, plain_refuses: str):
 
 
 def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
-                  table: torch.Tensor, cfg):
-    """Blend every tile. CUDA tensors launch the kernel; CPU tensors run
-    the plain version. Returns (color, depth, transmittance)."""
-    _check_inputs(gidx, counts, table, cfg)
+                  table: torch.Tensor, cfg, tile0: int = 0):
+    """Blend every tile of the lists (global tiles from `tile0`). CUDA
+    tensors launch the kernel; CPU tensors run the plain version. Returns
+    (color, depth, transmittance)."""
+    nt = _check_inputs(gidx, counts, table, cfg, tile0)
     if table.device.type == "cpu":
-        return blend_forward_plain(gidx, counts, table, cfg)
+        return blend_forward_plain(gidx, counts, table, cfg, tile0)
     _check_kernel(table, cfg, _MAX_CHUNK)
     lib = load_library()
-    nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
+    p, k = cfg.pixels_per_tile, cfg.chunk
     list_len = _list_len(cfg)
     color = table.new_empty((nt, p, 3))
     depth = table.new_empty((nt, p))
     trans = table.new_empty((nt, p))
     _launch(lib, lib.blend_fwd_launch, table, gidx.data_ptr(),
             counts.data_ptr(), table.data_ptr(), table.shape[0] - 1, nt,
-            cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
+            tile0, cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
             color.data_ptr(), depth.data_ptr(), trans.data_ptr())
     blend_forward.launches += 1
     return color, depth, trans
@@ -207,7 +223,7 @@ def _chunk_math(rows, px, py, t):
 
 
 def blend_forward_plain(gidx: torch.Tensor, counts: torch.Tensor,
-                        table: torch.Tensor, cfg):
+                        table: torch.Tensor, cfg, tile0: int = 0):
     """The chunked torch recurrence over the same inputs as the kernel.
 
     Each step takes `chunk` slots of every tile: an in-chunk exclusive
@@ -216,10 +232,10 @@ def blend_forward_plain(gidx: torch.Tensor, counts: torch.Tensor,
     the fullest tile's occupancy are skipped; their padded slots (opacity
     0) would add nothing. The kernel differs only in the order of the
     color and depth sums."""
-    _check_inputs(gidx, counts, table, cfg)
-    nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
+    nt = _check_inputs(gidx, counts, table, cfg, tile0)
+    p, k = cfg.pixels_per_tile, cfg.chunk
     dev = table.device
-    px, py = tile_pixel_coords(cfg, dev)
+    px, py = tile_pixel_coords(cfg, dev, tile0, nt)
     n = table.shape[0] - 1
     idx = torch.where(gidx >= 0, gidx, n).long()
     color = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
@@ -239,7 +255,8 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
                    depth: torch.Tensor, trans: torch.Tensor,
                    g_color: torch.Tensor, g_depth: torch.Tensor,
                    g_t: torch.Tensor, cfg,
-                   tally: torch.Tensor | None = None) -> torch.Tensor:
+                   tally: torch.Tensor | None = None,
+                   tile0: int = 0) -> torch.Tensor:
     """Per-gaussian gradients (N, GRAD_W) of the blend, from its inputs,
     its outputs (color, depth, trans) and their cotangents. CUDA tensors
     launch the kernel, which sums the per-slot gradients into the rows
@@ -247,21 +264,22 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
     run the plain version. `tally`, for measurement: a (3,) int64 tensor
     on the table's card, to which a counting build of the kernel adds the
     float2 atomics it issued, the batches its warps reduced and the chunks
-    its blocks walked."""
-    _check_inputs(gidx, counts, table, cfg)
-    _check_outputs(table, color, depth, trans, cfg, "output")
-    _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
+    its blocks walked. `tile0`: the lists' first global tile."""
+    nt = _check_inputs(gidx, counts, table, cfg, tile0)
+    _check_outputs(table, color, depth, trans, cfg, "output", nt)
+    _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent", nt)
     _check_tally(tally, table, "the plain backward issues no atomics to "
                  "tally")
     if table.device.type == "cpu":
         return blend_backward_plain(gidx, counts, table, color, depth,
-                                    trans, g_color, g_depth, g_t, cfg)
+                                    trans, g_color, g_depth, g_t, cfg,
+                                    tile0)
     _check_kernel(table, cfg, _MAX_CHUNK_BWD)
     lib = load_library()
     n = table.shape[0] - 1
     grads = table.new_empty((n + 1, GRAD_W))    # zero-filled by the launch
     _launch(lib, lib.blend_bwd_launch, table, gidx.data_ptr(),
-            counts.data_ptr(), table.data_ptr(), n, cfg.num_tiles,
+            counts.data_ptr(), table.data_ptr(), n, nt, tile0,
             cfg.tile_cap, cfg.grid_x, cfg.tile_size, cfg.chunk,
             _list_len(cfg),
             color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
@@ -275,7 +293,7 @@ blend_backward.launches = 0
 
 
 def _backward_chunks(gidx, counts, table, color, depth, trans, g_color,
-                     g_depth, g_t, cfg):
+                     g_depth, g_t, cfg, tile0=0):
     """Yield (j, cols) per occupied chunk j of the plain backward: cols
     (nt, chunk, GRAD_W) are the chunk's per-slot gradients summed over
     each tile's pixels.
@@ -288,10 +306,11 @@ def _backward_chunks(gidx, counts, table, color, depth, trans, g_color,
           - (rc - after_cg + rd - after_dg + g_t T_final) / max(1 - a, 0.01)
     (straight through the 0.99 clamp), chained to opacity (alpha_u / op)
     and to the power (da * alpha_u), then to pix and the conic; color and
-    depth gradients are w g_c and w g_d."""
-    nt, p, k = cfg.num_tiles, cfg.pixels_per_tile, cfg.chunk
+    depth gradients are w g_c and w g_d. The lists are those of global
+    tiles from `tile0`."""
+    nt, p, k = gidx.shape[0], cfg.pixels_per_tile, cfg.chunk
     dev = table.device
-    px, py = tile_pixel_coords(cfg, dev)
+    px, py = tile_pixel_coords(cfg, dev, tile0, nt)
     n = table.shape[0] - 1
     idx = torch.where(gidx >= 0, gidx, n).long()
     rc = (color * g_color).sum(-1)                       # (nt, P)
@@ -342,18 +361,19 @@ def blend_backward_plain(gidx: torch.Tensor, counts: torch.Tensor,
                          table: torch.Tensor, color: torch.Tensor,
                          depth: torch.Tensor, trans: torch.Tensor,
                          g_color: torch.Tensor, g_depth: torch.Tensor,
-                         g_t: torch.Tensor, cfg) -> torch.Tensor:
+                         g_t: torch.Tensor, cfg,
+                         tile0: int = 0) -> torch.Tensor:
     """The torch suffix-identity backward (JAX: rasterize_tiled.py
     `_make_blend.blend_bwd`), replaying `_chunk_math` chunk by chunk
     (`_backward_chunks`); the per-gaussian sum is one `index_add_` per
     chunk."""
-    _check_inputs(gidx, counts, table, cfg)
+    _check_inputs(gidx, counts, table, cfg, tile0)
     n, k = table.shape[0] - 1, cfg.chunk
     idx = torch.where(gidx >= 0, gidx, n).long()
     grads = torch.zeros((n + 1, GRAD_W), dtype=torch.float32,
                         device=table.device)
     for j, cols in _backward_chunks(gidx, counts, table, color, depth, trans,
-                                    g_color, g_depth, g_t, cfg):
+                                    g_color, g_depth, g_t, cfg, tile0):
         grads.index_add_(0, idx[:, j * k:(j + 1) * k].reshape(-1),
                          cols.reshape(-1, GRAD_W))
     return grads[:n]
@@ -365,7 +385,8 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
                          g_color: torch.Tensor, g_depth: torch.Tensor,
                          g_t: torch.Tensor, cfg,
                          tally: torch.Tensor | None = None,
-                         out: torch.Tensor | None = None) -> torch.Tensor:
+                         out: torch.Tensor | None = None,
+                         tile0: int = 0) -> torch.Tensor:
     """The per-slot gradients (num_tiles, tile_cap, GRAD_W) of the blend,
     unreduced: row (t, s) sums slot s's gradient over tile t's pixels.
     Rows of occupied chunks past the count, and of chunks after a tile
@@ -379,13 +400,15 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
     its warps reduced and the chunks its blocks walked (each block of a
     tile's cluster walks the tile's). `out`, for checks of what the kernel
     leaves unwritten: a contiguous float32 (num_tiles, tile_cap, GRAD_W)
-    tensor on the table's device to write into and return."""
-    _check_inputs(gidx, counts, table, cfg)
-    _check_outputs(table, color, depth, trans, cfg, "output")
-    _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent")
+    tensor on the table's device to write into and return. `tile0`: the
+    lists' first global tile (the table then has gidx.shape[0] rows of
+    tiles)."""
+    nt = _check_inputs(gidx, counts, table, cfg, tile0)
+    _check_outputs(table, color, depth, trans, cfg, "output", nt)
+    _check_outputs(table, g_color, g_depth, g_t, cfg, "cotangent", nt)
     _check_tally(tally, table, "the plain per-slot backward issues no "
                  "stores to tally")
-    shape = (cfg.num_tiles, cfg.tile_cap, GRAD_W)
+    shape = (nt, cfg.tile_cap, GRAD_W)
     if out is not None and (tuple(out.shape) != shape
                             or out.dtype != torch.float32
                             or out.device != table.device
@@ -394,14 +417,15 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
                          f"on the table's device")
     if table.device.type == "cpu":
         plain = blend_backward_slots_plain(gidx, counts, table, color, depth,
-                                           trans, g_color, g_depth, g_t, cfg)
+                                           trans, g_color, g_depth, g_t, cfg,
+                                           tile0)
         return plain if out is None else out.copy_(plain)
     _check_kernel(table, cfg, _MAX_CHUNK_BWD)
     lib = load_library()
     slots = table.new_empty(shape) if out is None else out
     _launch(lib, lib.blend_bwd_slots_launch, table, gidx.data_ptr(),
             counts.data_ptr(), table.data_ptr(), table.shape[0] - 1,
-            cfg.num_tiles, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
+            nt, tile0, cfg.tile_cap, cfg.grid_x, cfg.tile_size,
             cfg.chunk, _list_len(cfg), color.data_ptr(), depth.data_ptr(),
             trans.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
             g_t.data_ptr(), slots.data_ptr(),
@@ -417,15 +441,16 @@ def blend_backward_slots_plain(gidx: torch.Tensor, counts: torch.Tensor,
                                table: torch.Tensor, color: torch.Tensor,
                                depth: torch.Tensor, trans: torch.Tensor,
                                g_color: torch.Tensor, g_depth: torch.Tensor,
-                               g_t: torch.Tensor, cfg) -> torch.Tensor:
+                               g_t: torch.Tensor, cfg,
+                               tile0: int = 0) -> torch.Tensor:
     """The per-slot table of the plain backward (`_backward_chunks`),
     zeros past each tile's occupancy."""
-    _check_inputs(gidx, counts, table, cfg)
+    nt = _check_inputs(gidx, counts, table, cfg, tile0)
     k = cfg.chunk
-    slots = torch.zeros((cfg.num_tiles, cfg.tile_cap, GRAD_W),
+    slots = torch.zeros((nt, cfg.tile_cap, GRAD_W),
                         dtype=torch.float32, device=table.device)
     for j, cols in _backward_chunks(gidx, counts, table, color, depth, trans,
-                                    g_color, g_depth, g_t, cfg):
+                                    g_color, g_depth, g_t, cfg, tile0):
         slots[:, j * k:(j + 1) * k] = cols
     return slots
 
@@ -468,13 +493,14 @@ class _Blend(torch.autograd.Function):
     the custom VJP of `_make_blend` and Pallas `make_blend`)."""
 
     @staticmethod
-    def forward(ctx, gidx, counts, cfg, slots, pix, conic, color, opacity,
-                depth):
+    def forward(ctx, gidx, counts, cfg, slots, tile0, pix, conic, color,
+                opacity, depth):
         with record_function("raster.pack"):
             table = pack_attr_table(pix, conic, color, opacity, depth)
-        out = blend_forward(gidx, counts, table, cfg)
+        out = blend_forward(gidx, counts, table, cfg, tile0)
         ctx.cfg = cfg
         ctx.slots = slots
+        ctx.tile0 = tile0
         ctx.save_for_backward(gidx, counts, table, *out)
         return out
 
@@ -491,21 +517,22 @@ class _Blend(torch.autograd.Function):
             # accumulator lives in device memory here (about 5 MB at 131k
             # slots), so only the switch selects K3.
             if os.environ.get("FOURDGS_PALLAS_NO_FUSED_BWD"):
-                grads = reduce_slots(gidx, blend_backward_slots(*args),
-                                     table.shape[0] - 1, ctx.slots)
+                grads = reduce_slots(
+                    gidx, blend_backward_slots(*args, tile0=ctx.tile0),
+                    table.shape[0] - 1, ctx.slots)
             else:
-                grads = blend_backward(*args)
-        return (None, None, None, None, grads[:, 0:2], grads[:, 2:5],
+                grads = blend_backward(*args, tile0=ctx.tile0)
+        return (None, None, None, None, None, grads[:, 0:2], grads[:, 2:5],
                 grads[:, 5:8], grads[:, 8], grads[:, 9])
 
 
 def blend(gidx: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
           conic: torch.Tensor, color: torch.Tensor, opacity: torch.Tensor,
-          depth: torch.Tensor, cfg, slots=None):
-    """Differentiable blend of every tile: packs the table, runs
-    `blend_forward`, and `blend_backward` in the backward (or the
-    per-slot backward and `reduce_slots`, which takes the binner's
-    BlendSlots `slots` where given). gidx and counts carry no gradient.
-    Returns (color, depth, transmittance)."""
-    return _Blend.apply(gidx, counts, cfg, slots, pix, conic, color,
+          depth: torch.Tensor, cfg, slots=None, tile0: int = 0):
+    """Differentiable blend of every tile of the lists (global tiles from
+    `tile0`): packs the table, runs `blend_forward`, and `blend_backward`
+    in the backward (or the per-slot backward and `reduce_slots`, which
+    takes the binner's BlendSlots `slots` where given). gidx and counts
+    carry no gradient. Returns (color, depth, transmittance)."""
+    return _Blend.apply(gidx, counts, cfg, slots, tile0, pix, conic, color,
                         opacity, depth)

@@ -4,7 +4,8 @@
   1. project_gaussians     — EWA projection (ops/projection.py)
   2. bin_gaussians_count   — per-tile fixed-capacity index lists
      (num_tiles, tile_cap) in depth order, with the JAX package's global
-     pair budget and exact corner cull; runs without autograd, as the
+     pair budget and exact corner cull (or of a band of tile rows, the
+     cull off: the tile-sharded step's); runs without autograd, as the
      JAX package stops the gradient into the binner (the binner kernel,
      csrc/binner.cu, on the card; the plain torch version on the CPU)
   3. blend                 — front-to-back compositing over the lists and
@@ -94,7 +95,8 @@ class BinnedTiles(NamedTuple):
 
 
 def bin_gaussians_count(proj: Projected, cfg: RasterConfig,
-                        slots: bool = False) -> BinnedTiles:
+                        slots: bool = False,
+                        num_tiles: int | None = None) -> BinnedTiles:
     """Per-tile depth-ordered gaussian index lists, with the contract of
     the JAX package's counting binner.
 
@@ -112,13 +114,51 @@ def bin_gaussians_count(proj: Projected, cfg: RasterConfig,
     checks), run `bin_gaussians_count_plain`. Both give the same
     BinnedTiles bit for bit, every shape is static and nothing is read to
     the host, so that a CUDA graph can capture it. `slots` adds the
-    BlendSlots of the reassociated backward."""
+    BlendSlots of the reassociated backward.
+
+    `num_tiles` (JAX's argument of the same name) bins a band of tile
+    rows: `proj`'s rects clipped to the band (`clip_proj_to_tile_rows`),
+    the lists covering its num_tiles tiles in band-local ids, and the
+    corner cull off, since the band-local rect rows no longer give pixel
+    rows."""
     kind = proj.depth.device.type
     if kind == "cuda":
-        return bin_tiles(proj, cfg, slots)
+        return bin_tiles(proj, cfg, slots, num_tiles)
     if kind in ("cpu", "meta"):
-        return bin_gaussians_count_plain(proj, cfg, slots)
+        return bin_gaussians_count_plain(proj, cfg, slots, num_tiles)
     raise ValueError(f"no binner for device {proj.depth.device}")
+
+
+def _tiles(cfg: RasterConfig, num_tiles: int | None) -> int:
+    """The tiles a binning covers: the grid's, or a band's."""
+    if num_tiles is None:
+        return cfg.num_tiles
+    if not 0 < num_tiles <= cfg.num_tiles:
+        raise ValueError(f"a band of {num_tiles} tiles outside (0, "
+                         f"{cfg.num_tiles}]")
+    return num_tiles
+
+
+def clip_proj_to_tile_rows(proj: Projected, row0: int,
+                           rows: int) -> Projected:
+    """Restrict a projection's tile rects to `rows` tile rows starting at
+    row `row0`, in band-local row coordinates (JAX:
+    rasterize_tiled.py:132-150): the hook of the tile-sharded step, whose
+    ranks each bin only their band of rows * grid_x tiles
+    (`bin_gaussians_count(..., num_tiles=)`). A gaussian outside the band
+    touches no tile of it."""
+    y0 = torch.clamp(proj.rect_min[:, 1], row0, row0 + rows) - row0
+    y1 = torch.clamp(proj.rect_max[:, 1], row0, row0 + rows) - row0
+    span_x = torch.clamp(proj.rect_max[:, 0] - proj.rect_min[:, 0], min=0)
+    touched = torch.where(proj.tiles_touched > 0,
+                          span_x * torch.clamp(y1 - y0, min=0),
+                          torch.zeros_like(span_x))
+    rect_min = torch.stack([proj.rect_min[:, 0], y0], dim=-1)
+    rect_max = torch.where((touched > 0)[:, None],
+                           torch.stack([proj.rect_max[:, 0], y1], dim=-1),
+                           rect_min)
+    return proj._replace(rect_min=rect_min, rect_max=rect_max,
+                         tiles_touched=touched)
 
 
 def _pair_budget(n: int, cfg: RasterConfig) -> int:
@@ -188,20 +228,21 @@ def _aligned(x: torch.Tensor, what: str, nbytes: int) -> torch.Tensor:
     return x
 
 
-def bin_tiles(proj: Projected, cfg: RasterConfig,
-              slots: bool = False) -> BinnedTiles:
+def bin_tiles(proj: Projected, cfg: RasterConfig, slots: bool = False,
+              num_tiles: int | None = None) -> BinnedTiles:
     """The binner on the card: the depth sort in PyTorch, then
     csrc/binner.cu: the depth-ordered items (bin_items_launch), their run
     ends (a cumulative sum in PyTorch), and the rank (rank_common.cuh's
     histogram, scan and walk) with the counts (bin_tiles_launch); K5
     after it under FOURDGS_BIN_SCATTER=pallas, or when `slots` asks for
     the BlendSlots, whose `dest` is the budget slots' rows that K5
-    scatters. `bin_tiles.launches` counts the binner's runs. Raises for
-    what the kernels cannot take; it never falls back."""
+    scatters. `num_tiles` bins a band (`bin_gaussians_count`): that many
+    tiles, the corner cull off. `bin_tiles.launches` counts the binner's
+    runs. Raises for what the kernels cannot take; it never falls back."""
     dev = proj.depth.device
     if dev.type != "cuda":
         raise ValueError(f"the binner kernel needs CUDA tensors, got {dev}")
-    n, nt, cap = proj.depth.shape[0], cfg.num_tiles, cfg.tile_cap
+    n, nt, cap = proj.depth.shape[0], _tiles(cfg, num_tiles), cfg.tile_cap
     n_out = nt * cap
     total_slots = _pair_budget(n, cfg)
     if not 1 <= nt <= MAX_TILES:
@@ -241,8 +282,8 @@ def bin_tiles(proj: Projected, cfg: RasterConfig,
     counts, overflow, scalars = out[:nt], out[nt:2 * nt], out[2 * nt:]
     _launch(lib, lib.bin_tiles_launch, rows, rows.data_ptr(),
             ends.data_ptr(), n, total_slots, nt, cfg.grid_x, cfg.tile_size,
-            cap, hist.data_ptr(), cnt.data_ptr(), *ptrs, counts.data_ptr(),
-            overflow.data_ptr(), scalars.data_ptr())
+            cap, int(num_tiles is None), hist.data_ptr(), cnt.data_ptr(),
+            *ptrs, counts.data_ptr(), overflow.data_ptr(), scalars.data_ptr())
     bin_tiles.launches += 1
     if per_slot:
         # the JAX package's switch (rasterize_tiled.py:383-393): K5 over
@@ -261,7 +302,8 @@ bin_tiles.launches = 0
 
 
 def bin_gaussians_count_plain(proj: Projected, cfg: RasterConfig,
-                              slots: bool = False) -> BinnedTiles:
+                              slots: bool = False,
+                              num_tiles: int | None = None) -> BinnedTiles:
     """The binner in PyTorch: slot s of the budget takes its owner by a
     search over the depth-ordered run ends, invalid and culled slots take
     the sentinel tile id `num_tiles`, a stable sort by tile id over the
@@ -270,10 +312,11 @@ def bin_gaussians_count_plain(proj: Projected, cfg: RasterConfig,
     index. The mechanism differs from the JAX package's rank scan, which
     works around TPU costs; the outputs are the same. Every shape is
     static and nothing is read to the host. `slots` adds the BlendSlots,
-    each budget slot's row taken back from the sort's order."""
+    each budget slot's row taken back from the sort's order. `num_tiles`
+    bins a band, the corner cull off (`bin_gaussians_count`)."""
     dev = proj.depth.device
     n = proj.depth.shape[0]
-    nt = cfg.num_tiles
+    nt = _tiles(cfg, num_tiles)
     ts = cfg.tile_size
     total_slots = _pair_budget(n, cfg)
 
@@ -294,17 +337,19 @@ def bin_gaussians_count_plain(proj: Projected, cfg: RasterConfig,
     tx = rmin[:, 0] + (local - dy * sx)
     ty = rmin[:, 1] + dy
 
-    # ---- exact corner cull (the -1 absorbs qpix rounding) ----
-    qpix = torch.round(torch.clamp(proj.pix[gid], -(1 << 20), 1 << 20)).long()
-    lox, loy = tx * ts, ty * ts
-    ddx = torch.clamp(torch.maximum(lox - qpix[:, 0],
-                                    qpix[:, 0] - (lox + ts - 1)) - 1,
-                      0, _CULL_CLAMP)
-    ddy = torch.clamp(torch.maximum(loy - qpix[:, 1],
-                                    qpix[:, 1] - (loy + ts - 1)) - 1,
-                      0, _CULL_CLAMP)
-    keep = (slot < total) & (ddx * ddx + ddy * ddy
-                             <= proj.cull_r2[gid].long())
+    keep = slot < total
+    if num_tiles is None:
+        # ---- exact corner cull (the -1 absorbs qpix rounding) ----
+        qpix = torch.round(torch.clamp(proj.pix[gid], -(1 << 20),
+                                       1 << 20)).long()
+        lox, loy = tx * ts, ty * ts
+        ddx = torch.clamp(torch.maximum(lox - qpix[:, 0],
+                                        qpix[:, 0] - (lox + ts - 1)) - 1,
+                          0, _CULL_CLAMP)
+        ddy = torch.clamp(torch.maximum(loy - qpix[:, 1],
+                                        qpix[:, 1] - (loy + ts - 1)) - 1,
+                          0, _CULL_CLAMP)
+        keep = keep & (ddx * ddx + ddy * ddy <= proj.cull_r2[gid].long())
     tile_id = torch.where(keep, ty * cfg.grid_x + tx, nt)
 
     # ---- in-tile rank: stable sort by tile keeps depth order ----
@@ -389,6 +434,22 @@ def _untile(x: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
     x = x.transpose(1, 2)  # (gy, t, gx, t, ...)
     x = x.reshape((cfg.grid_y * t, cfg.grid_x * t) + ch)
     return x[: cfg.img_height, : cfg.img_width]
+
+
+def tile_image(img: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """(H, W, ...) -> (num_tiles, P, ...), the inverse of `_untile`
+    (JAX: rasterize_tiled.py:735-746), zero-padded where H or W is not a
+    multiple of the tile size: the tile-sharded step slices the targets
+    by tile."""
+    t = cfg.tile_size
+    ch = tuple(img.shape[2:])
+    pad_h = cfg.grid_y * t - img.shape[0]
+    pad_w = cfg.grid_x * t - img.shape[1]
+    if pad_h or pad_w:
+        img = torch.cat([img, img.new_zeros((pad_h, img.shape[1]) + ch)])
+        img = torch.cat([img, img.new_zeros((img.shape[0], pad_w) + ch)], 1)
+    img = img.reshape((cfg.grid_y, t, cfg.grid_x, t) + ch).transpose(1, 2)
+    return img.reshape((cfg.num_tiles, t * t) + ch)
 
 
 def project_and_bin(

@@ -26,8 +26,14 @@ The scene is read through `data.scene.Scene.load` at the model's
 JAX script (a HyperNeRF video view's full-resolution size is not used);
 DyNeRF's and MultipleView's video split is their 300 spiral poses,
 PanopticSports' its test split, Colmap's its train split. A host or lazy
-image bank serves the targets view by view. `--mesh` is not ported yet and
-raises.
+image bank serves the targets view by view.
+
+`--mesh D,T` (JAX: scripts/render.py:105-125) renders every split
+tile-sharded over the mesh's T tile ranks (`parallel.sharded.sharded_render`,
+eagerly: no captured frame), with the cap probe and regrowth as above;
+under `python -m torch.distributed.run --nproc_per_node D*T` the ranks
+join one process group first (`FOURDGS_DIST_BACKEND=gloo` where they
+share a card), and rank 0 alone writes the PNGs.
 """
 from __future__ import annotations
 
@@ -58,13 +64,38 @@ def quantise(img) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
+class MeshRenderer:
+    """A Renderer's snapshot rendered tile-sharded over a mesh: the
+    `render`, `grow_caps` and `device` that `render_split` reads."""
+
+    def __init__(self, renderer: Renderer, mesh):
+        from types import SimpleNamespace
+        self.renderer, self.mesh = renderer, mesh
+        self.device = renderer.device
+        self.state = SimpleNamespace(
+            params={"gauss": renderer.gauss, "deform": renderer.deform},
+            alive=renderer.alive, aabb=renderer.aabb)
+
+    def render(self, camera):
+        from fourdgs_tpu_torch.parallel.sharded import sharded_render
+        r = self.renderer
+        return sharded_render(self.state, camera.to(self.device), r.bg,
+                              mesh=self.mesh, raster_cfg=r.raster_cfg,
+                              stage="fine", active_sh=r.sh_degree)
+
+    def grow_caps(self, pairs: bool, tile: bool) -> dict:
+        return self.renderer.grow_caps(pairs, tile)
+
+
 def render_split(renderer: Renderer, name: str, split: StackedCameras,
                  out_dir: str, with_gt: bool,
-                 pool: concurrent.futures.Executor) -> dict:
+                 pool: concurrent.futures.Executor,
+                 write: bool = True) -> dict:
     """Render every view of `split` into <out_dir>/renders (and the
     targets into <out_dir>/gt). A view whose render overflowed the caps
     (`render.serve.overflows`) grows them and the split is rendered again,
-    up to the probe's rounds. Returns the view count, the renders made
+    up to the probe's rounds; `write` False renders without writing (a
+    mesh's other ranks). Returns the view count, the renders made
     (untimed ones included), the passes, the last pass's seconds, FPS and
     drops, and its frames (float32 (H, W, 3) on the host)."""
     dev = renderer.device
@@ -94,12 +125,14 @@ def render_split(renderer: Renderer, name: str, split: StackedCameras,
               f"growing {changes}, rendering again")
     renders_dir = os.path.join(out_dir, "renders")
     gt_dir = os.path.join(out_dir, "gt")
-    os.makedirs(renders_dir, exist_ok=True)
-    os.makedirs(gt_dir, exist_ok=True)
+    if write:
+        os.makedirs(renders_dir, exist_ok=True)
+        os.makedirs(gt_dir, exist_ok=True)
     futures = [pool.submit(write_png,
                            os.path.join(renders_dir, f"{i:05d}.png"),
-                           quantise(img)) for i, img in enumerate(frames)]
-    if with_gt and split.images is not None:
+                           quantise(img)) for i, img in enumerate(frames)
+               if write]
+    if write and with_gt and split.images is not None:
         futures += [pool.submit(write_png,
                                 os.path.join(gt_dir, f"{i:05d}.png"),
                                 quantise(split.images[[i]][0].cpu().numpy()))
@@ -136,7 +169,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--skip_video", action="store_true")
     parser.add_argument("--configs", default="")
     parser.add_argument("--mesh", default="",
-                        help="multi-GPU mesh 'data,tile' (not ported yet)")
+                        help="render tile-sharded over a 'data,tile' mesh")
     parser.add_argument("--image_size", nargs=2, type=int, default=None,
                         metavar=("W", "H"),
                         help="the Blender images' size (default 800 800)")
@@ -150,8 +183,24 @@ def main(argv=None) -> dict:
     directory, with the iteration, the device, the cap probe's renders and
     caps, and the captured frames and their replays (0 on the CPU)."""
     args = build_parser().parse_args(argv)
+    joined = False
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
+        from fourdgs_tpu_torch.parallel import multihost
+        joined = multihost.initialize_distributed(
+            args.device, os.environ.get("FOURDGS_DIST_BACKEND") or None)
+    try:
+        return _render(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args) -> dict:
+    mesh = None
+    if args.mesh:
+        from fourdgs_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(*(int(x) for x in args.mesh.split(",")))
+    lead = mesh is None or mesh.rank == 0
     dev = resolve_device(args.device)
     cfg_path = os.path.join(args.model_path, "cfg_args.json")
     cfg = (config_mod.load_cfg(cfg_path) if os.path.exists(cfg_path)
@@ -172,8 +221,17 @@ def main(argv=None) -> dict:
         scene.train.height, configs=args.configs,
         probe_camera=scene.train.cameras[0])
     it = renderer.iteration
-    print(f"rendering snapshot of iteration {it} "
-          f"({int(renderer.alive.sum())} points)")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"rendering snapshot of iteration {it} "
+        f"({int(renderer.alive.sum())} points)")
+    target = renderer
+    if mesh is not None:
+        n_tile = mesh.shape["tile"]
+        assert renderer.raster_cfg.num_tiles % n_tile == 0, \
+            (f"num_tiles {renderer.raster_cfg.num_tiles} not divisible by "
+             f"tile={n_tile}")
+        target = MeshRenderer(renderer, mesh)
+        say(f"rendering on mesh data={mesh.n_data} tile={n_tile}")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     summary = {"iteration": it, "device": name, "splits": {}}
@@ -184,19 +242,20 @@ def main(argv=None) -> dict:
             if skip:
                 continue
             out_dir = os.path.join(args.model_path, split, f"ours_{it}")
-            res = render_split(renderer, split, getattr(scene, split),
-                               out_dir, with_gt, pool)
-            print(f"{split}: {res['views']} views, FPS: {res['fps']:.2f}"
+            res = render_split(target, split, getattr(scene, split),
+                               out_dir, with_gt, pool, write=lead)
+            say(f"{split}: {res['views']} views, FPS: {res['fps']:.2f}"
                   + (f" ({res['views_dropping']} views dropped splats)"
                      if res["views_dropping"] else ""), flush=True)
             frames = res.pop("frames")
-            if split == "video":
+            if split == "video" and lead:
                 res["mp4"] = write_video(
                     os.path.join(out_dir, "video_rgb.mp4"), frames)
             summary["splits"][split] = res
     summary.update(probe_renders=renderer.probe_renders,
                    raster_cfg=dataclasses.asdict(renderer.raster_cfg),
-                   captures=renderer.captured, replays=renderer.replayed)
+                   captures=renderer.captured, replays=renderer.replayed,
+                   mesh=None if mesh is None else [mesh.n_data, mesh.n_tile])
     return summary
 
 

@@ -23,10 +23,21 @@ script's `-r`).
 A split too large for the device trains from a host or lazy image bank,
 its next batch prefetched (a lazy bank decodes in spawned processes,
 which import the main module again: a script that calls `main` keeps the
-call under `if __name__ == "__main__":`). `--mesh` and `--distributed`
-are not ported yet and raise; `--profile` runs the fine stage eagerly, so
-that its spans show (a replayed CUDA graph opens none), wraps it in
-`torch.profiler` and writes a Chrome trace under <out>/trace/.
+call under `if __name__ == "__main__":`). `--profile` runs the fine
+stage eagerly, so that its spans show (a replayed CUDA graph opens none),
+wraps it in `torch.profiler` and writes a Chrome trace under <out>/trace/.
+
+Multi-GPU (parallel/): under `python -m torch.distributed.run
+--nproc_per_node N -m fourdgs_tpu_torch.tools.train ... --distributed
+--mesh D,T` the N = D x T ranks join one process group
+(`multihost.initialize_distributed`: NCCL on the card, gloo on the CPU;
+`FOURDGS_DIST_BACKEND=gloo` for ranks that share a card) and train over
+the ("data", "tile") mesh with the tile-sharded step, eagerly; the batch
+size is rounded up to a multiple of D. Evaluations render tile-sharded
+when T divides the tiles. Rank 0 alone writes the config, the log, the
+snapshots, the checkpoints and the triptychs, and at the end every rank's
+state must be the same bytes (a digest gathered from each, logged as
+`"mesh"`).
 
 `--gui` opens the live viewer bridge (viewer/network_gui.py) on
 `--ip`:`--port`: after every iteration a poll serves the frames that a
@@ -81,9 +92,10 @@ def build_parser() -> tuple[argparse.ArgumentParser, config_mod.Config]:
     parser.add_argument("--profile", action="store_true",
                         help="trace the fine stage with torch.profiler")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host training (not ported yet)")
+                        help="join torchrun's process group (see the "
+                        "module's docstring)")
     parser.add_argument("--mesh", default="",
-                        help="multi-GPU mesh 'data,tile' (not ported yet)")
+                        help="train over a 'data,tile' mesh of the ranks")
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="torch.autograd anomaly detection (slow)")
     parser.add_argument("--gui", action="store_true",
@@ -107,13 +119,23 @@ def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
     return out.color, drops
 
 
-def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4):
+def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4,
+                mesh=None):
     """One view with the live caps; an overflowing view doubles the
     overflowing cap and renders again, up to `renders` renders. Returns the
-    last render's output, and what it dropped at which caps."""
+    last render's output, and what it dropped at which caps. Over a
+    `mesh` whose tile axis divides the tiles the render is tile-sharded
+    (`sharded_render`, collective: every rank calls it), as JAX's train
+    script renders its evals."""
+    sharded = mesh is not None and rcfg.num_tiles % mesh.shape["tile"] == 0
     for i in range(renders):
-        out = loop.eval_step(state, cam, bg, stage=stage,
-                             active_sh=active_sh, raster_cfg=rcfg)
+        if sharded:
+            from fourdgs_tpu_torch.parallel.sharded import sharded_render
+            out = sharded_render(state, cam, bg, mesh=mesh, raster_cfg=rcfg,
+                                 stage=stage, active_sh=active_sh)
+        else:
+            out = loop.eval_step(state, cam, bg, stage=stage,
+                                 active_sh=active_sh, raster_cfg=rcfg)
         dp, dt, npairs = (int(x) for x in torch.stack([
             out.dropped_pairs, out.dropped_tile, out.num_pairs]).cpu())
         dt_thresh = max(64, npairs // 200)
@@ -139,9 +161,26 @@ def main(argv=None) -> dict:
     history, test PSNRs and, on the card, peak memory."""
     parser, cfg = build_parser()
     args = parser.parse_args(argv)
-    for flag in ("distributed", "mesh"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    joined = False
+    if args.distributed:
+        # before anything touches the card: the rank takes its device
+        from fourdgs_tpu_torch.parallel import multihost
+        joined = multihost.initialize_distributed(
+            args.device, os.environ.get("FOURDGS_DIST_BACKEND") or None)
+    try:
+        return _train(args, cfg)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg) -> dict:
+    mesh = None
+    if args.mesh:
+        from fourdgs_tpu_torch.parallel.mesh import make_mesh
+        n_data, n_tile = (int(x) for x in args.mesh.split(","))
+        mesh = make_mesh(n_data, n_tile)
+    lead = mesh is None or mesh.rank == 0
     if args.configs:
         cfg = config_mod.apply_config_file(cfg, args.configs)
     cfg = config_mod.apply_args(cfg, args)
@@ -151,8 +190,15 @@ def main(argv=None) -> dict:
     cfg.expname = args.expname
     cfg.seed = args.seed
     os.makedirs(cfg.model.model_path, exist_ok=True)
-    config_mod.save_cfg(cfg, os.path.join(cfg.model.model_path,
-                                          "cfg_args.json"))
+    if mesh is not None:
+        from fourdgs_tpu_torch.parallel.multihost import pad_batch_for_hosts
+        cfg.opt.batch_size = pad_batch_for_hosts(cfg.opt.batch_size, mesh)
+        if lead:
+            print(f"training on mesh data={mesh.n_data} tile={mesh.n_tile}"
+                  f" (batch {cfg.opt.batch_size})", flush=True)
+    if lead:
+        config_mod.save_cfg(cfg, os.path.join(cfg.model.model_path,
+                                              "cfg_args.json"))
     dev = resolve_device(args.device)
     _full_float32()
     if args.detect_anomaly:
@@ -190,6 +236,8 @@ def main(argv=None) -> dict:
     log_path = os.path.join(cfg.model.model_path, "train_log.jsonl")
 
     def write_log(rec):
+        if not lead:
+            return
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -201,7 +249,7 @@ def main(argv=None) -> dict:
         write_log(rec)
 
     gui = None
-    if args.gui:
+    if args.gui and lead:
         from fourdgs_tpu_torch.viewer.network_gui import NetworkGui
         gui = NetworkGui(dev)
         gui.init(args.ip, args.port)
@@ -251,12 +299,13 @@ def main(argv=None) -> dict:
             out, renders = [], []
             for i in range(n):
                 rendered, drops = eval_output(state, split.cameras[i], bg,
-                                              stage, active_sh, rcfg)
+                                              stage, active_sh, rcfg,
+                                              mesh=mesh)
                 img = torch.clamp(rendered.color, 0, 1)
                 gt = split.images[[i]][0]
                 out.append(losses.psnr(img, gt)[0])
                 renders.append(drops)
-                if save_triptych and i == 0:
+                if save_triptych and i == 0 and lead:
                     render_training_image(
                         os.path.join(cfg.model.model_path, "train_render",
                                      f"{stage}{name}"),
@@ -272,9 +321,10 @@ def main(argv=None) -> dict:
                 save_triptych=cfg.model.render_process)
             train, _ = eval_split(scene.train, "train", it, state,
                                   active_sh, rcfg, n=5)
-            print(f"\n[ITER {it}] Evaluating test: PSNR "
-                  f"{np.mean(test):.2f} over {len(test)} views "
-                  f"(train probe {np.mean(train):.2f})", flush=True)
+            if lead:
+                print(f"\n[ITER {it}] Evaluating test: PSNR "
+                      f"{np.mean(test):.2f} over {len(test)} views "
+                      f"(train probe {np.mean(train):.2f})", flush=True)
             test_psnrs[stage].append((it, float(np.mean(test))))
             write_log({"stage": stage, "iter": it, "eval": "test",
                        "psnr": float(np.mean(test)),
@@ -352,8 +402,8 @@ def main(argv=None) -> dict:
                     epoch_order_fn=None if stage == "coarse" else epoch_order_fn,
                     on_iteration=make_on_iteration(stage),
                     start_iteration=start_it, initial_active_sh=active_sh,
-                    capture=False if profile else None)
-            if profile:
+                    capture=False if profile else None, mesh=mesh)
+            if profile and lead:
                 trace_dir = os.path.join(cfg.model.model_path, "trace")
                 os.makedirs(trace_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(trace_dir, "fine.json"))
@@ -369,12 +419,37 @@ def main(argv=None) -> dict:
                 raster_cfg=dataclasses.asdict(raster_cfg),
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None)))
-            print(f"{stage} stage done in {res.wall_time:.1f}s "
-                  f"({int(st.alive.sum())} points)", flush=True)
+            if lead:
+                print(f"{stage} stage done in {res.wall_time:.1f}s "
+                      f"({int(st.alive.sum())} points)", flush=True)
     finally:
         if gui is not None:
             gui.close()
-    print(f"\nTraining complete in {total_time:.1f}s (excl. eval/saving).")
+    if mesh is not None:
+        from fourdgs_tpu_torch.parallel.multihost import (gather_objects,
+                                                          ranks_agree)
+        from fourdgs_tpu_torch.train import graphs
+        agree, digest = ranks_agree(
+            optim.param_leaves(st.params) + [st.alive, st.denom,
+                                             st.xyz_gradient_accum,
+                                             st.max_radii2d],
+            mesh.group)
+        # each rank's kernel runs (rank r > 0 blends, binds and gathers
+        # at a nonzero band and gaussian offset)
+        summary["mesh"] = {"shape": [mesh.n_data, mesh.n_tile],
+                           "ranks_equal": agree, "digest": digest,
+                           "kernel_runs": gather_objects(graphs.kernel_runs(),
+                                                         mesh.group)}
+        write_log({"mesh": summary["mesh"]})
+        if lead:
+            print(f"mesh ranks' final states equal: {agree} ({digest[:16]})",
+                  flush=True)
+        if not agree:
+            raise RuntimeError("the mesh's ranks ended with different "
+                               "states")
+    if lead:
+        print(f"\nTraining complete in {total_time:.1f}s "
+              f"(excl. eval/saving).")
     return summary
 
 

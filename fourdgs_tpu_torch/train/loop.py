@@ -299,16 +299,35 @@ def run_stage(
 
     The state is updated in place by the step; the guard keeps a copy of
     the last healthy state on the device. The alive count lives on the
-    host and is read back only at surgery. `mesh` (multi-GPU) is not
-    ported yet.
+    host and is read back only at surgery.
+
+    `mesh` (a `parallel.mesh.Mesh`; JAX: loop.py:485-531) trains over
+    ranks: every rank draws the same permutation, takes its data
+    coordinate's slice of each batch (`multihost.host_batch_slice`, the
+    batch size a multiple of the mesh's data size) and prefetches only
+    that slice, and the step is `parallel.sharded.sharded_train_step`,
+    eager (its collectives are not captured), which always tracks the
+    densify statistics as JAX's does. Every host-side decision reads
+    values already reduced over the ranks, and every rank draws the same
+    noise from `generator`, so the ranks' states stay equal. `log_fn`,
+    `on_save` and `on_checkpoint` run on rank 0 only; `on_test` and
+    `on_iteration` on every rank (a sharded eval render is collective).
 
     `capture` (default: on the card) replays the step as a CUDA graph per
     `graphs.StepKey` (the JAX step's static arguments), with the state
     bound to the program's buffers; a step whose key changed (a bucket,
     a cap growth, the SH ramp, the densify statistics' stop) captures
-    anew. False runs the step eagerly; the CPU has no graphs."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet")
+    anew. False runs the step eagerly; the CPU has no graphs; a mesh
+    refuses it."""
+    if mesh is not None and capture:
+        raise ValueError("the sharded step is not captured: run a mesh "
+                         "with capture=False")
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):   # once a mesh, from rank 0
+        if lead:
+            print(msg)
+
     opt = cfg.opt
     dev = state.alive.device
     if not isinstance(images, ImageBank):
@@ -356,7 +375,13 @@ def run_stage(
 
     lambda_dssim = float(opt.lambda_dssim)
     if capture is None:
-        capture = dev.type == "cuda"
+        capture = dev.type == "cuda" and mesh is None
+    if mesh is not None:
+        from fourdgs_tpu_torch.parallel import multihost
+        from fourdgs_tpu_torch.parallel.sharded import sharded_train_step
+
+        def rank_slice(ids):
+            return ids[multihost.host_batch_slice(len(ids), mesh)]
     steps = graphs.StepPrograms(step_of_key(tx)) if capture else None
 
     aux = None
@@ -373,14 +398,31 @@ def run_stage(
             ptr = 0
         idxs = perm[ptr:ptr + batch]
         ptr += batch
+        nxt = perm[ptr:ptr + batch] if ptr + batch <= len(perm) else None
+        if mesh is not None:
+            idxs = rank_slice(idxs)
+            nxt = None if nxt is None else rank_slice(nxt)
         cams = [cameras[int(i)] for i in idxs]
         # a host or lazy bank starts the next batch's bytes while this
         # step runs (not at an epoch's end, whose next permutation is not
         # drawn yet) and uploads this one on the training thread's stream
-        gts = images.batch(idxs, perm[ptr:ptr + batch]
-                           if ptr + batch <= len(perm) else None)
+        gts = images.batch(idxs, nxt)
         track_now = it < opt.densify_until_iter
-        if steps is None:
+        if mesh is not None:
+            state, loss, saux = sharded_train_step(
+                state, cams, gts, bg, active_sh, mesh=mesh, stage=stage,
+                raster_cfg=raster_cfg, tx=tx, reg_weights=reg_weights,
+                lambda_dssim=lambda_dssim)
+            # the guards read the reduced visibility and alpha; the mesh
+            # reports no pair count or tile peak (0, as JAX's StepAux)
+            none = loss.new_zeros((), dtype=torch.int32)
+            aux = StepAux(loss=loss, l1=saux.l1, psnr=saux.psnr,
+                          image=loss.new_zeros((1, 1, 3)),
+                          dropped_pairs=saux.dropped_pairs,
+                          dropped_tile=saux.dropped_tile,
+                          n_visible=saux.visible.sum(), num_pairs=none,
+                          tile_peak=none, max_alpha=saux.max_alpha)
+        elif steps is None:
             state, aux = train_step(
                 state, cams, gts, bg, active_sh, stage=stage,
                 raster_cfg=raster_cfg, tx=tx, lambda_dssim=lambda_dssim,
@@ -416,7 +458,7 @@ def run_stage(
                         + (" (visibility collapse)" if collapsed else
                            " (contribution collapse: no gaussian passes the"
                            " alpha gate)" if gate_collapsed else ""))
-                print(f"[{stage} {it}] "
+                say(f"[{stage} {it}] "
                       + ("all gaussians culled" if collapsed
                          else "zero blend contribution (alpha-gate collapse)"
                          if gate_collapsed else "loss non-finite")
@@ -445,7 +487,7 @@ def run_stage(
                 if changes:
                     raster_cfg = dataclasses.replace(raster_cfg, **changes)
                     last_cap_change = it
-                    print(f"[{stage} {it}] binner overflow ({dp} pairs / "
+                    say(f"[{stage} {it}] binner overflow ({dp} pairs / "
                           f"{dt} tile-cap): growing {changes}")
                     for k in changes:
                         event(it, k)
@@ -458,7 +500,7 @@ def run_stage(
                     raster_cfg = dataclasses.replace(
                         raster_cfg, tile_cap=raster_cfg.tile_cap // 2)
                     last_cap_change = it
-                    print(f"[{stage} {it}] tile peak {peak} << cap: "
+                    say(f"[{stage} {it}] tile peak {peak} << cap: "
                           f"shrinking tile_cap to {raster_cfg.tile_cap}")
                     event(it, "tile_cap")
 
@@ -525,9 +567,9 @@ def run_stage(
             tp = time.perf_counter()
             if it in test_iterations and on_test:
                 on_test(it, state, active_sh, raster_cfg=raster_cfg)
-            if it in save_iterations and on_save:
+            if it in save_iterations and on_save and lead:
                 on_save(it, state)
-            if it in checkpoint_iterations and on_checkpoint:
+            if it in checkpoint_iterations and on_checkpoint and lead:
                 on_checkpoint(it, state, active_sh)
             paused += time.perf_counter() - tp
 
@@ -553,12 +595,12 @@ def run_stage(
                        op_max=op_max, visible=int(visible),
                        max_alpha=max_alpha, grid_absmax=gmax)
             if dp or dt > max(64, int(npairs) // 200):
-                print(f"[{stage} {it}] WARNING: binner overflow: "
+                say(f"[{stage} {it}] WARNING: binner overflow: "
                       f"{int(dp)} pairs / {int(dt)} tile-cap drops this "
                       f"step; raise tile_cap/pair_cap or the scene will "
                       f"lose far gaussians")
             history.append(rec)
-            if log_fn:
+            if log_fn and lead:
                 log_fn(rec)
             paused += time.perf_counter() - tp
 

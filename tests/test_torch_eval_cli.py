@@ -96,7 +96,9 @@ def test_render_cli_writes_every_split(trained, capsys):
     video = model / "video" / f"ours_{ITERS}"
     assert len(os.listdir(video / "renders")) == splits["video"]["views"] > 0
     assert os.listdir(video / "gt") == []
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of two ranks needs torchrun's two processes
+    # (tests/test_torch_parallel_cli.py runs it there)
+    with pytest.raises(ValueError, match="1x2 mesh needs 2 ranks"):
         trender.main(["-m", str(model), "--mesh", "1,2", "--device", "cpu"])
 
 

@@ -3,9 +3,11 @@ chip_smoke.py and ab_smoke.py imports jax, jaxlib, the JAX package or PIL (the c
 machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
 the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
-the dense grid, the per-frame export and the merge tool, and the dev
-tools' kernels and tools leaves jax and PIL out of sys.modules; importing the dev tools
-touches neither nvcc nor CUDA."""
+the dense grid, the per-frame export and the merge tool, the multi-GPU
+package (fourdgs_tpu_torch.parallel), and the dev tools' kernels and tools
+leaves jax and PIL out of sys.modules; importing the dev tools touches
+neither nvcc nor CUDA, and importing the multi-GPU package touches no
+CUDA and starts no process group."""
 import ast
 import subprocess
 import sys
@@ -56,6 +58,26 @@ _DEV_MODULES = ", ".join(
         "tools.profile_blend_split", "tools.profile_kernel_variants"))
 
 
+# the multi-GPU package: mesh, process wiring, collectives, sharded step
+_PARALLEL_MODULES = ", ".join(
+    "fourdgs_tpu_torch." + m for m in (
+        "parallel", "parallel.mesh", "parallel.multihost",
+        "parallel._collectives", "parallel.sharded"))
+
+
+def test_parallel_modules_touch_no_cuda():
+    """Importing the multi-GPU package initialises no CUDA context, starts
+    no process group and loads no kernel library."""
+    code = ("import torch, torch.distributed as dist\n"
+            f"import {_PARALLEL_MODULES}\n"
+            "from fourdgs_tpu_torch.ops import _build\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "assert not dist.is_initialized()\n"
+            "assert _build._lib is None and not _build.build_info\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 def test_dev_modules_touch_neither_nvcc_nor_cuda():
     """Importing the dev kernels' wrappers and tools starts no process,
     initialises no CUDA context and loads no kernel library."""
@@ -100,6 +122,7 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.viewer.network_gui, "
             "fourdgs_tpu_torch.tools.export_perframe, "
             "fourdgs_tpu_torch.tools.merge_many, "
+            + _PARALLEL_MODULES + ", "
             + _DEV_MODULES + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fourdgs_tpu', 'PIL')]; "

@@ -1526,3 +1526,96 @@ def test_lpips_on_the_card_matches_the_cpu(cuda, net):
         torch.backends.cudnn.allow_tf32 = saved
     assert bool((want > 0).all())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# band offsets: K1, K2, K3 and the binner on a band of tiles (the
+# tile-sharded step, parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+# (tile size, band of tile rows): at 96 x 80 a tile-16 grid is 6 x 5 and a
+# tile-32 grid 3 x 3; the first, a middle and the last band
+BANDS = [(16, (0, 1)), (16, (2, 2)), (16, (4, 1)), (32, (0, 1)),
+         (32, (1, 1)), (32, (2, 1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,band", BANDS,
+                         ids=[f"ts{t}-rows{b[0]}+{b[1]}" for t, b in BANDS])
+def test_blend_kernels_at_a_band_offset(cuda, ts, band):
+    """K1, K2 and K3 on a band's lists with its first tile `tile0`: each
+    against its plain version at the same offset (the blend's gates), K1
+    equal bit for bit to the whole grid's K1 on those tiles, K3's
+    reduction against K2's rows."""
+    binned, table, cfg = _inputs(cuda, "random", ts)
+    row0, rows = band
+    tile0, nt = row0 * cfg.grid_x, rows * cfg.grid_x
+    own = slice(tile0, tile0 + nt)
+    gidx = binned.gidx[own].contiguous()
+    counts = binned.counts[own].contiguous()
+    assert int(counts.max()) > cfg.chunk
+    before = (blend.blend_forward.launches, blend.blend_backward.launches,
+              blend.blend_backward_slots.launches)
+    out = blend.blend_forward(gidx, counts, table, cfg, tile0=tile0)
+    whole = blend.blend_forward(binned.gidx, binned.counts, table, cfg)
+    for a, b in zip(out, whole):
+        assert torch.equal(a, b[own])
+    _assert_close(out, blend.blend_forward_plain(gidx, counts, table, cfg,
+                                                 tile0=tile0))
+    gen = torch.Generator().manual_seed(1)
+    p = cfg.pixels_per_tile
+    cot = [torch.randn(shape, generator=gen).to(cuda)
+           for shape in ((nt, p, 3), (nt, p), (nt, p))]
+    args = (gidx, counts, table, *out, *cot, cfg)
+    g = blend.blend_backward(*args, tile0=tile0)
+    ref = blend.blend_backward_plain(*args, tile0=tile0)
+    assert float(ref.abs().max()) > 0
+    for name, (a, b) in GROUPS.items():
+        _normalised_close(g[:, a:b], ref[:, a:b], name)
+    got = blend.blend_backward_slots(*args, tile0=tile0)
+    want = blend.blend_backward_slots_plain(*args, tile0=tile0)
+    assert got.shape == want.shape == (nt, cfg.tile_cap, blend.GRAD_W)
+    used = gidx >= 0
+    for c in range(blend.GRAD_W):
+        _normalised_close(got[..., c][used], want[..., c][used], f"col {c}")
+    reduced = blend.reduce_slots(gidx, got, table.shape[0] - 1)
+    for name, (a, b) in GROUPS.items():
+        _normalised_close(reduced[:, a:b], g[:, a:b], name)
+    torch.cuda.synchronize()
+    assert (blend.blend_forward.launches, blend.blend_backward.launches,
+            blend.blend_backward_slots.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    with pytest.raises(ValueError, match="from tile"):
+        blend.blend_forward(gidx, counts, table, cfg,
+                            tile0=cfg.num_tiles - nt + 1)
+
+
+BAND_BIN_CASES = ["drop_free", "budget_straddled", "tile_overflow",
+                  "every_pair_culled", "phase 5's step"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [False, True], ids=["lists", "slots"])
+@pytest.mark.parametrize("case", BAND_BIN_CASES)
+def test_binner_kernel_on_a_band(cuda, case, slots):
+    """The binner kernel with the corner cull off and a band's tile count
+    (`num_tiles`, rects clipped to the band's rows) equal to the plain
+    binner on every field, for the middle band of half the rows; with the
+    cull off, the pairs the whole grid's cull drops come back."""
+    proj, cfg = _bin_case(cuda, case)
+    rows = cfg.grid_y // 2
+    row0 = (cfg.grid_y - rows) // 2
+    nt = rows * cfg.grid_x
+    clipped = rasterize_tiled.clip_proj_to_tile_rows(proj, row0, rows)
+    before = rasterize_tiled.bin_tiles.launches
+    got = rasterize_tiled.bin_gaussians_count(clipped, cfg, slots,
+                                              num_tiles=nt)
+    torch.cuda.synchronize()
+    assert rasterize_tiled.bin_tiles.launches == before + 1
+    want = rasterize_tiled.bin_gaussians_count_plain(clipped, cfg, slots,
+                                                     num_tiles=nt)
+    assert tuple(got.gidx.shape) == (nt, cfg.tile_cap)
+    _assert_binned_equal(got, want)
+    if case == "every_pair_culled":   # the whole grid's cull drops them all
+        assert int(got.counts.sum()) > 0
+
