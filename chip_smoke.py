@@ -7,6 +7,17 @@
 Phases, each of which raises on failure (so the exit code is nonzero):
   1. device: the card's name and power limit;
   2. build:  the CUDA kernels from fourdgs_tpu_torch/csrc with nvcc;
+ 18. host:   run right after phase 2: the host library (csrc/host, C++)
+             built with the host compiler, its seconds; then each route
+             against its plain version (numpy, Python) on this run's
+             inputs, equal bit for bit, with both times: a photograph-
+             like 1352x1014 Paeth PNG, a 1008x756 quality-95 4:2:0 JPEG
+             from data/jpeg.py's encoder, the progressive fixtures of
+             tests/jpeg_fixtures against the sha256 of Pillow's pixels
+             beside them, LANCZOS 2704x2028 -> 1352x1014, a
+             1,000,000-point points3D.bin with tracks of 2-8; then 16
+             DyNeRF frames decoded in batches of 4 by 4 threads and by 4
+             spawned processes (ms a batch, each pool's start);
   3. slice:  a synthetic snapshot (100,000 Gaussians, D-NeRF deformation
              width, random weights from --seed) served through
              Renderer.from_snapshot at 800x800 for --frames frames, each
@@ -106,8 +117,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              view, and BANK_STEPS captured steps of run_stage from one
              state with the device bank and with the lazy bank and its
              prefetch, losses within STEP_LOSS_RTOL, with each one's ms a
-             step and the lazy bank's decode ms a view, prefetched
-             batches and wait a step;
+             step, the lazy over the device bank's, the lazy bank's decode
+             ms a view (the host library), prefetched batches and wait a
+             step;
  13. multipleview: the same on a MultipleView rig (write_multipleview_
              scene: DYNERF_RIG's four cameras in sparse_/ x 20 frames at
              960x540, camNN/frame_*.jpg, poses_bounds_multipleview.npy for
@@ -2109,15 +2121,16 @@ def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
     s = runs["lazy"]["stats"]
     waits = 1e3 * np.array(s.pop("waits"))
     wait_ms = float(np.median(waits))
+    ratio = runs["lazy"]["ms_per_step"] / runs["device"]["ms_per_step"]
     log(f"dynerf banks: {BANK_STEPS} captured steps of batch {batch} from "
         f"one state: device bank {runs['device']['ms_per_step']:.3f} "
         f"ms/step, lazy bank {runs['lazy']['ms_per_step']:.3f} ms/step "
-        f"(median, each step's loss read); lazy: {s['decoded']} views "
-        f"decoded by {DECODE_WORKERS} worker processes, "
+        f"(median, each step's loss read; lazy / device {ratio:.2f}); "
+        f"lazy: {s['decoded']} views "
+        f"decoded by {DECODE_WORKERS} threads, "
         f"{s['prefetched']} of {s['batches']} batches prefetched, the "
         f"training thread waited {wait_ms:.3f} ms a step (median; mean "
-        f"{waits.mean():.3f}, the first {waits[0]:.3f}, the workers' "
-        f"start included); losses within "
+        f"{waits.mean():.3f}, the first {waits[0]:.3f}); losses within "
         f"{loss_err:.3g} relative (tol {STEP_LOSS_RTOL:g})")
     if not all(r["replays"] == BANK_STEPS for r in runs.values()):
         raise AssertionError(f"bank steps replayed {runs}")
@@ -2125,6 +2138,7 @@ def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
         raise AssertionError(f"lazy-bank losses off by {loss_err}")
     return {"views": n, "equal": True, "loss_err": loss_err,
             "decode_ms_per_view": decode_ms, "wait_ms_per_step": wait_ms,
+            "lazy_over_device": ratio, "stack_s": t_stack,
             "wait_ms_per_step_mean": float(waits.mean()),
             **{f"{m}_ms_per_step": r["ms_per_step"] for m, r in runs.items()},
             "lazy_stats": s}
@@ -3763,6 +3777,246 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 18 (after phase 2): the host library
+# ---------------------------------------------------------------------------
+
+HOST_PNG = (1352, 1014)          # (W, H): a DyNeRF frame with Paeth rows
+HOST_JPEG = (1008, 756)          # a COLMAP view, quality 95, 4:2:0
+HOST_RESIZE = ((2704, 2028), (1352, 1014))   # LANCZOS, in and out (W, H)
+HOST_POINTS = 1_000_000          # points3D.bin, tracks of 2-8 pairs
+HOST_TRACKS = (2, 8)
+HOST_POOL_VIEWS = 16             # DyNeRF frames decoded by each pool
+HOST_POOL_BATCH = 4              # a DyNeRF batch
+HOST_REPEATS = 3                 # native timings: the best of these
+PROGRESSIVE_FIXTURES = ROOT / "tests" / "jpeg_fixtures"
+
+
+def photo_like(shape, seed: int) -> np.ndarray:
+    """A seeded (H, W, C) uint8 image like a photograph to the codecs:
+    smooth gradients plus Gaussian noise of sigma 6."""
+    rng = np.random.default_rng(seed)
+    h, w, c = shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    base = np.stack([128 + 100 * np.sin(x / 97 + k) * np.cos(y / 73 - k)
+                     for k in range(c)], -1)
+    return np.clip(base + rng.normal(0.0, 6.0, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def write_points3d(path: Path, xyz, rgb, err, track_lens, seed: int) -> None:
+    """points3D.bin (COLMAP's binary model) of the points in order, point
+    i with track_lens[i] random (image id, point2D index) pairs; each run
+    of equal track lengths is written as one record array."""
+    rng = np.random.default_rng(seed)
+    track_lens = np.asarray(track_lens, np.int64)
+    cuts = np.flatnonzero(np.diff(track_lens)) + 1
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(xyz)).tobytes())
+        for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(xyz)]):
+            t = int(track_lens[lo]) if hi > lo else 0
+            rec = np.zeros(hi - lo, np.dtype([
+                ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                ("err", "<f8"), ("n", "<u8"), ("track", "<i4", (2 * t,))]))
+            rec["id"] = np.arange(lo, hi)
+            rec["xyz"], rec["rgb"], rec["err"] = xyz[lo:hi], rgb[lo:hi], \
+                err[lo:hi]
+            rec["n"] = t
+            rec["track"] = rng.integers(0, 1 << 20, (hi - lo, 2 * t))
+            f.write(rec.tobytes())
+
+
+@contextlib.contextmanager
+def plain_host_route():
+    """The data layer's plain versions (numpy, Python) in place of the
+    host library's calls, for the length of the block."""
+    from fourdgs_tpu_torch.data import colmap, jpeg, png, resample
+    routed = [(png, "unfilter"), (jpeg, "decode_jpeg"),
+              (resample, "resample"), (colmap, "read_points3d_binary")]
+    saved = [getattr(m, n) for m, n in routed]
+    try:
+        for m, n in routed:
+            setattr(m, n, getattr(m, f"{n}_plain"))
+        yield
+    finally:
+        for (m, n), fn in zip(routed, saved):
+            setattr(m, n, fn)
+
+
+def native_and_plain(label: str, fn, unit: str = "ms") -> dict:
+    """fn() through the host library (the best of HOST_REPEATS calls) and
+    through the plain versions (one call); raises unless both give equal
+    arrays. Returns both times in `unit` and the native result."""
+    scale = 1e3 if unit == "ms" else 1.0
+    best = None
+    for _ in range(HOST_REPEATS):
+        t0 = time.perf_counter()
+        got = fn()
+        t = time.perf_counter() - t0
+        best = t if best is None else min(best, t)
+    with plain_host_route():
+        t0 = time.perf_counter()
+        want = fn()
+        plain = time.perf_counter() - t0
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    equal = all(a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b) for a, b in zip(got_t, want_t))
+    log(f"host: {label}: native {best * scale:.3f} {unit}, plain "
+        f"{plain * scale:.3f} {unit} ({plain / best:.1f}x), equal bit for "
+        f"bit: {equal}")
+    if not equal:
+        raise AssertionError(f"host: {label}: native and plain differ")
+    return {f"native_{unit}": best * scale, f"plain_{unit}": plain * scale,
+            "result": got}
+
+
+def host_pools(work: Path, seed: int) -> dict:
+    """HOST_POOL_VIEWS DyNeRF-size Paeth frames decoded (data/images.py
+    `load_u8`, the lazy bank's and the stacking pool's call) in batches of
+    HOST_POOL_BATCH by DECODE_WORKERS threads and by DECODE_WORKERS
+    spawned processes (the pool before the host library), after one
+    untimed pass: ms a batch (median) and a view over a timed pass, and
+    each pool's start (its workers' first calls)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from fourdgs_tpu_torch.data import png
+    from fourdgs_tpu_torch.data.images import load_u8
+    from fourdgs_tpu_torch.data.scene import DECODE_WORKERS
+    w, h = HOST_PNG
+    img = photo_like((h, w, 3), seed + 1)
+    paths = [str(work / f"pool_{i:02d}.png") for i in range(HOST_POOL_VIEWS)]
+    png.write_png(paths[0], img, row_filter=4)
+    for path in paths[1:]:
+        shutil.copyfile(paths[0], path)
+    out = {}
+    for kind in ("threads", "processes"):
+        t0 = time.perf_counter()
+        if kind == "threads":
+            pool = concurrent.futures.ThreadPoolExecutor(DECODE_WORKERS)
+        else:
+            pool = concurrent.futures.ProcessPoolExecutor(
+                DECODE_WORKERS, mp_context=multiprocessing.get_context(
+                    "spawn"))
+        try:
+            # every worker started, the library loaded in each
+            list(pool.map(load_u8, [None] * DECODE_WORKERS,
+                          paths[:DECODE_WORKERS], [HOST_PNG] * DECODE_WORKERS))
+            start = time.perf_counter() - t0
+            # one untimed pass: the allocator's steady state, as a lazy
+            # bank's after its first batches
+            list(pool.map(load_u8, [None] * HOST_POOL_VIEWS, paths,
+                          [HOST_PNG] * HOST_POOL_VIEWS))
+            batches = []
+            t_all = time.perf_counter()
+            for b in range(0, HOST_POOL_VIEWS, HOST_POOL_BATCH):
+                t1 = time.perf_counter()
+                got = list(pool.map(load_u8, [None] * HOST_POOL_BATCH,
+                                    paths[b:b + HOST_POOL_BATCH],
+                                    [HOST_PNG] * HOST_POOL_BATCH))
+                batches.append(time.perf_counter() - t1)
+            total = time.perf_counter() - t_all
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if not all(np.array_equal(g, img) for g in got):
+            raise AssertionError(f"host pools: {kind} decoded other pixels")
+        out[kind] = {"start_s": start,
+                     "ms_per_batch": 1e3 * float(np.median(batches)),
+                     "ms_per_view": 1e3 * total / HOST_POOL_VIEWS}
+        log(f"host: {DECODE_WORKERS} {kind}: {HOST_POOL_VIEWS} views of "
+            f"{w}x{h} (Paeth) in batches of {HOST_POOL_BATCH}: "
+            f"{out[kind]['ms_per_batch']:.3f} ms a batch (median), "
+            f"{out[kind]['ms_per_view']:.3f} ms a view over the pass; "
+            f"started in {start:.3f} s")
+    return out
+
+
+def phase_host(work: Path, seed: int) -> dict:
+    """Phase 18: the host library (csrc/host, native/build.py) built, then
+    each of its routes against its plain version on this run's inputs,
+    equal bit for bit, with both times: a photograph-like Paeth PNG, a
+    quality-95 4:2:0 JPEG from data/jpeg.py's encoder, the progressive
+    fixtures of tests/jpeg_fixtures (whose Pillow pixels' sha256 sits in
+    pillow_pixels.json), LANCZOS on a 2x DyNeRF frame, a million-point
+    points3D.bin; then the decode pools (host_pools)."""
+    import hashlib
+
+    from fourdgs_tpu_torch import native
+    from fourdgs_tpu_torch.data import colmap, images, jpeg, png, resample
+    from fourdgs_tpu_torch.native import build
+    t_phase = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    native.load_library()
+    info = build.build_info
+    log(f"host: library {time.perf_counter() - t0:.2f} s (compile "
+        f"{info['seconds']:.2f} s, cached={info['cached']}, "
+        f"{build.compiler()}) -> {Path(info['path']).relative_to(ROOT)}")
+    out = {"build_s": info["seconds"], "cached": info["cached"]}
+
+    w, h = HOST_PNG
+    path = str(work / "paeth.png")
+    img = photo_like((h, w, 3), seed)
+    png.write_png(path, img, row_filter=4)
+    r = native_and_plain(f"PNG {w}x{h}, Paeth rows", lambda: png.read_png(path))
+    if not np.array_equal(r.pop("result"), img):
+        raise AssertionError("host: the PNG decodes to other pixels")
+    out["png"] = r
+
+    w, h = HOST_JPEG
+    path = str(work / "q95.jpg")
+    jpeg.write_jpeg(path, photo_like((h, w, 3), seed + 2), 95, "4:2:0")
+    r = native_and_plain(f"JPEG {w}x{h}, quality 95, 4:2:0, baseline",
+                         lambda: images.read_rgb(path))
+    r.pop("result")
+    out["jpeg"] = r
+
+    manifest = json.loads((PROGRESSIVE_FIXTURES
+                           / "pillow_pixels.json").read_text())
+    out["progressive"] = {}
+    for name, want in sorted(manifest.items()):
+        p = str(PROGRESSIVE_FIXTURES / name)
+        r = native_and_plain(f"progressive {name}", lambda: jpeg.read_jpeg(p))
+        got = r.pop("result")
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if list(got.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"host: {name} differs from Pillow's "
+                                 f"pixels")
+        out["progressive"][name] = r
+    log(f"host: {len(manifest)} progressive fixtures equal to Pillow's "
+        f"pixels (sha256)")
+
+    (wi, hi), (wo, ho) = HOST_RESIZE
+    big = photo_like((hi, wi, 3), seed + 3)
+    r = native_and_plain(f"LANCZOS {wi}x{hi} -> {wo}x{ho}",
+                         lambda: resample.resize(big, (wo, ho), "lanczos"))
+    r.pop("result")
+    out["lanczos"] = r
+
+    rng = np.random.default_rng(seed + 4)
+    path = str(work / "points3D.bin")
+    tracks = np.sort(rng.integers(HOST_TRACKS[0], HOST_TRACKS[1] + 1,
+                                  HOST_POINTS))
+    xyz = rng.normal(size=(HOST_POINTS, 3))
+    rgb = rng.integers(0, 256, (HOST_POINTS, 3), dtype=np.uint8)
+    err = rng.uniform(0.0, 2.0, HOST_POINTS)
+    write_points3d(Path(path), xyz, rgb, err, tracks, seed)
+    r = native_and_plain(f"points3D.bin, {HOST_POINTS} points, tracks "
+                         f"{HOST_TRACKS[0]}-{HOST_TRACKS[1]}",
+                         lambda: colmap.read_points3d_binary(path), unit="s")
+    got = r.pop("result")
+    if not (np.array_equal(got[0], xyz) and np.array_equal(got[1], rgb)
+            and np.array_equal(got[2], err)):
+        raise AssertionError("host: points3D.bin read other points")
+    out["points3d"] = r
+
+    out["pools"] = host_pools(work, seed)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"host: phase {out['seconds']:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the dev tools' kernels (D1-D6) at the scripts' shapes
 # ---------------------------------------------------------------------------
 
@@ -4047,6 +4301,7 @@ def main(argv=None) -> int:
     phase_build()
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
+    phase_host(work / "host", args.seed)
     t0 = time.perf_counter()
     scene = make_scene(torch, args.seed, device)
     log(f"scene: {N_GAUSS} gaussians, seed {args.seed}, "

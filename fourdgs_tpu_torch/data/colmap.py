@@ -4,9 +4,10 @@
 The COLMAP file formats (cameras, images, points3D; .bin and .txt) that
 the Colmap and MultipleView scene readers need, the writers, and the
 full-fidelity `read_model`/`write_model` that keep point ids and tracks
-(https://colmap.github.io/format.html). Points are read in Python; the
-JAX package's optional C++ reader of points3D.bin (its `native/`, the same
-numbers) is not ported.
+(https://colmap.github.io/format.html). `read_points3d_binary` walks
+points3D.bin in the port's host library (csrc/host/colmap.cpp, the JAX
+package's `native/` reader with its C ABI; unlike JAX's, it is not
+optional), `read_points3d_binary_plain` in Python, to the same arrays.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import struct
 from typing import NamedTuple
 
 import numpy as np
+
+from fourdgs_tpu_torch import native
 
 # camera_model_id -> (name, num_params)
 CAMERA_MODELS = {
@@ -155,8 +158,14 @@ def read_images_text(path: str) -> dict[int, ColmapImage]:
 
 
 def read_points3d_binary(path: str):
-    """Returns (xyz (N,3), rgb (N,3) uint8-valued, errors (N,)), walking
-    the variable-length track records in Python."""
+    """Returns (xyz (N,3), rgb (N,3) uint8-valued, errors (N,)), all
+    float64, walking the variable-length track records in the host
+    library."""
+    return native.read_points3d_binary(path)
+
+
+def read_points3d_binary_plain(path: str):
+    """The plain version of `read_points3d_binary`, in Python."""
     with open(path, "rb") as f:
         (num,) = _read(f, 8, "Q")
         xyz = np.empty((num, 3))

@@ -1,9 +1,11 @@
-"""A view's image as the image banks hold it, in numpy alone (the
-counterpart of fourdgs_tpu/data/scene.py `_load_image`).
+"""A view's image as the image banks hold it, in numpy (the counterpart of
+fourdgs_tpu/data/scene.py `_load_image`).
 
-A lazy bank decodes in worker processes, which import this module and
-what it needs (the PNG and JPEG codecs and the resampling) but not torch.
-A file's codec is picked by its signature, not its extension.
+The PNG and JPEG codecs and the resampling run in the port's host library
+(C++, fourdgs_tpu_torch.native), whose calls release the interpreter lock,
+so the image banks' decode workers run them in parallel; neither this
+module nor what it imports imports torch. A file's codec is picked by its
+signature, not its extension.
 """
 from __future__ import annotations
 

@@ -1,19 +1,24 @@
-"""JPEG codec in numpy alone: a decoder equal to Pillow's (libjpeg-turbo's
-defaults) and a baseline encoder.
+"""JPEG codec: a decoder equal to Pillow's (libjpeg-turbo's defaults) and a
+baseline encoder in numpy.
 
 The JAX package opens its JPEGs with `Image.open(p).convert("RGB")`; the
-card's machine has neither PIL nor OpenCV, so the port decodes them itself,
-and the image banks' worker processes import this module without torch.
+card's machine has neither PIL nor OpenCV, so the port decodes them itself.
+`decode_jpeg` (and `read_jpeg`) decodes in the port's host library, C++
+(csrc/host/jpeg.cpp, through fourdgs_tpu_torch.native), one call a file;
+`decode_jpeg_plain` is its plain version in numpy and Python, which the
+tests hold it to bit for bit and which this docstring describes. Neither
+imports torch, and neither hands a file to another decoder.
 
-`read_jpeg` reads baseline and extended-sequential Huffman files (SOF0,
-SOF1) with 8-bit samples, one or three components, any integral sampling
-factors, DQT (8 or 16 bit), DHT (optimised tables too), DRI with RST0-7
-(which reset the DC predictors and start byte-aligned), APPn and COM
-segments (skipped: EXIF orientation is ignored, as `Image.open` ignores it)
-and 0xFF fill bytes. It raises `NotImplementedError` naming the marker for
-progressive (SOF2), lossless (SOF3), hierarchical (SOF5-7) and arithmetic
-coding (SOF9-15, DAC), for 12-bit samples and for 4-component (CMYK, YCCK)
-files, and never hands a file to another decoder.
+Both read baseline, extended-sequential and progressive Huffman files
+(SOF0, SOF1, SOF2) with 8-bit samples, one or three components, any
+integral sampling factors, DQT (8 or 16 bit), DHT (optimised tables too,
+redefined between scans), DRI with RST0-7 (which reset the DC predictors
+and the EOB run and start byte-aligned), APPn and COM segments (skipped:
+EXIF orientation is ignored, as `Image.open` ignores it) and 0xFF fill
+bytes. They raise `NotImplementedError` naming the marker for lossless
+(SOF3), hierarchical (SOF5-7) and arithmetic coding (SOF9-15, DAC), for
+12-bit samples and for 4-component (CMYK, YCCK) files, and `ValueError`
+naming the file for a corrupt or truncated one.
 
 Decoding follows libjpeg-turbo's defaults, which Pillow uses:
   * the Huffman stage: a 65,536-entry table per DHT maps every 16-bit
@@ -21,8 +26,17 @@ Decoding follows libjpeg-turbo's defaults, which Pillow uses:
     and its magnitude bits fit in 16 bits the value is in the entry, else
     the magnitude is read after it. The bits come from a 64-bit window
     refilled 32 bits at a time from the unstuffed scan (0xFF00 -> 0xFF),
-    split at the restart markers; nonzero coefficients are collected as
-    (index, value) pairs and scattered into one array;
+    split at the restart markers. A sequential file's nonzero coefficients
+    are collected as (index, value) pairs and scattered into one array;
+  * a progressive file's scans (jdphuff.c) write into one whole-image
+    coefficient array: DC first scans (interleaved or not) the predicted
+    DC shifted left by Al, DC refinements one bit each; AC first scans
+    (one component) a spectral band Ss..Se with EOB runs, AC refinements
+    a new coefficient of size 1 and one correction bit for each nonzero
+    coefficient passed over (the bit Al where it is not yet set, towards
+    the coefficient's sign). libjpeg-turbo's block smoothing does not
+    apply: it runs only while some low AC coefficient's bits are unknown,
+    and a complete file is read whole before any output;
   * dequantisation in zig-zag order, then the "islow" integer IDCT
     (jidctint.c: CONST_BITS 13, PASS1_BITS 2, columns descaled by 11 bits
     into a workspace, rows by 18) with the IDCT range limit (the low 10
@@ -46,6 +60,8 @@ import re
 
 import numpy as np
 
+from fourdgs_tpu_torch import native
+
 # natural (row-major) index of each zig-zag position
 ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -56,7 +72,7 @@ ZIGZAG = np.array([
 _UNZIGZAG = np.argsort(ZIGZAG)
 
 # markers the decoder refuses, by name
-_REFUSED = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+_REFUSED = {0xC3: "lossless JPEG (SOF3)",
             0xCC: "arithmetic-coded JPEG (DAC)"}
 _REFUSED.update({m: f"hierarchical JPEG (SOF{m - 0xC0})"
                  for m in (0xC5, 0xC6, 0xC7)})
@@ -73,13 +89,16 @@ def _u16(data: bytes, pos: int) -> int:
     return (data[pos] << 8) | data[pos + 1]
 
 
-def _lookup(counts: bytes, symbols: bytes, is_ac: bool) -> list:
+def _lookup(counts: bytes, symbols: bytes, is_ac: bool,
+            eob_runs: bool = False) -> list:
     """The 65,536-entry lookup of one Huffman table: for each 16-bit
     prefix, (bits consumed, zero run, value, extra bits). An entry whose
     code and magnitude fit in 16 bits holds the value (extra 0); else it
     consumes the code alone and names the magnitude's size; an invalid
-    code has extra -1. An AC end of block has run 64, ZRL run 15."""
-    key = (is_ac, counts, symbols)
+    code has extra -1. A sequential AC end of block has run 64, ZRL run
+    15; with `eob_runs` (a progressive AC table) a size-0 symbol keeps its
+    run r, an EOB run of 2^r blocks plus r more bits (r 0-14) or ZRL."""
+    key = (is_ac, eob_runs, counts, symbols)
     hit = _TABLES.get(key)
     if hit is not None:
         return hit
@@ -100,7 +119,8 @@ def _lookup(counts: bytes, symbols: bytes, is_ac: bool) -> list:
     look = np.arange(65536, dtype=np.int64)
     if is_ac:
         run, size = symbol >> 4, symbol & 15
-        run = np.where((size == 0) & (run != 15), 64, run)
+        if not eob_runs:
+            run = np.where((size == 0) & (run != 15), 64, run)
     else:
         run, size = np.zeros_like(symbol), symbol
     fits = length + size <= 16
@@ -131,8 +151,8 @@ def _words(segment: bytes) -> list:
 def _decode_blocks(segments: list, comps: list, bases: list,
                    per_interval: int, dc_tabs: list, ac_tabs: list,
                    idx: list, val: list) -> None:
-    """Decode one scan's blocks, in order: block i belongs to scan
-    component comps[i] and its zig-zag coefficients go to bases[i] +
+    """Decode one sequential scan's blocks, in order: block i belongs to
+    scan component comps[i] and its zig-zag coefficients go to bases[i] +
     0..63. Nonzero coefficients are appended to idx/val; DC values are
     the predictor sums. Each restart interval of per_interval blocks
     starts its own segment, with the predictors at 0."""
@@ -187,6 +207,139 @@ def _decode_blocks(segments: list, comps: list, bases: list,
                     k += 1
         except IndexError:
             raise ValueError("corrupt JPEG: the scan ends early") from None
+
+
+class _Bits:
+    """The bits of one entropy-coded segment (as _decode_blocks reads
+    them, zeros past its end), for the progressive scans."""
+
+    def __init__(self, segment: bytes):
+        self.words = _words(segment)
+        self.acc = self.nbits = self.wi = 0
+
+    def _fill(self) -> None:
+        if self.wi == len(self.words):
+            raise ValueError("corrupt JPEG: the scan ends early")
+        self.acc = ((self.acc & 0xFFFFFFFF) << 32) | self.words[self.wi]
+        self.wi += 1
+        self.nbits += 32
+
+    def bits(self, n: int) -> int:
+        """The next n <= 16 bits as an unsigned value."""
+        if n == 0:
+            return 0
+        if self.nbits < 32:
+            self._fill()
+        self.nbits -= n
+        return (self.acc >> self.nbits) & ((1 << n) - 1)
+
+    def symbol(self, table: list) -> tuple[int, int]:
+        """(run, value) of the next Huffman symbol of a _lookup table; the
+        value is 0 for a symbol of size 0."""
+        if self.nbits < 32:
+            self._fill()
+        c, r, v, s = table[(self.acc >> (self.nbits - 16)) & 0xFFFF]
+        self.nbits -= c
+        if s:
+            if s < 0:
+                raise ValueError("corrupt JPEG: bad Huffman code")
+            v = self.bits(s)
+            if v < (1 << (s - 1)):
+                v -= (1 << s) - 1
+        return r, v
+
+
+def _ac_first(rd: _Bits, table: list, coef: list, base: int, ss: int,
+              se: int, al: int, eobrun: int) -> int:
+    """One block of an AC first scan (jdphuff.c decode_mcu_AC_first);
+    returns the EOB run left."""
+    if eobrun:
+        return eobrun - 1
+    k = ss
+    while k <= se:
+        r, v = rd.symbol(table)
+        if v:
+            k += r
+            coef[base + min(k, 63)] = v << al
+        elif r == 15:
+            k += 15
+        else:
+            return (1 << r) + rd.bits(r) - 1
+        k += 1
+    return 0
+
+
+def _ac_refine(rd: _Bits, table: list, coef: list, base: int, ss: int,
+               se: int, al: int, eobrun: int) -> int:
+    """One block of an AC refinement scan (jdphuff.c
+    decode_mcu_AC_refine): each nonzero coefficient passed over takes one
+    correction bit, a new one lands on the r-th zero; returns the EOB run
+    left."""
+    p1 = 1 << al
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            r, v = rd.symbol(table)
+            new = 0
+            if v:
+                if v not in (1, -1):
+                    raise ValueError("corrupt JPEG: a refinement scan's new "
+                                     "coefficient is not of size 1")
+                new = p1 if v > 0 else -p1
+            elif r != 15:
+                eobrun = (1 << r) + rd.bits(r)
+                break
+            while k <= se:
+                z = base + k
+                if coef[z]:
+                    if rd.bits(1) and not coef[z] & p1:
+                        coef[z] += p1 if coef[z] >= 0 else -p1
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if new:
+                coef[base + min(k, 63)] = new
+            k += 1
+    if eobrun > 0:
+        while k <= se:
+            z = base + k
+            if coef[z] and rd.bits(1) and not coef[z] & p1:
+                coef[z] += p1 if coef[z] >= 0 else -p1
+            k += 1
+        eobrun -= 1
+    return eobrun
+
+
+def _decode_progressive(segments: list, comps: list, bases: list,
+                        per_interval: int, tabs: list, coef: list,
+                        spectral: tuple) -> None:
+    """Decode one progressive scan's blocks into `coef` (zig-zag order,
+    block i's at bases[i] + 0..63), as _decode_blocks orders them; each
+    restart interval resets the DC predictors and the EOB run.
+    `spectral` is (Ss, Se, Ah, Al); tabs[ci] the component's DC table in a
+    DC scan, its AC table (with EOB runs) in an AC scan."""
+    ss, se, ah, al = spectral
+    n = len(comps)
+    for si, start in enumerate(range(0, n, per_interval)):
+        rd = _Bits(segments[si] if si < len(segments) else b"")
+        pred = [0, 0, 0, 0]
+        eobrun = 0
+        stop = min(n, start + per_interval)
+        for ci, base in zip(comps[start:stop], bases[start:stop]):
+            if ss == 0 and ah == 0:
+                pred[ci] += rd.symbol(tabs[ci])[1]
+                coef[base] = pred[ci] << al
+            elif ss == 0:
+                if rd.bits(1):
+                    coef[base] |= 1 << al
+            elif ah == 0:
+                eobrun = _ac_first(rd, tabs[ci], coef, base, ss, se, al,
+                                   eobrun)
+            else:
+                eobrun = _ac_refine(rd, tabs[ci], coef, base, ss, se, al,
+                                    eobrun)
 
 
 def _idct_pass(s, descale: int) -> list:
@@ -309,10 +462,12 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 class _Frame:
     def __init__(self):
         self.width = self.height = 0
+        self.progressive = False
         self.comps: list = []      # [id, h, v, tq] each
         self.quant_of: dict = {}   # component id -> its latched table
-        self.coef_idx: list = []
+        self.coef_idx: list = []   # a sequential file's nonzero coefficients
         self.coef_val: list = []
+        self.coef: list = []       # a progressive file's, all of them
         self.offset: dict = {}     # component id -> first block index
         self.grid: dict = {}       # component id -> (by, bx)
         self.mcus = (0, 0)
@@ -320,6 +475,8 @@ class _Frame:
 
 
 def _start_frame(frame: _Frame, seg: bytes, marker: int) -> None:
+    if len(seg) < 6:
+        raise ValueError("corrupt JPEG: a truncated frame header")
     precision = seg[0]
     frame.height, frame.width, nc = _u16(seg, 1), _u16(seg, 3), seg[5]
     if precision != 8:
@@ -334,8 +491,15 @@ def _start_frame(frame: _Frame, seg: bytes, marker: int) -> None:
         raise NotImplementedError(f"{nc}-component JPEG")
     if frame.height == 0:
         raise NotImplementedError("a JPEG whose height is in a DNL marker")
+    if frame.width == 0:
+        raise ValueError("corrupt JPEG: an image of width 0")
+    if len(seg) < 6 + 3 * nc:
+        raise ValueError("corrupt JPEG: a truncated frame header")
+    frame.progressive = marker == 0xC2
     for i in range(nc):
         cid, hv, tq = seg[6 + 3 * i], seg[7 + 3 * i], seg[8 + 3 * i]
+        if not (hv >> 4 and hv & 15):
+            raise ValueError("corrupt JPEG: bad sampling factors")
         frame.comps.append([cid, hv >> 4, hv & 15, tq])
     frame.hmax = max(c[1] for c in frame.comps)
     frame.vmax = max(c[2] for c in frame.comps)
@@ -350,6 +514,8 @@ def _start_frame(frame: _Frame, seg: bytes, marker: int) -> None:
         frame.offset[cid] = n
         frame.grid[cid] = (my * v, mx * h)
         n += my * v * mx * h
+    if frame.progressive:
+        frame.coef = [0] * (64 * n)
 
 
 def _scan_blocks(frame: _Frame, scan: list):
@@ -377,10 +543,37 @@ def _scan_blocks(frame: _Frame, scan: list):
     return comps * (my * mx), (64 * order.ravel()).tolist(), len(comps)
 
 
+def _spectral(frame: _Frame, seg: bytes, ns: int) -> tuple:
+    """A scan's (Ss, Se, Ah, Al), checked as jdphuff.c checks a
+    progressive file's."""
+    ss, se, a = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if frame.progressive and (
+            (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+            or (ah and al != ah - 1) or al > 13):
+        raise ValueError("corrupt JPEG: bad progression parameters")
+    return ss, se, ah, al
+
+
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A JPEG file's bytes -> (H, W, 3) uint8 RGB (see the module doc)."""
+    """A JPEG file's bytes -> (H, W, 3) uint8 RGB (see the module doc),
+    decoded in the host library; errors name the file (`name`)."""
+    return native.decode_jpeg(data, name)
+
+
+def decode_jpeg_plain(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The plain version of `decode_jpeg`, in numpy and Python."""
+    try:
+        return _decode_plain(data)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{name}: {e}") from None
+
+
+def _decode_plain(data: bytes) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
-        raise ValueError(f"{name}: not a JPEG file")
+        raise ValueError("not a JPEG file")
     quant: dict = {}
     dc_def: dict = {}
     ac_def: dict = {}
@@ -391,50 +584,64 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     pos = 2
     while True:
         if pos >= len(data):
-            raise ValueError(f"{name}: truncated JPEG (no EOI marker)")
+            raise ValueError("truncated JPEG (no EOI marker)")
         if data[pos] != 0xFF:
-            raise ValueError(f"{name}: corrupt JPEG (no marker at {pos})")
+            raise ValueError(f"corrupt JPEG (no marker at {pos})")
         while pos < len(data) and data[pos] == 0xFF:
             pos += 1
+        if pos + 1 > len(data):
+            raise ValueError("truncated JPEG (no EOI marker)")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:
             break
         if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
             continue
+        if pos + 2 > len(data):
+            raise ValueError("truncated JPEG (no EOI marker)")
         length = _u16(data, pos)
         seg = data[pos + 2:pos + length]
         pos += length
         if marker in _REFUSED:
             raise NotImplementedError(
-                f"{name}: {_REFUSED[marker]} is not decoded; only baseline "
-                f"and extended-sequential Huffman files (SOF0, SOF1) are")
-        if marker in (0xC0, 0xC1):
+                f"{_REFUSED[marker]} is not decoded; only baseline, "
+                f"extended-sequential and progressive Huffman files (SOF0, "
+                f"SOF1, SOF2) are")
+        if marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
-                raise ValueError(f"{name}: two frames in one JPEG")
+                raise ValueError("two frames in one JPEG")
             frame = _Frame()
             _start_frame(frame, seg, marker)
         elif marker == 0xDB:
             p = 0
             while p < len(seg):
                 pq, tq = seg[p] >> 4, seg[p] & 15
-                if pq:
-                    q = np.frombuffer(seg[p + 1:p + 129], ">u2")
-                    p += 129
-                else:
-                    q = np.frombuffer(seg[p + 1:p + 65], np.uint8)
-                    p += 65
+                n = 128 if pq else 64
+                if tq > 3:
+                    raise ValueError("corrupt JPEG: bad quantisation table")
+                if p + 1 + n > len(seg):
+                    raise ValueError(
+                        "corrupt JPEG: a truncated quantisation table")
+                q = np.frombuffer(seg[p + 1:p + 1 + n],
+                                  ">u2" if pq else np.uint8)
                 quant[tq] = q.astype(np.int64)
+                p += 1 + n
         elif marker == 0xC4:
             p = 0
             while p < len(seg):
+                if p + 17 > len(seg):
+                    raise ValueError("corrupt JPEG: a truncated Huffman table")
                 tc, th = seg[p] >> 4, seg[p] & 15
                 counts = seg[p + 1:p + 17]
                 n = sum(counts)
+                if tc > 1 or th > 3 or n > 256 or p + 17 + n > len(seg):
+                    raise ValueError("corrupt JPEG: bad Huffman table")
                 symbols = seg[p + 17:p + 17 + n]
                 (ac_def if tc else dc_def)[th] = (counts, symbols)
                 p += 17 + n
         elif marker == 0xDD:
+            if len(seg) < 2:
+                raise ValueError("corrupt JPEG: a truncated restart interval")
             restart = _u16(seg, 0)
         elif marker == 0xE0:
             jfif = jfif or seg[:5] == b"JFIF\x00"
@@ -443,22 +650,34 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 adobe = seg[11]
         elif marker == 0xDA:
             if frame is None:
-                raise ValueError(f"{name}: a scan before the frame header")
-            ns = seg[0]
+                raise ValueError("a scan before the frame header")
+            ns = seg[0] if seg else 0
+            if ns < 1 or len(seg) < 4 + 2 * ns:
+                raise ValueError("corrupt JPEG: a truncated scan header")
+            spectral = _spectral(frame, seg, ns)
+            ss, _, ah, _ = spectral
+            need_dc = not frame.progressive or (ss == 0 and ah == 0)
+            need_ac = not frame.progressive or ss > 0
             by_id = {c[0]: c for c in frame.comps}
             scan, dcs, acs = [], [], []
             for i in range(ns):
                 cid, t = seg[1 + 2 * i], seg[2 + 2 * i]
+                if cid not in by_id:
+                    raise ValueError("corrupt JPEG: a scan names no "
+                                     "component of the frame")
                 c = by_id[cid]
                 if c[3] not in quant:
-                    raise ValueError(f"{name}: no quantisation table {c[3]}")
+                    raise ValueError(f"no quantisation table {c[3]}")
                 frame.quant_of.setdefault(cid, quant[c[3]])
                 try:
-                    dcs.append(_lookup(*dc_def[t >> 4], False))
-                    acs.append(_lookup(*ac_def[t & 15], True))
+                    dcs.append(_lookup(*dc_def[t >> 4], False)
+                               if need_dc else None)
+                    acs.append(_lookup(*ac_def[t & 15], True,
+                                       frame.progressive)
+                               if need_ac else None)
                 except KeyError:
-                    raise ValueError(f"{name}: a scan names a Huffman table "
-                                     f"that is not defined") from None
+                    raise ValueError("a scan names a Huffman table that is "
+                                     "not defined") from None
                 scan.append(c)
             comps, bases, per_mcu = _scan_blocks(frame, scan)
             end = _END_OF_SCAN.search(data, pos)
@@ -466,24 +685,32 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
             body = data[pos:stop]
             segments = _RESTART.split(body) if restart else [body]
             per = restart * per_mcu if restart else len(comps)
-            _decode_blocks(segments, comps, bases, per, dcs, acs,
-                           frame.coef_idx, frame.coef_val)
+            if frame.progressive:
+                _decode_progressive(segments, comps, bases, per,
+                                    dcs if ss == 0 else acs, frame.coef,
+                                    spectral)
+            else:
+                _decode_blocks(segments, comps, bases, per, dcs, acs,
+                               frame.coef_idx, frame.coef_val)
             pos = stop
         # APPn, COM and other segments are skipped
     if frame is None:
-        raise ValueError(f"{name}: a JPEG without a frame")
+        raise ValueError("a JPEG without a frame")
     return _finish(frame, jfif, adobe)
 
 
 def _finish(frame: _Frame, jfif: bool, adobe) -> np.ndarray:
     total = sum(by * bx for by, bx in frame.grid.values())
-    coef = np.zeros(total * 64, np.int64)
-    idx = np.asarray(frame.coef_idx, np.int64)
-    coef[idx] = np.asarray(frame.coef_val, np.int64)
-    ac_blocks = np.unique(idx[(idx & 63) != 0] >> 6)
-    has_ac = np.zeros(total, bool)
-    has_ac[ac_blocks] = True
-    coef = coef.reshape(total, 64)
+    if frame.progressive:
+        coef = np.asarray(frame.coef, np.int64).reshape(total, 64)
+        has_ac = coef[:, 1:].any(axis=1)
+    else:
+        coef = np.zeros(total * 64, np.int64)
+        idx = np.asarray(frame.coef_idx, np.int64)
+        coef[idx] = np.asarray(frame.coef_val, np.int64)
+        has_ac = np.zeros(total, bool)
+        has_ac[np.unique(idx[(idx & 63) != 0] >> 6)] = True
+        coef = coef.reshape(total, 64)
     w, h = frame.width, frame.height
     planes = []
     for cid, hs, vs, _ in frame.comps:

@@ -9,8 +9,8 @@ built from K (`camera_from_k_w2c`) rather than from symmetric fields of
 view; the frustum clamp stays the symmetric one of w / (2 fx), as in the
 JAX package. The test split is also the video split.
 
-A view is a `PanopticCameraInfo`, numpy and plain values only (a lazy bank
-pickles it to its worker processes, where a tensor would start CUDA);
+A view is a `PanopticCameraInfo`, numpy and plain values only (no tensor
+outside the device the split is stacked on);
 `data/scene.py:camera_from_info` builds its Camera on the device when the
 split is stacked. The reader keeps each view's path and size; the image
 bank decodes it (data/images.py, a JPEG through data/jpeg.py).

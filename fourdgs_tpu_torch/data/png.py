@@ -1,4 +1,5 @@
-"""PNG codec for 8-bit greyscale, RGB and RGBA images, on `zlib` and numpy.
+"""PNG codec for 8-bit greyscale, RGB and RGBA images: zlib, and the row
+unfilter in the port's host library.
 
 The JAX package decodes its images with PIL (data/blender.py, data/scene.py);
 the port has a codec of its own, used on every machine alike, so that the
@@ -7,17 +8,21 @@ path the card runs is the path the tests run.
 `read_png` decodes non-interlaced 8-bit colour type 0 (greyscale, as
 HyperNeRF's covisible masks are), 2 (RGB) and 6 (RGBA) files with any of
 the five row filters; anything else (16-bit, palette, greyscale with
-alpha, interlaced) raises. `png_size` reads (W, H) from the header alone.
-`write_png` writes greyscale, RGB and RGBA with filter 0 (none) or 4
-(Paeth, which PIL's encoder picks for most rows of a photograph) on every
-row.
+alpha, interlaced) raises, and so does a corrupt or truncated file,
+naming it. `png_size` reads (W, H) from the header alone. `write_png`
+writes greyscale, RGB and RGBA with filter 0 (none) or 4 (Paeth, which
+PIL's encoder picks for most rows of a photograph) on every row.
 
-Decoding: rows whose filters are all none, sub or up are undone row by row
-(sub is a per-channel running sum mod 256). Average and Paeth depend on
-the decoded left, upper and upper-left bytes, so an image with either is
-decoded along anti-diagonals: every pixel of one diagonal depends only on
-the two before it, and each diagonal is one vectorised step on a skewed
-copy of the image in which the three neighbours are contiguous slices.
+Decoding: Python's `zlib` inflates the IDAT chunks (in C, without the
+interpreter lock), then `unfilter` undoes the row filters in C++
+(csrc/host/png.cpp, through fourdgs_tpu_torch.native). `unfilter_plain`
+is its plain version in numpy: rows whose filters are all none, sub or up
+are undone row by row (sub is a per-channel running sum mod 256). Average
+and Paeth depend on the decoded left, upper and upper-left bytes, so an
+image with either is decoded along anti-diagonals: every pixel of one
+diagonal depends only on the two before it, and each diagonal is one
+vectorised step on a skewed copy of the image in which the three
+neighbours are contiguous slices.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import zlib
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
+
+from fourdgs_tpu_torch import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}   # colour type -> channels
@@ -133,6 +140,20 @@ def _unfilter_diagonals(f: np.ndarray, types: np.ndarray,
     return img.astype(np.uint8).reshape(h, stride)
 
 
+def unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """(H, 1 + stride) inflated rows (each a filter type 0..4, then its
+    bytes) -> (H, stride) uint8, in the host library."""
+    return native.png_unfilter(raw, bpp)
+
+
+def unfilter_plain(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """The plain version of `unfilter`, in numpy."""
+    types, f = raw[:, 0], raw[:, 1:]
+    if np.isin(types, (3, 4)).any():
+        return _unfilter_diagonals(f, types, bpp)
+    return _unfilter_rows(f, types, bpp)
+
+
 def png_size(path: str) -> tuple[int, int]:
     """(W, H) from a PNG's IHDR chunk, without decoding the image."""
     with open(path, "rb") as fh:
@@ -164,18 +185,17 @@ def read_png(path: str) -> np.ndarray:
             f"{interlace})")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG image data ({e})") from None
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data for "
                          f"{w}x{h}x{bpp}")
     raw = raw.reshape(h, stride + 1)
-    types, f = raw[:, 0], raw[:, 1:]
-    if types.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown row filter {types.max()}")
-    if np.isin(types, (3, 4)).any():
-        out = _unfilter_diagonals(f, types, bpp)
-    else:
-        out = _unfilter_rows(f, types, bpp)
+    if raw[:, 0].max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown row filter {raw[:, 0].max()}")
+    out = unfilter(raw, bpp)
     return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
 
 

@@ -1,5 +1,7 @@
-"""Image resampling as Pillow does it, in numpy: `Image.resize` with the
-LANCZOS and BICUBIC filters on 8-bit images, bit for bit.
+"""Image resampling as Pillow does it: `Image.resize` with the LANCZOS and
+BICUBIC filters on 8-bit images, bit for bit, in the port's host library
+(csrc/host/resample.cpp, `resample`), with its plain version in numpy
+(`resample_plain`).
 
 The JAX package resizes with PIL: LANCZOS in data/scene.py:_load_image
 (the `downscale` path) and data/dynerf.py (frames not at IMG_WH), and
@@ -17,8 +19,9 @@ so it carries Pillow's algorithm (its `Resample.c`):
     size does not change; every output is (2**21 + sum k * v) >> 22 clipped
     to 0..255, so the intermediate image is 8-bit too.
 
-The weights are float64 from the C library's `sin` (Python's `math`), as
-Pillow's are, so that no weight can round the other way.
+The weights are float64 from the C library's `sin` (Python's `math`, and
+the host library's own call), as Pillow's are, so that no weight can round
+the other way.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import functools
 import math
 
 import numpy as np
+
+from fourdgs_tpu_torch import native
 
 _PRECISION_BITS = 22
 
@@ -102,6 +107,24 @@ def _pass(img: np.ndarray, out_size: int, axis: int, filt: str) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def resample(img: np.ndarray, width: int, height: int,
+             filt: str) -> np.ndarray:
+    """An (H, W, C) uint8 image at (height, width), both passes in the
+    host library."""
+    return native.resample(img, width, height, filt)
+
+
+def resample_plain(img: np.ndarray, width: int, height: int,
+                   filt: str) -> np.ndarray:
+    """The plain version of `resample`, in numpy."""
+    out = img
+    if out.shape[1] != width:
+        out = _pass(out, width, 1, filt)
+    if out.shape[0] != height:
+        out = _pass(out, height, 0, filt)
+    return out
+
+
 def resize(img: np.ndarray, size: tuple[int, int],
            filt: str = "lanczos") -> np.ndarray:
     """Pillow's `Image.fromarray(img).resize(size, filter)` for an (H, W),
@@ -118,8 +141,5 @@ def resize(img: np.ndarray, size: tuple[int, int],
     if (out.shape[1], out.shape[0]) == (w, h):
         out = out.copy()
     else:
-        if out.shape[1] != w:
-            out = _pass(out, w, 1, filt)
-        if out.shape[0] != h:
-            out = _pass(out, h, 0, filt)
+        out = resample(out, w, h, filt)
     return out if img.ndim == 3 else out[..., 0]

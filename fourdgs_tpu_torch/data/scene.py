@@ -13,15 +13,14 @@ train split is some 94 GB of float32 before any budget applies. Here the
 readers other than Blender's keep each view's path and size, and the bank
 decodes what its mode holds; every number it serves is the same. A device
 or host split whose files hold more than STACK_POOL_PIXELS pixels is
-decoded by DECODE_WORKERS processes (the decoders are Python and numpy),
-started at the first such split and kept for the process.
+decoded by DECODE_WORKERS threads: the decoders run in the port's host
+library (C++, fourdgs_tpu_torch.native), whose calls release the
+interpreter lock, and zlib releases it too.
 """
 from __future__ import annotations
 
-import atexit
 import collections
 import concurrent.futures
-import multiprocessing
 import os
 import time
 from dataclasses import dataclass
@@ -43,13 +42,14 @@ HOST_IMAGE_BUDGET = 16 << 30
 # decoded views a lazy bank keeps, and prefetched batches it holds
 LAZY_CACHE = 64
 PENDING = 4
-# processes that decode a lazy bank's views, or a large split's when it is
-# stacked; the numbers served do not depend on it
+# threads that decode a lazy bank's views, or a large split's when it is
+# stacked; the numbers served do not depend on it. Four threads decode a
+# DyNeRF batch as fast as four spawned processes did, without their start
+# (chip_smoke.py phase 18)
 DECODE_WORKERS = 4
 # a device or host split whose files hold more pixels than this is decoded
-# by the stacking pool's processes (below it, on the calling thread)
+# by DECODE_WORKERS threads (below it, on the calling thread)
 STACK_POOL_PIXELS = 1 << 23
-_stack_pool = None
 
 
 def detect_scene_type(path: str) -> str:
@@ -147,23 +147,20 @@ class ImageBank:
         `bank[idxs]` is a device gather;
       * "host": one (n, H, W, 3) uint8 array in host memory;
       * "lazy": the views' files, decoded on demand by DECODE_WORKERS
-        worker processes (the decoder is Python and numpy, which threads
-        would run one at a time), the last LAZY_CACHE views used kept.
+        threads (data/images.py, in the host library), the last
+        LAZY_CACHE views used kept.
 
     A host or lazy bank's `bank[idxs]` takes the views' bytes on the host,
     copies them to the device (through two pinned buffers on the card, on
     the caller's stream) and converts them there, x / 255 as a true
     division, so that a batch equals the device mode's bit for bit where
     the images are 8-bit. `prefetch(idxs)` starts a batch's bytes (a
-    thread takes a host bank's slice; the processes decode a lazy bank's
-    views): no CUDA call leaves the caller's thread, so a CUDA graph
-    capture there is safe. A later `bank[idxs]` of the same views takes
-    them. `stats` counts the batches served, those a prefetch had started
-    and the views sent to be decoded, and lists the seconds the caller
-    waited in each `bank[idxs]`. `close()` stops the workers. They start
-    by the spawn method, which imports the main module again: a script
-    that trains from a lazy bank keeps its work under
-    `if __name__ == "__main__"`.
+    thread takes a host bank's slice; the decode threads decode a lazy
+    bank's views): no CUDA call leaves the caller's thread, so a CUDA
+    graph capture there is safe. A later `bank[idxs]` of the same views
+    takes them. `stats` counts the batches served, those a prefetch had
+    started and the views sent to be decoded, and lists the seconds the
+    caller waited in each `bank[idxs]`. `close()` stops the threads.
     """
 
     def __init__(self, mode: str, device, *, images=None, infos=None,
@@ -196,7 +193,7 @@ class ImageBank:
         return int(self.shape[0])
 
     def close(self) -> None:
-        """Stop the bank's thread or worker processes."""
+        """Stop the bank's threads."""
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
@@ -211,9 +208,8 @@ class ImageBank:
                     max_workers=1, thread_name_prefix="imagebank")
             return [self._pool.submit(np.take, self._images, idxs, 0)]
         if self._pool is None:
-            self._pool = concurrent.futures.ProcessPoolExecutor(
-                max_workers=DECODE_WORKERS,
-                mp_context=multiprocessing.get_context("spawn"))
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=DECODE_WORKERS, thread_name_prefix="imagebank")
         futures = []
         for i in map(int, idxs):
             if i in self._cache:
@@ -327,33 +323,20 @@ def _info_dims(info, downscale: int) -> tuple[int, int]:
     return int(w), int(h)
 
 
-def close_stack_pool() -> None:
-    """Stop the stacking pool's processes (at exit, or sooner)."""
-    global _stack_pool
-    if _stack_pool is not None:
-        _stack_pool.shutdown(wait=True, cancel_futures=True)
-        _stack_pool = None
-
-
 def _pooled_u8(infos: list, downscale: int):
-    """Every view's uint8 image decoded by the stacking pool's processes
-    where every view is a file and together they hold more than
+    """Every view's uint8 image decoded by DECODE_WORKERS threads where
+    every view is a file and together they hold more than
     STACK_POOL_PIXELS pixels, else None. For a file, `_load_image` is this
     divided by 255 (load_u8's 8-bit round trip), so the split's numbers do
     not depend on the route."""
-    global _stack_pool
     if not all(i.image is None and i.image_path for i in infos) or sum(
             i.width * i.height for i in infos) <= STACK_POOL_PIXELS:
         return None
-    if _stack_pool is None:
-        _stack_pool = concurrent.futures.ProcessPoolExecutor(
-            max_workers=DECODE_WORKERS,
-            mp_context=multiprocessing.get_context("spawn"))
-        atexit.register(close_stack_pool)
-    futures = [_stack_pool.submit(load_u8, None, i.image_path,
-                                  (i.width, i.height), downscale)
-               for i in infos]
-    return [f.result() for f in futures]
+    with concurrent.futures.ThreadPoolExecutor(DECODE_WORKERS) as pool:
+        futures = [pool.submit(load_u8, None, i.image_path,
+                               (i.width, i.height), downscale)
+                   for i in infos]
+        return [f.result() for f in futures]
 
 
 def stack_cameras(infos: list, device, with_images: bool = True,
@@ -364,7 +347,7 @@ def stack_cameras(infos: list, device, with_images: bool = True,
     split's decoded size picks against the budgets as the JAX package's
     does: device while float32 fits device_budget, else host while uint8
     fits host_budget (or a view has no file), else lazy. A device or host
-    split of many pixels decodes in the stacking pool (_pooled_u8).
+    split of many pixels decodes on DECODE_WORKERS threads (_pooled_u8).
     `downscale` divides the image sizes (the fields of view stay)."""
     cams = [camera_from_info(i, device) for i in infos]
     w, h = _info_dims(infos[0], downscale)

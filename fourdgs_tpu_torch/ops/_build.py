@@ -6,25 +6,25 @@ source compiles to an object in its own `nvcc` process, all started
 together, and one more links them. The library is written to
 build/fourdgs_tpu_torch/ at the checkout's root, named by a hash of the
 sources, headers and flags, so an edited source rebuilds and an unchanged
-one loads the existing file. Importing this module touches neither `nvcc`
-nor the card.
+one loads the existing file; the hash, the lock and the atomic move are
+native/build.py's, which the host library's build shares. Importing this
+module touches neither `nvcc` nor the card.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import threading
 import time
 from pathlib import Path
 
 import torch
 
+from fourdgs_tpu_torch.native.build import build_once, hashed_library
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fourdgs_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,45 +51,45 @@ def _sources() -> list[Path]:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):   # sources and headers
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libfourdgs_kernels_{h.hexdigest()[:16]}.so"
+    # sources and headers
+    return hashed_library("libfourdgs_kernels", sorted(CSRC.glob("*.cu*")),
+                          NVCC_FLAGS)
+
+
+def _compile(tmp_dir: str, out_name: str, logs: list) -> str:
+    nvcc = _nvcc()
+    objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs += [proc.communicate()[0] for proc in procs]
+    for proc, log in zip(procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(proc.args)}\n{log}")
+    tmp = os.path.join(tmp_dir, out_name)
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(link)}\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return tmp
 
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the shared library unless it exists. Prints
     ptxas' registers and spills per kernel when `verbose`."""
     out = _library_path()
-    if out.exists():
+    t0 = time.perf_counter()
+    logs: list = []
+    if not build_once(out, lambda tmp: _compile(tmp, out.name, logs)):
         if build_info.get("path") != str(out):  # not built by this process
             build_info.update(seconds=0.0, ptxas=[], path=str(out),
                               cached=True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                                   str(src)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(_sources(), objs)]
-        logs = [proc.communicate()[0] for proc in procs]
-        for proc, log in zip(procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(proc.args)}\n{log}")
-        tmp = os.path.join(tmp_dir, out.name)
-        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                "-o", tmp, *objs]
-        proc = subprocess.run(link, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                               f"{' '.join(link)}\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs for ln in log.splitlines()
              if "ptxas" in ln and ("registers" in ln or "spill" in ln

@@ -21,9 +21,8 @@ Colmap (the config's `images` directory and `llffhold`), nerfies
 their images' size, divided by `--resolution` where it is above 1 (the JAX
 script's `-r`).
 A split too large for the device trains from a host or lazy image bank,
-its next batch prefetched (a lazy bank decodes in spawned processes,
-which import the main module again: a script that calls `main` keeps the
-call under `if __name__ == "__main__":`). `--profile` runs the fine
+its next batch prefetched (a lazy bank decodes on threads, in the host
+library). `--profile` runs the fine
 stage eagerly, so that its spans show (a replayed CUDA graph opens none),
 wraps it in `torch.profiler` and writes a Chrome trace under <out>/trace/.
 

@@ -394,16 +394,26 @@ def test_scene_load_matches_jax(written, kind, downscale):
 @pytest.mark.parametrize("mode", ["device", "host", "lazy"])
 def test_stack_cameras_decodes_in_processes_alike(written, monkeypatch,
                                                   mode):
-    """A device or host split over STACK_POOL_PIXELS decodes in the pool's
-    processes to the same arrays, bit for bit, as on the calling thread; a
-    lazy split is not decoded when it is stacked."""
+    """A device or host split over STACK_POOL_PIXELS decodes on the
+    DECODE_WORKERS threads (once processes) to the same arrays, bit for
+    bit, as on the calling thread; a lazy split is not decoded when it is
+    stacked."""
     info, _ = tscene.load_scene_info(str(written["multipleview"]))
     budgets = {"device": {}, "host": {"device_budget": 0},
                "lazy": {"device_budget": 0, "host_budget": 0}}[mode]
+    pooled = []
     if mode == "lazy":
         def refuse(*args):
             raise AssertionError("a lazy split was decoded when stacked")
         monkeypatch.setattr(tscene, "_pooled_u8", refuse)
+    else:
+        real = tscene._pooled_u8
+
+        def recorded(*args):
+            out = real(*args)
+            pooled.append(out is not None)
+            return out
+        monkeypatch.setattr(tscene, "_pooled_u8", recorded)
     got = {}
     for route, limit in (("thread", 1 << 62), ("pool", 0)):
         monkeypatch.setattr(tscene, "STACK_POOL_PIXELS", limit)
@@ -414,13 +424,13 @@ def test_stack_cameras_decodes_in_processes_alike(written, monkeypatch,
         got[route] = split.images[idxs].numpy()
         split.images.close()
     if mode != "lazy":
-        assert tscene._stack_pool is not None
+        assert pooled == [False, True]
     np.testing.assert_array_equal(got["pool"], got["thread"])
 
 
 def test_readers_keep_infos_free_of_tensors(written):
-    """A lazy bank pickles its infos to spawned workers: the Panoptic
-    views hold numpy and plain values only."""
+    """The Panoptic views hold numpy and plain values only, and survive a
+    pickle round trip."""
     import pickle
     info, _ = tscene.load_scene_info(str(written["panoptic"]))
     for v in info.train_cameras:

@@ -23,6 +23,7 @@ from fourdgs_tpu.data import scene as jscene
 from fourdgs_tpu_torch.data import blender as tblender
 from fourdgs_tpu_torch.data import png
 from fourdgs_tpu_torch.data import scene as tscene
+from tests._torch_routes import route  # noqa: F401
 from tests.test_data import write_blender_fixture
 
 torch.set_num_threads(1)
@@ -96,7 +97,7 @@ def _row_filters(path):
 
 
 @pytest.mark.parametrize("channels", [3, 4])
-def test_png_round_trip(tmp_path, channels):
+def test_png_round_trip(tmp_path, channels, route):
     img = _image(channels)
     path = str(tmp_path / "a.png")
     png.write_png(path, img)
@@ -105,7 +106,7 @@ def test_png_round_trip(tmp_path, channels):
 
 
 @pytest.mark.parametrize("channels", [3, 4])
-def test_png_reads_pil_files(tmp_path, channels):
+def test_png_reads_pil_files(tmp_path, channels, route):
     """PIL chooses a filter per row; several kinds appear in one file."""
     img = _image(channels, seed=1, h=40, w=50)
     path = str(tmp_path / "pil.png")
@@ -117,7 +118,7 @@ def test_png_reads_pil_files(tmp_path, channels):
 
 @pytest.mark.parametrize("channels", [3, 4])
 @pytest.mark.parametrize("filters", ["0", "1", "2", "3", "4", "mixed"])
-def test_png_decodes_every_filter(tmp_path, channels, filters):
+def test_png_decodes_every_filter(tmp_path, channels, filters, route):
     """Files whose rows all carry one filter, or filters 0-4 in turn:
     equal to the image and to PIL's decoding, byte for byte."""
     img = _image(channels, seed=2)
@@ -228,29 +229,39 @@ def test_scene_load_matches_jax(tmp_path):
 
 
 def test_readers_refuse_what_is_not_ported(tmp_path):
-    """What the data layer still refuses: a progressive JPEG (SOF2), in a
-    reader's view as anywhere, raises NotImplementedError naming the
-    marker; a directory of no known layout raises ValueError; and without
-    a card so does the default device. (The Colmap, MultipleView and
-    PanopticSports layouts, refused before the port had a JPEG decoder,
-    are held against JAX in tests/test_torch_colmap_readers.py; the
-    Blender resize and `downscale` in tests/test_torch_readers.py.)"""
-    import io
-
-    from fourdgs_tpu_torch.data import images
+    """What the data layer still refuses: a directory of no known layout
+    raises ValueError, and without a card so does the default device.
+    (The Colmap, MultipleView and PanopticSports layouts, refused before
+    the port had a JPEG decoder, are held against JAX in
+    tests/test_torch_colmap_readers.py; the Blender resize and `downscale`
+    in tests/test_torch_readers.py; the JPEG kinds still refused in
+    tests/test_torch_jpeg.py.)"""
     write_blender_fixture(tmp_path, n_frames=2)
-    b = io.BytesIO()
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        b, "JPEG", progressive=True)
-    (tmp_path / "p.jpg").write_bytes(b.getvalue())
-    with pytest.raises(NotImplementedError, match="SOF2"):
-        images.load_image(None, str(tmp_path / "p.jpg"), (16, 16))
     (tmp_path / "unknown").mkdir()
     with pytest.raises(ValueError, match="could not recognize"):
         tscene.load_scene_info(str(tmp_path / "unknown"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tscene.Scene.load(str(tmp_path), resolution=(32, 32))
+
+
+def test_progressive_jpeg_view_loads_as_pillow_decodes_it(tmp_path, route):
+    """A progressive JPEG (SOF2), which the readers once refused, loads
+    through data/images.py as PIL's `convert("RGB")` decodes it."""
+    import io
+
+    from fourdgs_tpu_torch.data import images
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, "JPEG", progressive=True)
+    (tmp_path / "p.jpg").write_bytes(b.getvalue())
+    want = np.asarray(Image.open(tmp_path / "p.jpg").convert("RGB"))
+    np.testing.assert_array_equal(
+        images.load_u8(None, str(tmp_path / "p.jpg"), (24, 16)), want)
+    np.testing.assert_array_equal(
+        images.load_image(None, str(tmp_path / "p.jpg"), (24, 16)),
+        want.astype(np.float32) / 255.0)
 
 
 def test_read_timeline_matches_jax(tmp_path):

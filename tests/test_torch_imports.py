@@ -4,11 +4,16 @@ machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
 the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
 the dense grid, the per-frame export and the merge tool, the multi-GPU
-package (fourdgs_tpu_torch.parallel), and the dev tools' kernels and tools
-leaves jax and PIL out of sys.modules; importing the dev tools touches
-neither nvcc nor CUDA, and importing the multi-GPU package touches no
-CUDA and starts no process group."""
+package (fourdgs_tpu_torch.parallel), the host library's bindings
+(fourdgs_tpu_torch.native), and the dev tools' kernels and tools leaves jax
+and PIL out of sys.modules; importing the dev tools touches neither nvcc
+nor CUDA, importing the multi-GPU package touches no CUDA and starts no
+process group, and importing the codecs and the host library's bindings
+imports no torch and runs no compiler. The host library is built from
+fourdgs_tpu_torch/csrc/host alone, never from the JAX package's native/
+sources."""
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -122,6 +127,7 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.viewer.network_gui, "
             "fourdgs_tpu_torch.tools.export_perframe, "
             "fourdgs_tpu_torch.tools.merge_many, "
+            "fourdgs_tpu_torch.native, fourdgs_tpu_torch.native.build, "
             + _PARALLEL_MODULES + ", "
             + _DEV_MODULES + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -129,3 +135,47 @@ def test_serve_import_leaves_jax_out():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_codecs_import_without_torch_or_a_build():
+    """The image banks' decode workers import the codecs and the host
+    library's bindings: no torch comes with them, and importing them
+    starts no compiler and loads no library."""
+    code = ("import subprocess, sys\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'a process at import: {a}')\n"
+            "subprocess.Popen = subprocess.run = refuse\n"
+            "import fourdgs_tpu_torch.data.images, "
+            "fourdgs_tpu_torch.data.colmap\n"
+            "from fourdgs_tpu_torch import native\n"
+            "from fourdgs_tpu_torch.native import build\n"
+            "assert 'torch' not in sys.modules\n"
+            "assert native._lib is None and not build.build_info\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_host_library_reads_only_the_ports_sources():
+    """native/build.py compiles fourdgs_tpu_torch/csrc/host/*.cpp, whose
+    includes are system headers or files beside them: no source is read
+    from the repo root's native/ or from fourdgs_tpu/."""
+    from fourdgs_tpu_torch.native import build
+    host = ROOT / "fourdgs_tpu_torch" / "csrc" / "host"
+    assert build.HOST_SRC == host
+    srcs = build.sources()
+    assert srcs and all(p.parent == host for p in srcs)
+    for src in host.iterdir():
+        for kind, name in re.findall(r'#include\s*([<"])([^>"]+)',
+                                     src.read_text()):
+            assert kind == "<" or (host / name).is_file(), (src, name)
+    for py in (ROOT / "fourdgs_tpu_torch" / "native").glob("*.py"):
+        tree = ast.parse(py.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        paths = [n.value for n in ast.walk(tree)
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                 and id(n) not in docs]
+        bad = [v for v in paths if re.search(
+            r"(^|/)native/|colmap_native|libcolmap|fourdgs_tpu/", v)]
+        assert not bad, (py, bad)

@@ -1,12 +1,14 @@
 """The port's JPEG codec (data/jpeg.py) against Pillow (libjpeg-turbo).
 
-The decoder must equal `np.asarray(Image.open(p).convert("RGB"))` bit for
-bit (atol 0) on files Pillow wrote: 4:4:4, 4:2:2 and 4:2:0 sampling and
-greyscale, quality 75 and 95, odd sizes and one 640x360 view, restart
-markers, optimised Huffman tables, 16-bit quantisation tables (SOF1),
+The decoder, through the host library and through its plain version (the
+`route` fixture, tests/_torch_routes.py), must equal
+`np.asarray(Image.open(p).convert("RGB"))` bit for bit (atol 0) on files
+Pillow wrote: 4:4:4, 4:2:2 and 4:2:0 sampling and greyscale, quality 75
+and 95, odd sizes and one 640x360 view, restart markers, optimised Huffman
+tables, 16-bit quantisation tables (SOF1), progressive files (SOF2),
 Adobe RGB files, 4:1:1 sampling, fill bytes, comment and EXIF segments.
-It refuses progressive, lossless, hierarchical, arithmetic, 12-bit and
-CMYK files with NotImplementedError naming the marker. The encoder's files decode in Pillow to exactly what
+It refuses lossless, hierarchical, arithmetic, 12-bit and CMYK files with
+NotImplementedError naming the marker. The encoder's files decode in Pillow to exactly what
 the decoder gives, at every sampling, and a ball render survives quality
 95 above 35 dB. `images.read_rgb` picks the codec by the file's signature.
 """
@@ -18,6 +20,7 @@ import torch
 from PIL import Image
 
 from fourdgs_tpu_torch.data import images, jpeg, png
+from tests._torch_routes import route  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -57,14 +60,14 @@ SIZES = [(48, 64), (53, 37)]
 @pytest.mark.parametrize("quality", [75, 95])
 @pytest.mark.parametrize("sampling", ["4:4:4", "4:2:2", "4:2:0", "grey"])
 @pytest.mark.parametrize("size", SIZES, ids=[f"{w}x{h}" for h, w in SIZES])
-def test_decoder_equals_pillow(size, sampling, quality):
+def test_decoder_equals_pillow(size, sampling, quality, route):
     grey = sampling == "grey"
     kw = {} if grey else {"subsampling": PIL_SAMPLING[sampling]}
     _assert_equal_to_pillow(_pil_bytes(_image(*size, sum(size), grey),
                                        quality=quality, **kw))
 
 
-def test_decoder_equals_pillow_at_640x360():
+def test_decoder_equals_pillow_at_640x360(route):
     _assert_equal_to_pillow(_pil_bytes(_image(360, 640, 3), quality=95))
 
 
@@ -78,7 +81,7 @@ def test_decoder_equals_pillow_at_640x360():
     {"subsampling": "4:1:1"},                 # 4x1: plain replication
 ], ids=["rst-blocks-3", "rst-rows-1", "optimize", "optimize-rst-422",
         "sof1-16bit-dqt", "comment", "adobe-rgb", "411"])
-def test_decoder_equals_pillow_on_encoder_options(options):
+def test_decoder_equals_pillow_on_encoder_options(options, route):
     if "qtables" in options:       # quality would replace the tables
         data = _pil_bytes(_image(53, 37, 1), **options)
         assert b"\xff\xc1" in data
@@ -87,7 +90,7 @@ def test_decoder_equals_pillow_on_encoder_options(options):
     _assert_equal_to_pillow(data)
 
 
-def test_exif_orientation_and_fill_bytes_are_ignored():
+def test_exif_orientation_and_fill_bytes_are_ignored(route):
     """An EXIF orientation (which `Image.open` does not apply) and 0xFF
     fill bytes before markers decode as Pillow decodes them."""
     exif = Image.Exif()
@@ -111,8 +114,21 @@ def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     return data[:at] + new + data[at + len(old):]
 
 
+@pytest.mark.parametrize("options", [
+    {"progressive": True}, {"progressive": True, "subsampling": 0},
+    {"progressive": True, "restart_marker_blocks": 2}],
+    ids=["420", "444", "rst-blocks-2"])
+def test_progressive_file_equals_pillows_decode(options, route):
+    """A progressive file (Pillow's default scan script: spectral
+    selection and successive approximation, DC and AC, first and
+    refinement scans), which the decoders once refused, decodes as Pillow
+    decodes it."""
+    data = _pil_bytes(_image(48, 64), quality=90, **options)
+    assert b"\xff\xc2" in data
+    _assert_equal_to_pillow(data)
+
+
 @pytest.mark.parametrize("make,marker", [
-    (lambda d: _pil_bytes(_image(48, 64), progressive=True), "SOF2"),
     (lambda d: _with_marker(d, b"\xff\xc0", b"\xff\xc3"), "SOF3"),
     (lambda d: _with_marker(d, b"\xff\xc0", b"\xff\xc9"), "SOF9"),
     (lambda d: _with_marker(d, b"\xff\xc0", b"\xff\xc5"), "SOF5"),
@@ -120,15 +136,14 @@ def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     (lambda d: d[:d.index(b"\xff\xc0") + 4] + b"\x0c"
      + d[d.index(b"\xff\xc0") + 5:], "12-bit"),
     (lambda d: _cmyk_bytes(), "4-component"),
-], ids=["progressive", "lossless", "arithmetic", "hierarchical", "dac",
-        "12-bit", "cmyk"])
-def test_decoder_refuses_what_it_does_not_decode(make, marker):
+], ids=["lossless", "arithmetic", "hierarchical", "dac", "12-bit", "cmyk"])
+def test_decoder_refuses_what_it_does_not_decode(make, marker, route):
     with pytest.raises(NotImplementedError, match=marker):
         jpeg.decode_jpeg(make(_pil_bytes(_image(48, 64), quality=90)))
 
 
 @pytest.mark.parametrize("subsampling", sorted(jpeg.SAMPLINGS) + ["grey"])
-def test_encoder_decodes_alike_in_pillow(subsampling, tmp_path):
+def test_encoder_decodes_alike_in_pillow(subsampling, tmp_path, route):
     """write_jpeg's files: Pillow's pixels equal read_jpeg's, at every
     sampling (4:4:0 exercises the h1v2 upsampler) and at sizes that leave
     partial MCUs."""

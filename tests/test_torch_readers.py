@@ -8,7 +8,8 @@ a few dozen pixels: cameras to 1e-6 (both compute them in float64 numpy
 from the same JSON or npy files; the tolerance covers the float32 of the
 Nerfies camera fields), and sizes, times, splits, masks, normalisation,
 point clouds, maxtime and images equal. The resampling is held against
-Pillow itself, equal.
+Pillow itself, equal, through the host library and its plain version (the
+`route` fixture, tests/_torch_routes.py).
 """
 import dataclasses
 import functools
@@ -37,6 +38,7 @@ from fourdgs_tpu_torch.data import images, png, resample
 from fourdgs_tpu_torch.data import scene as tscene
 from fourdgs_tpu_torch.train import config as tconfig
 from tests import test_data
+from tests._torch_routes import route  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -271,7 +273,7 @@ RESIZE_CASES = [((48, 64), (32, 24)), ((1014, 1352), (676, 507)),
 @pytest.mark.parametrize("shape,size", RESIZE_CASES,
                          ids=[f"{s[0]}x{s[1]}-{o[0]}x{o[1]}"
                               for s, o in RESIZE_CASES])
-def test_resample_equals_pillow(shape, size, filt, pil):
+def test_resample_equals_pillow(shape, size, filt, pil, route):
     img = np.random.default_rng(sum(shape)).integers(
         0, 256, shape + (3,), dtype=np.uint8)
     got = resample.resize(img, size, filt)
@@ -280,7 +282,7 @@ def test_resample_equals_pillow(shape, size, filt, pil):
     np.testing.assert_array_equal(got, want)
 
 
-def test_resample_greyscale_and_same_size():
+def test_resample_greyscale_and_same_size(route):
     rng = np.random.default_rng(1)
     grey = rng.integers(0, 256, (40, 30), dtype=np.uint8)
     np.testing.assert_array_equal(
@@ -368,7 +370,7 @@ def test_layout_configs_match_jax(path):
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])
-def test_png_paeth_rows_round_trip(tmp_path, channels):
+def test_png_paeth_rows_round_trip(tmp_path, channels, route):
     """write_png's Paeth rows (row filter 4, PIL's usual pick) decode to
     the image, with the port's codec and with PIL."""
     rng = np.random.default_rng(channels)
