@@ -157,7 +157,18 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              in the snapshot, read back equal;
  17. mesh:   run after phase 16 (fourdgs_tpu_torch/parallel): (a) one
              rank over NCCL in this process, a (1, 1) mesh's sharded step
-             against train_step; (b) two ranks spawned on the one card
+             against train_step; then at the same inputs (batch 2) the
+             single-card step captured, the sharded step captured (its
+             NCCL collectives recorded in the graph) and eager, 30 steps
+             each from one state: the captured sharded run's leaves after
+             one step within GRAD_TOL of the eager run's and its losses
+             within STEP_LOSS_RTOL on average (the largest step printed
+             beside a second eager run's), the captured program's kernel
+             runs,
+             ms a step of each (the two captured ones timed again in the
+             other order) and a profile of the two replays by kernel
+             name; the captured sharded frame of each camera equal to the
+             eager one; (b) two ranks spawned on the one card
              over gloo (NCCL takes one rank a card), each building phase
              5's gaussians from the seed at tile 16 (50 x 50 tiles, two
              bands), one sharded step at (1, 2) (the band route, the
@@ -175,7 +186,17 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              --mesh 1,2 on the test split: the ranks' final states equal,
              the PNGs' PSNR within RENDER_PSNR_TOL of the in-loop eval,
              and every rank's runs. Times of (b) and (c) are two ranks
-             sharing one card, not a scaling figure;
+             sharing one card, not a scaling figure; (b) and (c) run
+             eagerly (gloo cannot be captured); (d) the train CLI at
+             --distributed --mesh 1,1 over one NCCL rank in this process,
+             on phase 7's scene, config, schedule and switches, every step
+             a replay of the captured sharded step and every sharded eval
+             a replay of a captured sharded frame, its fine ms/iteration
+             against phase 7's, then the render CLI at --mesh 1,1 on the
+             test split (captured sharded frames), its PNGs' PSNR within
+             RENDER_PSNR_TOL of the in-loop eval; (e)
+             tools/bench_scaling.py over every card of the machine (one
+             NCCL rank a card, captured): a line a mesh;
   8. kernel: K3, K4 and K5 against their plain versions on phase 6's step
              input (K4 also at a HexPlane plane's shape, K5 at the
              binner's), one step's gradients through K3 + K4 against
@@ -3267,6 +3288,16 @@ MESH_CLI_MARKS = ("Loading scene", "extent=", "stage done", "Evaluating",
                   "views, FPS")
 MESH_PATH = {"blend_fwd": "blend_forward", "blend_bwd": "blend_backward",
              "binner": "bin_tiles", "gather_rows": "gather_rows"}
+# (a)'s captured programs: steps a mode from one state, the profiled
+# replays a mode, and the target of the captured one-rank mesh step over
+# the single-card captured step at the same inputs (reported, not a check)
+MESH_CAPTURED_STEPS = 30
+MESH_PROFILED_STEPS = 4
+MESH_CAPTURE_TARGET = 1.15
+# (d)'s target: the captured --mesh 1,1 CLI's fine iteration over phase 7's
+MESH_CLI_TARGET = 1.25
+# (e): tools/bench_scaling.py's arguments (a CPU rehearsal cuts the point)
+SCALING_ARGS: tuple = ()
 
 
 def mesh_sync(torch, device) -> None:
@@ -3424,6 +3455,168 @@ def mesh_step_check(torch, mesh, inputs, device, timed: bool) -> dict:
     return rec
 
 
+def kernel_ms_by_name(torch, fn, n: int) -> dict:
+    """Device time a call by kernel (and copy or fill) name, over n calls
+    of `fn` under torch.profiler (which may drop some records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / n / 1e3
+    return out
+
+
+def mesh_capture_check(torch, mesh, inputs, device) -> dict:
+    """Phase 17(a)'s captured programs on the one-rank NCCL mesh, at the
+    inputs' batch of two cameras: the single-card step captured, the
+    sharded step captured and the sharded step eagerly,
+    MESH_CAPTURED_STEPS each from one state (the captured sharded run's
+    leaves after one step within GRAD_TOL of the eager run's, its losses
+    within STEP_LOSS_RTOL on average over the steps: two eager runs from
+    one state differ by more than that at their largest step, 1.6e-3 on
+    the H100, K2's and index_add_'s float atomics carried on by Adam), the
+    kernels' runs counted over each run; the
+    two captured steps timed again in the other order and profiled
+    (device time by kernel name, and where the difference goes); and the
+    captured sharded frame of each camera against the eager one (equal).
+    """
+    import gc
+
+    from fourdgs_tpu_torch.parallel import sharded
+    from fourdgs_tpu_torch.render.serve import Renderer
+    from fourdgs_tpu_torch.tools.render import MeshRenderer
+    from fourdgs_tpu_torch.train import graphs, loop, optim
+
+    cfg, start, rc, bg, sh, cams, gts = inputs
+    tx = optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE)
+    single_key = graphs.StepKey("fine", start.capacity, rc, sh, True,
+                                len(cams), MESH_DSSIM, mesh_reg(cfg),
+                                graphs.switches())
+    key = single_key._replace(mesh=sharded.mesh_key(mesh, rc))
+    mesh_fn = sharded.step_of_key(tx, mesh)
+    programs = {"mesh": graphs.StepPrograms(mesh_fn),
+                "single": graphs.StepPrograms(loop.step_of_key(tx))}
+    run = {"single captured": lambda st: programs["single"].run(
+               single_key, st, cams, gts, bg),
+           "mesh captured": lambda st: programs["mesh"].run(
+               key, st, cams, gts, bg),
+           "mesh eager": lambda st: mesh_fn(key)(st, cams, gts, bg),
+           "mesh eager again": lambda st: mesh_fn(key)(st, cams, gts, bg)}
+    states, losses, ms, after_one, runs = {}, {}, {}, {}, {}
+
+    def timed(mode, record):
+        st = states[mode]
+        out = []
+        for i in range(MESH_CAPTURED_STEPS):
+            if i == UNTIMED_STEPS:
+                mesh_sync(torch, device)
+                t0 = time.perf_counter()
+            out.append(run[mode](st).loss)
+            if record and i == 0:
+                after_one[mode] = st.to(device)
+        mesh_sync(torch, device)
+        ms.setdefault(mode, []).append(1e3 * (time.perf_counter() - t0)
+                                       / (MESH_CAPTURED_STEPS
+                                          - UNTIMED_STEPS))
+        return [float(x) for x in out]
+
+    for mode in run:
+        states[mode] = start.to(device)
+        mesh_sync(torch, device)
+        graphs.zero_counts()
+        losses[mode] = timed(mode, True)
+        ran = graphs.kernel_runs()
+        runs[mode] = {k: ran[w] for k, w in MESH_PATH.items()}
+    for mode in ("mesh captured", "single captured"):   # the other order
+        timed(mode, False)
+    def leaves(st):
+        return (optim.param_leaves(st.params)
+                + optim.moment_leaves(st.opt_state.mu)
+                + optim.moment_leaves(st.opt_state.nu)
+                + [st.xyz_gradient_accum, st.denom, st.max_radii2d])
+    one_step = max(grads_agree(a.detach(), b.detach()) for a, b in zip(
+        leaves(after_one["mesh captured"]), leaves(after_one["mesh eager"]),
+        strict=True))
+    del after_one
+
+    def rel(a, b, reduce=np.max):
+        a, b = np.array(losses[a]), np.array(losses[b])
+        return float(reduce(np.abs(a - b) / np.abs(b)))
+
+    prof = {mode: kernel_ms_by_name(
+        torch, lambda m=mode: run[m](states[m]), MESH_PROFILED_STEPS)
+        for mode in ("single captured", "mesh captured")}
+    diff = {name: prof["mesh captured"].get(name, 0.0)
+            - prof["single captured"].get(name, 0.0)
+            for name in set(prof["mesh captured"]) | set(prof["single "
+                                                             "captured"])}
+    nccl_ms = sum(v for k, v in prof["mesh captured"].items()
+                  if "nccl" in k.lower())
+    gathers = HEX_GATHERS_PER_LEVEL * len(cfg.hidden.multires)
+    a_step = {"blend_fwd": 1, "blend_bwd": 1, "binner": 1,
+              "gather_rows": gathers}
+    live = programs["mesh"].live.program
+    st = states["mesh captured"]
+    renderer = Renderer(gauss=st.params["gauss"], alive=st.alive,
+                        deform=st.params["deform"], aabb=st.aabb, bg=bg,
+                        raster_cfg=rc, sh_degree=sh, device=device)
+    frames = MeshRenderer(renderer, mesh)
+    frame_equal = frames.captures
+    for cam in cams:
+        got, want = frames.render(cam), frames.render_eager(cam)
+        frame_equal = frame_equal and all(
+            torch.equal(getattr(got, f), getattr(want, f))
+            for f in ("color", "depth", "alpha", "dropped_pairs",
+                      "dropped_tile", "num_pairs"))
+    mean = {mode: float(np.mean(v)) for mode, v in ms.items()}
+    rec = {"ms_per_step": ms, "ratio": mean["mesh captured"]
+           / mean["single captured"],
+           "eager_over_captured": mean["mesh eager"]
+           / mean["mesh captured"],
+           "one_step_leaves": one_step,
+           "losses": rel("mesh captured", "mesh eager"),
+           "losses_mean": rel("mesh captured", "mesh eager", np.mean),
+           "losses_vs_single": rel("mesh captured", "single captured"),
+           "losses_eager_vs_eager": rel("mesh eager again", "mesh eager"),
+           "loss_rel_by_step": {
+               m: (np.abs(np.array(losses[m]) - np.array(losses[
+                   "mesh eager"])) / np.abs(np.array(losses["mesh eager"]))
+                   ).tolist() for m in ("mesh captured", "single captured",
+                                        "mesh eager again")},
+           "loss_first_last": {m: [v[0], v[-1]] for m, v in losses.items()},
+           "runs": runs, "program_launches": live.launches,
+           "replays": live.replays,
+           "capture_s": {m: p.captures[0]["seconds"]
+                         for m, p in programs.items()},
+           "kernel_ms": {m: sum(p.values()) for m, p in prof.items()},
+           "nccl_ms": nccl_ms,
+           "kernel_diff_top": sorted(
+               ((k[:80], v) for k, v in diff.items()),
+               key=lambda kv: -abs(kv[1]))[:10],
+           "frame_equal": frame_equal,
+           "frames": [renderer.captured, renderer.replayed]}
+    rec["ok"] = {
+        "leaves": one_step <= GRAD_TOL,
+        "losses": rec["losses_mean"] <= STEP_LOSS_RTOL,
+        "launches": live.launches == {REPORTED[k]: len(cams) * v
+                                      for k, v in a_step.items()},
+        "ran": all(runs["mesh captured"][k] > 0 for k in MESH_PATH),
+        "frame": frame_equal and rec["frames"] == [1, len(cams)]}
+    del states, programs, frames, renderer, st, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mesh_band_kernels(torch, inputs, mesh) -> dict:
     """K1, K2, K3 and the binner on this rank's band of the first camera
     (its rects clipped to the band, the cull off, `tile0` its first
@@ -3570,30 +3763,38 @@ def mesh_rank(rank: int, world: int, port: int, seed: int, out_dir: str,
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def one_rank_env():
+    """torchrun's environment for one rank (a free port), for a block."""
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
 def mesh_nccl(torch, scene, seed: int, device) -> dict:
     """Phase 17(a): one rank over NCCL in this process, a (1, 1) mesh whose
-    groups are NCCL groups of one rank, its sharded step against the
-    single-card step."""
+    groups are NCCL groups of one rank: its sharded step against the
+    single-card step, and its captured programs (`mesh_capture_check`)."""
     import torch.distributed as dist
 
     from fourdgs_tpu_torch.parallel import multihost
     from fourdgs_tpu_torch.parallel.mesh import make_mesh
 
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
-    os.environ.update(env)
-    try:
+    with one_rank_env():
         assert multihost.initialize_distributed(device=device.type)
-        mesh = make_mesh(1, 1)
-        backend = dist.get_backend(mesh.tile_group)
-        rec = mesh_step_check(torch, mesh, mesh_inputs(torch, scene, seed,
-                                                       device),
-                              device, timed=False)
-        rec["backend"] = backend
-        dist.destroy_process_group()
-    finally:
-        for k in env:
-            os.environ.pop(k, None)
+        try:
+            mesh = make_mesh(1, 1)
+            inputs = mesh_inputs(torch, scene, seed, device)
+            rec = mesh_step_check(torch, mesh, inputs, device, timed=False)
+            rec["backend"] = mesh.backend
+            rec["capture"] = mesh_capture_check(torch, mesh, inputs, device)
+        finally:
+            dist.destroy_process_group()
     return rec
 
 
@@ -3670,7 +3871,93 @@ def mesh_cli(torch, device, work: Path, seed: int) -> dict:
             in rendered}
 
 
+def mesh_cli_nccl(torch, device, work: Path, seed: int, coarse: int,
+                  fine: int) -> dict:
+    """Phase 17(d): the train CLI at --distributed --mesh 1,1 over a
+    one-rank NCCL group, in this process as phase 7 runs it, on phase 7's
+    scene, config, schedule and switches (every step a replay of the
+    captured sharded step, every sharded eval a replay of a captured
+    sharded frame), with the kernels' runs read around it; then the
+    render CLI at --mesh 1,1 on the test split (captured sharded frames)
+    and its PNGs' PSNR against the last in-loop eval."""
+    from fourdgs_tpu_torch.data.png import read_png
+    from fourdgs_tpu_torch.tools import render as render_cli
+    from fourdgs_tpu_torch.tools import train as train_cli
+    from fourdgs_tpu_torch.train import graphs
+
+    scene, model = work / "scene", work / "mesh_nccl_driver"
+    shutil.rmtree(model, ignore_errors=True)
+    config = work / "dnerf_smoke.py"
+    config.write_text(DRIVER_CONFIG.format(coarse=coarse, fine=fine))
+    size = ["--image_size", str(DRIVER_SIZE), str(DRIVER_SIZE), "--device",
+            device.type]
+    with switches_set(graphs.SWITCHES_ON), one_rank_env():
+        mesh_sync(torch, device)
+        graphs.zero_counts()
+        t0 = time.perf_counter()
+        summary = train_cli.main([
+            "-s", str(scene), "-m", str(model), "--configs", str(config),
+            "--quiet", "--seed", str(seed), *size, "--test_iterations",
+            str(coarse), str(fine), "--save_iterations", str(fine),
+            "--distributed", "--mesh", "1,1"])
+        mesh_sync(torch, device)
+        t_train = time.perf_counter() - t0
+        runs = kernel_runs()
+    printed = io.StringIO()
+    with one_rank_env(), contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        rendered = render_cli.main(["-m", str(model), "-s", str(scene),
+                                    *size, "--mesh", "1,1", "--skip_train",
+                                    "--skip_video"])
+        t_render = time.perf_counter() - t0
+    printed = printed.getvalue()
+    print(printed, end="", flush=True)
+    split = model / "test" / f"ours_{fine}"
+    psnrs = []
+    for f in sorted((split / "renders").glob("*.png")):
+        a = read_png(f).astype(np.float64) / 255.0
+        b = read_png(split / "gt" / f.name).astype(np.float64) / 255.0
+        psnrs.append(-10.0 * np.log10(((a - b) ** 2).mean()))
+    stages = {st["stage"]: {
+        "ms_per_iteration": 1e3 * st["wall_time"]
+        / (st["iterations"] - st["start"]),
+        "iterations": st["iterations"] - st["start"],
+        "captures": len(st["graphs"]["captures"]),
+        "capture_s": sum(c["seconds"] for c in st["graphs"]["captures"]),
+        "replays": st["graphs"]["replays"], "rebinds": st["graphs"]["rebinds"],
+        "test_psnr": st["test_psnr"]} for st in summary["stages"]}
+    return {"stages": stages, "seconds_train_cli": t_train,
+            "seconds_render_cli": t_render,
+            "in_loop_psnr": summary["stages"][-1]["test_psnr"][-1][1],
+            "post_hoc_psnr": float(np.mean(psnrs)), "test_views": len(psnrs),
+            "eval_frames": summary["mesh"]["eval_frames"],
+            "ranks_equal": summary["mesh"]["ranks_equal"], "runs": runs,
+            "render": {k: rendered[k] for k in ("captures", "replays")},
+            "render_renders": sum(r["renders"]
+                                  for r in rendered["splits"].values()),
+            "render_fps": rendered["splits"]["test"]["fps"],
+            "printed_captured": "rendering on mesh data=1 tile=1 (captured "
+            "frames)" in printed}
+
+
+def mesh_scaling(device) -> dict:
+    """Phase 17(e): tools/bench_scaling.py over every card of the machine,
+    as a user runs it; its lines."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "fourdgs_tpu_torch.tools.bench_scaling",
+         *SCALING_ARGS], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"bench_scaling failed ({done.returncode}):\n"
+                             f"{(done.stdout + done.stderr)[-6000:]}")
+    lines = [json.loads(x) for x in done.stdout.splitlines()
+             if x.startswith('{"mesh"')]
+    return {"lines": lines, "seconds": time.perf_counter() - t0}
+
+
 def phase_mesh(torch, device, work: Path, scene, seed: int,
+               coarse: int, fine: int, driver_fine_ms: float,
                rank_settings: dict | None = None) -> dict:
     """Phase 17: (a) one NCCL rank, (b) two gloo ranks on the card, spawned
     after phase 2's build, (c) the train and render CLIs over a 1 x 2
@@ -3686,9 +3973,34 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
     t0 = time.perf_counter()
     nccl = mesh_nccl(torch, scene, seed, device)
     t_a = time.perf_counter() - t0
+    cap = nccl["capture"]
     log(f"mesh (a): one NCCL rank ({nccl['backend']}), a 1x1 sharded step "
-        f"against train_step: {nccl['vs_single']}; runs {nccl['runs']}; "
-        f"{t_a:.2f} s")
+        f"against train_step: {nccl['vs_single']}; runs {nccl['runs']}")
+    log(f"mesh (a) captured ({card}): {SIZE}x{SIZE}, tile {MESH_TILE}, "
+        f"batch {len(MESH_TIMES)}, {N_GAUSS} gaussians, ms/step over "
+        f"{MESH_CAPTURED_STEPS - UNTIMED_STEPS} steps a round: "
+        + "; ".join(f"{m} " + ", ".join(f"{v:.3f}" for v in ms)
+                    for m, ms in cap["ms_per_step"].items())
+        + f"; the captured mesh step over the single-card one "
+        f"{cap['ratio']:.4f} (target {MESH_CAPTURE_TARGET}), the eager mesh "
+        f"step over the captured {cap['eager_over_captured']:.2f}; captured "
+        f"against eager: every leaf after one step within "
+        f"{cap['one_step_leaves']:.3g} (tol {GRAD_TOL:g}), losses within "
+        f"{cap['losses_mean']:.3g} on average (tol {STEP_LOSS_RTOL:g}), "
+        f"{cap['losses']:.3g} at the largest step (the two eager runs "
+        f"{cap['losses_eager_vs_eager']:.3g}, the single-card captured run "
+        f"{cap['losses_vs_single']:.3g}); "
+        f"captures {cap['capture_s']} s; the program's launches "
+        f"{cap['program_launches']}, {cap['replays']} replays; runs "
+        f"{cap['runs']}; sharded frames captured and replayed "
+        f"{cap['frames']}, equal to eager {cap['frame_equal']}")
+    log(f"mesh (a) profile of the replays ({MESH_PROFILED_STEPS} a mode): "
+        f"device ms a step by kernel, single "
+        f"{cap['kernel_ms']['single captured']:.3f}, mesh "
+        f"{cap['kernel_ms']['mesh captured']:.3f} (NCCL "
+        f"{cap['nccl_ms']:.4f}); the largest differences (mesh - single): "
+        + ", ".join(f"{k} {v:+.4f}" for k, v in cap["kernel_diff_top"])
+        + f"; {t_a:.2f} s")
     out_dir = work / "mesh"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -3729,7 +4041,6 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
     t2 = time.perf_counter()
     cli = mesh_cli(torch, device, work, seed)
     t_c = time.perf_counter() - t2
-    seconds = time.perf_counter() - t0
     log(f"mesh (c): train CLI over --mesh 1,2, two ranks sharing one card "
         f"({card}; not a scaling figure): "
         + ", ".join(f"{s} {v:.2f} ms/iteration"
@@ -3739,13 +4050,39 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
         f"over {cli['test_views']} views (tol {RENDER_PSNR_TOL}); rank 1's "
         f"runs {cli['kernel_runs'][1]}; train {cli['seconds_train_cli']:.2f} "
         f"s, render {cli['seconds_render_cli']:.2f} s")
+    t3 = time.perf_counter()
+    cli_nccl = mesh_cli_nccl(torch, device, work, seed, coarse, fine)
+    t_d = time.perf_counter() - t3
+    st = cli_nccl["stages"]
+    log(f"mesh (d): train CLI at --distributed --mesh 1,1 over one NCCL "
+        f"rank, captured ({card}), phase 7's scene, schedule and switches: "
+        + ", ".join(f"{s} {v['ms_per_iteration']:.3f} ms/iteration "
+                    f"({v['captures']} captures, {v['capture_s']:.2f} s; "
+                    f"{v['replays']} replays)" for s, v in st.items())
+        + f"; phase 7's fine {driver_fine_ms:.3f} (ratio "
+        f"{st['fine']['ms_per_iteration'] / driver_fine_ms:.4f}, target "
+        f"{MESH_CLI_TARGET}); eval frames {cli_nccl['eval_frames']}; in-loop "
+        f"test PSNR {cli_nccl['in_loop_psnr']:.4f}, render CLI post hoc "
+        f"{cli_nccl['post_hoc_psnr']:.4f} over {cli_nccl['test_views']} views "
+        f"(tol {RENDER_PSNR_TOL}), {cli_nccl['render']} frames, "
+        f"{cli_nccl['render_fps']:.2f} FPS; runs {cli_nccl['runs']}; train "
+        f"{cli_nccl['seconds_train_cli']:.2f} s, render "
+        f"{cli_nccl['seconds_render_cli']:.2f} s")
+    t4 = time.perf_counter()
+    scaling = mesh_scaling(device)
+    t_e = time.perf_counter() - t4
+    for line in scaling["lines"]:
+        log(f"mesh (e) bench_scaling: {json.dumps(line)}")
+    seconds = time.perf_counter() - t0
     log(f"mesh: phase 17 in {seconds:.2f} s (a {t_a:.2f}, b {t_b:.2f}, "
-        f"c {t_c:.2f})")
+        f"c {t_c:.2f}, d {t_d:.2f}, e {t_e:.2f})")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 2
     checks = {
         "(a) NCCL": nccl["backend"] == ("nccl" if device.type == "cuda"
                                         else "gloo"),
         "(a) 1x1 against train_step": nccl["vs_single"]["ok"],
         "(a) ran the path": all(nccl["runs"][k] > 0 for k in MESH_PATH),
+        **{f"(a) captured: {k}": v for k, v in cap["ok"].items()},
         **{f"(b) {k} against train_step": v["vs_single"]["ok"]
            for k, v in two.items()},
         **{f"(b) {k} ranks equal": v["ranks_equal"] for k, v in two.items()},
@@ -3763,7 +4100,29 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
         and cli["printed_render_mesh"],
         "(c) post hoc within tol": abs(cli["post_hoc_psnr"]
                                        - cli["in_loop_psnr"])
-        <= RENDER_PSNR_TOL}
+        <= RENDER_PSNR_TOL,
+        "(d) every iteration replayed a captured step": all(
+            v["replays"] == v["iterations"] for v in st.values()),
+        "(d) the evals replayed captured sharded frames":
+            cli_nccl["eval_frames"]["captured"]
+            and cli_nccl["eval_frames"]["captures"] >= 1
+            and cli_nccl["eval_frames"]["replays"] > 0,
+        "(d) ranks equal": cli_nccl["ranks_equal"],
+        "(d) the kernels ran": all(cli_nccl["runs"][k] > 0 for k in (
+            "blend_fwd", "blend_bwd_slots", "scatter_add_rows",
+            "scatter_set_scalars", "binner", "gather_rows")),
+        "(d) the render CLI replayed captured frames":
+            cli_nccl["printed_captured"]
+            and cli_nccl["render"]["captures"] >= 1
+            and cli_nccl["render"]["replays"] == cli_nccl["render_renders"],
+        "(d) post hoc within tol": abs(cli_nccl["post_hoc_psnr"]
+                                       - cli_nccl["in_loop_psnr"])
+        <= RENDER_PSNR_TOL,
+        "(e) a line a mesh": [x["mesh"] for x in scaling["lines"]]
+        == ["x".join(map(str, m)) for m in mesh_shapes_of(cards)],
+        "(e) captured on the cards": all(
+            x["captured"] == (device.type == "cuda") and x["rays_per_s"] > 0
+            for x in scaling["lines"])}
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 17 failed: {failed}")
@@ -3773,7 +4132,16 @@ def phase_mesh(torch, device, work: Path, scene, seed: int,
                        "c": cli["kernel_runs"][1][n]} for n in MESH_PATH}
     return {"nccl": nccl, "two_ranks": two, "eval": ranks[0]["eval"],
             "band_kernels": band, "cli": cli, "offset_runs": offset_runs,
-            "seconds": seconds, "seconds_abc": [t_a, t_b, t_c]}
+            "cli_nccl": cli_nccl, "scaling": scaling, "seconds": seconds,
+            "seconds_abcde": [t_a, t_b, t_c, t_d, t_e]}
+
+
+def mesh_shapes_of(cards: int) -> list:
+    """tools/bench_scaling.py's meshes at its operating point's tiles."""
+    from fourdgs_tpu_torch.tools import bench_scaling
+    size = (int(SCALING_ARGS[SCALING_ARGS.index("--size") + 1])
+            if "--size" in SCALING_ARGS else 800)
+    return bench_scaling.mesh_shapes(cards, bench_scaling._num_tiles(size))
 
 
 # ---------------------------------------------------------------------------
@@ -4340,7 +4708,8 @@ def main(argv=None) -> int:
     k1["tools"] = phase_tools(
         torch, device, work, renderer, args.seed,
         driver["stages"]["fine"]["ms_per_iteration"])
-    mesh = phase_mesh(torch, device, work, scene, args.seed)
+    mesh = phase_mesh(torch, device, work, scene, args.seed, args.coarse,
+                      args.fine, driver["stages"]["fine"]["ms_per_iteration"])
     kernels = [k1, k2] + phase_kernels_slots(
         torch, step_args, work_k2, state, rc, bg, sh, check_cam, gt,
         driver_launches, k2)
@@ -4360,8 +4729,8 @@ def main(argv=None) -> int:
         if name in MESH_PATH:
             k["launches_mesh_offset"] = mesh["offset_runs"][name]
     k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
-                                             "cli", "seconds",
-                                             "seconds_abc")}
+                                             "cli", "cli_nccl", "scaling",
+                                             "seconds", "seconds_abcde")}
     for k in kernels:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
                                      for path in ("serve", "step", "eval",

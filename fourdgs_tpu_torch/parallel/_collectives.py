@@ -11,6 +11,15 @@ PyTorch's gloo backend runs only `all_reduce` and `broadcast` on CUDA
 tensors, so on gloo `all_gather` is an all_reduce (SUM) of a zero-filled
 buffer into which each rank has written its slice: exact, since x + 0 = x.
 NCCL takes `all_gather_into_tensor`.
+
+Under NCCL every collective can be recorded into a CUDA graph
+(train/graphs.py), forward and backward: each reads only host values
+fixed for the group (its size and this rank's place in it), allocates
+its output on the current stream (inside a capture, from the capture's
+pool), and ProcessGroupNCCL records its launch into the capture. gloo
+reduces CUDA tensors through the host, which no graph can hold: a
+collective over a gloo group called while the current stream captures
+raises.
 """
 from __future__ import annotations
 
@@ -26,7 +35,23 @@ def _nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is recording a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _capturable(group) -> None:
+    if not _nccl(group) and capturing():
+        raise RuntimeError(
+            f"a collective over a {dist.get_backend(group)} group inside a "
+            f"CUDA graph capture: gloo reduces through the host, which a "
+            f"graph cannot record; capture a mesh over NCCL, or run it "
+            f"eagerly (capture=False)")
+
+
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    _capturable(group)
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
@@ -34,6 +59,7 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:
     """The group's x, concatenated along dim 0 in group-rank order."""
+    _capturable(group)
     n, r, m = group_size(group), dist.get_rank(group), x.shape[0]
     x = x.contiguous()
     if _nccl(group):
@@ -72,6 +98,7 @@ class _PSum(torch.autograd.Function):
 class _PMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        _capturable(group)
         out = x.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
         ctx.mark_non_differentiable(out)

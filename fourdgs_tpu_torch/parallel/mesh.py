@@ -11,11 +11,20 @@ Every process is one rank, laid out as JAX reshapes its devices: rank r
 sits at (r // n_tile, r % n_tile). A mesh of one rank with no process
 group initialised needs no group and runs every collective as the
 identity, through the same sharded code path.
+
+NCCL builds a group's communicator at the group's first collective, and
+a communicator cannot be built inside a CUDA graph capture. So under
+NCCL `make_mesh` runs one all_reduce on each of this rank's groups, in
+one order on every rank (the row's, the column's, then every rank's),
+before any step or frame is captured: a capture then records launches
+on communicators that exist, whichever groups its program reaches, and
+the ranks never build communicators in different orders.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.distributed as dist
 
 
@@ -52,6 +61,12 @@ class Mesh:
         """This rank's tile coordinate."""
         return self.rank % self.n_tile
 
+    @property
+    def backend(self) -> str | None:
+        """The process group's backend ("nccl" or "gloo"), None without
+        one."""
+        return None if self.group is None else dist.get_backend(self.group)
+
 
 def make_mesh(n_data: int | None = None, n_tile: int = 1) -> Mesh:
     """The mesh over every rank of the initialised process group (or over
@@ -78,8 +93,14 @@ def make_mesh(n_data: int | None = None, n_tile: int = 1) -> Mesh:
         g = dist.new_group([d * n_tile + t for d in range(n_data)])
         if t == rank % n_tile:
             data_group = g
-    return Mesh(n_data, n_tile, rank, tile_group, data_group,
+    mesh = Mesh(n_data, n_tile, rank, tile_group, data_group,
                 dist.group.WORLD)
+    if mesh.backend == "nccl":
+        one = torch.ones(1, device="cuda")
+        for g in (tile_group, data_group, mesh.group):
+            dist.all_reduce(one, group=g)
+        torch.cuda.synchronize()
+    return mesh
 
 
 def factor_devices(n: int) -> tuple[int, int]:

@@ -32,11 +32,19 @@ buckets, cap growth, rollback) reads values already reduced over all
 ranks. As JAX's sharded step, this one always tracks the densify
 statistics.
 
-The step runs eagerly: collectives are not captured into CUDA graphs yet.
+The step and the frame are captured programs, as JAX jits them
+(`sharded_train_step`, `_make_sharded_render`): `step_of_key` gives
+train/graphs.py the step function of a `graphs.StepKey` whose `mesh` is
+this rank's `mesh_key` (the mesh's shape, the tile coordinate, the band
+and the binner's route), and `tools/render.py:MeshRenderer` captures
+`sharded_render` as `Renderer` captures a frame. Neither makes a host
+sync. They are captured over NCCL, and over a one-rank mesh with no
+group (whose collectives are the identity); over gloo, whose
+collectives pass through the host, they run eagerly.
 """
 from __future__ import annotations
 
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
 from typing import NamedTuple
 
 import torch
@@ -57,9 +65,11 @@ from fourdgs_tpu_torch.parallel._collectives import all_gather, pmax, psum
 from fourdgs_tpu_torch.parallel.mesh import Mesh
 from fourdgs_tpu_torch.render.render import splats_at
 from fourdgs_tpu_torch.train import optim
+from fourdgs_tpu_torch.train.loop import StepAux
 
 __all__ = ["ShardedAux", "sharded_step_gradients", "sharded_train_step",
-           "sharded_render", "sharded_eval_render", "band_route"]
+           "step_of_key", "sharded_render", "sharded_eval_render",
+           "band_route", "MeshKey", "mesh_key"]
 
 
 class ShardedAux(NamedTuple):
@@ -100,6 +110,30 @@ def band_route(mesh: Mesh, cfg: RasterConfig) -> bool:
     not the whole grid."""
     n_tile = mesh.shape["tile"]
     return n_tile > 1 and cfg.grid_y % n_tile == 0
+
+
+class MeshKey(NamedTuple):
+    """What a rank's sharded program is static in, beyond the raster
+    config: the mesh's shape, this rank's tile coordinate, its band (the
+    first global tile and the count) and whether the band route bins."""
+    n_data: int
+    n_tile: int
+    tile: int
+    tile0: int
+    tiles: int
+    band: bool
+
+    def label(self) -> str:
+        return (f"mesh {self.n_data}x{self.n_tile} tile {self.tile} tiles "
+                f"{self.tile0}+{self.tiles} "
+                + ("band" if self.band else "fallback"))
+
+
+def mesh_key(mesh: Mesh, cfg: RasterConfig) -> MeshKey:
+    """This rank's MeshKey at `cfg`."""
+    nt_local = cfg.num_tiles // mesh.shape["tile"]
+    return MeshKey(mesh.n_data, mesh.n_tile, mesh.tile,
+                   mesh.tile * nt_local, nt_local, band_route(mesh, cfg))
 
 
 def _render_tiles_local(gauss: GaussianParams, deform, cfg: RasterConfig,
@@ -311,6 +345,36 @@ def sharded_train_step(state, cameras: Sequence[Camera], gts: torch.Tensor,
         state.denom.add_(aux.visible.to(torch.float32))
         state.step.add_(1)
     return state, sg.loss, aux
+
+
+def step_of_key(tx: optim.GroupedAdam, mesh: Mesh):
+    """The mesh's counterpart of `loop.step_of_key`: the step function of
+    a `graphs.StepKey` whose `mesh` is this rank's `mesh_key`.
+    `fn(state, cameras, gts, bg)` runs `sharded_train_step` in place on
+    `state` (this rank's slice of the batch) and returns a `loop.StepAux`
+    of device tensors: the loss, l1 and PSNR, the drops and the visible
+    count reduced over every rank; the mesh reports no image, pair count
+    or tile peak (zeros, as JAX's sharded aux)."""
+    def of_key(key) -> Callable:
+        if key.mesh != mesh_key(mesh, key.raster_cfg):
+            raise ValueError(f"a step key for {key.mesh} on rank "
+                             f"{mesh.rank} of a {mesh.n_data}x"
+                             f"{mesh.n_tile} mesh")
+
+        def fn(state, cameras, gts, bg):
+            _, loss, aux = sharded_train_step(
+                state, cameras, gts, bg, key.active_sh, mesh=mesh,
+                stage=key.stage, raster_cfg=key.raster_cfg, tx=tx,
+                reg_weights=key.reg_weights, lambda_dssim=key.lambda_dssim)
+            none = loss.new_zeros((), dtype=torch.int32)
+            return StepAux(loss=loss, l1=aux.l1, psnr=aux.psnr,
+                           image=loss.new_zeros((1, 1, 3)),
+                           dropped_pairs=aux.dropped_pairs,
+                           dropped_tile=aux.dropped_tile,
+                           n_visible=aux.visible.sum(), num_pairs=none,
+                           tile_peak=none, max_alpha=aux.max_alpha)
+        return fn
+    return of_key
 
 
 @torch.no_grad()

@@ -8,9 +8,10 @@ scripts/render.py).
 On the card a frame is a captured program (train/graphs.py, the
 counterpart of the JAX render CLI's jit): one CUDA graph per key (the
 raster config, the stage, the identity of the renderer's tensors, the
-blend's implementation and the switches), replayed with the camera copied
-into its static buffers. `capture=False` renders eagerly; the CPU always
-does.
+blend's implementation and the switches; `Renderer.replay`, which
+`tools/render.py:MeshRenderer` also captures its sharded frames
+through), replayed with the camera copied into its static buffers.
+`capture=False` renders eagerly; the CPU always does.
 
 CLI: render a look-at orbit over t in [0, 1] and print frame count,
 seconds and FPS:
@@ -155,10 +156,23 @@ class Renderer:
         the CPU)."""
         if not self.captures():
             return self.render_eager(camera, stage, scale_modifier)
+        return self.replay(
+            (stage, scale_modifier),
+            lambda cam: self.render_eager(cam, stage, scale_modifier),
+            camera, f"frame {stage}")
+
+    @torch.no_grad()
+    def replay(self, kind: tuple, render_fn, camera: Camera,
+               label: str) -> RenderOutput:
+        """`render_fn(camera)` as a replay of its captured frame, captured
+        at its key's first render: `kind` (what `render_fn` is static in
+        besides the renderer) with the raster config, the SH degree, the
+        identity of the renderer's tensors, the blend's implementation
+        and the switches. The newest _FRAMES_HELD frames are kept."""
         camera = camera.to(self.device)
         inputs = tuple(getattr(self.gauss, f) for f in FIELDS) + (
             self.alive, self.aabb, self.bg, self.deform)
-        key = (self.raster_cfg, stage, self.sh_degree, scale_modifier,
+        key = (self.raster_cfg, self.sh_degree, kind,
                tuple(map(id, inputs)), blend.blend_forward,
                graphs.switches())
         frame = self.frames.get(key)
@@ -167,14 +181,12 @@ class Renderer:
                 del self.frames[next(iter(self.frames))]
             rc = self.raster_cfg
             frame = self.frames[key] = graphs.CapturedFrame(
-                key, lambda cam: self.render_eager(cam, stage,
-                                                   scale_modifier), camera,
-                inputs, f"frame {stage} {rc.img_width}x{rc.img_height} "
-                f"tile_cap {rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
+                key, render_fn, camera, inputs,
+                f"{label} {rc.img_width}x{rc.img_height} tile_cap "
+                f"{rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
             self.captured += 1
         self.replayed += 1
         return frame(camera)
-
 
     def gui_frame(self, camera: Camera, width: int, height: int,
                   scaling_modifier: float = 1.0) -> torch.Tensor:

@@ -29,11 +29,14 @@ PanopticSports' its test split, Colmap's its train split. A host or lazy
 image bank serves the targets view by view.
 
 `--mesh D,T` (JAX: scripts/render.py:105-125) renders every split
-tile-sharded over the mesh's T tile ranks (`parallel.sharded.sharded_render`,
-eagerly: no captured frame), with the cap probe and regrowth as above;
-under `python -m torch.distributed.run --nproc_per_node D*T` the ranks
-join one process group first (`FOURDGS_DIST_BACKEND=gloo` where they
-share a card), and rank 0 alone writes the PNGs.
+tile-sharded over the mesh's T tile ranks (`parallel.sharded.sharded_render`),
+with the cap probe and regrowth as above; under `python -m
+torch.distributed.run --nproc_per_node D*T` the ranks join one process
+group first (`FOURDGS_DIST_BACKEND=gloo` where they share a card), and
+rank 0 alone writes the PNGs. Over NCCL each frame is a replay of the
+captured sharded frame (`MeshRenderer`, keyed as `Renderer`'s frames
+and by the rank's band: a grown cap captures anew); over gloo the frames
+render eagerly.
 """
 from __future__ import annotations
 
@@ -65,23 +68,51 @@ def quantise(img) -> np.ndarray:
 
 
 class MeshRenderer:
-    """A Renderer's snapshot rendered tile-sharded over a mesh: the
-    `render`, `grow_caps` and `device` that `render_split` reads."""
+    """A Renderer's tensors rendered tile-sharded over a mesh: the
+    `render`, `grow_caps` and `device` that `render_split` reads. Where
+    the renderer captures and the mesh is not over gloo, a frame is a
+    replay of the captured `sharded_render` (`Renderer.replay`, its key
+    also the rank's `sharded.mesh_key`); otherwise it renders eagerly.
+    Every rank of the mesh renders every frame (the render is
+    collective)."""
 
     def __init__(self, renderer: Renderer, mesh):
-        from types import SimpleNamespace
         self.renderer, self.mesh = renderer, mesh
         self.device = renderer.device
-        self.state = SimpleNamespace(
-            params={"gauss": renderer.gauss, "deform": renderer.deform},
-            alive=renderer.alive, aabb=renderer.aabb)
+        self.captures = renderer.captures() and mesh.backend != "gloo"
 
-    def render(self, camera):
+    @torch.no_grad()
+    def render_eager(self, camera, stage: str = "fine"):
+        from types import SimpleNamespace
+
         from fourdgs_tpu_torch.parallel.sharded import sharded_render
         r = self.renderer
-        return sharded_render(self.state, camera.to(self.device), r.bg,
+        state = SimpleNamespace(params={"gauss": r.gauss,
+                                        "deform": r.deform},
+                                alive=r.alive, aabb=r.aabb)
+        return sharded_render(state, camera.to(self.device), r.bg,
                               mesh=self.mesh, raster_cfg=r.raster_cfg,
-                              stage="fine", active_sh=r.sh_degree)
+                              stage=stage, active_sh=r.sh_degree)
+
+    def render(self, camera, stage: str = "fine"):
+        if not self.captures:
+            return self.render_eager(camera, stage)
+        from fourdgs_tpu_torch.parallel.sharded import mesh_key
+        key = mesh_key(self.mesh, self.renderer.raster_cfg)
+        return self.renderer.replay(
+            (stage, key), lambda cam: self.render_eager(cam, stage), camera,
+            f"sharded frame {stage} {key.label()}")
+
+    def render_state(self, state, camera, raster_cfg, stage: str,
+                     active_sh: int):
+        """A training state's frame: the renderer pointed at its tensors,
+        caps and SH degree first (a frame captured on the same tensors
+        replays)."""
+        r = self.renderer
+        r.gauss, r.deform = state.params["gauss"], state.params["deform"]
+        r.alive, r.aabb = state.alive, state.aabb
+        r.raster_cfg, r.sh_degree = raster_cfg, active_sh
+        return self.render(camera, stage)
 
     def grow_caps(self, pairs: bool, tile: bool) -> dict:
         return self.renderer.grow_caps(pairs, tile)
@@ -231,7 +262,10 @@ def _render(args) -> dict:
             (f"num_tiles {renderer.raster_cfg.num_tiles} not divisible by "
              f"tile={n_tile}")
         target = MeshRenderer(renderer, mesh)
-        say(f"rendering on mesh data={mesh.n_data} tile={n_tile}")
+        say(f"rendering on mesh data={mesh.n_data} tile={n_tile} ("
+            + ("captured frames" if target.captures else
+               "eager frames: gloo's collectives cannot be captured"
+               if mesh.backend == "gloo" else "eager frames") + ")")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     summary = {"iteration": it, "device": name, "splits": {}}

@@ -31,12 +31,15 @@ Multi-GPU (parallel/): under `python -m torch.distributed.run
 --mesh D,T` the N = D x T ranks join one process group
 (`multihost.initialize_distributed`: NCCL on the card, gloo on the CPU;
 `FOURDGS_DIST_BACKEND=gloo` for ranks that share a card) and train over
-the ("data", "tile") mesh with the tile-sharded step, eagerly; the batch
-size is rounded up to a multiple of D. Evaluations render tile-sharded
-when T divides the tiles. Rank 0 alone writes the config, the log, the
-snapshots, the checkpoints and the triptychs, and at the end every rank's
-state must be the same bytes (a digest gathered from each, logged as
-`"mesh"`).
+the ("data", "tile") mesh with the tile-sharded step; the batch size is
+rounded up to a multiple of D. Evaluations render tile-sharded when T
+divides the tiles. Over NCCL each step is a replay of the captured
+sharded step (a `[capture] ...` line from rank 0 for each key) and each
+sharded evaluation a replay of a captured sharded frame
+(`tools/render.py:MeshRenderer`); over gloo both run eagerly, which rank
+0 prints. Rank 0 alone writes the config, the log, the snapshots, the
+checkpoints and the triptychs, and at the end every rank's state must be
+the same bytes (a digest gathered from each, logged as `"mesh"`).
 
 `--gui` opens the live viewer bridge (viewer/network_gui.py) on
 `--ip`:`--port`: after every iteration a poll serves the frames that a
@@ -119,19 +122,17 @@ def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
 
 
 def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4,
-                mesh=None):
+                sharded=None):
     """One view with the live caps; an overflowing view doubles the
     overflowing cap and renders again, up to `renders` renders. Returns the
-    last render's output, and what it dropped at which caps. Over a
-    `mesh` whose tile axis divides the tiles the render is tile-sharded
+    last render's output, and what it dropped at which caps. With
+    `sharded` (a `tools/render.py:MeshRenderer` over the run's mesh, whose
+    tile axis divides the tiles) the render is tile-sharded
     (`sharded_render`, collective: every rank calls it), as JAX's train
-    script renders its evals."""
-    sharded = mesh is not None and rcfg.num_tiles % mesh.shape["tile"] == 0
+    script renders its evals: a replay of its captured frame over NCCL."""
     for i in range(renders):
-        if sharded:
-            from fourdgs_tpu_torch.parallel.sharded import sharded_render
-            out = sharded_render(state, cam, bg, mesh=mesh, raster_cfg=rcfg,
-                                 stage=stage, active_sh=active_sh)
+        if sharded is not None:
+            out = sharded.render_state(state, cam, rcfg, stage, active_sh)
         else:
             out = loop.eval_step(state, cam, bg, stage=stage,
                                  active_sh=active_sh, raster_cfg=rcfg)
@@ -290,6 +291,14 @@ def _train(args, cfg) -> dict:
             return fine_sample_order(len(scene.train), n_poses, r)
 
     test_psnrs: dict[str, list] = {"coarse": [], "fine": []}
+    sharded_eval = None
+    if mesh is not None and raster_cfg.num_tiles % mesh.n_tile == 0:
+        from fourdgs_tpu_torch.render.serve import Renderer
+        from fourdgs_tpu_torch.tools.render import MeshRenderer
+        sharded_eval = MeshRenderer(Renderer(
+            gauss=st.params["gauss"], alive=st.alive,
+            deform=st.params["deform"], aabb=st.aabb, bg=bg,
+            raster_cfg=raster_cfg, sh_degree=0, device=dev), mesh)
 
     def make_on_test(stage):
         def eval_split(split, name, it, state, active_sh, rcfg, n=None,
@@ -299,7 +308,7 @@ def _train(args, cfg) -> dict:
             for i in range(n):
                 rendered, drops = eval_output(state, split.cameras[i], bg,
                                               stage, active_sh, rcfg,
-                                              mesh=mesh)
+                                              sharded=sharded_eval)
                 img = torch.clamp(rendered.color, 0, 1)
                 gt = split.images[[i]][0]
                 out.append(losses.psnr(img, gt)[0])
@@ -438,7 +447,11 @@ def _train(args, cfg) -> dict:
         summary["mesh"] = {"shape": [mesh.n_data, mesh.n_tile],
                            "ranks_equal": agree, "digest": digest,
                            "kernel_runs": gather_objects(graphs.kernel_runs(),
-                                                         mesh.group)}
+                                                         mesh.group),
+                           "eval_frames": None if sharded_eval is None else {
+                               "captured": sharded_eval.captures,
+                               "captures": sharded_eval.renderer.captured,
+                               "replays": sharded_eval.renderer.replayed}}
         write_log({"mesh": summary["mesh"]})
         if lead:
             print(f"mesh ranks' final states equal: {agree} ({digest[:16]})",

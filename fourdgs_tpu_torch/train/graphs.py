@@ -33,6 +33,19 @@ capture or a replay that fails raises; nothing falls back to the eager
 path. A replay returns copies of the outputs, which the caller may keep
 across replays.
 
+Over a mesh (parallel/sharded.py) the step and the frame hold NCCL
+collectives, and every rank captures and replays its own program in
+lockstep: the warm-up runs, the capture and each replay are collective.
+So every rank must come to the same key at the same iteration, and a
+key may be built only from values that are the same on every rank (the
+configuration, and what the stage driver reads after a reduction over
+the ranks, as every host decision of `run_stage` does). A key read from
+one rank's own values would let that rank capture while the others
+replay, and the ranks would wait on each other for ever. Inside a
+process group the capture runs in CUDA's thread-local capture mode:
+ProcessGroupNCCL's watchdog thread queries the events of earlier
+collectives, which a global-mode capture forbids in any thread.
+
 The kernel wrappers' `.launches` count the kernels the host launched. A
 capture records its launches per wrapper on the program (`launches`) and
 takes them back from the wrappers, since nothing ran; each replay adds
@@ -49,6 +62,7 @@ from collections.abc import Callable, Sequence
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
@@ -91,6 +105,10 @@ def zero_counts() -> None:
     REPLAYED.clear()
 
 
+def _in_process_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def _copy_out(out):
     """A copy of a program's outputs (a NamedTuple): its tensors cloned."""
     return type(out)(*(x.clone() if isinstance(x, torch.Tensor) else x
@@ -125,7 +143,9 @@ class Program:
         torch.cuda.current_stream().wait_stream(side)
         before = [w.launches for w in WRAPPERS]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        ranks = _in_process_group()
+        with torch.cuda.graph(self.graph, capture_error_mode=(
+                "thread_local" if ranks else "global")):
             self.outputs = fn()
         self.launches = {w.__name__: w.launches - n
                          for w, n in zip(WRAPPERS, before) if w.launches != n}
@@ -135,8 +155,9 @@ class Program:
         self.key = key
         self.replays = 0
         self.seconds = time.perf_counter() - t0
-        print(f"[capture] {label} captured in {self.seconds:.2f}s "
-              f"(launches {self.launches})", flush=True)
+        if not ranks or dist.get_rank() == 0:
+            print(f"[capture] {label} captured in {self.seconds:.2f}s "
+                  f"(launches {self.launches})", flush=True)
 
     def replay(self):
         self.graph.replay()
@@ -250,7 +271,9 @@ class CapturedStep:
 
 
 class StepKey(NamedTuple):
-    """The static arguments of a captured training step."""
+    """The static arguments of a captured training step; over a mesh also
+    `mesh` (`parallel.sharded.mesh_key`: the mesh's shape, this rank's
+    tile coordinate, its band of tiles and the binner's route)."""
     stage: str
     capacity: int
     raster_cfg: RasterConfig
@@ -260,18 +283,22 @@ class StepKey(NamedTuple):
     lambda_dssim: float
     reg_weights: tuple
     switches: tuple
+    mesh: Any = None
 
     def label(self) -> str:
         rc = self.raster_cfg
         return (f"step {self.stage} capacity {self.capacity} tile_cap "
                 f"{rc.tile_cap} pairs {rc.bin_pairs_per_chunk} sh "
-                f"{self.active_sh} stats {'on' if self.track_stats else 'off'}")
+                f"{self.active_sh} stats {'on' if self.track_stats else 'off'}"
+                + ("" if self.mesh is None else f" {self.mesh.label()}"))
 
 
 class StepPrograms:
     """A stage's captured steps: the live one, captured when the key of a
     step differs from its own (the previous one is evicted with its
-    pool). `step_fn(key)` gives the step function of a key. `captures`
+    pool). `step_fn(key)` gives the step function of a key
+    (`loop.step_of_key`, or `parallel.sharded.step_of_key` over a mesh,
+    whose ranks must all run the same keys in the same order). `captures`
     logs each capture: its key's label and seconds."""
 
     def __init__(self, step_fn: Callable[[StepKey], Callable]):

@@ -305,23 +305,24 @@ def run_stage(
     ranks: every rank draws the same permutation, takes its data
     coordinate's slice of each batch (`multihost.host_batch_slice`, the
     batch size a multiple of the mesh's data size) and prefetches only
-    that slice, and the step is `parallel.sharded.sharded_train_step`,
-    eager (its collectives are not captured), which always tracks the
-    densify statistics as JAX's does. Every host-side decision reads
-    values already reduced over the ranks, and every rank draws the same
-    noise from `generator`, so the ranks' states stay equal. `log_fn`,
-    `on_save` and `on_checkpoint` run on rank 0 only; `on_test` and
-    `on_iteration` on every rank (a sharded eval render is collective).
+    that slice, and the step is `parallel.sharded.sharded_train_step`
+    (`sharded.step_of_key`), which always tracks the densify statistics
+    as JAX's does. Every host-side decision reads values already reduced
+    over the ranks, and every rank draws the same noise from
+    `generator`, so the ranks' states, and the keys of their captured
+    steps, stay equal. `log_fn`, `on_save` and `on_checkpoint` run on
+    rank 0 only; `on_test` and `on_iteration` on every rank (a sharded
+    eval render is collective).
 
     `capture` (default: on the card) replays the step as a CUDA graph per
-    `graphs.StepKey` (the JAX step's static arguments), with the state
-    bound to the program's buffers; a step whose key changed (a bucket,
-    a cap growth, the SH ramp, the densify statistics' stop) captures
-    anew. False runs the step eagerly; the CPU has no graphs; a mesh
-    refuses it."""
-    if mesh is not None and capture:
-        raise ValueError("the sharded step is not captured: run a mesh "
-                         "with capture=False")
+    `graphs.StepKey` (the JAX step's static arguments; over a mesh also
+    the rank's `sharded.mesh_key`), with the state bound to the program's
+    buffers; a step whose key changed (a bucket, a cap growth, the SH
+    ramp, the densify statistics' stop) captures anew, on every rank of
+    a mesh at the same iteration. False runs the step eagerly; the CPU
+    has no graphs. A mesh over NCCL, or of one rank with no group,
+    captures; over gloo (ranks sharing a card) `capture=True` raises and
+    the default runs eagerly, which rank 0 prints."""
     lead = mesh is None or mesh.rank == 0
 
     def say(msg):   # once a mesh, from rank 0
@@ -374,15 +375,28 @@ def run_stage(
                            capacity=state.capacity))
 
     lambda_dssim = float(opt.lambda_dssim)
+    if mesh is not None and mesh.backend == "gloo":
+        if capture:
+            raise ValueError("a mesh over gloo is not captured: gloo's "
+                             "collectives pass through the host, which a "
+                             "CUDA graph cannot record; run it over NCCL "
+                             "or with capture=False")
+        if capture is None:
+            say(f"[capture] {stage}: the mesh's steps run eagerly: its "
+                f"process group is gloo, whose collectives pass through "
+                f"the host and cannot be captured in a CUDA graph")
+        capture = False
     if capture is None:
-        capture = dev.type == "cuda" and mesh is None
-    if mesh is not None:
-        from fourdgs_tpu_torch.parallel import multihost
-        from fourdgs_tpu_torch.parallel.sharded import sharded_train_step
+        capture = dev.type == "cuda"
+    if mesh is None:
+        step_fn = step_of_key(tx)
+    else:
+        from fourdgs_tpu_torch.parallel import multihost, sharded
+        step_fn = sharded.step_of_key(tx, mesh)
 
         def rank_slice(ids):
             return ids[multihost.host_batch_slice(len(ids), mesh)]
-    steps = graphs.StepPrograms(step_of_key(tx)) if capture else None
+    steps = graphs.StepPrograms(step_fn) if capture else None
 
     aux = None
     for it in range(start_iteration + 1, iterations + 1):
@@ -407,30 +421,17 @@ def run_stage(
         # step runs (not at an epoch's end, whose next permutation is not
         # drawn yet) and uploads this one on the training thread's stream
         gts = images.batch(idxs, nxt)
-        track_now = it < opt.densify_until_iter
-        if mesh is not None:
-            state, loss, saux = sharded_train_step(
-                state, cams, gts, bg, active_sh, mesh=mesh, stage=stage,
-                raster_cfg=raster_cfg, tx=tx, reg_weights=reg_weights,
-                lambda_dssim=lambda_dssim)
-            # the guards read the reduced visibility and alpha; the mesh
-            # reports no pair count or tile peak (0, as JAX's StepAux)
-            none = loss.new_zeros((), dtype=torch.int32)
-            aux = StepAux(loss=loss, l1=saux.l1, psnr=saux.psnr,
-                          image=loss.new_zeros((1, 1, 3)),
-                          dropped_pairs=saux.dropped_pairs,
-                          dropped_tile=saux.dropped_tile,
-                          n_visible=saux.visible.sum(), num_pairs=none,
-                          tile_peak=none, max_alpha=saux.max_alpha)
-        elif steps is None:
-            state, aux = train_step(
-                state, cams, gts, bg, active_sh, stage=stage,
-                raster_cfg=raster_cfg, tx=tx, lambda_dssim=lambda_dssim,
-                reg_weights=reg_weights, track_stats=track_now)
+        # the mesh always tracks the statistics; its guards read the
+        # reduced visibility and alpha, and it reports no pair count or
+        # tile peak (0, as JAX's sharded aux)
+        key = graphs.StepKey(
+            stage, state.capacity, raster_cfg, active_sh,
+            mesh is not None or it < opt.densify_until_iter, batch,
+            lambda_dssim, reg_weights, graphs.switches(),
+            None if mesh is None else sharded.mesh_key(mesh, raster_cfg))
+        if steps is None:
+            aux = step_fn(key)(state, cams, gts, bg)
         else:
-            key = graphs.StepKey(stage, state.capacity, raster_cfg,
-                                 active_sh, track_now, batch, lambda_dssim,
-                                 reg_weights, graphs.switches())
             aux = steps.run(key, state, cams, gts, bg)
 
         # NaN guard: roll back to the last healthy state. One host read

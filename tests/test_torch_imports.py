@@ -4,8 +4,9 @@ machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
 the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
 the dense grid, the per-frame export and the merge tool, the multi-GPU
-package (fourdgs_tpu_torch.parallel), the host library's bindings
-(fourdgs_tpu_torch.native), and the dev tools' kernels and tools leaves jax
+package (fourdgs_tpu_torch.parallel) and its scaling tool, the host
+library's bindings (fourdgs_tpu_torch.native), and the dev tools' kernels
+and tools leaves jax
 and PIL out of sys.modules; importing the dev tools touches neither nvcc
 nor CUDA, importing the multi-GPU package touches no CUDA and starts no
 process group, and importing the codecs and the host library's bindings
@@ -127,6 +128,7 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.viewer.network_gui, "
             "fourdgs_tpu_torch.tools.export_perframe, "
             "fourdgs_tpu_torch.tools.merge_many, "
+            "fourdgs_tpu_torch.tools.bench_scaling, "
             "fourdgs_tpu_torch.native, fourdgs_tpu_torch.native.build, "
             + _PARALLEL_MODULES + ", "
             + _DEV_MODULES + "; "

@@ -238,15 +238,16 @@ def test_batch_slices_follow_the_data_coordinate():
 
 
 def test_refusals(monkeypatch):
-    """A mesh the ranks do not fill raises; run_stage refuses a captured
-    mesh; outside torchrun nothing is initialised; ranks that share a
-    card need gloo asked for."""
+    """A mesh the ranks do not fill raises; a captured mesh step on the
+    CPU raises (it has no CUDA graphs; the gloo refusal:
+    tests/test_torch_parallel_capture.py); outside torchrun nothing is
+    initialised; ranks that share a card need gloo asked for."""
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh(2, 1)
     sc = scene(64, 64)
     state = worker._state(dict(flat=jckpt._flatten(sc["st"]._asdict()),
                                cfg=sc["pcfg"]))
-    with pytest.raises(ValueError, match="not captured"):
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
         tloop.run_stage(sc["pcfg"], state, "coarse", 1, sc["tcams"],
                         torch.from_numpy(sc["images"]),
                         toptim.build_optimizer(sc["pcfg"].opt, 1.0),
