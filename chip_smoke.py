@@ -31,6 +31,19 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              kernel and D1 a frame, counted over the replays; and checks
              of the images against the plain blend on the card and the
              CPU path on a small image;
+ 19. bench:  run right after phase 3: tools/bench_fps.py's bench at its
+             defaults (100,000 points, 800x800, tile_cap 512, 100 frames),
+             its JSON line printed; its frames replays only (one capture,
+             no host launch beyond the capture's warm-up, and from a
+             profile of a few replays no sync, no copy from the host, one
+             graph launch a frame), the first replay equal to an eager
+             frame of the same state bit for bit and, within TOL with
+             equal drops, to the frame through the plain blend, binner and
+             gather; K1, the binner kernel and D1 on the bench's first
+             frame against their plain versions (phase 4's checks and
+             times at the bench's shapes); K1, the binner kernel and D1
+             run on every replay; its ms/frame and FPS beside phase 3's,
+             and its drops;
   4. kernel: K1 (blend forward) against its plain PyTorch version, on the
              inputs that one of phase 3's frames gives it (the caps after
              the cap probe), with CUDA-event, device and host-enqueue
@@ -622,6 +635,155 @@ def phase_slice(torch, scene, device, frames: int, work: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 19 (after phase 3): tools/bench_fps.py, the serving metric's bench
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_path():
+    """Route an eager frame through the plain versions of K1, the binner
+    and D1: the frame that the kernels' frame is held to."""
+    from fourdgs_tpu_torch.models import hexplane
+    from fourdgs_tpu_torch.ops import gather
+    from fourdgs_tpu_torch.ops import rasterize_tiled as rt
+    saved = rt.bin_gaussians_count, hexplane.gather_rows
+    rt.bin_gaussians_count = rt.bin_gaussians_count_plain
+    hexplane.gather_rows = gather.gather_rows_plain
+    try:
+        with plain_version("blend_forward"):
+            yield
+    finally:
+        rt.bin_gaussians_count, hexplane.gather_rows = saved
+
+
+def phase_bench_fps(torch, serve: dict) -> dict:
+    """tools/bench_fps.py's bench in this process at its defaults (its
+    JSON line printed here, never last); then checks that its frames were
+    replays only (one capture, the wrappers' host launches its warm-up's
+    alone; a profile of a few replays: no sync, no copy from the host, one
+    graph launch a frame), that the first replay equals an eager frame of
+    the same state bit for bit and the frame through the plain blend,
+    binner and gather within TOL with equal drop counters, that K1, the
+    binner kernel and D1 ran on every replay, and holds each of them
+    against its plain version on the first frame's inputs
+    (`phase_kernels`); prints its ms a frame and FPS beside phase 3's
+    (`serve`: its modes) and its drops, zero or not. Returns the runs by
+    kernel, the kernel checks and the numbers."""
+    from fourdgs_tpu_torch.tools import bench_fps
+    from fourdgs_tpu_torch.tools.profile_render import profile_calls
+    from fourdgs_tpu_torch.train import graphs
+
+    t_phase = time.perf_counter()
+    graphs.zero_counts()
+    line, renderer, cams, first = bench_fps.run(device="cuda")
+    replayed = dict(graphs.REPLAYED)
+    host = {w.__name__: w.launches for w in graphs.WRAPPERS}
+    print(json.dumps(line), flush=True)
+    d = line["detail"]
+    frames = d["frames"]
+    (frame,) = renderer.frames.values()
+    # the capture's replay (the untimed frame), the timed frames, the drops'
+    replays = 1 + 2 * frames
+    gathers = (HEX_GATHERS_PER_LEVEL
+               * len(bench_fps.bench_config(d["points"]).hidden.multires))
+    runs = {"blend_fwd": replayed.get("blend_forward", 0),
+            "binner": replayed.get("bin_tiles", 0),
+            "gather_rows": replayed.get("gather_rows", 0)}
+    want = {"blend_fwd": replays, "binner": replays,
+            "gather_rows": gathers * replays}
+    warm = {"blend_forward": graphs.WARMUP, "bin_tiles": graphs.WARMUP,
+            "gather_rows": gathers * graphs.WARMUP}
+    eager_launches = {k: host[k] for k in warm}
+    log(f"bench_fps: {renderer.captured} capture, {frame.program.replays} "
+        f"replays; kernel runs over the replays {runs} "
+        f"({runs['blend_fwd'] / replays:g} K1, "
+        f"{runs['binner'] / replays:g} binner, "
+        f"{runs['gather_rows'] / replays:g} D1 a frame); host launches "
+        f"{eager_launches} (the capture's warm-up: {warm})")
+    failed = []
+    if (renderer.captured != 1 or frame.program.replays != replays
+            or renderer.replayed != replays):
+        failed.append(f"{renderer.captured} captures, "
+                      f"{frame.program.replays} replays, not 1 and {replays}")
+    if runs != want:
+        failed.append(f"kernel runs {runs}, not {want}")
+    if eager_launches != warm:
+        failed.append(f"host launches {eager_launches} beyond the warm-up's "
+                      f"{warm}: an eager frame")
+
+    it = iter(cams[:PROFILED_STEPS])
+    prof = profile_calls(lambda: renderer.render(next(it)), PROFILED_STEPS)
+    calls = host_calls(prof, "frame")
+    log(f"bench_fps: a replay (profile of {PROFILED_STEPS}): syncs "
+        f"{calls['syncs']:g}, copies from the host "
+        f"{calls['copies_from_host']:g}, graph launches "
+        f"{calls['graph_launches']:g}, kernels {calls['kernel_ms']:.3f} ms, "
+        f"device busy {calls['device_busy_share']:.3f}")
+    if (calls["syncs"] or calls["copies_from_host"]
+            or calls["graph_launches"] != 1):
+        failed.append(f"a replay synced, copied from the host or launched "
+                      f"other than one graph: {calls}")
+
+    eager = renderer.render_eager(cams[0])
+    equal = all(torch.equal(getattr(first, f), getattr(eager, f))
+                for f in ("color", "depth", "alpha", "radii"))
+    log(f"bench_fps: the first replay against an eager frame of the same "
+        f"state, bit for bit: {equal}")
+    if not equal:
+        failed.append("the first replay differs from the eager frame")
+    if not bool(torch.isfinite(first.color).all()) or tuple(
+            first.color.shape) != (d["image"], d["image"], 3):
+        failed.append("non-finite or misshapen frame")
+
+    # ---- the first replay against the frame through the plain versions
+    # of K1, the binner and D1 (eagerly: a capture would replay them) ----
+    with plain_path():
+        ref = renderer.render_eager(cams[0])
+    plain = {k: float((getattr(first, k) - getattr(ref, k)).abs().max())
+             for k in ("color", "depth")}
+    counters = {k: (int(getattr(first, k)), int(getattr(ref, k)))
+                for k in ("num_pairs", "dropped_pairs", "dropped_tile")}
+    log(f"bench_fps: the first replay against the plain blend, binner and "
+        f"gather: max abs err " + ", ".join(
+            f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in plain.items())
+        + f"; counters (replay, plain) {counters}")
+    if not all(v <= TOL[k] for k, v in plain.items()):
+        failed.append(f"the first replay differs from the plain frame: "
+                      f"{plain}")
+    if any(a != b for a, b in counters.values()):
+        failed.append(f"drop counters differ from the plain frame: "
+                      f"{counters}")
+
+    cap = serve["captured"]
+    drops = (f"max_dropped_pairs {d['max_dropped_pairs']}, max_dropped_tile "
+             f"{d['max_dropped_tile']}")
+    if d["max_dropped_pairs"] or d["max_dropped_tile"]:
+        drops += (" (nonzero: the bench's frames drop at tile_cap "
+                  f"{renderer.raster_cfg.tile_cap}, pairs "
+                  f"{renderer.raster_cfg.bin_pairs_per_chunk} a chunk)")
+    log(f"bench_fps: {d['ms_per_frame']} ms/frame, {line['value']} FPS "
+        f"({frames} frames, {d['points']} points, {d['image']}x{d['image']}, "
+        f"tile_cap {renderer.raster_cfg.tile_cap}, vs_baseline "
+        f"{line['vs_baseline']}); phase 3's captured frame "
+        f"{cap['ms_per_frame']:.3f} ms/frame, {cap['fps']:.2f} FPS (tile_cap "
+        f"{RASTER['tile_cap']}); {drops}; {d['device']}")
+    if failed:
+        raise AssertionError(f"bench_fps phase: {failed}")
+
+    # ---- each kernel against its plain version at the bench's shapes ----
+    k1, checks = phase_kernels(torch, renderer, cams[0], "bench_fps")
+    checks["blend_fwd"] = {k: k1[k] for k in (
+        "max_abs_err", "max_abs_err_depth", "max_abs_err_t", "ms",
+        "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
+    seconds = time.perf_counter() - t_phase
+    log(f"bench_fps: phase {seconds:.2f} s")
+    return {"runs": runs, "replays": replays, "line": line,
+            "replay_profile": calls, "capture_s": frame.program.seconds,
+            "first_equals_eager": equal, "plain_frame": {
+                "max_abs_err": plain, "counters": counters},
+            "checks": checks, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -760,10 +922,11 @@ def check_gathers(torch, label: str, calls: list) -> dict:
     return {**rec, "calls": len(calls), "shapes": per_shape}
 
 
-def phase_kernels(torch, renderer, cam):
+def phase_kernels(torch, renderer, cam, label: str = "serve"):
     """K1 against its plain version on the inputs that the main path's
     frame at `cam` gives it: the renderer's objects and its caps after
-    the cap probe; then the binner kernel and D1 on the same frame."""
+    the cap probe; then the binner kernel and D1 on the same frame (their
+    lines tagged `label`)."""
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.ops.rasterize_tiled import prepare_blend
     from fourdgs_tpu_torch.render.render import splats_at
@@ -843,8 +1006,8 @@ def phase_kernels(torch, renderer, cam):
         "evaluations": work,
         **where,
         "ok": True,
-    }, {"binner": check_binner(torch, "serve", proj, rc),
-        "gather_rows": check_gathers(torch, "serve", gathers)}
+    }, {"binner": check_binner(torch, label, proj, rc),
+        "gather_rows": check_gathers(torch, label, gathers)}
 
 
 # ---------------------------------------------------------------------------
@@ -4676,11 +4839,15 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
     renderer, cams, launches, renders, serve = phase_slice(
         torch, scene, device, args.frames, work)
+    bench = phase_bench_fps(torch, serve)
     cam = cams[round(KERNEL_CHECK_FRAME * args.frames)]
     k1, serve_checks = phase_kernels(torch, renderer, cam)
     k1["launches"] = launches["blend_fwd"]
     k1["launches_per_frame"] = launches["blend_fwd"] / renders
     k1["serve"] = serve
+    k1["bench_fps"] = {k: bench[k] for k in ("replays", "line",
+                                             "replay_profile", "capture_s",
+                                             "plain_frame", "seconds")}
     state, rc, bg, sh, check_cam, gt, train_launches, train = phase_train(
         torch, scene, renderer, device, args.steps, args.seed)
     k1["launches_train"] = train_launches["blend_fwd"]
@@ -4728,13 +4895,16 @@ def main(argv=None) -> int:
                                 "tiles": band["tiles"]}
         if name in MESH_PATH:
             k["launches_mesh_offset"] = mesh["offset_runs"][name]
+        if name in bench["runs"]:
+            k["launches_bench_fps"] = bench["runs"][name]
+            k.setdefault("bench_fps", {})["frame"] = bench["checks"][name]
     k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
                                              "cli", "cli_nccl", "scaling",
                                              "seconds", "seconds_abcde")}
     for k in kernels:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
                                      for path in ("serve", "step", "eval",
-                                                  *LAYOUTS)):
+                                                  "bench_fps", *LAYOUTS)):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

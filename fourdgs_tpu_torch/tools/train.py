@@ -14,6 +14,13 @@ state's capacity and what each view's render dropped at which caps
 <out>/point_cloud/ and checkpoints at <out>/chkpnt_{stage}_{iter}.npz, in
 the JAX package's layouts.
 
+Where `torch.utils.tensorboard` imports (the `tensorboard` package is
+installed), a TensorBoard event file in <out> gets the JAX script's
+records under its tags: at each log record the l1 and total loss, the
+point count and the PSNR, and at each test evaluation the test and
+train-probe PSNR and histograms of the alive slots' opacity and
+accumulated motion. The CLI prints once whether it writes one.
+
 The scene is read through `data.scene.Scene.load`: the Blender (D-NeRF)
 layout, its images resized to 800x800 or to `--image_size`, and the
 Colmap (the config's `images` directory and `llffhold`), nerfies
@@ -155,6 +162,42 @@ def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4,
                        "bin_pairs_per_chunk": rcfg.bin_pairs_per_chunk}
 
 
+def open_writer(model_path: str):
+    """A TensorBoard `SummaryWriter` on `model_path` where
+    `torch.utils.tensorboard` imports (it needs the `tensorboard`
+    package), else None; prints which, and the seconds the import and
+    the writer took (the import is paid once a process)."""
+    t0 = time.perf_counter()
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        print(f"TensorBoard: off ({e}); the log is train_log.jsonl",
+              flush=True)
+        return None
+    writer = SummaryWriter(model_path)
+    print(f"TensorBoard: writing to {model_path} (opened in "
+          f"{time.perf_counter() - t0:.3f} s)", flush=True)
+    return writer
+
+
+def write_eval_summaries(tb, stage: str, it: int, state, test_psnr: float,
+                         train_psnr: float) -> None:
+    """A test evaluation's TensorBoard records under the JAX script's
+    tags: the test and train-probe PSNR, and histograms of the alive
+    slots' opacity (sigmoid) and accumulated motion (the densify gradient
+    sum over max(denom, 1)), read to the host here, outside the timed
+    steps."""
+    tb.add_scalar(f"{stage}/test/loss_viewpoint - psnr", test_psnr, it)
+    tb.add_scalar(f"{stage}/train/loss_viewpoint - psnr", train_psnr, it)
+    alive = state.alive.cpu().numpy()
+    op = torch.sigmoid(state.params["gauss"].opacity.detach()[:, 0])
+    tb.add_histogram(f"{stage}/scene/opacity_histogram",
+                     op.cpu().numpy()[alive], it)
+    motion = state.xyz_gradient_accum / torch.clamp(state.denom, min=1.0)
+    tb.add_histogram(f"{stage}/scene/motion_histogram",
+                     motion.cpu().numpy()[alive], it)
+
+
 def main(argv=None) -> dict:
     """Train; returns a summary: per stage its iterations, wall time (train
     time without evals and saves), SH degree at the end, events, log
@@ -241,12 +284,21 @@ def _train(args, cfg) -> dict:
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    tb = open_writer(cfg.model.model_path) if lead else None
+
     def log_fn(rec):
         if not args.quiet:
             print(f"[{rec['stage']} {rec['iter']}] loss={rec['loss']:.5f} "
                   f"psnr={rec['psnr']:.2f} pts={rec['points']} "
                   f"t={rec['elapsed']:.1f}s", flush=True)
         write_log(rec)
+        if tb is not None:
+            s, it = rec["stage"], rec["iter"]
+            tb.add_scalar(f"{s}/train_loss_patches/l1_loss", rec["l1"], it)
+            tb.add_scalar(f"{s}/train_loss_patchestotal_loss", rec["loss"],
+                          it)
+            tb.add_scalar(f"{s}/total_points", rec["points"], it)
+            tb.add_scalar(f"{s}/psnr", rec["psnr"], it)
 
     gui = None
     if args.gui and lead:
@@ -340,6 +392,10 @@ def _train(args, cfg) -> dict:
                        "capacity": state.capacity,
                        "render_per_view": renders,
                        "train_probe_psnr": float(np.mean(train))})
+            if tb is not None:
+                write_eval_summaries(tb, stage, it, state,
+                                     float(np.mean(test)),
+                                     float(np.mean(train)))
         return on_test
 
     def make_on_save(stage):
@@ -433,6 +489,8 @@ def _train(args, cfg) -> dict:
     finally:
         if gui is not None:
             gui.close()
+        if tb is not None:
+            tb.close()
     if mesh is not None:
         from fourdgs_tpu_torch.parallel.multihost import (gather_objects,
                                                           ranks_agree)

@@ -6,7 +6,11 @@ The JAX package draws the label with PIL's default font; the port reads
 and writes images without PIL, so the label is drawn with a 5 x 7 bitmap
 font of printable ASCII that this module carries, in the same place and
 colour, and the file is written by data/jpeg.py at quality 90 (PIL's
-sampling at that quality, 4:2:0)."""
+sampling at that quality, 4:2:0).
+
+`plot_camera_orientations` is the pose-convention debug plot: matplotlib
+is imported inside it, so the module imports where matplotlib is
+missing."""
 from __future__ import annotations
 
 import os
@@ -105,3 +109,41 @@ def render_training_image(out_dir: str, label: str, iteration: int,
     path = os.path.join(out_dir, f"{iteration:05d}.jpg")
     write_jpeg(path, img, quality=90)
     return path
+
+
+def camera_directions(cam_list, xyz: np.ndarray, threshold: float = 2.0):
+    """What `plot_camera_orientations` draws: the points within
+    `threshold` of the origin in every coordinate, and each camera's
+    position T and viewing direction R @ [0, 0, 1]."""
+    xyz = np.asarray(xyz)
+    pts = xyz[np.all(np.abs(xyz) <= threshold, axis=1)]
+    origins = np.array([np.asarray(cam.T) for cam in cam_list],
+                       np.float64).reshape(-1, 3)
+    dirs = np.array([np.asarray(cam.R) @ np.array([0.0, 0.0, 1.0])
+                     for cam in cam_list], np.float64).reshape(-1, 3)
+    return pts, origins, dirs
+
+
+def plot_camera_orientations(cam_list, xyz, out_path: str = "output.png",
+                             threshold: float = 2.0) -> str:
+    """3D scatter of the point cloud and the cameras' viewing directions,
+    the pose-convention debug plot (counterpart: the JAX package's
+    `utils/visualize.py:plot_camera_orientations`). `cam_list` holds
+    objects with .R (3, 3) and .T (3,); xyz is (N, 3). Written to
+    `out_path` with matplotlib's Agg backend; returns the path."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    pts, origins, dirs = camera_directions(cam_list, xyz, threshold)
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], c="r", s=0.1)
+    for t, d in zip(origins, dirs):
+        ax.quiver(t[0], t[1], t[2], d[0], d[1], d[2], length=1)
+    ax.set_xlabel("X Axis")
+    ax.set_ylabel("Y Axis")
+    ax.set_zlabel("Z Axis")
+    fig.savefig(out_path)
+    plt.close(fig)
+    return out_path

@@ -3,7 +3,8 @@ chip_smoke.py and ab_smoke.py imports jax, jaxlib, the JAX package or PIL (the c
 machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
 the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
-the dense grid, the per-frame export and the merge tool, the multi-GPU
+the dense grid, the per-frame export and the merge tool, the serving
+bench and the suite aggregate, the multi-GPU
 package (fourdgs_tpu_torch.parallel) and its scaling tool, the host
 library's bindings (fourdgs_tpu_torch.native), and the dev tools' kernels
 and tools leaves jax
@@ -129,6 +130,8 @@ def test_serve_import_leaves_jax_out():
             "fourdgs_tpu_torch.tools.export_perframe, "
             "fourdgs_tpu_torch.tools.merge_many, "
             "fourdgs_tpu_torch.tools.bench_scaling, "
+            "fourdgs_tpu_torch.tools.bench_fps, "
+            "fourdgs_tpu_torch.tools.read_all_metrics, "
             "fourdgs_tpu_torch.native, fourdgs_tpu_torch.native.build, "
             + _PARALLEL_MODULES + ", "
             + _DEV_MODULES + "; "
@@ -181,3 +184,30 @@ def test_host_library_reads_only_the_ports_sources():
         bad = [v for v in paths if re.search(
             r"(^|/)native/|colmap_native|libcolmap|fourdgs_tpu/", v)]
         assert not bad, (py, bad)
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "fourdgs_tpu_torch" / "launchers").glob("*.sh")),
+    ids=lambda p: p.name)
+def test_launchers_run_only_the_port(path):
+    """A suite launcher runs the port's CLIs as modules under python3 and
+    reads nothing of the JAX package but its config files, by path."""
+    text = "\n".join(line for line in path.read_text().splitlines()
+                     if not line.lstrip().startswith("#"))
+    runs = re.findall(r"^\s*(python\S*)\s+(\S+)\s+(\S+)", text, re.M)
+    assert len(runs) == 4, runs        # train, render, metrics, aggregate
+    assert all(prog == "python3" and flag == "-m"
+               and mod.startswith("fourdgs_tpu_torch.tools.")
+               for prog, flag, mod in runs), runs
+    assert "scripts/" not in text
+    assert all(ref.startswith("fourdgs_tpu/configs/")
+               for ref in re.findall(r"fourdgs_tpu/\S*", text))
+
+
+def test_visualize_imports_without_matplotlib():
+    """The card's machine has no matplotlib: the debug plot imports it
+    when called, not the module."""
+    code = ("import sys, fourdgs_tpu_torch.utils.visualize\n"
+            "assert 'matplotlib' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

@@ -1,10 +1,13 @@
 """The full quality run (tools/quality_run.py) on the CPU at a tiny size:
 the multiview scene at 32px (3 cameras, 2 timestamps), the test config
-of tests/test_torch_stage.py, both variants.
+of tests/test_torch_stage.py, both variants; and the monocular protocol
+(4 + 2 spiral views, one variant) against the JAX package's monocular
+record.
 Each variant trains with its switches set and every other switch unset,
-and the report holds each stage's timing and live counts, the in-loop
-and post-hoc test PSNR, the render FPS and the per-view comparison with
-the JAX package's record."""
+and the report holds each stage's timing, capture share and live counts,
+the in-loop and post-hoc test PSNR, the render FPS, the per-view
+comparison with the JAX package's record where it has one, and the
+protocol's fault floor."""
 import json
 import os
 
@@ -54,3 +57,52 @@ def test_quality_run_reports_both_variants(tmp_path, monkeypatch):
         assert sorted(pv["psnr"]) == ["00000.png", "00001.png"]
         assert pv["views_compared"] == 2
         assert np.isfinite(pv["mean_diff"])
+
+
+def test_quality_run_monocular_protocol(tmp_path, monkeypatch):
+    """The monocular protocol: the scene maker's spiral split at its view
+    counts, the JAX record's last in-loop eval as the reference (it holds
+    no post-hoc files), each stage's capture share, the fault floor."""
+    config = tmp_path / "tiny.py"
+    config.write_text(CLI_CONFIG)
+    made = []
+    real_make = quality_run.make_synthetic_scene.main
+
+    def make(argv):
+        made.append(argv)
+        return real_make(argv)
+
+    monkeypatch.setattr(quality_run.make_synthetic_scene, "main", make)
+    monkeypatch.setattr(quality_run, "VARIANTS", {"default": {}})
+    out = quality_run.main([
+        "--protocol", "monocular", "--out", str(tmp_path / "run"),
+        "--size", "32", "--n_train", "4", "--n_test", "2", "--configs",
+        str(config), "--test_iterations", "16", "--device", "cpu"])
+    (argv,) = made
+    assert argv[1:] == ["--protocol", "monocular", "--size", "32",
+                        "--n_train", "4", "--n_test", "2", "--device", "cpu"]
+    assert out["protocol"] == "monocular"
+    assert (out["n_train"], out["n_test"]) == (4, 2) and "n_cams" not in out
+    ref = out["reference"]
+    assert ref["path"] == os.path.join("output", "synth_mono_r3")
+    assert "results" not in ref
+    assert ref["in_loop_test_psnr"][0] == 20000
+    assert abs(ref["in_loop_test_psnr"][1] - 21.8087) < 1e-4
+    (res,) = out["variants"].values()
+    assert res["fault_floor_db"] == 21.3
+    assert res["below_floor"] == (res["post_hoc"]["PSNR"] < 21.3)
+    assert res["render_views"] == {"train": 4, "test": 2, "video": 160}
+    assert "reference" not in res["per_view"]
+    for rep in res["stages"].values():
+        # the CPU runs eagerly: nothing is captured
+        assert rep["captures"] == 0 and rep["capture_share"] == 0.0
+
+
+def test_protocols_name_their_configs_and_records():
+    for name, want in (("multiview", ("synth_mv.py", "synth_mv_r5c")),
+                       ("monocular", ("synth_mono.py", "synth_mono_r3"))):
+        p = quality_run.PROTOCOLS[name]
+        assert os.path.basename(p["configs"]) == want[0]
+        assert os.path.exists(p["configs"])
+        assert os.path.basename(p["reference"]) == want[1]
+        assert quality_run.reference_record(p["reference"]) is not None

@@ -8,8 +8,15 @@ fourdgs_tpu/utils/visualize.py:
     here), and changed by the label inside them;
   * the JPEG that the port writes, decoded by data/jpeg.py, within 2
     levels of mean absolute error of that array, at the JAX path and
-    name.
+    name;
+  * `plot_camera_orientations` hands matplotlib's 3D axes the same
+    scattered points (the threshold mask) and the same quivers (T and
+    R @ [0, 0, 1]) as JAX's on seeded cameras and points, and writes a
+    PNG; `camera_directions`, what it draws, keeps JAX's mask rule at
+    three thresholds.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -94,3 +101,78 @@ def test_label_font_covers_printable_ascii():
     img = np.zeros((5, 8, 3), np.uint8)
     tvis.draw_text(img, (-2, -3), "A")            # clipped, not wrapped
     assert img.any() and not img[:, 4:].any()
+
+
+def _cameras_and_points(seed=0, n_cams=5, n_points=400):
+    """Seeded cameras (rotations from the QR of a normal matrix) and points
+    of which about a third lie past the threshold of 2 in some
+    coordinate."""
+    rng = np.random.default_rng(seed)
+    cams = []
+    for _ in range(n_cams):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        cams.append(types.SimpleNamespace(R=q.astype(np.float32),
+                                          T=rng.uniform(-3, 3, 3)
+                                          .astype(np.float32)))
+    xyz = rng.uniform(-2.6, 2.6, (n_points, 3)).astype(np.float32)
+    return cams, xyz
+
+
+def _drawn(monkeypatch, fn, *args, **kwargs):
+    """What `fn` hands the 3D axes: the scatter's points and each quiver's
+    origin and direction."""
+    from mpl_toolkits.mplot3d.axes3d import Axes3D
+    calls = {"scatter": [], "quiver": []}
+    real = {k: getattr(Axes3D, k) for k in calls}
+
+    def record(kind):
+        def call(self, *a, **k):
+            calls[kind].append((np.array(a, np.float64), k))
+            return real[kind](self, *a, **k)
+        return call
+
+    for kind in calls:
+        monkeypatch.setattr(Axes3D, kind, record(kind))
+    path = fn(*args, **kwargs)
+    for kind in calls:
+        monkeypatch.setattr(Axes3D, kind, real[kind])
+    return path, calls
+
+
+def test_plot_camera_orientations_matches_jax(tmp_path, monkeypatch):
+    cams, xyz = _cameras_and_points()
+    want_path, want = _drawn(monkeypatch, jvis.plot_camera_orientations,
+                             cams, xyz, str(tmp_path / "jax.png"))
+    got_path, got = _drawn(monkeypatch, tvis.plot_camera_orientations,
+                           cams, xyz, str(tmp_path / "port.png"))
+    assert got_path == str(tmp_path / "port.png")
+    # the threshold mask: the same points scattered, the same style
+    (ws, wk), = want["scatter"]
+    (gs, gk), = got["scatter"]
+    np.testing.assert_array_equal(gs, ws)
+    assert gk == wk == {"c": "r", "s": 0.1}
+    assert 0 < gs.shape[1] < len(xyz)
+    # R @ [0, 0, 1] at T, a quiver a camera
+    assert len(got["quiver"]) == len(want["quiver"]) == len(cams)
+    for (wa, wk), (ga, gk) in zip(want["quiver"], got["quiver"]):
+        np.testing.assert_allclose(ga, wa, rtol=1e-12, atol=1e-12)
+        assert gk == wk == {"length": 1}
+    pts, origins, dirs = tvis.camera_directions(cams, xyz)
+    np.testing.assert_array_equal(pts.T, ws)
+    np.testing.assert_allclose(np.concatenate([origins, dirs], 1),
+                               np.stack([a for a, _ in want["quiver"]]),
+                               rtol=1e-12, atol=1e-12)
+    for path in (want_path, got_path):
+        with open(path, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("threshold", [0.5, 2.0, 10.0])
+def test_camera_directions_mask_matches_jax_rule(threshold):
+    cams, xyz = _cameras_and_points(seed=1)
+    pts, origins, dirs = tvis.camera_directions(cams, xyz, threshold)
+    np.testing.assert_array_equal(
+        pts, xyz[np.all(np.abs(xyz) <= threshold, axis=1)])
+    np.testing.assert_allclose(dirs, np.stack([c.R[:, 2] for c in cams]),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(origins, np.stack([c.T for c in cams]))
