@@ -176,8 +176,15 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              each from one state: the captured sharded run's leaves after
              one step within GRAD_TOL of the eager run's and its losses
              within STEP_LOSS_RTOL on average (the largest step printed
-             beside a second eager run's), the captured program's kernel
-             runs,
+             beside a second eager run's); then the eager pair again on
+             the run-to-run-equal route (K3's cluster with the
+             reassociated reduction, torch's deterministic algorithms,
+             and the HexPlane backward's rows summed in one order:
+             index_add_ where the card's PyTorch makes it deterministic,
+             else a sorted reduction), the first step and leaf where the
+             pair parts, and where it agrees within STEP_LOSS_RTOL at
+             every step the captured sharded step on that route held to
+             it at every step; the captured program's kernel runs,
              ms a step of each (the two captured ones timed again in the
              other order) and a profile of the two replays by kernel
              name; the captured sharded frame of each camera equal to the
@@ -227,6 +234,37 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              over a table that was NaN before K3's launch, one step's
              gradients through it against K2's (GRAD_TOL), and its,
              index_add_'s and K4's time by CUDA events;
+ 20. eval programs and tools: run after phase 15: (a) on phase 7's final
+             state (its snapshot in the run's capacity, the run's final
+             raster config and SH degree) and its test views, an
+             evaluation as the train CLI makes it (every test view and 5
+             train views through tools/train.py:eval_output, its cap
+             growth and PSNRs) eagerly, through the evaluation programs
+             (graphs.EvalPrograms, the counterpart of JAX's jitted
+             eval_step) twice, and eagerly again, each timed with its
+             captures counted apart: the second captured evaluation
+             captures nothing, every view's replay equals the eager
+             render bit for bit, K1, the binner kernel and D1 ran every
+             render, the first test view's replay matches the frame
+             through the plain blend, binner and gather (TOL, counters
+             equal), and K1, the binner and D1 against their plain
+             versions at that view's shapes (phase 4's checks); phase 7's
+             train CLI's evaluation programs (captures, loads, replays,
+             each evaluation's seconds); (b) the nine tools that port the
+             JAX package's preparation, point and report scripts, each
+             through its `main` on files earlier phases wrote:
+             poses2colmap on phase 7's Blender scene and (in phase 11) on
+             the nerfies capture, colmap_converter (in phase 15) from
+             .bin to .txt and back with the records equal,
+             preprocess_dynerf (in phase 12) on the DyNeRF layout, listing
+             its frames, and on a video without frames with OpenCV hidden
+             (a `cv2` that raises ImportError first on the path), which
+             must exit nonzero with the named ImportError,
+             downsample_point on phase 18's million points down to
+             40,000, grow_point on the card on that result and on the
+             million points (timed), merge_point on the two,
+             cal_modelsize, visualize_hexplane (its PNGs read back) and
+             diag_checkpoint on phase 7's model and checkpoint;
   9. dev:    the six tools of fourdgs_tpu_torch/tools that port the Pallas
              prototypes of scripts/ (D1-D6), each through its `main` at its
              script's shapes, with the launch counts read around the six;
@@ -1665,7 +1703,12 @@ def phase_driver(torch, device, work: Path, coarse: int, fine: int,
     if failed:
         raise AssertionError(f"driver phase: {failed}")
     stats.update(render_psnr=psnr, render_psnr_at_eval_caps=twin_psnr,
-                 eval_psnr_view0=view0, test_view0_drops=drops)
+                 eval_psnr_view0=view0, test_view0_drops=drops,
+                 raster_cfg=summary["stages"][-1]["raster_cfg"],
+                 capacity=last_eval["capacity"],
+                 eval_programs=summary["eval_programs"],
+                 evals={st["stage"]: st["evals"]
+                        for st in summary["stages"]})
     return launches, stats
 
 
@@ -2551,6 +2594,7 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
             out["banks"] = bank_check(
                 torch, device, str(scene), state, cfg, rc, bg, sh,
                 sc.cameras_extent, seed)
+        out["tools"] = layout_tools(torch, kind, scene, work)
         del sc, renderer, state
     out["seconds"] = time.perf_counter() - t_phase
     log(f"{kind}: phase {out['seconds']:.2f} s")
@@ -3638,6 +3682,158 @@ def kernel_ms_by_name(torch, fn, n: int) -> dict:
     return out
 
 
+# the run-to-run-equal route of phase 17(a): the blend backward through
+# K3's cluster, its table reduced by the reassociation over the binner's
+# BlendSlots (FOURDGS_PALLAS_NO_FUSED_BWD alone), and the HexPlane
+# backward's rows summed in one order
+EQUAL_ROUTE_SWITCHES = {"FOURDGS_PALLAS_NO_FUSED_BWD": "1"}
+
+
+def sorted_rows_sum(torch, idx, g, n_rows: int):
+    """g's rows summed by idx in one order from run to run, in plain
+    torch: the indices sorted stably, each row's run summed by
+    torch.segment_reduce (a thread a run and column, serially)."""
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.searchsorted(idx[order], torch.arange(
+        n_rows + 1, device=idx.device, dtype=idx.dtype))
+    return torch.segment_reduce(g[order], "sum", lengths=bounds.diff(),
+                                unsafe=True, initial=0.0)
+
+
+@contextlib.contextmanager
+def deterministic_mode(torch):
+    """torch.use_deterministic_algorithms (warn_only: an op without a
+    deterministic implementation warns, and its warnings are kept in the
+    yielded list), cuDNN's deterministic algorithms, and uninitialised
+    memory left unfilled, as on the default route."""
+    import warnings
+
+    import torch.utils.deterministic as tud
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             tud.fill_uninitialized_memory,
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tud.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        tud.fill_uninitialized_memory = saved[2]
+        torch.backends.cudnn.deterministic = saved[3]
+
+
+@contextlib.contextmanager
+def sorted_hex_backward(torch):
+    """The HexPlane gathers' backward (models/hexplane.py:_GatherRows)
+    through `sorted_rows_sum` instead of index_add_."""
+    from fourdgs_tpu_torch.models import hexplane
+    saved = hexplane._GatherRows.backward
+
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return sorted_rows_sum(torch, idx, g.contiguous(), ctx.n_rows), None
+
+    hexplane._GatherRows.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        hexplane._GatherRows.backward = saved
+
+
+def equal_route_check(torch, mesh, inputs, device, eager_losses) -> dict:
+    """Phase 17(a)'s eager pair again from one state on the
+    run-to-run-equal route (EQUAL_ROUTE_SWITCHES, deterministic_mode, and
+    the HexPlane backward by `sorted_hex_backward`), the two runs in
+    lockstep with every leaf compared after each step (the first step and
+    leaf where they part, if they do); where the pair's losses agree
+    within STEP_LOSS_RTOL at every step, the captured mesh step on that
+    route from the same state, held to the route's eager run at every
+    step."""
+    from fourdgs_tpu_torch.models.gaussians import FIELDS
+    from fourdgs_tpu_torch.parallel import sharded
+    from fourdgs_tpu_torch.tools.quality_run import environment
+    from fourdgs_tpu_torch.train import graphs, optim
+
+    cfg, start, rc, bg, sh, cams, gts = inputs
+    names = list(FIELDS) + [n for n, _ in
+                            start.params["deform"].named_parameters()]
+
+    def leaves(st):
+        return optim.param_leaves(st.params) + [
+            st.xyz_gradient_accum, st.denom, st.max_radii2d]
+
+    names += ["xyz_gradient_accum", "denom", "max_radii2d"]
+    t0 = time.perf_counter()
+    with environment(EQUAL_ROUTE_SWITCHES), deterministic_mode(torch) as \
+            caught, sorted_hex_backward(torch):
+        tx = optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE)
+        key = graphs.StepKey("fine", start.capacity, rc, sh, True, len(cams),
+                             MESH_DSSIM, mesh_reg(cfg), graphs.switches(),
+                             sharded.mesh_key(mesh, rc))
+        step = sharded.step_of_key(tx, mesh)(key)
+        a, b = start.to(device), start.to(device)
+        losses, parted = {"eager": [], "eager again": []}, None
+        for i in range(MESH_CAPTURED_STEPS):
+            losses["eager"].append(float(step(a, cams, gts, bg).loss))
+            losses["eager again"].append(float(step(b, cams, gts, bg).loss))
+            if parted is None:
+                for n, x, y in zip(names, leaves(a), leaves(b), strict=True):
+                    if not torch.equal(x.detach(), y.detach()):
+                        parted = {"step": i, "leaf": n, "max_abs": float(
+                            (x.detach() - y.detach()).abs().max())}
+                        break
+        del a, b
+        eager = np.array(losses["eager"])
+        pair = np.abs(np.array(losses["eager again"]) - eager) / np.abs(eager)
+        agree = bool((pair <= STEP_LOSS_RTOL).all())
+        captured = None
+        if agree:
+            programs = graphs.StepPrograms(sharded.step_of_key(tx, mesh))
+            st = start.to(device)
+            losses["captured"] = [float(programs.run(key, st, cams, gts,
+                                                     bg).loss)
+                                  for _ in range(MESH_CAPTURED_STEPS)]
+            captured = np.abs(np.array(losses["captured"]) - eager) \
+                / np.abs(eager)
+            del programs, st
+        mesh_sync(torch, device)
+        warned = sorted({str(w.message)[:120] for w in caught})
+    default = np.array(eager_losses)
+    rec = {"switches": EQUAL_ROUTE_SWITCHES,
+           "seconds": time.perf_counter() - t0,
+           "eager_pair_by_step": pair.tolist(), "eager_pair_max":
+           float(pair.max()), "eager_pair_agree": agree, "parted": parted,
+           "captured_by_step": None if captured is None
+           else captured.tolist(),
+           "captured_max": None if captured is None
+           else float(captured.max()),
+           "vs_default_route_max": float(np.max(np.abs(eager - default)
+                                                / np.abs(default))),
+           "warnings": warned, "loss_first_last": {
+               m: [v[0], v[-1]] for m, v in losses.items()}}
+    rec["ok"] = not agree or rec["captured_max"] <= STEP_LOSS_RTOL
+    log(f"mesh (a) run-to-run-equal route ({EQUAL_ROUTE_SWITCHES}, "
+        f"deterministic algorithms, the HexPlane backward by the sorted "
+        f"reduction), {MESH_CAPTURED_STEPS} steps from one state in "
+        f"{rec['seconds']:.2f} s: two eager runs differ by at most "
+        f"{rec['eager_pair_max']:.3g} a step (every step within "
+        f"{STEP_LOSS_RTOL}: {agree}); they part "
+        + ("nowhere, bit for bit at every leaf" if parted is None else
+           f"at step {parted['step']}, leaf {parted['leaf']} (max abs "
+           f"{parted['max_abs']:.3g})")
+        + ("; the captured mesh step against that eager run: largest "
+           f"step {rec['captured_max']:.3g} (tol {STEP_LOSS_RTOL})"
+           if captured is not None else "; the captured step not held")
+        + f"; the route's losses against the default route's: largest "
+        f"step {rec['vs_default_route_max']:.3g}"
+        + (f"; warnings {warned}" if warned else ""))
+    return rec
+
+
 def mesh_capture_check(torch, mesh, inputs, device) -> dict:
     """Phase 17(a)'s captured programs on the one-rank NCCL mesh, at the
     inputs' batch of two cameras: the single-card step captured, the
@@ -3767,9 +3963,12 @@ def mesh_capture_check(torch, mesh, inputs, device) -> dict:
                key=lambda kv: -abs(kv[1]))[:10],
            "frame_equal": frame_equal,
            "frames": [renderer.captured, renderer.replayed]}
+    rec["equal_route"] = equal_route_check(torch, mesh, inputs, device,
+                                           losses["mesh eager"])
     rec["ok"] = {
         "leaves": one_step <= GRAD_TOL,
         "losses": rec["losses_mean"] <= STEP_LOSS_RTOL,
+        "losses on the run-to-run-equal route": rec["equal_route"]["ok"],
         "launches": live.launches == {REPORTED[k]: len(cams) * v
                                       for k, v in a_step.items()},
         "ran": all(runs["mesh captured"][k] > 0 for k in MESH_PATH),
@@ -4762,6 +4961,511 @@ def phase_dev_kernels(torch, device, seed: int) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20 (after phase 15): the test evaluation as captured programs, and
+# the preparation, point and report tools
+# ---------------------------------------------------------------------------
+
+EVAL_PROBE_VIEWS = 5           # tools/train.py on_test's train probe views
+EVAL_RUNS = ("eager", "captured", "captured again", "eager again")
+TOOL_BUDGET = 40_000           # downsample_point's default
+# the evaluation programs' memory, measured also at the capacity every
+# config of the repo caps a run at (RasterParams.capacity) with the
+# largest deformation of its configs (HyperNeRF banana: time resolution
+# 250, multires [1, 2, 4], net_width 128)
+EVAL_MEMORY_CAPACITY = 400_000
+EVAL_MEMORY_CONFIG = "hypernerf/banana.py"
+
+
+def run_tool(name: str, argv: list, **kw) -> dict:
+    """A tool of fourdgs_tpu_torch/tools through its `main`, in this
+    process: its printed lines (echoed here), its seconds and what it
+    returns."""
+    import importlib
+    mod = importlib.import_module(f"fourdgs_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv, **kw)
+    seconds = time.perf_counter() - t0
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"tools {name}: {line}")
+    return {"seconds": seconds, "printed": printed, "returned": ret}
+
+
+def same_colmap_records(a, b) -> bool:
+    """Two read_model results hold equal cameras, images and points."""
+    def rec_equal(x, y):
+        return all(np.array_equal(np.asarray(u), np.asarray(v))
+                   for u, v in zip(x, y, strict=True))
+    return all(sorted(p) == sorted(q) and all(rec_equal(p[k], q[k])
+                                              for k in p)
+               for p, q in zip(a, b, strict=True))
+
+
+def layout_tools(torch, kind: str, scene: Path, work: Path) -> dict:
+    """Phase 20(b)'s tools that read a layout's files, run inside the
+    layout's phase while its scene exists (a checkout whose path has a
+    dot keeps a DyNeRF scene in a temporary directory): poses2colmap on
+    the nerfies capture (phase 11), preprocess_dynerf on the DyNeRF layout
+    (phase 12: its frames exist; then a video without frames, in a
+    subprocess with OpenCV hidden, must exit nonzero with the named
+    ImportError) and colmap_converter from .bin to .txt and back on the
+    COLMAP model (phase 15), the records equal."""
+    import importlib.util
+
+    from fourdgs_tpu_torch.data import colmap
+
+    if kind not in ("nerfies", "dynerf", "colmap"):
+        return {}
+    out, checks = {}, {}
+    if kind == "nerfies":
+        shutil.rmtree(scene / "sparse_", ignore_errors=True)
+        shutil.rmtree(scene / "image_colmap", ignore_errors=True)
+        out["poses2colmap"] = run_tool("poses2colmap", [str(scene)])
+        cams = colmap.read_cameras_text(str(scene / "sparse_" /
+                                            "cameras.txt"))
+        images = colmap.read_images_text(str(scene / "sparse_" /
+                                             "images.txt"))
+        n = len(os.listdir(scene / "camera")) // 2
+        checks["poses2colmap (nerfies)"] = (
+            len(cams) == len(images) == n
+            and len(os.listdir(scene / "image_colmap")) == n
+            and out["poses2colmap"]["printed"].startswith(f"wrote {n} "))
+    elif kind == "dynerf":
+        rec = run_tool("preprocess_dynerf", ["--datadir", str(scene)])
+        lines = rec["printed"].splitlines()
+        checks["preprocess_dynerf lists the frames"] = (
+            len(lines) == DYNERF_CAMS and all(
+                line.endswith(f"({DYNERF_FRAMES} frames)") for line in lines))
+        # a video without frames, on a machine without OpenCV: where this
+        # machine has it, a `cv2` package that raises ImportError comes
+        # first on the subprocess's path
+        missing = scene / "no_frames"
+        hidden = missing / "no_opencv" / "cv2"
+        hidden.mkdir(parents=True, exist_ok=True)
+        (hidden / "__init__.py").write_text(
+            "raise ImportError('OpenCV hidden')\n")
+        (missing / "cam00.mp4").write_bytes(b"")
+        r = subprocess.run(
+            [sys.executable, "-m", "fourdgs_tpu_torch.tools.preprocess_dynerf",
+             "--datadir", str(missing)], cwd=ROOT, capture_output=True,
+            text=True, timeout=300, env=dict(
+                os.environ, PYTHONPATH=os.pathsep.join(
+                    [str(hidden.parent), str(ROOT)])))
+        opencv = importlib.util.find_spec("cv2") is not None
+        rec["no_frames"] = {"returncode": r.returncode,
+                            "opencv_installed": opencv,
+                            "error": r.stderr.strip().splitlines()[-1:]}
+        log(f"tools preprocess_dynerf: a video without frames, OpenCV "
+            f"hidden (this machine {'has' if opencv else 'has no'} OpenCV):"
+            f" exit {r.returncode}, {rec['no_frames']['error']}")
+        checks["preprocess_dynerf refuses a video without frames"] = (
+            r.returncode != 0 and "ImportError" in r.stderr
+            and "cam00.mp4" in r.stderr and "OpenCV" in r.stderr
+            and not (missing / "cam00").exists())
+        shutil.rmtree(missing)
+        out["preprocess_dynerf"] = rec
+    elif kind == "colmap":
+        src = scene / "sparse" / "0"
+        txt, back = work / "colmap_tool_txt", work / "colmap_tool_bin"
+        for d in (txt, back):
+            shutil.rmtree(d, ignore_errors=True)
+        rec = run_tool("colmap_converter", [
+            "--input_model", str(src), "--input_format", ".bin",
+            "--output_model", str(txt), "--output_format", ".txt"])
+        rec["back"] = run_tool("colmap_converter", [
+            "--input_model", str(txt), "--output_model", str(back),
+            "--output_format", ".bin"])
+        checks["colmap_converter .bin -> .txt -> .bin keeps the records"] = (
+            same_colmap_records(colmap.read_model(str(src), ".bin"),
+                                colmap.read_model(str(back), ".bin"))
+            and same_colmap_records(colmap.read_model(str(src), ".bin"),
+                                    colmap.read_model(str(txt), ".txt"))
+            and rec["printed"] == rec["back"]["printed"])
+        out["colmap_converter"] = rec
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"{kind} tools: {len(checks) - len(failed)}/{len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"{kind} tools: {failed}")
+    return {k: {"seconds": v["seconds"], **({"no_frames": v["no_frames"]}
+                                            if "no_frames" in v else {})}
+            for k, v in out.items()}
+
+
+def evaluation(torch, state, scene, bg, sh, rc, programs):
+    """One test evaluation as the train CLI's (tools/train.py on_test):
+    the state loaded into `programs` (None: eager), every test view and
+    EVAL_PROBE_VIEWS train views through `eval_output` (its cap growth,
+    one drop read a render) and their PSNR read at the end. Returns the
+    seconds, the PSNRs and each view's output and drops."""
+    from fourdgs_tpu_torch.ops import losses
+    from fourdgs_tpu_torch.tools import train as train_cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if programs is not None:
+        programs.load(state, bg)
+    psnrs, outs = [], []
+    for split, n in ((scene.test, len(scene.test)),
+                     (scene.train, EVAL_PROBE_VIEWS)):
+        for i in range(min(n, len(split))):
+            out, drops = train_cli.eval_output(
+                state, split.cameras[i], bg, "fine", sh, rc,
+                programs=programs)
+            psnrs.append(losses.psnr(torch.clamp(out.color, 0, 1),
+                                     split.images[[i]][0])[0])
+            outs.append((out, drops))
+    psnrs = torch.stack(psnrs).cpu().tolist()
+    return time.perf_counter() - t0, psnrs, outs
+
+
+def eval_programs_memory(torch, state, cams, bg, sh, rc) -> dict:
+    """The device memory an EvalPrograms holds after one evaluation of
+    `cams` at `rc`: its copies of `state` (the allocation `load` adds)
+    and all it holds (what torch reserves more, the frames' graph pools
+    with the copies), from the allocator's counts before it was made,
+    after the evaluation and after it was freed, in MiB."""
+    import gc
+
+    from fourdgs_tpu_torch.train import graphs
+
+    def counts():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_allocated() / 2**20,
+                torch.cuda.memory_reserved() / 2**20)
+
+    a0, r0 = counts()
+    programs = graphs.EvalPrograms()
+    programs.load(state, bg)
+    a1, _ = counts()
+    for cam in cams:
+        programs.render(cam, stage="fine", active_sh=sh, raster_cfg=rc)
+    _, r2 = counts()
+    frames = len(programs.renderer.frames)
+    del programs
+    _, r3 = counts()
+    return {"capacity": int(state.alive.shape[0]), "copies_mib": a1 - a0,
+            "held_mib": r2 - r0, "pools_mib": (r2 - r0) - (a1 - a0),
+            "frames": frames, "freed_mib": r2 - r3,
+            "copies_bytes_per_slot": (a1 - a0) * 2**20
+            / int(state.alive.shape[0])}
+
+
+def largest_eval_memory(torch, state, cams, bg, sh, rc,
+                        capacity: int) -> dict:
+    """`eval_programs_memory` of `state`'s gaussians in `capacity` slots
+    (the rest dead) with EVAL_MEMORY_CONFIG's deformation, random from a
+    seed, and that deformation's MiB of parameters."""
+    from types import SimpleNamespace
+
+    from fourdgs_tpu_torch.models.deformation import Deformation
+    from fourdgs_tpu_torch.train import config as config_mod
+
+    cfg = config_mod.apply_config_file(
+        config_mod.Config(),
+        str(ROOT / "fourdgs_tpu" / "configs" / EVAL_MEMORY_CONFIG))
+    deform = Deformation(config_mod.deform_config_from(cfg),
+                         generator=torch.Generator().manual_seed(5))
+    gauss, alive = padded(torch, state.params["gauss"], state.alive,
+                          capacity)
+    big = SimpleNamespace(params={"gauss": gauss, "deform": deform.to(
+        state.alive.device).eval()}, alive=alive, aabb=state.aabb)
+    out = eval_programs_memory(torch, big, cams, bg, sh, rc)
+    out["deform_mib"] = sum(p.numel() * p.element_size()
+                            for p in deform.parameters()) / 2**20
+    out["config"] = EVAL_MEMORY_CONFIG
+    return out
+
+
+def phase_eval_programs(torch, device, work: Path, driver: dict):
+    """Phase 20(a): on phase 7's final state (its snapshot in the run's
+    capacity, the run's final raster config and SH degree) and its test
+    views, an evaluation as the train CLI makes it, eagerly, through the
+    evaluation programs twice (graphs.EvalPrograms: the second captures
+    nothing) and eagerly again, each timed; every view's replay equal to
+    the eager render bit for bit; the first test view's replay against the
+    frame through the plain blend, binner and gather (TOL, counters
+    equal), and K1, the binner and D1 against their plain versions at that
+    view's shapes (phase 4's checks); the kernels' runs counted over the
+    two captured evaluations. Returns the runs and what it measured."""
+    from types import SimpleNamespace
+
+    from fourdgs_tpu_torch.data.scene import Scene
+    from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from fourdgs_tpu_torch.render.serve import Renderer
+    from fourdgs_tpu_torch.tools.bench import card_limit
+    from fourdgs_tpu_torch.train import checkpoint, graphs, loop
+
+    t_phase = time.perf_counter()
+    name = card_limit(device)
+    cfg, gauss, alive, deform, aabb, it = checkpoint.load_model(
+        str(work / "driver"), -1, device)
+    gauss, alive = padded(torch, gauss, alive, driver["capacity"])
+    state = SimpleNamespace(params={"gauss": gauss, "deform": deform},
+                            alive=alive, aabb=aabb)
+    rc = RasterConfig(**driver["raster_cfg"])
+    sh = driver["stages"]["fine"]["active_sh"]
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=device)
+    scene = Scene.load(str(work / "scene"), device=device,
+                       white_background=cfg.model.white_background,
+                       eval_split=cfg.model.eval,
+                       resolution=(DRIVER_SIZE, DRIVER_SIZE))
+    programs = graphs.EvalPrograms()
+    runs, seconds, psnrs, outs, captures = {}, {}, {}, {}, {}
+    replays = {}
+    for mode in EVAL_RUNS:
+        captured = mode.startswith("captured")
+        before = len(programs.captures)
+        if mode == "captured":
+            torch.cuda.synchronize()
+            graphs.zero_counts()
+        seconds[mode], psnrs[mode], outs[mode] = evaluation(
+            torch, state, scene, bg, sh, rc, programs if captured else None)
+        if mode == "captured again":
+            torch.cuda.synchronize()
+            ran = kernel_runs()
+            runs = {k: ran[k] for k in ("blend_fwd", "binner",
+                                        "gather_rows")}
+        replays[mode] = programs.replays
+        new = programs.captures[before:]
+        captures[mode] = {"captures": len(new),
+                          "capture_s": sum(c["seconds"] for c in new)}
+    rep = programs.report()
+    views = len(outs["eager"])
+    equal = all(
+        d == de and all(torch.equal(getattr(o, f), getattr(oe, f))
+                        for f in ("color", "depth", "alpha", "num_pairs",
+                                  "dropped_pairs", "dropped_tile"))
+        for mode in ("captured", "captured again")
+        for (o, d), (oe, de) in zip(outs[mode], outs["eager"], strict=True))
+    renders = rep["replays"]
+    gathers = HEX_GATHERS_PER_LEVEL * len(cfg.hidden.multires)
+    warm = graphs.WARMUP * captures["captured"]["captures"]
+    want = {"blend_fwd": renders + warm, "binner": renders + warm,
+            "gather_rows": gathers * (renders + warm)}
+    mean_test = float(np.mean(psnrs["captured"][:len(scene.test)]))
+    in_loop = driver["stages"]["fine"]["test_psnr"][-1][1]
+    for mode in EVAL_RUNS:
+        c = captures[mode]
+        log(f"eval programs: evaluation {mode}: {seconds[mode]:.4f} s "
+            f"({views} views: {len(scene.test)} test, "
+            f"{views - len(scene.test)} train probe), {c['captures']} "
+            f"captures in "
+            f"{c['capture_s']:.3f} s; {name}")
+    ev = driver["eval_programs"]
+    log(f"eval programs: phase 7's train CLI: {len(ev['captures'])} "
+        f"captures ({sum(c['seconds'] for c in ev['captures']):.3f} s), "
+        f"{ev['loads']} loads, {ev['replays']} replays; its evaluations "
+        + ", ".join(f"{s} {e['iter']}: {e['seconds']:.3f} s ({e['captures']}"
+                    f" captures, {e['capture_s']:.3f} s)"
+                    for s, es in driver["evals"].items() for e in es)
+        + f"; {name}")
+    log(f"eval programs: {rep['loads']} loads, {renders} replays, "
+        f"captures {[c['key'] for c in rep['captures']]}; kernel runs over "
+        f"the two captured evaluations {runs} (want {want}); every view's "
+        f"replay equal to the eager render bit for bit: {equal}; mean test "
+        f"PSNR {mean_test:.4f} dB against phase 7's last in-loop eval "
+        f"{in_loop:.4f}")
+
+    # ---- the first test view: the replay against the plain frame, and
+    # the kernels against their plain versions at its shapes ----
+    first, drops = outs["captured"][0]
+    rc0 = dataclasses.replace(rc, tile_cap=drops["tile_cap"],
+                              bin_pairs_per_chunk=drops[
+                                  "bin_pairs_per_chunk"])
+    cam0 = scene.test.cameras[0]
+    with plain_path():
+        ref = loop.eval_step(state, cam0, bg, stage="fine", active_sh=sh,
+                             raster_cfg=rc0)
+    plain = {k: float((getattr(first, k) - getattr(ref, k)).abs().max())
+             for k in ("color", "depth")}
+    counters = {k: (int(getattr(first, k)), int(getattr(ref, k)))
+                for k in ("num_pairs", "dropped_pairs", "dropped_tile")}
+    log(f"eval programs: test view 0's replay against the plain blend, "
+        f"binner and gather: max abs err " + ", ".join(
+            f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in plain.items())
+        + f"; counters (replay, plain) {counters}")
+    renderer = Renderer(gauss=gauss, alive=alive, deform=deform, aabb=aabb,
+                        bg=bg, raster_cfg=rc0, sh_degree=sh, device=device)
+    k1, checks = phase_kernels(torch, renderer, cam0, "eval_programs")
+    checks["blend_fwd"] = {k: k1[k] for k in (
+        "max_abs_err", "max_abs_err_depth", "max_abs_err_t", "ms",
+        "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
+    ok = {
+        "the second evaluation captured nothing":
+            captures["captured"]["captures"] >= 1
+            and captures["captured again"]["captures"] == 0,
+        "every render a replay": replays["captured"] >= views
+        and renders == 2 * replays["captured"] and rep["loads"] == 2,
+        "every view equal to the eager render": equal,
+        "the PSNRs equal the eager ones": psnrs["captured"]
+        == psnrs["eager"] == psnrs["captured again"],
+        "the kernels ran every render": runs == want,
+        "the replay matches the plain frame": all(
+            v <= TOL[k] for k, v in plain.items())
+        and all(a == b for a, b in counters.values()),
+        "the PSNR matches phase 7's eval":
+            abs(mean_test - in_loop) <= RENDER_PSNR_TOL,
+        "phase 7's evaluations replayed": len(ev["captures"]) >= 1
+            and ev["replays"] > 0 and ev["loads"] == sum(
+                len(es) for es in driver["evals"].values()),
+    }
+    failed = [k for k, v in ok.items() if not v]
+    log(f"eval programs checks: {len(ok) - len(failed)}/{len(ok)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"eval programs phase: {failed}")
+    # ---- the memory the programs hold: at phase 7's capacity, and at
+    # EVAL_MEMORY_CAPACITY slots with EVAL_MEMORY_CONFIG's deformation ----
+    cams = [scene.test.cameras[i] for i in range(len(scene.test))]
+    memory = {"run": eval_programs_memory(torch, state, cams, bg, sh, rc),
+              "largest": largest_eval_memory(torch, state, cams, bg, sh, rc,
+                                             EVAL_MEMORY_CAPACITY)}
+    for k, m in memory.items():
+        log(f"eval programs memory ({k}: {m['capacity']} slots"
+            + (f", {EVAL_MEMORY_CONFIG}'s deformation "
+               f"{m['deform_mib']:.2f} MiB" if k == "largest" else "")
+            + f"): the state's copies {m['copies_mib']:.2f} MiB "
+            f"({m['copies_bytes_per_slot']:.1f} bytes a slot), held in "
+            f"all {m['held_mib']:.2f} MiB with {m['frames']} frame(s) "
+            f"(pools {m['pools_mib']:.2f} MiB), freed with the programs "
+            f"{m['freed_mib']:.2f} MiB; {name}")
+    del scene, programs, renderer, state
+    out = {"seconds": time.perf_counter() - t_phase, "card": name,
+           "memory": memory,
+           "evaluation_s": seconds, "captures": captures,
+           "programs": rep, "views": views, "runs": runs,
+           "plain_frame": {"max_abs_err": plain, "counters": counters},
+           "checks": checks, "train_cli": {"programs": ev,
+                                           "evals": driver["evals"]}}
+    log(f"eval programs: phase {out['seconds']:.2f} s; {name}")
+    return runs, out
+
+
+def phase_prep_tools(torch, device, work: Path, layouts: dict) -> dict:
+    """Phase 20(b): the tools that port the JAX package's preparation,
+    point and report scripts, on files that earlier phases wrote, each
+    through its `main`: poses2colmap on phase 7's Blender scene (the
+    nerfies capture's, preprocess_dynerf's and colmap_converter's runs
+    came with phases 11, 12 and 15: `layout_tools`); downsample_point on
+    phase 18's million points (written as a PLY) down to 40,000;
+    grow_point on the card on that result and on the million points
+    (the k-NN and the draw timed); merge_point on the two grown clouds;
+    cal_modelsize, visualize_hexplane (its PNGs read back through
+    data/png.py) and diag_checkpoint on phase 7's model and checkpoint.
+    A tool that fails fails the phase."""
+    from fourdgs_tpu_torch.data import colmap, ply
+    from fourdgs_tpu_torch.data.png import read_png
+    from fourdgs_tpu_torch.tools.bench import card_limit
+    from fourdgs_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    name = card_limit(device)
+    out_dir = work / "tools_prep"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    model = work / "driver"
+    rec, checks = {}, {}
+
+    r = rec["poses2colmap"] = run_tool("poses2colmap", [
+        str(work / "scene" / "transforms_train.json"),
+        str(out_dir / "blender_sparse"), "--width", str(DRIVER_SIZE),
+        "--height", str(DRIVER_SIZE)])
+    images = colmap.read_images_text(str(out_dir / "blender_sparse" /
+                                         "images.txt"))
+    checks["poses2colmap (blender)"] = (
+        len(images) == DRIVER_VIEWS[0]
+        and r["printed"].startswith(f"wrote {DRIVER_VIEWS[0]} poses"))
+
+    xyz, rgb, _ = colmap.read_points3d_binary(str(work / "host" /
+                                                  "points3D.bin"))
+    dense = out_dir / "million.ply"
+    ply.store_point_cloud(str(dense), xyz.astype(np.float32),
+                          rgb.astype(np.float32))
+    down = out_dir / "down.ply"
+    r = rec["downsample_point"] = run_tool("downsample_point",
+                                           [str(dense), str(down)])
+    n_down = len(ply.fetch_point_cloud(str(down))[0])
+    checks["downsample_point to the budget"] = (
+        TOOL_BUDGET * 0.5 < n_down <= TOOL_BUDGET
+        and r["printed"] == f"{len(xyz)} -> {n_down} points\n")
+
+    grown = {}
+    for label, src in (("40k", down), ("million", dense)):
+        dst = out_dir / f"grown_{label}.ply"
+        r = rec[f"grow_point {label}"] = run_tool(
+            "grow_point", [str(src), str(dst), "--device", device.type])
+        got = r["returned"]
+        n = len(ply.fetch_point_cloud(str(dst))[0])
+        grown[label] = (dst, n)
+        log(f"tools grow_point {label}: {got['points']} points, "
+            f"{got['grown']} grown, the k-NN and the draw "
+            f"{got['seconds']:.3f} s on {got['device']}; {name}")
+        checks[f"grow_point {label}"] = (
+            got["device"].startswith("cuda") and n == got["points"]
+            + got["grown"] and 0 < got["grown"] < got["points"])
+    r = rec["merge_point"] = run_tool("merge_point", [
+        str(grown["40k"][0]), str(grown["million"][0]), "-o",
+        str(out_dir / "merged.ply")])
+    n_merged = len(ply.fetch_point_cloud(str(out_dir / "merged.ply"))[0])
+    checks["merge_point"] = (n_merged == grown["40k"][1]
+                             + grown["million"][1])
+
+    snap, it = checkpoint.find_latest_snapshot(str(model))
+    size = sum(os.path.getsize(os.path.join(snap, f))
+               for f in ("point_cloud.ply", "deformation.npz"))
+    r = rec["cal_modelsize"] = run_tool("cal_modelsize", [str(model)])
+    checks["cal_modelsize"] = r["returned"] == [size / 1e6]
+
+    vis = out_dir / "hexplane"
+    r = rec["visualize_hexplane"] = run_tool(
+        "visualize_hexplane", ["-m", str(model), "--out", str(vis)])
+    _, flat, _ = checkpoint.load_snapshot(snap)
+    planes = {k.split("/")[-1]: v.shape[:-1] for k, v in flat.items()
+              if k.startswith("grid/")}
+    pngs = {p.name.rsplit("_", 1)[0]: read_png(str(p))
+            for p in vis.iterdir()}
+    checks["visualize_hexplane"] = (
+        sorted(pngs) == sorted(planes) and all(
+            img.shape == planes[k] and img.dtype == np.uint8
+            and img.min() == 0 and img.max() in (0, 255)
+            for k, img in pngs.items()))
+
+    ckpts = sorted(model.glob("chkpnt_fine_*.npz"))
+    r = rec["diag_checkpoint"] = run_tool(
+        "diag_checkpoint", [str(ckpts[-1]), "--device", device.type])
+    with np.load(ckpts[-1]) as z:
+        n_alive = int(z["alive"].sum())
+        cap = z["alive"].shape[0]
+    lines = r["printed"].splitlines()
+    checks["diag_checkpoint"] = (
+        lines[-1] == f"alive: {n_alive} / {cap}"
+        and sum(" alive-stats: " in line for line in lines) == 4)
+
+    failed = [k for k, ok in checks.items() if not ok]
+    seconds = {k: v["seconds"] for k, v in rec.items()}
+    for kind in ("nerfies", "dynerf", "colmap"):
+        for tool, v in layouts[kind]["tools"].items():
+            seconds[f"{tool} ({kind})"] = v["seconds"]
+    out = {"seconds": time.perf_counter() - t_phase, "card": name,
+           "tool_seconds": seconds, "grow_point": {
+               k: rec[f"grow_point {k}"]["returned"] for k in grown},
+           "downsampled": n_down}
+    log(f"prep tools: seconds {json.dumps(seconds)}; {name}")
+    log(f"prep tools checks: {len(checks) - len(failed)}/{len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"prep tools phase: {failed}")
+    log(f"prep tools: phase {out['seconds']:.2f} s; {name}")
+    return out
+
+
 def path_entries(serve: dict, step: dict, serve_runs: dict,
                  step_runs: dict, eval_runs: dict, layout_runs: dict,
                  layouts: dict) -> list:
@@ -4872,6 +5576,11 @@ def main(argv=None) -> int:
         for entry, kernel in ((k1, "blend_fwd"), (k2, "blend_bwd")):
             entry[f"launches_{kind}"] = layout_runs[kind][kernel]
         k1[kind] = layouts[kind]
+    eval_program_runs, evals = phase_eval_programs(torch, device, work,
+                                                   driver)
+    k1["launches_eval_programs"] = eval_program_runs["blend_fwd"]
+    k1["eval_programs"] = evals
+    k1["prep_tools"] = phase_prep_tools(torch, device, work, layouts)
     k1["tools"] = phase_tools(
         torch, device, work, renderer, args.seed,
         driver["stages"]["fine"]["ms_per_iteration"])
@@ -4898,13 +5607,18 @@ def main(argv=None) -> int:
         if name in bench["runs"]:
             k["launches_bench_fps"] = bench["runs"][name]
             k.setdefault("bench_fps", {})["frame"] = bench["checks"][name]
+        if name in eval_program_runs:
+            k["launches_eval_programs"] = eval_program_runs[name]
+            k.setdefault("eval_programs", {})["frame"] = \
+                evals["checks"][name]
     k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
                                              "cli", "cli_nccl", "scaling",
                                              "seconds", "seconds_abcde")}
     for k in kernels:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
                                      for path in ("serve", "step", "eval",
-                                                  "bench_fps", *LAYOUTS)):
+                                                  "bench_fps",
+                                                  "eval_programs", *LAYOUTS)):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ its frame index / 300, the video split is a spiral of 300 poses around
 the average pose, and the initial cloud is points3D_downsample2.ply.
 
 The videos themselves are decoded only where the frames are missing, by
-`extract_video_frames` with OpenCV; a machine without it (the card's) needs
+`extract_video_frames` with OpenCV; a machine without it needs
 the frames extracted beforehand. The frames are 8-bit PNGs read by the
 port's codec (data/png.py), resized to IMG_WH with Pillow's LANCZOS
 (data/resample.py) where they have another size, as the JAX reader does

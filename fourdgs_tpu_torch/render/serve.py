@@ -46,7 +46,7 @@ from fourdgs_tpu_torch.utils.device import resolve_device
 PROBE_ROUNDS = 5
 _TILE_CAP_MAX = 8192
 _PAIRS_PER_CHUNK_MAX = 1 << 18
-_FRAMES_HELD = 2     # captured frames a renderer keeps, the newest
+_FRAMES_HELD = 2     # captured frames a renderer keeps, the newest used
 
 
 def overflows(dropped_pairs: int, dropped_tile: int,
@@ -79,6 +79,8 @@ class Renderer:
     capture: bool | None = None   # None: capture frames on the card
     captured: int = 0        # frames captured, and renders replayed
     replayed: int = 0
+    capture_s: float = 0.0   # the captures' seconds
+    held: int = _FRAMES_HELD
     frames: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
@@ -168,23 +170,25 @@ class Renderer:
         at its key's first render: `kind` (what `render_fn` is static in
         besides the renderer) with the raster config, the SH degree, the
         identity of the renderer's tensors, the blend's implementation
-        and the switches. The newest _FRAMES_HELD frames are kept."""
+        and the switches. The `held` frames used last are kept."""
         camera = camera.to(self.device)
         inputs = tuple(getattr(self.gauss, f) for f in FIELDS) + (
             self.alive, self.aabb, self.bg, self.deform)
         key = (self.raster_cfg, self.sh_degree, kind,
                tuple(map(id, inputs)), blend.blend_forward,
                graphs.switches())
-        frame = self.frames.get(key)
+        frame = self.frames.pop(key, None)
         if frame is None:
-            while len(self.frames) >= _FRAMES_HELD:
+            while len(self.frames) >= self.held:
                 del self.frames[next(iter(self.frames))]
             rc = self.raster_cfg
-            frame = self.frames[key] = graphs.CapturedFrame(
+            frame = graphs.CapturedFrame(
                 key, render_fn, camera, inputs,
                 f"{label} {rc.img_width}x{rc.img_height} tile_cap "
                 f"{rc.tile_cap} pairs {rc.bin_pairs_per_chunk}")
             self.captured += 1
+            self.capture_s += frame.program.seconds
+        self.frames[key] = frame
         self.replayed += 1
         return frame(camera)
 

@@ -34,7 +34,8 @@ in the HexPlane backward, K5 in the binner), as chip_smoke.py's phase 7
 does. The train CLI's seed is its default, 6666, the JAX run's. For each
 variant the run reports each stage's ms/iteration (the train CLI's time
 without evals and saves), its captures' seconds and their share of the
-stage's wall time, its peak live count, the in-loop test PSNRs, the
+stage's wall time, its test evaluations' seconds and the seconds of
+their captures, its peak live count, the in-loop test PSNRs, the
 post-hoc PSNR, SSIM and MS-SSIM, each split's render FPS, each test
 view's post-hoc PSNR (beside the record's `per_view.json` where it has
 one), and whether the post hoc fell below the protocol's fault floor. It
@@ -120,7 +121,11 @@ def stage_report(stage: dict) -> dict:
             "rollbacks": sum(e["kind"] == "rollback"
                              for e in stage["events"]),
             "peak_mib": (stage["peak_bytes"] or 0) / 2**20,
-            "test_psnr": stage["test_psnr"]}
+            "test_psnr": stage["test_psnr"],
+            "evals": len(stage["evals"]),
+            "eval_s": sum(e["seconds"] for e in stage["evals"]),
+            "eval_capture_s": sum(e["capture_s"] for e in stage["evals"]),
+            "eval_captures": sum(e["captures"] for e in stage["evals"])}
 
 
 def reference_record(path: str) -> dict | None:

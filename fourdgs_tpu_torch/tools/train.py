@@ -57,7 +57,13 @@ every test evaluation writes test view 0's gt / render / depth triptych
 to <out>/train_render/<stage>test/<iteration>.jpg (utils/visualize.py).
 
 On the card each step is otherwise a replay of a captured CUDA graph
-(train/graphs.py), captured when the step's key changes.
+(train/graphs.py), captured when the step's key changes. On a single card
+each evaluation's renders are replays too (`graphs.EvalPrograms`, the
+counterpart of JAX's jitted `eval_step`): the state is copied into the
+programs' buffers once an evaluation, and each view replays the frame of
+its key (its caps included), captured at the key's first render. Each
+evaluation's record gives its seconds and the seconds of the captures in
+it.
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ from fourdgs_tpu_torch.data.scene import Scene
 from fourdgs_tpu_torch.ops import losses
 from fourdgs_tpu_torch.render.render import render
 from fourdgs_tpu_torch.render.serve import _full_float32
-from fourdgs_tpu_torch.train import checkpoint, loop, optim
+from fourdgs_tpu_torch.train import checkpoint, graphs, loop, optim
 from fourdgs_tpu_torch.train import config as config_mod
 from fourdgs_tpu_torch.train import state as state_mod
 from fourdgs_tpu_torch.utils.device import resolve_device
@@ -129,17 +135,22 @@ def eval_render(state, cam, bg, stage, active_sh, rcfg, renders=4):
 
 
 def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4,
-                sharded=None):
+                sharded=None, programs=None):
     """One view with the live caps; an overflowing view doubles the
     overflowing cap and renders again, up to `renders` renders. Returns the
     last render's output, and what it dropped at which caps. With
     `sharded` (a `tools/render.py:MeshRenderer` over the run's mesh, whose
     tile axis divides the tiles) the render is tile-sharded
     (`sharded_render`, collective: every rank calls it), as JAX's train
-    script renders its evals: a replay of its captured frame over NCCL."""
+    script renders its evals: a replay of its captured frame over NCCL.
+    With `programs` (a `graphs.EvalPrograms` that `state` was loaded
+    into) each render is a replay of its key's captured frame."""
     for i in range(renders):
         if sharded is not None:
             out = sharded.render_state(state, cam, rcfg, stage, active_sh)
+        elif programs is not None:
+            out = programs.render(cam, stage=stage, active_sh=active_sh,
+                                  raster_cfg=rcfg)
         else:
             out = loop.eval_step(state, cam, bg, stage=stage,
                                  active_sh=active_sh, raster_cfg=rcfg)
@@ -160,6 +171,12 @@ def eval_output(state, cam, bg, stage, active_sh, rcfg, renders=4,
     return out, {"dropped_pairs": dp, "dropped_tile": dt,
                        "num_pairs": npairs, "tile_cap": rcfg.tile_cap,
                        "bin_pairs_per_chunk": rcfg.bin_pairs_per_chunk}
+
+
+def captures_evals(dev: torch.device, mesh) -> bool:
+    """Whether the test evaluations replay captured frames: on a single
+    card."""
+    return dev.type == "cuda" and mesh is None
 
 
 def open_writer(model_path: str):
@@ -352,6 +369,10 @@ def _train(args, cfg) -> dict:
             deform=st.params["deform"], aabb=st.aabb, bg=bg,
             raster_cfg=raster_cfg, sh_degree=0, device=dev), mesh)
 
+    eval_programs = (graphs.EvalPrograms() if captures_evals(dev, mesh)
+                     else None)
+    evals: dict[str, list] = {"coarse": [], "fine": []}
+
     def make_on_test(stage):
         def eval_split(split, name, it, state, active_sh, rcfg, n=None,
                        save_triptych=False):
@@ -360,7 +381,8 @@ def _train(args, cfg) -> dict:
             for i in range(n):
                 rendered, drops = eval_output(state, split.cameras[i], bg,
                                               stage, active_sh, rcfg,
-                                              sharded=sharded_eval)
+                                              sharded=sharded_eval,
+                                              programs=eval_programs)
                 img = torch.clamp(rendered.color, 0, 1)
                 gt = split.images[[i]][0]
                 out.append(losses.psnr(img, gt)[0])
@@ -376,11 +398,23 @@ def _train(args, cfg) -> dict:
 
         def on_test(it, state, active_sh, raster_cfg):
             rcfg = raster_cfg
+            t0 = time.perf_counter()
+            captured = 0
+            if eval_programs is not None:
+                captured = len(eval_programs.captures)
+                eval_programs.load(state, bg)
             test, renders = eval_split(
                 scene.test, "test", it, state, active_sh, rcfg,
                 save_triptych=cfg.model.render_process)
             train, _ = eval_split(scene.train, "train", it, state,
                                   active_sh, rcfg, n=5)
+            timing = {"seconds": time.perf_counter() - t0,
+                      "captures": 0, "capture_s": 0.0}
+            if eval_programs is not None:
+                new = eval_programs.captures[captured:]
+                timing.update(captures=len(new), capture_s=sum(
+                    c["seconds"] for c in new))
+            evals[stage].append({"iter": it, **timing})
             if lead:
                 print(f"\n[ITER {it}] Evaluating test: PSNR "
                       f"{np.mean(test):.2f} over {len(test)} views "
@@ -391,7 +425,8 @@ def _train(args, cfg) -> dict:
                        "psnr_per_view": [round(p, 4) for p in test],
                        "capacity": state.capacity,
                        "render_per_view": renders,
-                       "train_probe_psnr": float(np.mean(train))})
+                       "train_probe_psnr": float(np.mean(train)),
+                       "eval_s": timing})
             if tb is not None:
                 write_eval_summaries(tb, stage, it, state,
                                      float(np.mean(test)),
@@ -480,6 +515,7 @@ def _train(args, cfg) -> dict:
                 wall_time=res.wall_time, active_sh=res.active_sh,
                 events=res.events, graphs=res.graphs,
                 history=res.history, test_psnr=test_psnrs[stage],
+                evals=evals[stage],
                 raster_cfg=dataclasses.asdict(raster_cfg),
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None)))
@@ -494,7 +530,6 @@ def _train(args, cfg) -> dict:
     if mesh is not None:
         from fourdgs_tpu_torch.parallel.multihost import (gather_objects,
                                                           ranks_agree)
-        from fourdgs_tpu_torch.train import graphs
         agree, digest = ranks_agree(
             optim.param_leaves(st.params) + [st.alive, st.denom,
                                              st.xyz_gradient_accum,
@@ -517,6 +552,8 @@ def _train(args, cfg) -> dict:
         if not agree:
             raise RuntimeError("the mesh's ranks ended with different "
                                "states")
+    if eval_programs is not None:
+        summary["eval_programs"] = eval_programs.report()
     if lead:
         print(f"\nTraining complete in {total_time:.1f}s "
               f"(excl. eval/saving).")

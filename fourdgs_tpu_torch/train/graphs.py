@@ -33,6 +33,16 @@ capture or a replay that fails raises; nothing falls back to the eager
 path. A replay returns copies of the outputs, which the caller may keep
 across replays.
 
+The test evaluation (`EvalPrograms`, the counterpart of JAX's jitted
+`eval_step`, loop.py:170-178) is a `render/serve.py:Renderer` over copies
+of its own of the gaussian fields, `alive`, `aabb`, the deformation and
+the background, into which `load` copies the live state once an
+evaluation; each view's render then replays the renderer's frame of its
+key (the stage, the SH degree, the raster config, the copies' identities,
+the blend's implementation and the switches) with the camera copied in.
+The copies are remade only at another capacity or deformation config, so
+an evaluation after a surgery replays the frames the last one captured.
+
 Over a mesh (parallel/sharded.py) the step and the frame hold NCCL
 collectives, and every rank captures and replays its own program in
 lockstep: the warm-up runs, the capture and each replay are collective.
@@ -55,6 +65,7 @@ them to `REPLAYED`. `kernel_runs()` is the sum, by the wrapper's
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import os
 import time
@@ -330,3 +341,86 @@ class StepPrograms:
                 + sum(s.buffers.binds for s in held),
                 "replays": self._evicted["replays"]
                 + sum(s.program.replays for s in held)}
+
+
+
+class EvalPrograms:
+    """The test evaluation's renders as captured frames: one
+    `render/serve.py:Renderer` over static copies of what the render reads
+    of a training state (its gaussian fields, `alive`, `aabb` and
+    deformation) and of the background. `load(state, bg)` copies the live
+    state in, once an evaluation; at another capacity or deformation
+    config it makes new copies and a new renderer (no frame kept: their
+    graphs read the old copies). `render` sets the renderer's raster
+    config and SH degree and replays the frame of the view's key, captured
+    at its first render (`Renderer.replay`). The copies outlive every
+    surgery, so the identities in that key do too. `captures` logs each
+    capture: its key's label and seconds.
+
+    The copies cost 237 bytes a slot (59 float32 fields and `alive`)
+    besides the deformation's parameters (a Parameter's deepcopy carries
+    no `.grad`, and the step takes its gradients by `torch.autograd.grad`),
+    and each held frame its graph's memory pool."""
+
+    def __init__(self, held: int = 4):
+        # held: the run's caps and an overflowing view's doubled caps, at
+        # two stages
+        self.held = held
+        self.renderer = None
+        self.shapes = None
+        self.captures: list[dict] = []
+        self.loads = 0
+        self.replays = 0
+
+    @torch.no_grad()
+    def load(self, state: TrainState, bg: torch.Tensor) -> None:
+        from fourdgs_tpu_torch.render.serve import Renderer
+        g, deform = state.params["gauss"], state.params["deform"]
+        shapes = (state.alive.shape[0], deform.cfg)
+        r = self.renderer
+        if r is None or self.shapes != shapes:
+            self.renderer = None
+            self.renderer = Renderer(
+                gauss=GaussianParams(**{f: getattr(g, f).detach().clone()
+                                        for f in FIELDS}),
+                alive=state.alive.clone(), deform=copy.deepcopy(deform),
+                aabb=state.aabb.clone(), bg=bg.clone(), raster_cfg=None,
+                sh_degree=0, device=state.alive.device, capture=True,
+                held=self.held)
+            self.shapes = shapes
+        else:
+            for f in FIELDS:
+                getattr(r.gauss, f).copy_(getattr(g, f))
+            src = dict(deform.named_parameters())
+            for name, p in r.deform.named_parameters():
+                p.copy_(src[name])
+            r.alive.copy_(state.alive)
+            r.aabb.copy_(state.aabb)
+            r.bg.copy_(bg)
+        self.loads += 1
+
+    def render(self, camera: Camera, *, stage: str, active_sh: int,
+               raster_cfg: RasterConfig):
+        """`loop.eval_step` of the loaded state at `camera`, as a
+        replay."""
+        r = self.renderer
+        if r is None:
+            raise RuntimeError("EvalPrograms.render before load")
+        r.raster_cfg, r.sh_degree = raster_cfg, active_sh
+        captured, seconds = r.captured, r.capture_s
+        out = r.render(camera, stage)
+        self.replays += 1
+        if r.captured > captured:
+            rc = raster_cfg
+            self.captures.append(dict(
+                key=f"eval {stage} capacity {self.shapes[0]} "
+                f"{rc.img_width}x{rc.img_height} tile_cap {rc.tile_cap} "
+                f"pairs {rc.bin_pairs_per_chunk} sh {active_sh}",
+                seconds=r.capture_s - seconds))
+        return out
+
+    def report(self) -> dict:
+        """What the evaluation programs did: captures (each with its key
+        and seconds), loads of the state, replays."""
+        return {"captures": self.captures, "loads": self.loads,
+                "replays": self.replays}

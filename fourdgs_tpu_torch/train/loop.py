@@ -166,7 +166,9 @@ def step_of_key(tx: optim.GroupedAdam
 def eval_step(state: TrainState, camera: Camera, bg: torch.Tensor, *,
               stage: str, active_sh: int,
               raster_cfg: RasterConfig) -> RenderOutput:
-    """The render of one camera with the state's parameters, no autograd."""
+    """The render of one camera with the state's parameters, no autograd.
+    The train CLI replays the same render as a captured frame on a single
+    card (graphs.EvalPrograms); this eager function is the CPU's route."""
     return render(state.params["gauss"], state.params["deform"], camera, bg,
                   raster_cfg, state.aabb, state.alive, active_sh,
                   stage=stage)

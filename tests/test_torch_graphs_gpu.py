@@ -82,6 +82,35 @@ def test_captured_frame_equals_the_eager_frame(cuda):
     assert not torch.equal(outs[0].color, outs[1].color)
 
 
+@pytest.mark.gpu
+def test_captured_evaluation_equals_eager_eval_step(cuda):
+    """The train CLI's evaluation programs (graphs.EvalPrograms): every
+    view's replay equals the eager eval_step of the same state bit for
+    bit; a second evaluation after a surgery captures nothing."""
+    cfg = _cfg()
+    st = _state(cfg).to(cuda)
+    rc = tconfig.raster_config_from(cfg, 96, 96)
+    bg = torch.ones(3, device=cuda)
+    cams = [look_at_camera(theta=0.5 * i, time=i / 4, device=cuda)
+            for i in range(4)]
+    programs = graphs.EvalPrograms()
+    for surgery in (False, True):
+        if surgery:
+            st = loop.compact_and_resize(st, st.capacity)
+            with torch.no_grad():
+                st.params["gauss"].opacity.add_(0.5)
+        programs.load(st, bg)
+        for cam in cams:
+            got = programs.render(cam, stage="fine", active_sh=1,
+                                  raster_cfg=rc)
+            want = loop.eval_step(st, cam, bg, stage="fine", active_sh=1,
+                                  raster_cfg=rc)
+            for f in want._fields:
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+    rep = programs.report()
+    assert len(rep["captures"]) == 1 and rep["replays"] == 2 * len(cams)
+
+
 def _step_state(dev, batch=1):
     cfg = _cfg()
     st = _state(cfg).to(dev)

@@ -4,7 +4,8 @@ machine has no PIL), and importing the serving, training and data modules
 (the readers and the codecs among them), the training driver and its CLI,
 the render and metrics CLIs with LPIPS, the viewer bridge, the triptych,
 the dense grid, the per-frame export and the merge tool, the serving
-bench and the suite aggregate, the multi-GPU
+bench and the suite aggregate, the nine preparation, point and report
+tools (no OpenCV either), the multi-GPU
 package (fourdgs_tpu_torch.parallel) and its scaling tool, the host
 library's bindings (fourdgs_tpu_torch.native), and the dev tools' kernels
 and tools leaves jax
@@ -202,6 +203,28 @@ def test_launchers_run_only_the_port(path):
     assert "scripts/" not in text
     assert all(ref.startswith("fourdgs_tpu/configs/")
                for ref in re.findall(r"fourdgs_tpu/\S*", text))
+
+
+# the preparation, point and report tools (counterparts of the JAX
+# package's scripts of the same names)
+PREP_TOOLS = ("poses2colmap", "colmap_converter", "downsample_point",
+              "grow_point", "merge_point", "preprocess_dynerf",
+              "cal_modelsize", "visualize_hexplane", "diag_checkpoint")
+
+
+def test_prep_tools_import_without_jax_pil_or_opencv():
+    """The card's machine has no JAX or Pillow, and a user's may have no
+    OpenCV: importing the nine tools brings none of them in
+    (preprocess_dynerf reaches OpenCV only for a video whose frames are
+    missing)."""
+    code = ("import sys\n"
+            + "".join(f"import fourdgs_tpu_torch.tools.{m}\n"
+                      for m in PREP_TOOLS)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'fourdgs_tpu', 'PIL', 'cv2')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
 
 
 def test_visualize_imports_without_matplotlib():
