@@ -109,6 +109,24 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              read around both, every render must have run K1, the binner
              kernel and D1, and the post-hoc test PSNR must read phase 7's
              last in-loop eval within RENDER_PSNR_TOL;
+ 21. prewarm: run right after phase 10: the training CLI on phase 7's
+             scene, config and switches with the config's prewarmer on,
+             off, off and on (the off runs through `prewarm=False`), the
+             kernels' runs read around the four; for each run and stage
+             the captures on the training thread (key, step, the key's
+             changed fields, seconds), what each prewarm did (used,
+             dropped, failed, the switch's wait, its thread's seconds),
+             ms an iteration, the ms between steps while a prewarm thread
+             lived and while none did, peak memory and the test PSNR; it
+             fails on a failed prewarm, a run with the prewarmer on that
+             used none, a capture at an SH ramp (at 1000 only the
+             densify statistics' stop may capture, and with the prewarmer
+             on nothing), an iteration that did not replay; then once
+             off and once on on phase 17(a)'s run-to-run-equal route
+             (two runs of one setting on phase 7's route part by up to
+             0.3 dB), where the two test PSNRs must agree within
+             RENDER_PSNR_TOL (printed: whether they, the last losses and
+             the events are equal bit for bit);
  11. nerfies: run after phase 10: a vrig-like HyperNeRF capture of the
              ball scene (write_nerfies_scene: two cameras x 40 timestamps,
              rgb/2x at 536x960, covisible masks, 2,000 random points)
@@ -132,7 +150,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              prefetch, losses within STEP_LOSS_RTOL, with each one's ms a
              step, the lazy over the device bank's, the lazy bank's decode
              ms a view (the host library), prefetched batches and wait a
-             step;
+             step (both with the prewarmer off); then the device bank once
+             more with the prewarmer on: its build beside the steps, none
+             failed, losses within STEP_LOSS_RTOL, each run's peak memory;
  13. multipleview: the same on a MultipleView rig (write_multipleview_
              scene: DYNERF_RIG's four cameras in sparse_/ x 20 frames at
              960x540, camNN/frame_*.jpg, poses_bounds_multipleview.npy for
@@ -1123,14 +1143,17 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
               reg_weights=reg)
 
     start = state.to(device)     # both modes start from this state
-    key = graphs.StepKey("fine", state.capacity, rc, sh, True, 1,
+    key = graphs.StepKey("fine", state.capacity, rc, True, 1,
                          float(cfg.opt.lambda_dssim), reg, graphs.switches())
+    # the degree as run_stage passes it on a single card: a device value
+    sh_t = torch.full((), sh, dtype=torch.int32, device=device)
     step_fn = loop.step_of_key(tx)       # run_stage's step of a key
     programs = graphs.StepPrograms(step_fn)
     states = {"eager": start.to(device), "captured": start.to(device)}
     del start
-    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg),
-           "captured": lambda st, c, g: programs.run(key, st, c, g, bg)}
+    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg, sh_t),
+           "captured": lambda st, c, g: programs.run(key, st, c, g, bg,
+                                                     sh_t)}
 
     def step(mode, i):
         return run[mode](states[mode], [cams[i % len(cams)]],
@@ -1276,14 +1299,14 @@ def phase_train(torch, scene, renderer, device, steps: int, seed: int):
         f"{len(plain)} leaves, normalised max abs err per view "
         f"{', '.join(f'{e:.3g}' for e in errs)} (tol {GRAD_TOL:g})")
     batch_two = check_batch_two(torch, state, step_fn, key, cams, gts, bg,
-                                leaves, a_step)
+                                sh_t, leaves, a_step)
     return state, rc, bg, sh, check_cam, gts[-1], launches, {
         **modes, "captured_vs_eager": {"one_step_leaves": one_step,
                                        "losses": loss_err},
         "step_grad_errs": errs, "batch_two": batch_two}
 
 
-def check_batch_two(torch, state, step_fn, key, cams, gts, bg, leaves,
+def check_batch_two(torch, state, step_fn, key, cams, gts, bg, sh_t, leaves,
                     a_step: dict):
     """Batch 2: BATCH_TWO_STEPS steps of two cameras each, eagerly and as
     replays of the captured step, from copies of `state` (left as it
@@ -1294,8 +1317,9 @@ def check_batch_two(torch, state, step_fn, key, cams, gts, bg, leaves,
     key = key._replace(batch=2)
     device = state.alive.device
     programs = graphs.StepPrograms(step_fn)
-    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg),
-           "captured": lambda st, c, g: programs.run(key, st, c, g, bg)}
+    run = {"eager": lambda st, c, g: step_fn(key)(st, c, g, bg, sh_t),
+           "captured": lambda st, c, g: programs.run(key, st, c, g, bg,
+                                                     sh_t)}
     losses, after_one, ms = {}, {}, {}
     for mode in ("eager", "captured"):
         st = state.to(device)
@@ -1821,6 +1845,181 @@ def phase_eval(torch, device, work: Path, fine: int, in_loop_psnr: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 21 (after phase 10): the captured step's compile schedule
+# ---------------------------------------------------------------------------
+
+# the train CLI on phase 7's scene, config and switches with the prewarmer
+# on and off in turns; then a pair on phase 17(a)'s run-to-run-equal route,
+# where the two settings must train the same model (on phase 7's route two
+# runs of one setting part: their test PSNRs differ by up to 0.3 dB)
+PREWARM_RUNS = ("on", "off", "off", "on")
+PREWARM_EQUAL_RUNS = ("off", "on")
+# the kernels of phase 7's path (the per-slot switches set)
+PREWARM_PATH = ("blend_fwd", "blend_bwd_slots", "scatter_add_rows",
+                "scatter_set_scalars", "binner", "gather_rows")
+
+
+def prewarm_figures(st: dict) -> dict:
+    """One stage of the train CLI's summary: its captures on the training
+    thread and what its prewarms did, ms an iteration, the ms between
+    steps while a prewarm thread lived and while none did, peak memory,
+    the last test PSNR and loss, and the captures at an iteration where
+    the SH degree rose (only the densify statistics' stop may capture
+    there)."""
+    g = st["graphs"]
+    n = st["iterations"] - st["start"]
+    at = [(st["start"] + c["step"], c["changed"]) for c in g["captures"]]
+    return {
+        "iterations": n, "ms_per_iteration": 1e3 * st["wall_time"] / n,
+        "captures": len(g["captures"]),
+        "capture_s": sum(c["seconds"] for c in g["captures"]),
+        "capture_keys": [(c["key"], c["step"], c["seconds"], c["changed"])
+                         for c in g["captures"]],
+        **{k: g[k] for k in ("prewarmed", "prewarms_used",
+                             "prewarms_dropped", "prewarms_failed",
+                             "prewarms_retried",
+                             "prewarms_dropped_for_memory",
+                             "prewarm_wait_s", "prewarm_s", "close_wait_s",
+                             "step_gaps", "replays")},
+        "prewarms": [(p["key"], p["used"], p["dropped"], p["failed"],
+                      p["wait"], p["seconds"]) for p in g["prewarms"]],
+        "peak_mib": (st["peak_bytes"] or 0) / 2**20,
+        "test_psnr": st["test_psnr"][-1][1],
+        "loss_last": st["history"][-1]["loss"],
+        "events": [(e["iter"], e["kind"], e["points"]) for e in st["events"]],
+        "active_sh": st["active_sh"],
+        "captured_at_ramps": [(it, ch) for it, ch in at if it % 1000 == 0],
+        "ramp_captures": [(it, ch) for it, ch in at if it % 1000 == 0
+                          and ch != ["track_stats"]]}
+
+
+def prewarm_runs(train_cli, settings, name: str, configs: dict, common):
+    """The train CLI once a setting of `settings`, each run's figures."""
+    runs = []
+    for i, setting in enumerate(settings):
+        t0 = time.perf_counter()
+        summary = train_cli.main(common + [
+            "--configs", str(configs[setting]),
+            "-m", str(configs["work"] / f"prewarm_{name}_{i}_{setting}")])
+        runs.append({"prewarm": setting, "route": name,
+                     "seconds_train_cli": time.perf_counter() - t0,
+                     "stages": {st["stage"]: prewarm_figures(st)
+                                for st in summary["stages"]}})
+    return runs
+
+
+def phase_prewarm(torch, device, work: Path, coarse: int, fine: int,
+                  seed: int):
+    """The train CLI through both stages on phase 7's scene, config and
+    switches, with the prewarmer on and off in turns (PREWARM_RUNS), the
+    kernels' runs read around the four; then once off and once on
+    (PREWARM_EQUAL_RUNS) on phase 17(a)'s run-to-run-equal route. Fails on
+    a failed prewarm, a run with it on that used no prewarmed program, a
+    capture at an SH ramp (at the ramp only the densify statistics' stop
+    of phase 7's schedule may capture, and with the prewarmer on
+    nothing), an iteration that did not replay, and, on the equal route,
+    test PSNRs of the two settings apart by more than RENDER_PSNR_TOL.
+    Returns the launch counts and what it measured."""
+    from fourdgs_tpu_torch.tools import train as train_cli
+    from fourdgs_tpu_torch.tools.bench import card_limit
+    from fourdgs_tpu_torch.tools.quality_run import environment
+    from fourdgs_tpu_torch.train import graphs
+
+    base = DRIVER_CONFIG.format(coarse=coarse, fine=fine)
+    off = base.replace("RasterParams = dict(min_bucket=1024)",
+                       "RasterParams = dict(min_bucket=1024, prewarm=False)")
+    if off == base:
+        raise AssertionError("phase 21: DRIVER_CONFIG's RasterParams moved")
+    configs = {"on": work / "prewarm_on.py", "off": work / "prewarm_off.py",
+               "work": work}
+    configs["on"].write_text(base)
+    configs["off"].write_text(off)
+    common = ["-s", str(work / "scene"), "--quiet", "--seed", str(seed),
+              "--device", device.type, "--test_iterations", str(coarse),
+              str(fine)]
+    t_phase = time.perf_counter()
+    with switches_set(graphs.SWITCHES_ON):
+        torch.cuda.synchronize()
+        graphs.zero_counts()
+        runs = prewarm_runs(train_cli, PREWARM_RUNS, "timed", configs,
+                            common)
+        torch.cuda.synchronize()
+        launches = kernel_runs()
+    with environment(EQUAL_ROUTE_SWITCHES), deterministic_mode(torch), \
+            sorted_hex_backward(torch):
+        equal = prewarm_runs(train_cli, PREWARM_EQUAL_RUNS, "equal",
+                             configs, common)
+    for run in runs + equal:
+        for stage, f in run["stages"].items():
+            gaps = f["step_gaps"]
+            log(f"prewarm {run['route']} ({run['prewarm']}) {stage}: "
+                f"{f['ms_per_iteration']:.3f} ms/iteration; captures on the "
+                f"training thread {f['captures']} ({f['capture_s']:.3f} s); "
+                f"prewarmed {f['prewarmed']}, used {f['prewarms_used']}, "
+                f"dropped {f['prewarms_dropped']}, failed "
+                f"{f['prewarms_failed']}, built again "
+                f"{f['prewarms_retried']}, dropped for memory "
+                f"{f['prewarms_dropped_for_memory']}, wait "
+                f"{f['prewarm_wait_s']:.3f} s, "
+                f"background {f['prewarm_s']:.3f} s, close "
+                f"{f['close_wait_s']:.3f} s; ms between steps while "
+                f"prewarming {gaps['prewarming']}, else {gaps['quiet']}; "
+                f"peak {f['peak_mib']:.1f} MiB; test PSNR "
+                f"{f['test_psnr']:.4f}; SH degree {f['active_sh']}, "
+                f"captures at a ramp {f['captured_at_ramps']}")
+            for key, step, sec, changed in f["capture_keys"]:
+                log(f"prewarm {run['route']} {stage}:   captured {key} at "
+                    f"step {step} ({changed}): {sec:.3f} s")
+            for key, used, dropped, failed, wait, sec in f["prewarms"]:
+                log(f"prewarm {run['route']} {stage}:   prewarm {key}: "
+                    + ("used" if used else "dropped" if dropped else
+                       "failed" if failed else "held")
+                    + f", wait {wait:.3f} s, built in {sec:.3f} s")
+    psnr = {s: [r["stages"]["fine"]["test_psnr"] for r in runs
+                if r["prewarm"] == s] for s in ("on", "off")}
+    pair = {r["prewarm"]: r["stages"]["fine"] for r in equal}
+    same = {k: pair["on"][k] == pair["off"][k]
+            for k in ("test_psnr", "loss_last", "events")}
+    on_runs = [r for r in runs + equal if r["prewarm"] == "on"]
+    every = [f for r in runs + equal for f in r["stages"].values()]
+    checks = {
+        "no prewarm failed": all(f["prewarms_failed"] == 0 for f in every),
+        "each run with the prewarmer on used a prewarmed program": all(
+            sum(f["prewarms_used"] for f in r["stages"].values()) >= 1
+            for r in on_runs),
+        "none with it off prewarmed": all(
+            not f["prewarms"] for r in runs + equal if r["prewarm"] == "off"
+            for f in r["stages"].values()),
+        "no capture at an SH ramp": all(not f["ramp_captures"]
+                                        for f in every),
+        "with the prewarmer on, nothing captured at a ramp": all(
+            not f["captured_at_ramps"] for r in on_runs
+            for f in r["stages"].values()),
+        "the SH ramp": all(r["stages"]["fine"]["active_sh"] >= 1
+                           for r in runs + equal),
+        "every iteration replayed a captured step": all(
+            f["replays"] == f["iterations"] for f in every),
+        "on the equal route the two settings' test PSNRs agree":
+            abs(pair["on"]["test_psnr"] - pair["off"]["test_psnr"])
+            <= RENDER_PSNR_TOL,
+        **{f"{k} launched": launches[k] > 0 for k in PREWARM_PATH},
+    }
+    seconds = time.perf_counter() - t_phase
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"prewarm: phase 21 in {seconds:.2f} s ({card_limit(device)}); "
+        f"timed runs' test PSNR on {psnr['on']}, off {psnr['off']}; equal "
+        f"route off / on {pair['off']['test_psnr']:.4f} / "
+        f"{pair['on']['test_psnr']:.4f} (tol {RENDER_PSNR_TOL}), equal bit "
+        f"for bit: {same}; launches {launches}; checks "
+        f"{len(checks) - len(failed)}/{len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"prewarm phase: {failed}")
+    return launches, {"runs": runs, "equal_route": equal, "psnr": psnr,
+                      "equal_route_same": same, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # phases 11-15 (after phase 10): the nerfies (HyperNeRF), DyNeRF,
 # MultipleView, PanopticSports and Colmap layouts
 # ---------------------------------------------------------------------------
@@ -2278,10 +2477,14 @@ def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
     """The DyNeRF train split in each bank mode (stack_cameras with the
     budgets that pick it): every view equal bit for bit across the three;
     then BANK_STEPS captured steps of run_stage from one state with the
-    device bank and with a lazy bank and its prefetch, whose losses must
-    agree within STEP_LOSS_RTOL. Prints each mode's ms a step (the loss
-    read after every step), one view's decode ms on one thread, and the
-    lazy bank's prefetched batches and wait a step."""
+    device bank and with a lazy bank and its prefetch, both with the
+    prewarmer off (they time the banks), and once more with the device
+    bank and the prewarmer on, which builds the next bucket's step beside
+    them at this dataset's size; the losses of the three must agree within
+    STEP_LOSS_RTOL, and no prewarm may fail. Prints each run's ms a step
+    (the loss read after every step) and peak memory, what the prewarms
+    did, one view's decode ms on one thread, and the lazy bank's
+    prefetched batches and wait a step."""
     from fourdgs_tpu_torch.data.scene import (DECODE_WORKERS, _load_u8,
                                               load_scene_info, stack_cameras)
     from fourdgs_tpu_torch.train import loop, optim
@@ -2319,32 +2522,53 @@ def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
 
     quiet = copy.deepcopy(cfg)
     quiet.opt.densify_until_iter = 0       # no surgery: steps only
+    quiet.raster.prewarm = False           # nothing built beside the timed
     cams = splits["device"].cameras
+    warm = copy.deepcopy(quiet)
+    warm.raster.prewarm = True
     runs = {}
-    for mode in ("device", "lazy"):
+    for name, mode, run_cfg in (("device", "device", quiet),
+                                ("lazy", "lazy", quiet),
+                                ("device_prewarm", "device", warm)):
         bank = (banks["device"] if mode == "device" else stack_cameras(
             infos, device, with_images=True, **budgets["lazy"]).images)
         stamps = []
         st = state.to(device)
-        tx = optim.build_optimizer(quiet.opt, extent)
+        tx = optim.build_optimizer(run_cfg.opt, extent)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
         res = loop.run_stage(
-            quiet, st, "fine", BANK_STEPS, cams, bank, tx, rc,
+            run_cfg, st, "fine", BANK_STEPS, cams, bank, tx, rc,
             rng=np.random.default_rng(seed), log_every=1,
             cameras_extent=extent, initial_active_sh=sh,
             on_iteration=lambda it, s, a: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        g = res.graphs
         # each step ends with its loss read; the first two capture
         ms = 1e3 * float(np.median(np.diff(stamps[2:])))
-        runs[mode] = {"ms_per_step": ms,
-                      "losses": [r["loss"] for r in res.history],
-                      "replays": res.graphs["replays"],
-                      "stats": dict(bank.stats) if mode == "lazy" else None}
-        bank.close()
+        runs[name] = {
+            "ms_per_step": ms, "losses": [r["loss"] for r in res.history],
+            "replays": g["replays"], "capacity": st.capacity,
+            "peak_allocated_mib": torch.cuda.max_memory_allocated(device)
+            / 2**20,
+            "peak_reserved_mib": torch.cuda.max_memory_reserved(device)
+            / 2**20,
+            "prewarms": [(p["key"], p["used"], p["dropped"], p["failed"],
+                          p["retried"], p["seconds"]) for p in g["prewarms"]],
+            **{k: g[k] for k in ("prewarmed", "prewarms_failed",
+                                 "prewarms_retried",
+                                 "prewarms_dropped_for_memory")},
+            "stats": dict(bank.stats) if mode == "lazy" else None}
+        if mode == "lazy":
+            bank.close()
         del st, res
+    banks["device"].close()
     le = np.array(runs["device"]["losses"])
     ll = np.array(runs["lazy"]["losses"])
     loss_err = float(np.max(np.abs(ll - le) / np.abs(le)))
+    lw = np.array(runs["device_prewarm"]["losses"])
+    warm_err = float(np.max(np.abs(lw - le) / np.abs(le)))
     s = runs["lazy"]["stats"]
     waits = 1e3 * np.array(s.pop("waits"))
     wait_ms = float(np.median(waits))
@@ -2359,11 +2583,39 @@ def bank_check(torch, device, scene: str, state, cfg, rc, bg, sh, extent,
         f"training thread waited {wait_ms:.3f} ms a step (median; mean "
         f"{waits.mean():.3f}, the first {waits[0]:.3f}); losses within "
         f"{loss_err:.3g} relative (tol {STEP_LOSS_RTOL:g})")
+    w = runs["device_prewarm"]
+    for name, r in runs.items():
+        log(f"dynerf banks: {name}: capacity {r['capacity']}, peak "
+            f"{r['peak_allocated_mib']:.1f} MiB allocated, "
+            f"{r['peak_reserved_mib']:.1f} MiB reserved; prewarmed "
+            f"{r['prewarmed']}, failed {r['prewarms_failed']}, built again "
+            f"after running out of memory {r['prewarms_retried']}, dropped "
+            f"for a capture's memory {r['prewarms_dropped_for_memory']}")
+    for key, used, dropped, failed, retried, sec in w["prewarms"]:
+        log(f"dynerf banks: device_prewarm: prewarm {key}: "
+            + ("used" if used else "failed" if failed else "dropped"
+               if dropped else "held")
+            + f", built again {retried}, built in {sec:.3f} s")
+    log(f"dynerf banks: device bank with the prewarmer on "
+        f"{w['ms_per_step']:.3f} ms/step (median), losses within "
+        f"{warm_err:.3g} relative of the device bank's with it off")
     if not all(r["replays"] == BANK_STEPS for r in runs.values()):
         raise AssertionError(f"bank steps replayed {runs}")
     if not loss_err <= STEP_LOSS_RTOL:
         raise AssertionError(f"lazy-bank losses off by {loss_err}")
+    if not warm_err <= STEP_LOSS_RTOL:
+        raise AssertionError(f"prewarm-on losses off by {warm_err}")
+    if w["prewarms_failed"] or not w["prewarmed"]:
+        raise AssertionError(f"bank prewarms: {w['prewarms']}")
     return {"views": n, "equal": True, "loss_err": loss_err,
+            "prewarm_loss_err": warm_err,
+            "prewarm_run": {k: w[k] for k in (
+                "ms_per_step", "prewarmed", "prewarms_failed",
+                "prewarms_retried", "prewarms_dropped_for_memory",
+                "prewarms")},
+            **{f"{m}_peak_mib": (r["peak_allocated_mib"],
+                                 r["peak_reserved_mib"])
+               for m, r in runs.items()},
             "decode_ms_per_view": decode_ms, "wait_ms_per_step": wait_ms,
             "lazy_over_device": ratio, "stack_s": t_stack,
             "wait_ms_per_step_mean": float(waits.mean()),
@@ -2457,6 +2709,9 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
                 "events": {k: kinds.count(k) for k in sorted(set(kinds))},
                 "captures": len(g["captures"]), "replays": g["replays"],
                 "capture_s": sum(c["seconds"] for c in g["captures"]),
+                "prewarmed": g["prewarmed"], "prewarms_used":
+                g["prewarms_used"], "prewarms_failed": g["prewarms_failed"],
+                "prewarms_retried": g["prewarms_retried"],
                 "peak_mib": (st["peak_bytes"] or 0) / 2**20}
             r = stages[st["stage"]]
             log(f"{kind} {st['stage']}: {n_it} iterations, "
@@ -2465,6 +2720,9 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
                 f"{r['test_psnr']}; points {r['points_last']} in "
                 f"{r['capacity_last']}; events {r['events']}; "
                 f"{r['captures']} captures ({r['capture_s']:.2f} s), "
+                f"{r['prewarmed']} prewarmed ({r['prewarms_used']} used, "
+                f"{r['prewarms_retried']} built again after running out of "
+                f"memory), "
                 f"{r['replays']} replays; peak {r['peak_mib']:.1f} MiB")
         splits = rendered["splits"]
         method = f"ours_{spec['fine']}"
@@ -2516,7 +2774,9 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
 
         # ---- the kernels' runs and the run's checks ----
         co, fi = stages["coarse"], stages["fine"]
-        stepped = {s: r["replays"] + graphs.WARMUP * r["captures"]
+        # each capture, on this thread or a prewarm's, warms up eagerly
+        stepped = {s: r["replays"] + graphs.WARMUP * (r["captures"]
+                                                      + r["prewarmed"])
                    for s, r in stages.items()}
         gathers = HEX_GATHERS_PER_LEVEL * levels
         renders = (rendered["probe_renders"] + graphs.WARMUP
@@ -2537,6 +2797,8 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
                 min(ev.values()) >= 1,
             "test evaluations": bool(co["test_psnr"])
                 and bool(fi["test_psnr"]),
+            "no prewarm failed": co["prewarms_failed"] == 0
+                == fi["prewarms_failed"],
             "K2 ran batch times every step": train_runs["blend_bwd"]
                 == batch * sum(stepped.values()),
             "K1 and the binner ran every render":
@@ -3771,15 +4033,16 @@ def equal_route_check(torch, mesh, inputs, device, eager_losses) -> dict:
     with environment(EQUAL_ROUTE_SWITCHES), deterministic_mode(torch) as \
             caught, sorted_hex_backward(torch):
         tx = optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE)
-        key = graphs.StepKey("fine", start.capacity, rc, sh, True, len(cams),
+        key = graphs.StepKey("fine", start.capacity, rc, True, len(cams),
                              MESH_DSSIM, mesh_reg(cfg), graphs.switches(),
-                             sharded.mesh_key(mesh, rc))
+                             sharded.mesh_key(mesh, rc), sh)
         step = sharded.step_of_key(tx, mesh)(key)
         a, b = start.to(device), start.to(device)
         losses, parted = {"eager": [], "eager again": []}, None
         for i in range(MESH_CAPTURED_STEPS):
-            losses["eager"].append(float(step(a, cams, gts, bg).loss))
-            losses["eager again"].append(float(step(b, cams, gts, bg).loss))
+            losses["eager"].append(float(step(a, cams, gts, bg, sh).loss))
+            losses["eager again"].append(float(step(b, cams, gts, bg,
+                                                    sh).loss))
             if parted is None:
                 for n, x, y in zip(names, leaves(a), leaves(b), strict=True):
                     if not torch.equal(x.detach(), y.detach()):
@@ -3795,7 +4058,7 @@ def equal_route_check(torch, mesh, inputs, device, eager_losses) -> dict:
             programs = graphs.StepPrograms(sharded.step_of_key(tx, mesh))
             st = start.to(device)
             losses["captured"] = [float(programs.run(key, st, cams, gts,
-                                                     bg).loss)
+                                                     bg, sh).loss)
                                   for _ in range(MESH_CAPTURED_STEPS)]
             captured = np.abs(np.array(losses["captured"]) - eager) \
                 / np.abs(eager)
@@ -3857,19 +4120,23 @@ def mesh_capture_check(torch, mesh, inputs, device) -> dict:
 
     cfg, start, rc, bg, sh, cams, gts = inputs
     tx = optim.build_optimizer(cfg.opt, SPATIAL_LR_SCALE)
-    single_key = graphs.StepKey("fine", start.capacity, rc, sh, True,
+    single_key = graphs.StepKey("fine", start.capacity, rc, True,
                                 len(cams), MESH_DSSIM, mesh_reg(cfg),
                                 graphs.switches())
-    key = single_key._replace(mesh=sharded.mesh_key(mesh, rc))
+    # the mesh's step is static in the SH degree, the single card's reads
+    # it from a buffer (as run_stage passes them)
+    key = single_key._replace(mesh=sharded.mesh_key(mesh, rc), active_sh=sh)
+    sh_t = torch.full((), sh, dtype=torch.int32, device=device)
     mesh_fn = sharded.step_of_key(tx, mesh)
     programs = {"mesh": graphs.StepPrograms(mesh_fn),
                 "single": graphs.StepPrograms(loop.step_of_key(tx))}
     run = {"single captured": lambda st: programs["single"].run(
-               single_key, st, cams, gts, bg),
+               single_key, st, cams, gts, bg, sh_t),
            "mesh captured": lambda st: programs["mesh"].run(
-               key, st, cams, gts, bg),
-           "mesh eager": lambda st: mesh_fn(key)(st, cams, gts, bg),
-           "mesh eager again": lambda st: mesh_fn(key)(st, cams, gts, bg)}
+               key, st, cams, gts, bg, sh),
+           "mesh eager": lambda st: mesh_fn(key)(st, cams, gts, bg, sh),
+           "mesh eager again": lambda st: mesh_fn(key)(st, cams, gts, bg,
+                                                       sh)}
     states, losses, ms, after_one, runs = {}, {}, {}, {}, {}
 
     def timed(mode, record):
@@ -5569,6 +5836,8 @@ def main(argv=None) -> int:
         driver["stages"]["fine"]["test_psnr"][-1][1])
     k1["launches_eval"] = eval_launches["blend_fwd"]
     k1["eval"] = evaluation
+    prewarm_runs, prewarm = phase_prewarm(torch, device, work, args.coarse,
+                                          args.fine, args.seed)
     layouts, layout_runs = {}, {}
     for kind in LAYOUTS:
         layout_runs[kind], layouts[kind] = phase_layout(torch, device, work,
@@ -5611,6 +5880,12 @@ def main(argv=None) -> int:
             k["launches_eval_programs"] = eval_program_runs[name]
             k.setdefault("eval_programs", {})["frame"] = \
                 evals["checks"][name]
+    # phase 21: the runs of phase 7's path with the prewarmer on and off
+    for k in kernels:
+        name = k["name"].split(" (main path)")[0]
+        if name in PREWARM_PATH:
+            k["launches_prewarm"] = prewarm_runs[name]
+    k1["prewarm"] = prewarm
     k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
                                              "cli", "cli_nccl", "scaling",
                                              "seconds", "seconds_abcde")}
@@ -5618,7 +5893,8 @@ def main(argv=None) -> int:
         if k["launches"] == 0 or any(k.get(f"launches_{path}", 1) == 0
                                      for path in ("serve", "step", "eval",
                                                   "bench_fps",
-                                                  "eval_programs", *LAYOUTS)):
+                                                  "eval_programs", "prewarm",
+                                                  *LAYOUTS)):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops.serial import MAX_TILES, serial_ranks
 
 ROW_W = 8
@@ -78,7 +79,7 @@ def expand_rank(x0: torch.Tensor, y0: torch.Tensor, sx: torch.Tensor,
                                      pc, n_tiles, grid_x, tile_cap,
                                      hist.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, "expand_rank", err)
-    expand_rank.launches += 1
+    launches.count(expand_rank)
     return out
 
 

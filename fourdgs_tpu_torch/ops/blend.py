@@ -42,6 +42,7 @@ import os
 import torch
 from torch.profiler import record_function
 
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
@@ -179,7 +180,7 @@ def blend_forward(gidx: torch.Tensor, counts: torch.Tensor,
             counts.data_ptr(), table.data_ptr(), table.shape[0] - 1, nt,
             tile0, cfg.tile_cap, cfg.grid_x, cfg.tile_size, k, list_len,
             color.data_ptr(), depth.data_ptr(), trans.data_ptr())
-    blend_forward.launches += 1
+    launches.count(blend_forward)
     return color, depth, trans
 
 
@@ -285,7 +286,7 @@ def blend_backward(gidx: torch.Tensor, counts: torch.Tensor,
             color.data_ptr(), depth.data_ptr(), trans.data_ptr(),
             g_color.data_ptr(), g_depth.data_ptr(), g_t.data_ptr(),
             grads.data_ptr(), None if tally is None else tally.data_ptr())
-    blend_backward.launches += 1
+    launches.count(blend_backward)
     return grads[:n]
 
 
@@ -430,7 +431,7 @@ def blend_backward_slots(gidx: torch.Tensor, counts: torch.Tensor,
             trans.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
             g_t.data_ptr(), slots.data_ptr(),
             None if tally is None else tally.data_ptr())
-    blend_backward_slots.launches += 1
+    launches.count(blend_backward_slots)
     return slots
 
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops import launches
+
 ATTR_W = 16
 CHUNK = 32           # csrc/blend_variants.cu: kRows
 BODIES = ("dma_only", "exp_only", "slices", "scans")
@@ -62,7 +64,7 @@ def _run(wrapper, plain, attrs, px, chunk):
     _launch(lib, lib.blend_variant_launch, attrs,
             BODIES.index(wrapper.__name__), attrs.data_ptr(), px.data_ptr(),
             attrs.shape[0], attrs.shape[1] // chunk, n_pix, out.data_ptr())
-    wrapper.launches += 1
+    launches.count(wrapper)
     return out
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 
 
@@ -48,7 +49,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = table.new_empty((m, w))
     _launch(lib, lib.gather_rows_launch, table, table.data_ptr(),
             idx.data_ptr(), m, w, r, out.data_ptr())
-    gather_rows.launches += 1
+    launches.count(gather_rows)
     return out
 
 

@@ -27,6 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 from fourdgs_tpu_torch.ops.blend import (blend, pack_attr_table,
                                          reassociates)
@@ -284,7 +285,7 @@ def bin_tiles(proj: Projected, cfg: RasterConfig, slots: bool = False,
             ends.data_ptr(), n, total_slots, nt, cfg.grid_x, cfg.tile_size,
             cap, int(num_tiles is None), hist.data_ptr(), cnt.data_ptr(),
             *ptrs, counts.data_ptr(), overflow.data_ptr(), scalars.data_ptr())
-    bin_tiles.launches += 1
+    launches.count(bin_tiles)
     if per_slot:
         # the JAX package's switch (rasterize_tiled.py:383-393): K5 over
         # each budget slot's pair, the culled, past-tile_cap and empty

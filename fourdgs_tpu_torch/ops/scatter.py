@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 
 
@@ -59,7 +60,7 @@ def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, *,
     out = rows.new_empty((n_out, w))    # zero-filled by the launch
     _launch(lib, lib.scatter_add_rows_launch, rows, idx.data_ptr(),
             rows.data_ptr(), m, w, n_out, out.data_ptr())
-    scatter_add_rows.launches += 1
+    launches.count(scatter_add_rows)
     return out
 
 
@@ -101,7 +102,7 @@ def scatter_set_scalars(idx: torch.Tensor, val: torch.Tensor, *,
     out = idx.new_empty(n_out)          # filled with -1 by the launch
     _launch(lib, lib.scatter_set_scalars_launch, idx, idx.data_ptr(),
             val.data_ptr(), idx.shape[0], n_out, out.data_ptr())
-    scatter_set_scalars.launches += 1
+    launches.count(scatter_set_scalars)
     return out
 
 

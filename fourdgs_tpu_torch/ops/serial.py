@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 
 # The counting kernels' tile limit: one array of MAX_TILES int counters, a
@@ -71,7 +72,7 @@ def scalar_store(idx: torch.Tensor, val: torch.Tensor, *,
     buf = idx.new_empty(2 * n_out)      # out, then the kernel's winners
     _launch(lib, lib.scalar_store_launch, idx, idx.data_ptr(), val.data_ptr(),
             idx.shape[0], n_out, buf.data_ptr())
-    scalar_store.launches += 1
+    launches.count(scalar_store)
     return buf[:n_out]
 
 
@@ -121,7 +122,7 @@ def tile_counter_store(tid: torch.Tensor, val: torch.Tensor, *, n_tiles: int,
     _launch(lib, lib.tile_counter_store_launch, tid, tid.data_ptr(),
             val.data_ptr(), m, n_tiles, tile_cap, n_out, hist.data_ptr(),
             dest.data_ptr(), cnt.data_ptr(), buf.data_ptr())
-    tile_counter_store.launches += 1
+    launches.count(tile_counter_store)
     return buf[:n_out], cnt
 
 

@@ -70,6 +70,24 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
 
 
+def sh_to_rgb_dynamic(active_deg: torch.Tensor, sh: torch.Tensor,
+                      dirs: torch.Tensor, max_deg: int = 3) -> torch.Tensor:
+    """`sh_to_rgb` at a degree held in a 0-d integer tensor: every band up
+    to `max_deg` evaluated, those above `active_deg` multiplied by 0. The
+    mask is built on the degree's device and nothing is read to the host,
+    so a captured step replays at any degree (the SH ramp recaptures
+    nothing). Each masked band adds an exact zero to the sum and takes a
+    zero gradient, as the static degree ignores it."""
+    k = (max_deg + 1) ** 2
+    band = torch.arange(k, device=active_deg.device)
+    # a band's degree: floor(sqrt(band)), counted without a float root
+    band_deg = sum((band >= d * d).to(torch.int32)
+                   for d in range(1, max_deg + 1))
+    mask = (band_deg <= active_deg).to(sh.dtype)
+    return torch.clamp(
+        eval_sh(max_deg, sh[..., :k, :] * mask[:, None], dirs) + 0.5, min=0.0)
+
+
 def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 

@@ -349,9 +349,11 @@ def sharded_train_step(state, cameras: Sequence[Camera], gts: torch.Tensor,
 
 def step_of_key(tx: optim.GroupedAdam, mesh: Mesh):
     """The mesh's counterpart of `loop.step_of_key`: the step function of
-    a `graphs.StepKey` whose `mesh` is this rank's `mesh_key`.
-    `fn(state, cameras, gts, bg)` runs `sharded_train_step` in place on
-    `state` (this rank's slice of the batch) and returns a `loop.StepAux`
+    a `graphs.StepKey` whose `mesh` is this rank's `mesh_key` and whose
+    `active_sh` is the SH degree (static, as in JAX's sharded step).
+    `fn(state, cameras, gts, bg, active_sh)` runs `sharded_train_step` in
+    place on `state` (this rank's slice of the batch) at the key's degree,
+    which `active_sh` must equal, and returns a `loop.StepAux`
     of device tensors: the loss, l1 and PSNR, the drops and the visible
     count reduced over every rank; the mesh reports no image, pair count
     or tile peak (zeros, as JAX's sharded aux)."""
@@ -361,7 +363,10 @@ def step_of_key(tx: optim.GroupedAdam, mesh: Mesh):
                              f"{mesh.rank} of a {mesh.n_data}x"
                              f"{mesh.n_tile} mesh")
 
-        def fn(state, cameras, gts, bg):
+        def fn(state, cameras, gts, bg, active_sh):
+            if active_sh != key.active_sh:
+                raise ValueError(f"SH degree {active_sh} for a step key of "
+                                 f"degree {key.active_sh}")
             _, loss, aux = sharded_train_step(
                 state, cameras, gts, bg, key.active_sh, mesh=mesh,
                 stage=key.stage, raster_cfg=key.raster_cfg, tx=tx,

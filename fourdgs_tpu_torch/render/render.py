@@ -8,13 +8,17 @@ Differentiable; a zero `ndc_offset` input is the screen-space gradient
 carrier for the densify statistics. Serving wraps it in torch.no_grad()
 (render/serve.py).
 
-The SH degree is a Python int: the JAX step passes a traced degree to
-`sh_to_rgb_dynamic` so that its jit never recompiles during the SH ramp;
-here the degree is part of the key of the captured step and frame
-(train/graphs.py), so a ramp step captures anew. Bands above the active
-degree get a zero gradient in both.
+The SH degree is a Python int or a 0-d integer tensor, as in the JAX
+package: an int evaluates the bands up to it (`sh_to_rgb`; serving, the
+evaluations and the mesh's step, whose captured programs key on it), a
+tensor evaluates every band of the coefficients and masks those above it
+(`sh_to_rgb_dynamic`; the single-card training step, whose captured
+program reads the degree from a buffer, so the SH ramp recaptures
+nothing). Bands above the active degree get a zero gradient in both.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.profiler import record_function
@@ -33,7 +37,7 @@ def splats_at(
     deform: Deformation,
     camera: Camera,
     aabb: torch.Tensor,
-    active_sh_degree: int,
+    active_sh_degree: int | torch.Tensor,
     stage: str = "fine",
     override_color: torch.Tensor | None = None,
 ):
@@ -58,7 +62,12 @@ def splats_at(
         dirs = xyz - camera.cam_center
         dirs = dirs / torch.clamp(
             torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-8)
-        colors = sh_ops.sh_to_rgb(int(active_sh_degree), shs_f, dirs)
+        if isinstance(active_sh_degree, torch.Tensor):
+            max_deg = math.isqrt(shs_f.shape[1]) - 1
+            colors = sh_ops.sh_to_rgb_dynamic(active_sh_degree, shs_f, dirs,
+                                              max_deg)
+        else:
+            colors = sh_ops.sh_to_rgb(int(active_sh_degree), shs_f, dirs)
     else:
         colors = override_color
     return xyz, scales, quats, opacities, colors
@@ -72,7 +81,7 @@ def render(
     raster_cfg: RasterConfig,
     aabb: torch.Tensor,
     alive: torch.Tensor,
-    active_sh_degree: int,
+    active_sh_degree: int | torch.Tensor,
     stage: str = "fine",
     ndc_offset: torch.Tensor | None = None,
     scale_modifier: float = 1.0,

@@ -98,19 +98,20 @@ def main(argv=None) -> dict:
     gts = torch.from_numpy(rng.uniform(0, 1, (1, args.size, args.size, 3))
                            .astype(np.float32)).to(dev)
     bg = torch.zeros(3, device=dev)
-    key = graphs.StepKey("fine", state.capacity, rc, 3, True, 1, 0.0,
+    key = graphs.StepKey("fine", state.capacity, rc, True, 1, 0.0,
                          REG_WEIGHTS, graphs.switches())
+    sh = torch.full((), 3, dtype=torch.int32, device=dev)
     step_fn = loop.step_of_key(tx)
     if captured:
         programs = graphs.StepPrograms(step_fn)
 
         def step():
-            return programs.run(key, state, cams, gts, bg)
+            return programs.run(key, state, cams, gts, bg, sh)
     else:
         eager_step = step_fn(key)
 
         def step():
-            return eager_step(state, cams, gts, bg)
+            return eager_step(state, cams, gts, bg, sh)
 
     for _ in range(WARMUP_STEPS):
         aux = step()

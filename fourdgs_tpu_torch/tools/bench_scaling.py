@@ -155,17 +155,17 @@ def worker(args) -> None:
                                    device=dev) for i in range(batch)][sl]
             gts = torch.from_numpy(gts_all[sl]).to(dev)
             state = base.to(dev)
-            key = graphs.StepKey("fine", state.capacity, rc, ACTIVE_SH, True,
-                                 batch, 0.0, REG_WEIGHTS, graphs.switches(),
-                                 sharded.mesh_key(mesh, rc))
+            key = graphs.StepKey("fine", state.capacity, rc, True, batch,
+                                 0.0, REG_WEIGHTS, graphs.switches(),
+                                 sharded.mesh_key(mesh, rc), ACTIVE_SH)
             step_fn = sharded.step_of_key(tx, mesh)
             captured = dev.type == "cuda" and mesh.backend == "nccl"
             programs = graphs.StepPrograms(step_fn) if captured else None
 
             def step():
                 if programs is None:
-                    return step_fn(key)(state, cams, gts, bg)
-                return programs.run(key, state, cams, gts, bg)
+                    return step_fn(key)(state, cams, gts, bg, ACTIVE_SH)
+                return programs.run(key, state, cams, gts, bg, ACTIVE_SH)
 
             float(step().loss)       # untimed: the capture and its warm-up
             _sync_ranks(dev)

@@ -33,9 +33,13 @@ blend backward, K2); `switches` sets all four (K3 and its K4 reduction, K4
 in the HexPlane backward, K5 in the binner), as chip_smoke.py's phase 7
 does. The train CLI's seed is its default, 6666, the JAX run's. For each
 variant the run reports each stage's ms/iteration (the train CLI's time
-without evals and saves), its captures' seconds and their share of the
-stage's wall time, its test evaluations' seconds and the seconds of
-their captures, its peak live count, the in-loop test PSNRs, the
+without evals and saves), the captures on the training thread, their
+seconds and their share of the stage's wall time, what the prewarms did
+(prewarmed, used, dropped, failed, built again after running out of
+memory, the switches' wait, their threads' seconds, the ms between steps
+while one was building and while none was), its test evaluations'
+seconds and the seconds of their captures, its peak memory and live
+count, the in-loop test PSNRs, the
 post-hoc PSNR, SSIM and MS-SSIM, each split's render FPS, each test
 view's post-hoc PSNR (beside the record's `per_view.json` where it has
 one), and whether the post hoc fell below the protocol's fault floor. It
@@ -118,6 +122,11 @@ def stage_report(stage: dict) -> dict:
             "capture_s": capture_s,
             "capture_share": capture_s / stage["wall_time"],
             "replays": captured["replays"],
+            **{k: captured.get(k) for k in (
+                "prewarmed", "prewarms_used", "prewarms_dropped",
+                "prewarms_failed", "prewarms_retried",
+                "prewarms_dropped_for_memory", "prewarm_wait_s", "prewarm_s",
+                "close_wait_s", "step_gaps")},
             "rollbacks": sum(e["kind"] == "rollback"
                              for e in stage["events"]),
             "peak_mib": (stage["peak_bytes"] or 0) / 2**20,

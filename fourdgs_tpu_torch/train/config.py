@@ -143,8 +143,9 @@ class RasterParams:
     autogrow: bool = True
     min_bucket: int = 4096
     bucket_headroom: float = 1.5
-    # JAX's background compile of the next bucket; the port captures a
-    # step when its key comes up and does not read it (train/graphs.py)
+    # capture the next bucket's step (and the densify statistics' stop)
+    # on a thread ahead of its key, as JAX compiles it ahead
+    # (train/graphs.py, train/loop.py:BucketPrewarmer)
     prewarm: bool = True
     cap_shrink_spacing: int = 2000
 

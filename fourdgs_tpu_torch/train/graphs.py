@@ -3,35 +3,60 @@ recorded once per key and replayed (counterpart: `jax.jit` over
 `train_step`, fourdgs_tpu/train/loop.py:87-91, and the jitted render of
 scripts/render.py:125).
 
-JAX's `BucketPrewarmer` (loop.py:249) compiles the next bucket's step on a
-thread while training goes on. A capture here runs on the training thread
-and costs the same ahead of a key change as at it (0.1-0.7 s), so a step
-is captured when its key first comes up, and `prewarm` is not read.
-
 A key holds what the JAX package makes a static argument: every host value
 that the program branches on or sizes a buffer by (the stage, the
-capacity, the raster config, the SH degree, `track_stats`, the switches
-read from the environment). A graph bakes in the address of every tensor
-it reads and writes, so a captured program reads static buffers:
+capacity, the raster config, `track_stats`, the switches read from the
+environment; over a mesh also the SH degree, which JAX's sharded step
+takes as static). On a single card the SH degree is a device value, as in
+JAX's step: the captured step owns a 0-d degree buffer that each replay
+copies in, so the SH ramp captures nothing. A graph bakes in the address
+of every tensor it reads and writes, so a captured program reads static
+buffers:
 
   * the served frame (`CapturedFrame`) reads the renderer's tensors in
     place, their identity part of its key, and a static camera into which
     each replay copies the camera asked for;
   * the training step (`CapturedStep`) owns a copy of the training state
     (`StateBuffers`): the gaussian leaves, the deformation, the Adam
-    moments and count, the densify statistics, `alive`, `aabb` and `step`.
+    moments and count, the densify statistics, `alive`, `aabb` and `step`;
+    and the cameras, targets, background and SH degree it reads.
     Before each replay `StateBuffers.bind` copies in every state tensor
     that is not its buffer (densify, prune, grow, a resize and the NaN
     rollback replace tensors) and points the state at the buffers, so
     that the step's in-place updates land in the caller's state: one
     device copy after a surgery, not a recapture.
 
-A capture warms the program up on a side stream (on the buffers, whose
-values the first bind overwrites, so the training state is left as it
-was), records it into a memory pool of its own, and logs its seconds. A
-capture or a replay that fails raises; nothing falls back to the eager
-path. A replay returns copies of the outputs, which the caller may keep
-across replays.
+A capture warms the program up on a stream of its own (on the buffers,
+whose values the first bind overwrites, so the training state is left as
+it was), on the training thread frees the allocator's cached blocks
+(cudaFree), records the program there into a memory pool of its own
+(captures take turns across threads), waits on that stream alone, and
+logs its seconds. A capture or a replay that fails
+raises; nothing falls back to the eager path. A replay returns copies of
+the outputs, which the caller may keep across replays.
+
+The prewarmer (counterpart: JAX's `BucketPrewarmer`, loop.py:249-286 and
+its `queue_prewarm`, :436-460) builds a step ahead of its key on a daemon
+thread while the training thread replays: `run_stage` decides which key
+(`loop.BucketPrewarmer`, JAX's triggers) and `StepPrograms.prewarm`
+builds it. The thread enqueues copies of the live state, cut or padded to
+the key's capacity, on the training thread's stream (ordered after the
+replays already there, with no sync; the values do not matter, since the
+first bind replaces them), warms the program up and captures it on its
+own stream in thread-local mode (the training thread goes on syncing,
+reading to the host and allocating meanwhile, which a global-mode capture
+forbids in any thread), and waits on that stream alone. At the key's
+switch `StepPrograms.run` takes the program, waiting for its thread if
+the capture is still running; a prewarmed key that can no longer come (a
+cap changed, the statistics stopped, the bucket moved elsewhere) is
+dropped with its pool. A prewarm that runs out of memory empties the
+allocator's cache and builds once more (`retried`); one that fails prints
+`[prewarm] <key> failed: ...` and is counted, and its key's switch
+captures on the training thread. A capture on the training thread that
+runs out of memory while prewarms hold or build programs drops them and
+captures again, so a prewarm never costs the stage a step. While a prewarm thread lives every capture runs in
+thread-local mode. `StepPrograms.close` joins every thread at the stage's
+end, so no program outlives it.
 
 The test evaluation (`EvalPrograms`, the counterpart of JAX's jitted
 `eval_step`, loop.py:170-178) is a `render/serve.py:Renderer` over copies
@@ -57,18 +82,23 @@ ProcessGroupNCCL's watchdog thread queries the events of earlier
 collectives, which a global-mode capture forbids in any thread.
 
 The kernel wrappers' `.launches` count the kernels the host launched. A
-capture records its launches per wrapper on the program (`launches`) and
-takes them back from the wrappers, since nothing ran; each replay adds
-them to `REPLAYED`. `kernel_runs()` is the sum, by the wrapper's
-`__name__`: the kernels that ran.
+capture records the launches made on its stream per wrapper on the
+program (`launches`, through `ops/launches.py:recording`) and not on the
+wrappers, since nothing ran; another thread's launches meanwhile count as
+they run. Each replay adds the program's launches to `REPLAYED`.
+`kernel_runs()` is the sum, by the wrapper's `__name__`: the kernels that
+ran.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import os
+import threading
 import time
+import traceback
 from collections.abc import Callable, Sequence
 from typing import Any, NamedTuple
 
@@ -77,7 +107,8 @@ import torch.distributed as dist
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
-from fourdgs_tpu_torch.ops import blend, gather, rasterize_tiled, scatter
+from fourdgs_tpu_torch.ops import (blend, gather, launches,
+                                   rasterize_tiled, scatter)
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.train import optim
 from fourdgs_tpu_torch.train.state import TrainState
@@ -135,10 +166,59 @@ def _clone_camera(cam: Camera) -> Camera:
     return Camera(**{f: getattr(cam, f).clone() for f in _CAMERA_FIELDS})
 
 
+# Process-wide, as CUDA's capture modes and the caching allocator are: one
+# capture at a time (`_CAPTURING`), the prewarm threads alive (a capture
+# runs in thread-local mode while one is), whether this thread builds in
+# the background, and the streams that programs being built hold.
+_CAPTURING = threading.Lock()
+_THREADS = threading.Lock()
+_background = {"threads": 0}
+_local = threading.local()
+_held_streams: set = set()
+
+
+@contextlib.contextmanager
+def _own_stream():
+    """A stream of PyTorch's pool that no other program being built holds
+    (the pool hands its streams out in turn, so two programs built at once
+    on two threads could draw the same one)."""
+    with _THREADS:
+        for _ in range(64):
+            stream = torch.cuda.Stream()
+            if stream.cuda_stream not in _held_streams:
+                break
+        else:
+            raise RuntimeError("every pooled stream is held by a capture")
+        _held_streams.add(stream.cuda_stream)
+    try:
+        yield stream
+    finally:
+        with _THREADS:
+            _held_streams.discard(stream.cuda_stream)
+
+
+def _in_background() -> bool:
+    return getattr(_local, "background", False)
+
+
 class Program:
     """One CUDA graph of `fn` (no arguments; it reads static buffers) in a
     memory pool of its own, with the outputs its replays write, its
-    launches per kernel wrapper, its replays and its capture seconds."""
+    launches per kernel wrapper, its replays and its capture seconds.
+
+    The warm-up and the capture run on a stream of its own, after what the
+    calling thread's stream holds; then that stream alone is waited on. On
+    the training thread the caller's stream is also made to wait for it
+    (a replay may follow at once); a prewarm thread hands its program over
+    only after its wait. Captures take turns (`_CAPTURING`). On the
+    training thread each first frees the allocator's cached blocks and the
+    pools of freed programs (cudaFree, which waits on the whole device), as
+    `torch.cuda.graph` does: while a capture is underway anywhere in the
+    process the allocator releases nothing, not even to satisfy an
+    allocation, so a capture's pool could otherwise run out of memory
+    beside a large cache. A prewarm thread skips that wait
+    (`StepPrograms.prewarm` empties the cache only after a build runs out
+    of memory)."""
 
     def __init__(self, key, fn: Callable[[], Any], label: str,
                  warmup: int = WARMUP):
@@ -146,28 +226,37 @@ class Program:
             raise RuntimeError("a captured program needs a CUDA device; "
                                "the CPU path runs eagerly")
         t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        before = [w.launches for w in WRAPPERS]
-        self.graph = torch.cuda.CUDAGraph()
+        background = _in_background()
         ranks = _in_process_group()
-        with torch.cuda.graph(self.graph, capture_error_mode=(
-                "thread_local" if ranks else "global")):
-            self.outputs = fn()
-        self.launches = {w.__name__: w.launches - n
-                         for w, n in zip(WRAPPERS, before) if w.launches != n}
-        for w, n in zip(WRAPPERS, before):
-            w.launches = n
-        torch.cuda.synchronize()
+        mode = ("thread_local" if ranks or background
+                or _background["threads"] else "global")
+        caller = torch.cuda.current_stream()
+        self.graph = torch.cuda.CUDAGraph()
+        with _own_stream() as side:
+            side.wait_stream(caller)
+            try:
+                with torch.cuda.stream(side):
+                    for _ in range(warmup):
+                        fn()
+                    with _CAPTURING, launches.recording(side) as recorded:
+                        if not background:
+                            torch.cuda.empty_cache()
+                        self.graph.capture_begin(capture_error_mode=mode)
+                        try:
+                            self.outputs = fn()
+                        finally:
+                            self.graph.capture_end()
+            finally:
+                if not background:
+                    caller.wait_stream(side)
+                side.synchronize()
+        self.launches = dict(recorded)
         self.key = key
         self.replays = 0
         self.seconds = time.perf_counter() - t0
         if not ranks or dist.get_rank() == 0:
-            print(f"[capture] {label} captured in {self.seconds:.2f}s "
+            print(f"[{'prewarm' if background else 'capture'}] {label} "
+                  f"captured in {self.seconds:.2f}s "
                   f"(launches {self.launches})", flush=True)
 
     def replay(self):
@@ -195,10 +284,12 @@ class CapturedFrame:
 
 class StateBuffers:
     """Static copies of every tensor of a TrainState that the step reads
-    or writes, and `bind`, which makes a state use them."""
+    or writes, and `bind`, which makes a state use them. With `own` the
+    state given is already a copy of its own (`TrainState.to`), and its
+    tensors become the buffers."""
 
-    def __init__(self, state: TrainState):
-        self.state = state.to(state.alive.device)
+    def __init__(self, state: TrainState, own: bool = False):
+        self.state = state if own else state.to(state.alive.device)
         self.binds = 0       # binds that copied something in
 
     @torch.no_grad()
@@ -253,95 +344,314 @@ class StateBuffers:
 
 class CapturedStep:
     """A training step as a captured program over its own state buffers
-    and static cameras, targets and background.
-    `step_fn(state, cameras, gts, bg)` runs one step in place on `state`
-    and returns its aux; `state` gives the buffers their first values and
-    is left as it was."""
+    and static cameras, targets, background and SH degree.
+    `step_fn(state, cameras, gts, bg, active_sh)` runs one step in place on
+    `state` and returns its aux; `state` gives the buffers their first
+    values and is left as it was (with `own`, a copy of its own becomes
+    the buffers). The degree is a 0-d int32 buffer that each call copies
+    in, or over a mesh the key's `active_sh` (static)."""
 
-    def __init__(self, key, step_fn: Callable, state: TrainState,
+    def __init__(self, key: "StepKey", step_fn: Callable, state: TrainState,
                  cameras: Sequence[Camera], gts: torch.Tensor,
-                 bg: torch.Tensor, label: str):
-        self.buffers = StateBuffers(state)
+                 bg: torch.Tensor, label: str, own: bool = False):
+        self.buffers = StateBuffers(state, own)
         self.cameras = [_clone_camera(c) for c in cameras]
         self.gts, self.bg = gts.clone(), bg.clone()
+        self.sh = (torch.zeros((), dtype=torch.int32, device=gts.device)
+                   if key.active_sh is None else key.active_sh)
         self.program = Program(key, lambda: step_fn(
-            self.buffers.state, self.cameras, self.gts, self.bg), label)
+            self.buffers.state, self.cameras, self.gts, self.bg, self.sh),
+            label)
 
     @property
     def key(self):
         return self.program.key
 
     def __call__(self, state: TrainState, cameras: Sequence[Camera],
-                 gts: torch.Tensor, bg: torch.Tensor):
+                 gts: torch.Tensor, bg: torch.Tensor, active_sh):
         self.buffers.bind(state)
         for dst, src in zip(self.cameras, cameras, strict=True):
             _copy_camera(dst, src)
         self.gts.copy_(gts)
         self.bg.copy_(bg)
+        if isinstance(self.sh, torch.Tensor):
+            self.sh.copy_(active_sh)
         return _copy_out(self.program.replay())
 
 
 class StepKey(NamedTuple):
     """The static arguments of a captured training step; over a mesh also
     `mesh` (`parallel.sharded.mesh_key`: the mesh's shape, this rank's
-    tile coordinate, its band of tiles and the binner's route)."""
+    tile coordinate, its band of tiles and the binner's route) and
+    `active_sh`, the SH degree (None on a single card, where the step
+    reads it from its degree buffer)."""
     stage: str
     capacity: int
     raster_cfg: RasterConfig
-    active_sh: int
     track_stats: bool
     batch: int
     lambda_dssim: float
     reg_weights: tuple
     switches: tuple
     mesh: Any = None
+    active_sh: int | None = None
 
     def label(self) -> str:
         rc = self.raster_cfg
         return (f"step {self.stage} capacity {self.capacity} tile_cap "
-                f"{rc.tile_cap} pairs {rc.bin_pairs_per_chunk} sh "
-                f"{self.active_sh} stats {'on' if self.track_stats else 'off'}"
+                f"{rc.tile_cap} pairs {rc.bin_pairs_per_chunk} stats "
+                f"{'on' if self.track_stats else 'off'}"
+                + ("" if self.active_sh is None else f" sh {self.active_sh}")
                 + ("" if self.mesh is None else f" {self.mesh.label()}"))
+
+
+def _changed(before: StepKey | None, key: StepKey) -> list:
+    """The fields in which `key` differs from `before`."""
+    if before is None:
+        return ["first"]
+    return [f for f in StepKey._fields
+            if getattr(before, f) != getattr(key, f)]
+
+
+def _stale(p: "Prewarm", live: StepKey) -> bool:
+    """Whether a prewarm's key can no longer come once the stage has
+    switched to `live`: a field other than the capacity and the
+    statistics changed (a cap grew or shrank), the statistics stopped, or
+    the bucket moved to a capacity that is neither the key's nor the one
+    it was queued at."""
+    key = p.key
+    return (key._replace(capacity=live.capacity,
+                         track_stats=live.track_stats) != live
+            or (key.track_stats and not live.track_stats)
+            or live.capacity not in (key.capacity, p.origin))
+
+
+@dataclasses.dataclass
+class Prewarm:
+    """One key's prewarm: the capacity it was queued at, its thread, the
+    program it built (held until the switch takes it or it is dropped),
+    and what became of it."""
+    key: StepKey
+    origin: int
+    thread: threading.Thread | None = None
+    step: CapturedStep | None = None
+    built: bool = False
+    error: str | None = None
+    seconds: float = 0.0      # the build's, on its thread
+    retried: int = 0          # builds again after running out of memory
+    wait: float = 0.0         # the training thread's, at the switch
+    used: bool = False
+    dropped: bool = False
+
+    def building(self) -> bool:
+        return self.thread is not None and self.thread.is_alive()
+
+    def record(self) -> dict:
+        return {"key": self.key.label(), "prewarmed": self.built,
+                "used": self.used, "dropped": self.dropped,
+                "failed": self.error is not None, "error": self.error,
+                "retried": self.retried, "wait": self.wait,
+                "seconds": self.seconds}
 
 
 class StepPrograms:
     """A stage's captured steps: the live one, captured when the key of a
     step differs from its own (the previous one is evicted with its
-    pool). `step_fn(key)` gives the step function of a key
-    (`loop.step_of_key`, or `parallel.sharded.step_of_key` over a mesh,
-    whose ranks must all run the same keys in the same order). `captures`
-    logs each capture: its key's label and seconds."""
+    pool), or taken from a prewarm of that key (`prewarm`). `step_fn(key)`
+    gives the step function of a key (`loop.step_of_key`, or
+    `parallel.sharded.step_of_key` over a mesh, whose ranks must all run
+    the same keys in the same order). `captures` logs each capture on the
+    training thread: its key's label, seconds, the stage's step it came
+    at (1 for the first) and the key's fields that changed; `prewarms`
+    each prewarm. `close` ends the stage's prewarms."""
 
     def __init__(self, step_fn: Callable[[StepKey], Callable]):
         self.step_fn = step_fn
         self.live: CapturedStep | None = None
         self.captures: list[dict] = []
+        self.prewarms: list[Prewarm] = []
+        self._pending: dict[StepKey, Prewarm] = {}
         self._evicted = {"binds": 0, "replays": 0}
+        self._runs = 0
+        self._close_wait = 0.0
+        self._oom_drops = 0   # prewarms dropped for a capture's memory
+        # ms between the starts of consecutive steps, after a step that
+        # began while a prewarm thread lived, and after one that did not
+        self._gaps = {"prewarming": [], "quiet": []}
+        self._last = None
 
-    def run(self, key: StepKey, state: TrainState, cameras, gts, bg):
-        """One step of `state`, by the program of `key`: the live one, or
-        one captured now."""
-        if self.live is None or self.live.key != key:
-            if self.live is not None:
-                self._evicted["binds"] += self.live.buffers.binds
-                self._evicted["replays"] += self.live.program.replays
-            self.live = None
-            self.live = CapturedStep(key, self.step_fn(key), state, cameras,
-                                     gts, bg, key.label())
+    def prewarm(self, key: StepKey, state: TrainState, cameras, gts, bg):
+        """Build the step of `key` on a daemon thread while this thread
+        goes on, from a snapshot of `state` cut or padded to the key's
+        capacity. `cameras`, `gts` and `bg` give the program's static
+        inputs their shapes."""
+        dev = state.alive.device
+        origin = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                  else None)
+        # the containers as they are now (a surgery replaces their tensors)
+        snap = dataclasses.replace(state, params=dict(state.params))
+        p = Prewarm(key, state.capacity)
+        p.thread = threading.Thread(
+            target=self._build,
+            args=(p, snap, list(cameras), gts, bg, origin),
+            name=f"prewarm {key.label()}", daemon=True)
+        self._pending[key] = p
+        self.prewarms.append(p)
+        with _THREADS:
+            _background["threads"] += 1
+        p.thread.start()
+
+    def _build(self, p: Prewarm, snap: TrainState, cameras, gts, bg,
+               origin) -> None:
+        """A prewarm thread: the buffers' first values enqueued on the
+        training thread's stream (`origin`), then the program."""
+        t0 = time.perf_counter()
+        _local.background = True
+        try:
+            with (torch.cuda.stream(origin) if origin is not None
+                  else contextlib.nullcontext()):
+                seed = snap.to(snap.alive.device, capacity=p.key.capacity)
+                del snap
+                for attempt in range(2):
+                    try:
+                        p.step = CapturedStep(p.key, self.step_fn(p.key),
+                                              seed, cameras, gts, bg,
+                                              p.key.label(), own=True)
+                        break
+                    except torch.cuda.OutOfMemoryError as e:
+                        if attempt:
+                            raise
+                        error = str(e)
+                    # out of the handler, so that the failed build's frames
+                    # and its pool are gone
+                    print(f"[prewarm] {p.key.label()} out of memory "
+                          f"({error}); emptying the allocator's cache (a "
+                          "device-wide wait) and building again", flush=True)
+                    p.retried += 1
+                    with _CAPTURING:
+                        torch.cuda.empty_cache()
+                p.built = True
+        except Exception as e:   # the switch captures on the training thread
+            p.error = f"{type(e).__name__}: {e}"
+            print(f"[prewarm] {p.key.label()} failed: {p.error}\n"
+                  + traceback.format_exc(), flush=True)
+        finally:
+            p.seconds = time.perf_counter() - t0
+            with _THREADS:
+                _background["threads"] -= 1
+
+    def _switch(self, key: StepKey, state: TrainState, cameras, gts, bg):
+        before = None if self.live is None else self.live.key
+        if self.live is not None:
+            self._evicted["binds"] += self.live.buffers.binds
+            self._evicted["replays"] += self.live.program.replays
+        self.live = None
+        p = self._pending.pop(key, None)
+        for other in list(self._pending.values()):
+            if _stale(other, key):
+                del self._pending[other.key]
+                other.dropped = True
+        for other in self.prewarms:
+            if other.dropped and not other.building():
+                other.step = None        # its graph and pool go
+        if p is not None:
+            t0 = time.perf_counter()
+            p.thread.join()
+            p.wait = time.perf_counter() - t0
+            if p.built:
+                self.live, p.step, p.used = p.step, None, True
+        if self.live is None:
+            self.live = self._capture(key, state, cameras, gts, bg)
             self.captures.append(dict(key=key.label(),
-                                      seconds=self.live.program.seconds))
-        return self.live(state, cameras, gts, bg)
+                                      seconds=self.live.program.seconds,
+                                      step=self._runs + 1,
+                                      changed=_changed(before, key)))
+
+    def _capture(self, key: StepKey, state: TrainState, cameras, gts, bg):
+        """The step of `key` captured on this thread. If that runs out of
+        memory while prewarms hold or build programs, they are dropped
+        with their pools (their threads joined) and the capture runs once
+        more: a prewarm never costs the stage its step."""
+        try:
+            return CapturedStep(key, self.step_fn(key), state, cameras, gts,
+                                bg, key.label())
+        except torch.cuda.OutOfMemoryError as e:
+            held = [p for p in self._pending.values() if p.error is None]
+            if not held:
+                raise
+            print(f"[prewarm] capturing {key.label()} ran out of memory "
+                  f"({e}); dropping {len(held)} prewarm(s) and capturing "
+                  "again", flush=True)
+            for p in held:
+                p.thread.join()
+                p.dropped, p.step = True, None
+                del self._pending[p.key]
+            self._oom_drops += len(held)
+        return CapturedStep(key, self.step_fn(key), state, cameras, gts, bg,
+                            key.label())
+
+    def run(self, key: StepKey, state: TrainState, cameras, gts, bg,
+            active_sh):
+        """One step of `state` at SH degree `active_sh` (a 0-d int32
+        tensor on the state's device; over a mesh the key's int), by the
+        program of `key`: the live one, a prewarmed one, or one captured
+        now."""
+        now = time.perf_counter()
+        if self._last is not None:
+            then, prewarming = self._last
+            self._gaps["prewarming" if prewarming else "quiet"].append(
+                1e3 * (now - then))
+        if self.live is None or self.live.key != key:
+            self._switch(key, state, cameras, gts, bg)
+        self._runs += 1
+        out = self.live(state, cameras, gts, bg, active_sh)
+        self._last = (now, any(p.building() for p in self.prewarms))
+        return out
+
+    def close(self) -> None:
+        """Join every prewarm thread and drop every prewarmed program not
+        in use: nothing built ahead outlives the stage."""
+        t0 = time.perf_counter()
+        for p in self.prewarms:
+            p.thread.join()
+            p.dropped = p.dropped or (p.built and not p.used)
+            p.step = None
+        self._pending.clear()
+        self._close_wait = time.perf_counter() - t0
 
     def report(self) -> dict:
-        """What the stage's programs did: captures (each with its key and
-        seconds), binds that copied state in, replays."""
+        """What the stage's programs did: the training thread's captures
+        (each with its key, seconds, step and changed fields), binds that
+        copied state in, replays; each prewarm (its key, whether it was
+        prewarmed, used, dropped or failed, the switch's wait and the
+        thread's seconds, builds again after running out of memory) and
+        their sums, and the prewarms dropped because a capture on this
+        thread ran out of memory; the ms between steps after one
+        that began while a prewarm thread lived and after one that did
+        not; the seconds `close` waited."""
         held = [self.live] if self.live is not None else []
+        pre = [p.record() for p in self.prewarms]
+
+        def gaps(ms):
+            return {"steps": len(ms),
+                    "mean_ms": sum(ms) / len(ms) if ms else None,
+                    "median_ms": sorted(ms)[len(ms) // 2] if ms else None}
         return {"captures": self.captures,
                 "rebinds": self._evicted["binds"]
                 + sum(s.buffers.binds for s in held),
                 "replays": self._evicted["replays"]
-                + sum(s.program.replays for s in held)}
-
+                + sum(s.program.replays for s in held),
+                "prewarms": pre,
+                "prewarmed": sum(r["prewarmed"] for r in pre),
+                "prewarms_used": sum(r["used"] for r in pre),
+                "prewarms_dropped": sum(r["dropped"] for r in pre),
+                "prewarms_failed": sum(r["failed"] for r in pre),
+                "prewarms_retried": sum(r["retried"] for r in pre),
+                "prewarms_dropped_for_memory": self._oom_drops,
+                "prewarm_wait_s": sum(r["wait"] for r in pre),
+                "prewarm_s": sum(r["seconds"] for r in pre),
+                "close_wait_s": self._close_wait,
+                "step_gaps": {k: gaps(v) for k, v in self._gaps.items()}}
 
 
 class EvalPrograms:

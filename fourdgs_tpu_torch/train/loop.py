@@ -10,10 +10,11 @@ every parameter and of a zero `ndc_offset`, the grouped Adam update, and
 the densify statistics (radii max, visibility count, screen-space
 gradient norm).
 
-The SH degree is a Python int. The JAX step traces it so that its jit
-does not recompile during the SH ramp; here it is part of the key of the
-captured step (train/graphs.py), which `run_stage` replays as a CUDA
-graph on the card, and the ramp's three steps recapture.
+The SH degree is a Python int or, as JAX's step traces it, a 0-d int32
+tensor (render/render.py); `run_stage` passes a tensor on a single card,
+so the captured step (train/graphs.py) reads it from a buffer and the SH
+ramp recaptures nothing, and an int over a mesh, whose captured step is
+static in it as JAX's sharded step is.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ from fourdgs_tpu_torch.train.state import TrainState, make_trainable
 
 __all__ = ["StepAux", "StepGrads", "StageResult", "step_gradients",
            "train_step", "step_of_key", "eval_step", "pick_bucket",
-           "compact_and_resize", "run_stage", "raster_config_from"]
+           "compact_and_resize", "BucketPrewarmer", "run_stage",
+           "raster_config_from"]
 
 
 class StepAux(NamedTuple):
@@ -72,7 +74,8 @@ class StepGrads(NamedTuple):
 
 
 def step_gradients(state: TrainState, cameras: Sequence[Camera],
-                   gts: torch.Tensor, bg: torch.Tensor, active_sh: int, *,
+                   gts: torch.Tensor, bg: torch.Tensor,
+                   active_sh: int | torch.Tensor, *,
                    stage: str, raster_cfg: RasterConfig, lambda_dssim: float,
                    reg_weights: tuple) -> StepGrads:
     """Render the batch, take the loss and its gradients in every
@@ -104,7 +107,8 @@ def step_gradients(state: TrainState, cameras: Sequence[Camera],
 
 
 def train_step(state: TrainState, cameras: Sequence[Camera],
-               gts: torch.Tensor, bg: torch.Tensor, active_sh: int, *,
+               gts: torch.Tensor, bg: torch.Tensor,
+               active_sh: int | torch.Tensor, *,
                stage: str, raster_cfg: RasterConfig, tx: optim.GroupedAdam,
                lambda_dssim: float, reg_weights: tuple,
                track_stats: bool = True) -> tuple[TrainState, StepAux]:
@@ -149,12 +153,13 @@ def train_step(state: TrainState, cameras: Sequence[Camera],
 def step_of_key(tx: optim.GroupedAdam
                 ) -> Callable[[graphs.StepKey], Callable]:
     """The step function of a captured step's key (graphs.StepPrograms'
-    `step_fn`): `fn(state, cameras, gts, bg)` runs `train_step` with the
-    key's static arguments and returns its aux."""
+    `step_fn`): `fn(state, cameras, gts, bg, active_sh)` runs `train_step`
+    with the key's static arguments at SH degree `active_sh` (a 0-d int32
+    tensor: the captured step's degree buffer) and returns its aux."""
     def of_key(key: graphs.StepKey) -> Callable:
-        def fn(state, cameras, gts, bg):
+        def fn(state, cameras, gts, bg, active_sh):
             return train_step(
-                state, cameras, gts, bg, key.active_sh, stage=key.stage,
+                state, cameras, gts, bg, active_sh, stage=key.stage,
                 raster_cfg=key.raster_cfg, tx=tx,
                 lambda_dssim=key.lambda_dssim, reg_weights=key.reg_weights,
                 track_stats=key.track_stats)[1]
@@ -230,6 +235,30 @@ def compact_and_resize(state: TrainState, new_cap: int) -> TrainState:
     return state
 
 
+class BucketPrewarmer:
+    """Which training steps to build ahead of their keys (counterpart:
+    JAX's `BucketPrewarmer`, loop.py:249-286, and its `queue_prewarm`,
+    :436-460). `mark` records the live step's key; `queue` hands a key
+    neither live nor queued before to `start(key, state, cameras, gts,
+    bg)` once (on the card `graphs.StepPrograms.prewarm`, which captures
+    it on a thread). `run_stage` calls both at JAX's triggers. It reads
+    nothing of the card, so a test can pass a `start` that records."""
+
+    def __init__(self, start: Callable):
+        self.start = start
+        self._seen: set = set()
+
+    def mark(self, key: graphs.StepKey) -> None:
+        self._seen.add(key)
+
+    def queue(self, key: graphs.StepKey, state: TrainState, cameras, gts,
+              bg) -> None:
+        if key in self._seen:
+            return
+        self._seen.add(key)
+        self.start(key, state, cameras, gts, bg)
+
+
 # ---------------------------------------------------------------------------
 # Stage driver
 # ---------------------------------------------------------------------------
@@ -289,6 +318,7 @@ def run_stage(
     start_iteration: int = 0,
     initial_active_sh: int = 0,
     capture: bool | None = None,
+    prewarmer: BucketPrewarmer | None = None,
 ) -> StageResult:
     """One training stage (JAX: loop.py:355): batches drawn from epoch
     permutations of `rng`, `train_step`, the NaN guard with rollback every
@@ -318,13 +348,27 @@ def run_stage(
 
     `capture` (default: on the card) replays the step as a CUDA graph per
     `graphs.StepKey` (the JAX step's static arguments; over a mesh also
-    the rank's `sharded.mesh_key`), with the state bound to the program's
-    buffers; a step whose key changed (a bucket, a cap growth, the SH
-    ramp, the densify statistics' stop) captures anew, on every rank of
-    a mesh at the same iteration. False runs the step eagerly; the CPU
-    has no graphs. A mesh over NCCL, or of one rank with no group,
-    captures; over gloo (ranks sharing a card) `capture=True` raises and
-    the default runs eagerly, which rank 0 prints."""
+    the rank's `sharded.mesh_key` and the SH degree), with the state bound
+    to the program's buffers; a step whose key changed (a bucket, a cap
+    growth, the densify statistics' stop; over a mesh the SH ramp) takes
+    a prewarmed program or captures anew, on every rank of a mesh at the
+    same iteration. False runs the step eagerly; the CPU has no graphs. A
+    mesh over NCCL, or of one rank with no group, captures; over gloo
+    (ranks sharing a card) `capture=True` raises and the default runs
+    eagerly, which rank 0 prints.
+
+    `prewarmer` decides at JAX's triggers which keys to build ahead: at
+    each iteration it marks the live key; it queues the next bucket
+    (twice the capacity, within `cfg.raster.capacity`) with the live
+    statistics once `n_alive * headroom * 2` passes the capacity, the
+    live capacity without statistics within 300 iterations of
+    `densify_until_iter`, and the next bucket again at the new caps after
+    a cap growth. By default, when `cfg.raster.prewarm` is set, there is
+    no mesh and the step is captured, it is a `BucketPrewarmer` whose
+    keys `graphs.StepPrograms.prewarm` captures on a thread; a caller
+    may pass its own (a test's recorder), also to an eager stage. A
+    mesh's ranks capture in lockstep, so a prewarmer with a mesh raises.
+    Every prewarm thread is joined before the stage returns."""
     lead = mesh is None or mesh.rank == 0
 
     def say(msg):   # once a mesh, from rank 0
@@ -399,213 +443,258 @@ def run_stage(
         def rank_slice(ids):
             return ids[multihost.host_batch_slice(len(ids), mesh)]
     steps = graphs.StepPrograms(step_fn) if capture else None
+    if prewarmer is not None and mesh is not None:
+        raise ValueError("the prewarmer runs on a single card: a mesh's "
+                         "ranks capture their steps in lockstep")
+    if (prewarmer is None and steps is not None and mesh is None
+            and cfg.raster.prewarm):
+        prewarmer = BucketPrewarmer(steps.prewarm)
+    headroom = cfg.raster.bucket_headroom
+
+    def step_key(capacity: int, track: bool) -> graphs.StepKey:
+        # the mesh always tracks the statistics and is static in the SH
+        # degree; a single card's step reads the degree from a buffer
+        return graphs.StepKey(
+            stage, capacity, raster_cfg, mesh is not None or track, batch,
+            lambda_dssim, reg_weights, graphs.switches(),
+            None if mesh is None else sharded.mesh_key(mesh, raster_cfg),
+            None if mesh is None else active_sh)
+
+    def prewarm_next_bucket(track: bool):
+        # JAX's trigger (loop.py:510-513): the count past half of what
+        # switches the bucket
+        if (state.capacity < cfg.raster.capacity
+                and n_alive * headroom * 2 > state.capacity):
+            prewarmer.queue(step_key(min(state.capacity * 2,
+                                         cfg.raster.capacity), track),
+                            state, cams, gts, bg)
 
     aux = None
-    for it in range(start_iteration + 1, iterations + 1):
-        if on_iteration is not None:
-            tp = time.perf_counter()
-            on_iteration(it, state, active_sh)
-            paused += time.perf_counter() - tp
-        if it % 1000 == 0 and active_sh < cfg.model.sh_degree:
-            active_sh += 1
+    degree = None       # a single card's SH degree: (int, 0-d int32 tensor)
+    try:
+        for it in range(start_iteration + 1, iterations + 1):
+            if on_iteration is not None:
+                tp = time.perf_counter()
+                on_iteration(it, state, active_sh)
+                paused += time.perf_counter() - tp
+            if it % 1000 == 0 and active_sh < cfg.model.sh_degree:
+                active_sh += 1
 
-        if ptr + batch > len(perm):
-            perm = next_epoch()
-            ptr = 0
-        idxs = perm[ptr:ptr + batch]
-        ptr += batch
-        nxt = perm[ptr:ptr + batch] if ptr + batch <= len(perm) else None
-        if mesh is not None:
-            idxs = rank_slice(idxs)
-            nxt = None if nxt is None else rank_slice(nxt)
-        cams = [cameras[int(i)] for i in idxs]
-        # a host or lazy bank starts the next batch's bytes while this
-        # step runs (not at an epoch's end, whose next permutation is not
-        # drawn yet) and uploads this one on the training thread's stream
-        gts = images.batch(idxs, nxt)
-        # the mesh always tracks the statistics; its guards read the
-        # reduced visibility and alpha, and it reports no pair count or
-        # tile peak (0, as JAX's sharded aux)
-        key = graphs.StepKey(
-            stage, state.capacity, raster_cfg, active_sh,
-            mesh is not None or it < opt.densify_until_iter, batch,
-            lambda_dssim, reg_weights, graphs.switches(),
-            None if mesh is None else sharded.mesh_key(mesh, raster_cfg))
-        if steps is None:
-            aux = step_fn(key)(state, cams, gts, bg)
-        else:
-            aux = steps.run(key, state, cams, gts, bg)
-
-        # NaN guard: roll back to the last healthy state. One host read
-        # carries every number the guard and the cap growth look at.
-        if it % nan_check_every == 0 or it == iterations:
-            probe = torch.stack([
-                aux.loss.double(), torch.as_tensor(aux.n_visible).double(),
-                torch.as_tensor(aux.max_alpha).double(),
-                _nan_count(state).double(),
-                torch.as_tensor(aux.dropped_pairs).double(),
-                torch.as_tensor(aux.dropped_tile).double(),
-                torch.as_tensor(aux.num_pairs).double(),
-                torch.as_tensor(aux.tile_peak).double()]).cpu().tolist()
-            loss, visible, max_alpha, nans, dp, dt, npairs, peak = probe
-            collapsed = visible == 0 and n_alive > 0
-            gate_collapsed = max_alpha <= 0.0 and n_alive > 0
-            healthy = (math.isfinite(loss) and not collapsed
-                       and not gate_collapsed and nans == 0)
-            if not healthy:
-                rollbacks += 1
-                if rollbacks >= 3:
-                    raise FloatingPointError(
-                        f"training diverged at {stage} iteration {it} after "
-                        f"{rollbacks - 1} rollbacks"
-                        + (" (visibility collapse)" if collapsed else
-                           " (contribution collapse: no gaussian passes the"
-                           " alpha gate)" if gate_collapsed else ""))
-                say(f"[{stage} {it}] "
-                      + ("all gaussians culled" if collapsed
-                         else "zero blend contribution (alpha-gate collapse)"
-                         if gate_collapsed else "loss non-finite")
-                      + f"; rolling back {it - last_good_it} iterations")
-                state = last_good.to(dev)
-                n_alive = int(state.alive.sum())
-                event(it, "rollback")
+            if ptr + batch > len(perm):
                 perm = next_epoch()
                 ptr = 0
+            idxs = perm[ptr:ptr + batch]
+            ptr += batch
+            nxt = perm[ptr:ptr + batch] if ptr + batch <= len(perm) else None
+            if mesh is not None:
+                idxs = rank_slice(idxs)
+                nxt = None if nxt is None else rank_slice(nxt)
+            cams = [cameras[int(i)] for i in idxs]
+            # a host or lazy bank starts the next batch's bytes while this
+            # step runs (not at an epoch's end, whose next permutation is not
+            # drawn yet) and uploads this one on the training thread's stream
+            gts = images.batch(idxs, nxt)
+            # the mesh's guards read the reduced visibility and alpha, and
+            # it reports no pair count or tile peak (0, as JAX's sharded
+            # aux)
+            key = step_key(state.capacity, it < opt.densify_until_iter)
+            if mesh is not None:
+                sh = active_sh
             else:
-                last_good, last_good_it = state.to(dev), it
-                rollbacks = 0
-
-            # binner overflow: grow the overflowing cap (tile-cap drops
-            # only past 0.5 % of the step's pairs), or shrink an oversized
-            # tile_cap with strong hysteresis
-            dp, dt = int(dp), int(dt)
-            if cfg.raster.autogrow and (dp or dt):
-                changes = {}
-                if (dt > max(64, max(int(npairs), 1) // 200)
-                        and raster_cfg.tile_cap < 8192):
-                    changes["tile_cap"] = min(raster_cfg.tile_cap * 2, 8192)
-                if dp and raster_cfg.bin_pairs_per_chunk < (1 << 18):
-                    changes["bin_pairs_per_chunk"] = min(
-                        raster_cfg.bin_pairs_per_chunk * 2, 1 << 18)
-                if changes:
-                    raster_cfg = dataclasses.replace(raster_cfg, **changes)
-                    last_cap_change = it
-                    say(f"[{stage} {it}] binner overflow ({dp} pairs / "
-                          f"{dt} tile-cap): growing {changes}")
-                    for k in changes:
-                        event(it, k)
-            elif cfg.raster.autogrow:
-                peak = int(peak)
-                if (peak > 0 and raster_cfg.tile_cap > 256
-                        and peak * 4 < raster_cfg.tile_cap
-                        and it - last_cap_change
-                        >= cfg.raster.cap_shrink_spacing):
-                    raster_cfg = dataclasses.replace(
-                        raster_cfg, tile_cap=raster_cfg.tile_cap // 2)
-                    last_cap_change = it
-                    say(f"[{stage} {it}] tile peak {peak} << cap: "
-                          f"shrinking tile_cap to {raster_cfg.tile_cap}")
-                    event(it, "tile_cap")
-
-        # densification schedule
-        if it < opt.densify_until_iter:
-            if stage == "coarse":
-                op_thresh = opt.opacity_threshold_coarse
-                dense_thresh = opt.densify_grad_threshold_coarse
+                if degree is None or degree[0] != active_sh:
+                    degree = (active_sh, torch.full(
+                        (), active_sh, dtype=torch.int32, device=dev))
+                sh = degree[1]
+            if prewarmer is not None:
+                # JAX's triggers (loop.py:504-516): the next bucket, and
+                # the statistics' stop within 300 iterations of it
+                prewarmer.mark(key)
+                prewarm_next_bucket(key.track_stats)
+                if key.track_stats and opt.densify_until_iter - it <= 300:
+                    prewarmer.queue(key._replace(track_stats=False), state,
+                                    cams, gts, bg)
+            if steps is None:
+                aux = step_fn(key)(state, cams, gts, bg, sh)
             else:
-                frac = it / opt.densify_until_iter
-                op_thresh = (opt.opacity_threshold_fine_init
-                             - frac * (opt.opacity_threshold_fine_init
-                                       - opt.opacity_threshold_fine_after))
-                dense_thresh = (opt.densify_grad_threshold_fine_init
-                                - frac * (opt.densify_grad_threshold_fine_init
-                                          - opt.densify_grad_threshold_after))
+                aux = steps.run(key, state, cams, gts, bg, sh)
 
-            did_surgery = False
-            if (it > opt.densify_from_iter
-                    and it % opt.densification_interval == 0
-                    and n_alive < opt.densify_max_points):
-                # grow the bucket first so that clones and splits find
-                # free slots
-                bucket = bucket_for(n_alive)
-                if bucket != state.capacity:
-                    state = compact_and_resize(state, bucket)
-                    event(it, "resize")
-                state, _ = densify_mod.densify(
-                    state, float(dense_thresh), opt.percent_dense, extent,
-                    opt.densify_max_points, generator=generator)
-                did_surgery = True
-                n_alive = int(state.alive.sum())
-                event(it, "densify")
-            if (it > opt.pruning_from_iter
-                    and it % opt.pruning_interval == 0
-                    and n_alive > opt.prune_min_points):
-                size_thresh = 20 if it > opt.opacity_reset_interval else None
-                state = densify_mod.prune(state, float(op_thresh), extent,
-                                          size_thresh, opt.prune_min_points)
-                did_surgery = True
-                n_alive = int(state.alive.sum())
-                event(it, "prune")
-            if (opt.add_point and it % opt.densification_interval == 0
-                    and n_alive < opt.densify_max_points):
-                state, _ = densify_mod.grow(
-                    state, max_points=opt.densify_max_points,
-                    generator=generator)
-                did_surgery = True
-                n_alive = int(state.alive.sum())
-                event(it, "grow")
-            if it % opt.opacity_reset_interval == 0:
-                state = densify_mod.reset_opacity(state)
-                event(it, "reset_opacity")
-            if did_surgery:
-                bucket = bucket_for(n_alive)
-                if bucket != state.capacity:
-                    state = compact_and_resize(state, bucket)
-                    event(it, "resize")
+            # NaN guard: roll back to the last healthy state. One host read
+            # carries every number the guard and the cap growth look at.
+            if it % nan_check_every == 0 or it == iterations:
+                probe = torch.stack([
+                    aux.loss.double(), torch.as_tensor(aux.n_visible).double(),
+                    torch.as_tensor(aux.max_alpha).double(),
+                    _nan_count(state).double(),
+                    torch.as_tensor(aux.dropped_pairs).double(),
+                    torch.as_tensor(aux.dropped_tile).double(),
+                    torch.as_tensor(aux.num_pairs).double(),
+                    torch.as_tensor(aux.tile_peak).double()]).cpu().tolist()
+                loss, visible, max_alpha, nans, dp, dt, npairs, peak = probe
+                collapsed = visible == 0 and n_alive > 0
+                gate_collapsed = max_alpha <= 0.0 and n_alive > 0
+                healthy = (math.isfinite(loss) and not collapsed
+                           and not gate_collapsed and nans == 0)
+                if not healthy:
+                    rollbacks += 1
+                    if rollbacks >= 3:
+                        raise FloatingPointError(
+                            f"training diverged at {stage} iteration {it} after "
+                            f"{rollbacks - 1} rollbacks"
+                            + (" (visibility collapse)" if collapsed else
+                               " (contribution collapse: no gaussian passes the"
+                               " alpha gate)" if gate_collapsed else ""))
+                    say(f"[{stage} {it}] "
+                          + ("all gaussians culled" if collapsed
+                             else "zero blend contribution (alpha-gate collapse)"
+                             if gate_collapsed else "loss non-finite")
+                          + f"; rolling back {it - last_good_it} iterations")
+                    state = last_good.to(dev)
+                    n_alive = int(state.alive.sum())
+                    event(it, "rollback")
+                    perm = next_epoch()
+                    ptr = 0
+                else:
+                    last_good, last_good_it = state.to(dev), it
+                    rollbacks = 0
 
-        # evals, snapshots and checkpoints, outside the reported train time
-        if ((it in test_iterations and on_test)
-                or (it in save_iterations and on_save)
-                or (it in checkpoint_iterations and on_checkpoint)):
-            tp = time.perf_counter()
-            if it in test_iterations and on_test:
-                on_test(it, state, active_sh, raster_cfg=raster_cfg)
-            if it in save_iterations and on_save and lead:
-                on_save(it, state)
-            if it in checkpoint_iterations and on_checkpoint and lead:
-                on_checkpoint(it, state, active_sh)
-            paused += time.perf_counter() - tp
+                # binner overflow: grow the overflowing cap (tile-cap drops
+                # only past 0.5 % of the step's pairs), or shrink an oversized
+                # tile_cap with strong hysteresis
+                dp, dt = int(dp), int(dt)
+                if cfg.raster.autogrow and (dp or dt):
+                    changes = {}
+                    if (dt > max(64, max(int(npairs), 1) // 200)
+                            and raster_cfg.tile_cap < 8192):
+                        changes["tile_cap"] = min(raster_cfg.tile_cap * 2, 8192)
+                    if dp and raster_cfg.bin_pairs_per_chunk < (1 << 18):
+                        changes["bin_pairs_per_chunk"] = min(
+                            raster_cfg.bin_pairs_per_chunk * 2, 1 << 18)
+                    if changes:
+                        raster_cfg = dataclasses.replace(raster_cfg, **changes)
+                        last_cap_change = it
+                        say(f"[{stage} {it}] binner overflow ({dp} pairs / "
+                              f"{dt} tile-cap): growing {changes}")
+                        for k in changes:
+                            event(it, k)
+                        # a next bucket prewarmed at the old caps is stale:
+                        # queue it at the new ones (JAX: loop.py:614-620)
+                        if prewarmer is not None:
+                            prewarm_next_bucket(it < opt.densify_until_iter)
+                elif cfg.raster.autogrow:
+                    peak = int(peak)
+                    if (peak > 0 and raster_cfg.tile_cap > 256
+                            and peak * 4 < raster_cfg.tile_cap
+                            and it - last_cap_change
+                            >= cfg.raster.cap_shrink_spacing):
+                        raster_cfg = dataclasses.replace(
+                            raster_cfg, tile_cap=raster_cfg.tile_cap // 2)
+                        last_cap_change = it
+                        say(f"[{stage} {it}] tile peak {peak} << cap: "
+                              f"shrinking tile_cap to {raster_cfg.tile_cap}")
+                        event(it, "tile_cap")
 
-        if it % log_every == 0 or it == iterations:
-            tp = time.perf_counter()
-            g = state.params["gauss"]
-            (loss, l1, psnr, dp, dt, npairs, rot_max, op_max, visible,
-             max_alpha, gmax) = torch.stack([
-                 aux.loss.double(), aux.l1.double(), aux.psnr.double(),
-                 torch.as_tensor(aux.dropped_pairs).double(),
-                 torch.as_tensor(aux.dropped_tile).double(),
-                 torch.as_tensor(aux.num_pairs).double(),
-                 g.rotation.detach().abs().max().double(),
-                 g.opacity.detach().max().double(),
-                 torch.as_tensor(aux.n_visible).double(),
-                 torch.as_tensor(aux.max_alpha).double(),
-                 _grid_absmax(state).double()]).cpu().tolist()
-            rec = dict(stage=stage, iter=it, loss=loss, l1=l1, psnr=psnr,
-                       points=n_alive, capacity=state.capacity,
-                       elapsed=tp - t0 - paused,
-                       dropped_pairs=int(dp), dropped_tile=int(dt),
-                       num_pairs=int(npairs), rot_max=rot_max,
-                       op_max=op_max, visible=int(visible),
-                       max_alpha=max_alpha, grid_absmax=gmax)
-            if dp or dt > max(64, int(npairs) // 200):
-                say(f"[{stage} {it}] WARNING: binner overflow: "
-                      f"{int(dp)} pairs / {int(dt)} tile-cap drops this "
-                      f"step; raise tile_cap/pair_cap or the scene will "
-                      f"lose far gaussians")
-            history.append(rec)
-            if log_fn and lead:
-                log_fn(rec)
-            paused += time.perf_counter() - tp
+            # densification schedule
+            if it < opt.densify_until_iter:
+                if stage == "coarse":
+                    op_thresh = opt.opacity_threshold_coarse
+                    dense_thresh = opt.densify_grad_threshold_coarse
+                else:
+                    frac = it / opt.densify_until_iter
+                    op_thresh = (opt.opacity_threshold_fine_init
+                                 - frac * (opt.opacity_threshold_fine_init
+                                           - opt.opacity_threshold_fine_after))
+                    dense_thresh = (opt.densify_grad_threshold_fine_init
+                                    - frac * (opt.densify_grad_threshold_fine_init
+                                              - opt.densify_grad_threshold_after))
+
+                did_surgery = False
+                if (it > opt.densify_from_iter
+                        and it % opt.densification_interval == 0
+                        and n_alive < opt.densify_max_points):
+                    # grow the bucket first so that clones and splits find
+                    # free slots
+                    bucket = bucket_for(n_alive)
+                    if bucket != state.capacity:
+                        state = compact_and_resize(state, bucket)
+                        event(it, "resize")
+                    state, _ = densify_mod.densify(
+                        state, float(dense_thresh), opt.percent_dense, extent,
+                        opt.densify_max_points, generator=generator)
+                    did_surgery = True
+                    n_alive = int(state.alive.sum())
+                    event(it, "densify")
+                if (it > opt.pruning_from_iter
+                        and it % opt.pruning_interval == 0
+                        and n_alive > opt.prune_min_points):
+                    size_thresh = 20 if it > opt.opacity_reset_interval else None
+                    state = densify_mod.prune(state, float(op_thresh), extent,
+                                              size_thresh, opt.prune_min_points)
+                    did_surgery = True
+                    n_alive = int(state.alive.sum())
+                    event(it, "prune")
+                if (opt.add_point and it % opt.densification_interval == 0
+                        and n_alive < opt.densify_max_points):
+                    state, _ = densify_mod.grow(
+                        state, max_points=opt.densify_max_points,
+                        generator=generator)
+                    did_surgery = True
+                    n_alive = int(state.alive.sum())
+                    event(it, "grow")
+                if it % opt.opacity_reset_interval == 0:
+                    state = densify_mod.reset_opacity(state)
+                    event(it, "reset_opacity")
+                if did_surgery:
+                    bucket = bucket_for(n_alive)
+                    if bucket != state.capacity:
+                        state = compact_and_resize(state, bucket)
+                        event(it, "resize")
+
+            # evals, snapshots and checkpoints, outside the reported train time
+            if ((it in test_iterations and on_test)
+                    or (it in save_iterations and on_save)
+                    or (it in checkpoint_iterations and on_checkpoint)):
+                tp = time.perf_counter()
+                if it in test_iterations and on_test:
+                    on_test(it, state, active_sh, raster_cfg=raster_cfg)
+                if it in save_iterations and on_save and lead:
+                    on_save(it, state)
+                if it in checkpoint_iterations and on_checkpoint and lead:
+                    on_checkpoint(it, state, active_sh)
+                paused += time.perf_counter() - tp
+
+            if it % log_every == 0 or it == iterations:
+                tp = time.perf_counter()
+                g = state.params["gauss"]
+                (loss, l1, psnr, dp, dt, npairs, rot_max, op_max, visible,
+                 max_alpha, gmax) = torch.stack([
+                     aux.loss.double(), aux.l1.double(), aux.psnr.double(),
+                     torch.as_tensor(aux.dropped_pairs).double(),
+                     torch.as_tensor(aux.dropped_tile).double(),
+                     torch.as_tensor(aux.num_pairs).double(),
+                     g.rotation.detach().abs().max().double(),
+                     g.opacity.detach().max().double(),
+                     torch.as_tensor(aux.n_visible).double(),
+                     torch.as_tensor(aux.max_alpha).double(),
+                     _grid_absmax(state).double()]).cpu().tolist()
+                rec = dict(stage=stage, iter=it, loss=loss, l1=l1, psnr=psnr,
+                           points=n_alive, capacity=state.capacity,
+                           elapsed=tp - t0 - paused,
+                           dropped_pairs=int(dp), dropped_tile=int(dt),
+                           num_pairs=int(npairs), rot_max=rot_max,
+                           op_max=op_max, visible=int(visible),
+                           max_alpha=max_alpha, grid_absmax=gmax)
+                if dp or dt > max(64, int(npairs) // 200):
+                    say(f"[{stage} {it}] WARNING: binner overflow: "
+                          f"{int(dp)} pairs / {int(dt)} tile-cap drops this "
+                          f"step; raise tile_cap/pair_cap or the scene will "
+                          f"lose far gaussians")
+                history.append(rec)
+                if log_fn and lead:
+                    log_fn(rec)
+                paused += time.perf_counter() - tp
+    finally:
+        if steps is not None:
+            steps.close()
 
     return StageResult(state=state, history=history,
                        wall_time=time.perf_counter() - t0 - paused,

@@ -40,27 +40,47 @@ class TrainState:
     def n_alive(self) -> torch.Tensor:
         return self.alive.sum()
 
-    def to(self, device) -> "TrainState":
+    def to(self, device, capacity: int | None = None) -> "TrainState":
         """A copy on `device` (the parameters stay trainable leaves); it
-        shares no storage with this state, also on the same device."""
+        shares no storage with this state, also on the same device. With
+        `capacity` every per-slot tensor is cut to it or padded with dead
+        slots (zeros; a padded rotation has w = 1, as compact_and_resize
+        pads), with no read to the host and no compaction: a program's
+        buffers at another bucket, whose values the first bind replaces."""
+        cap = self.capacity if capacity is None else capacity
+        keep = min(cap, self.capacity)
+
         def cp(x):
             return x.detach().to(device, copy=True)
 
-        def gauss(g):
-            return GaussianParams(**{f: cp(getattr(g, f)) for f in FIELDS})
+        def slots(x):
+            x = x.detach()
+            if cap == self.capacity:
+                return x.to(device, copy=True)
+            out = x.new_zeros((cap,) + x.shape[1:], device=device)
+            out[:keep] = x[:keep]
+            return out
+
+        def gauss(g, params=False):
+            out = GaussianParams(**{f: slots(getattr(g, f)) for f in FIELDS})
+            if params and cap > keep:
+                out.rotation[keep:, 0] = 1.0
+            return out
 
         def tree(t):
             return {"gauss": gauss(t["gauss"]),
                     "deform": {k: cp(v) for k, v in t["deform"].items()}}
         opt = self.opt_state
         return TrainState(
-            params={"gauss": make_trainable(gauss(self.params["gauss"])),
+            params={"gauss": make_trainable(gauss(self.params["gauss"],
+                                                  params=True)),
                     "deform": copy.deepcopy(self.params["deform"]).to(device)},
             opt_state=optim.AdamGroupState(count=cp(opt.count),
                                            mu=tree(opt.mu), nu=tree(opt.nu)),
-            **{f.name: cp(getattr(self, f.name))
-               for f in dataclasses.fields(self)
-               if f.name not in ("params", "opt_state")})
+            alive=slots(self.alive), aabb=cp(self.aabb),
+            xyz_gradient_accum=slots(self.xyz_gradient_accum),
+            denom=slots(self.denom), max_radii2d=slots(self.max_radii2d),
+            step=cp(self.step))
 
 
 def make_trainable(gauss: GaussianParams) -> GaussianParams:

@@ -235,10 +235,12 @@ def test_captured_stage_follows_the_eager_stage(scene, monkeypatch,
     buffers, against the eager step: the same events, logged values and
     final state, bit for bit, through every surgery, bucket changes, the
     SH ramp, tile_cap growth and a rollback. Each change of key captures
-    once, when its step comes: the densify statistics stop inside the run
-    (statistics_stop) or go on past it (bucket_ahead: only the buckets,
-    the caps and the ramp change the key); batch_two steps two cameras a
-    step."""
+    once when its step comes, or takes the program prewarmed for it (the
+    config's default): the densify statistics stop inside the run
+    (statistics_stop) or go on past it (bucket_ahead: only the buckets
+    and the caps change the key); batch_two steps two cameras a step.
+    The SH degree is a device value, so the ramp at 1000 captures
+    nothing."""
     monkeypatch.setattr(graphs, "Program", ReplayEagerly)
     cfg = _stage_cfg(densify_until, batch)
     eager = _run(cfg, scene, capture=False)
@@ -264,11 +266,15 @@ def test_captured_stage_follows_the_eager_stage(scene, monkeypatch,
     replaced = {e["iter"] for e in eager.events if e["kind"] in (
         "densify", "prune", "resize", "rollback")} - {1030}
     assert rep["rebinds"] >= len(replaced)
-    keys = [c["key"] for c in rep["captures"]]
-    assert len(set(keys)) == len(keys)      # no key captured twice
-    assert any("sh 1" in k for k in keys)
+    assert rep["prewarms_failed"] == 0
+    # the programs built: captured on this thread, or prewarmed and used
+    keys = ([c["key"] for c in rep["captures"]]
+            + [p["key"] for p in rep["prewarms"] if p["used"]])
+    assert len(set(keys)) == len(keys)      # no key built twice
+    assert all(970 + c["step"] != 1000 and "active_sh" not in c["changed"]
+               for c in rep["captures"])
     assert any("stats off" in k for k in keys) == (densify_until == 1020)
-    # each bucket the stage resized into was captured
+    # each bucket the stage resized into was built
     for cap in {e["capacity"] for e in eager.events if e["kind"] == "resize"}:
         assert any(f"capacity {cap} " in k for k in keys), (cap, keys)
 

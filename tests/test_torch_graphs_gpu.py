@@ -15,6 +15,7 @@ changes from run to run, so one captured step is held to phase 5's rule
 (chip_smoke.py GRAD_TOL): each leaf's largest difference over its largest
 magnitude at most 1e-4; a stage's logged losses, to LOSS_RTOL.
 """
+import collections
 import dataclasses
 
 import numpy as np
@@ -122,9 +123,14 @@ def _step_state(dev, batch=1):
     gt = torch.rand((batch, 96, 96, 3), device=dev,
                     generator=torch.Generator(dev).manual_seed(1))
     bg = torch.ones(3, device=dev)
-    key = graphs.StepKey("fine", st.capacity, rc, 1, True, batch, 0.0,
+    key = graphs.StepKey("fine", st.capacity, rc, True, batch, 0.0,
                          (0.01, 1e-4, 1e-4), graphs.switches())
     return st, loop.step_of_key(tx), key, cams, gt, bg
+
+
+def _degree(dev, sh=1):
+    """The SH degree as run_stage passes it on a single card."""
+    return torch.full((), sh, dtype=torch.int32, device=dev)
 
 
 def _captured_step_matches_eager(dev, batch, backward=None):
@@ -133,10 +139,11 @@ def _captured_step_matches_eager(dev, batch, backward=None):
     camera of the batch once, forward and backward (`backward`: the
     backward's launches, by default K2's)."""
     st, step_fn, key, cams, gt, bg = _step_state(dev, batch)
+    sh = _degree(dev)
     eager, captured = st.to(dev), st.to(dev)
-    aux_e = step_fn(key)(eager, cams, gt, bg)
+    aux_e = step_fn(key)(eager, cams, gt, bg, sh)
     steps = graphs.StepPrograms(step_fn)
-    aux_c = steps.run(key, captured, cams, gt, bg)
+    aux_c = steps.run(key, captured, cams, gt, bg, sh)
     assert steps.live.program.launches == {
         **{k: batch * v for k, v in FRAME_LAUNCHES.items()},
         **(backward or {"blend_backward": batch})}
@@ -153,7 +160,7 @@ def _captured_step_matches_eager(dev, batch, backward=None):
     assert int(captured.step) == 1
     torch.testing.assert_close(aux_c.loss, aux_e.loss, rtol=1e-5, atol=0)
     # a second replay advances the count and the step in place
-    steps.run(key, captured, cams, gt, bg)
+    steps.run(key, captured, cams, gt, bg, sh)
     assert int(captured.opt_state.count) == 2 and int(captured.step) == 2
 
 
@@ -181,6 +188,84 @@ def test_a_captured_reassociated_step_matches_the_eager_step(cuda,
     monkeypatch.delenv("FOURDGS_BIN_SCATTER", raising=False)
     _captured_step_matches_eager(cuda, 1, {"blend_backward_slots": 1,
                                            "scatter_set_scalars": 1})
+
+
+def _leaf_errors(a, b) -> dict:
+    """Each floating leaf's largest difference over its largest magnitude
+    (the others must be equal)."""
+    errs, want = {}, _tensors(b)
+    for name, x in _tensors(a).items():
+        y = want[name]
+        if not y.is_floating_point():
+            assert torch.equal(x, y), name
+            continue
+        errs[name] = float((x - y).abs().max()) / max(
+            float(y.abs().max()), 1e-30)
+    return errs
+
+
+@pytest.mark.gpu
+def test_a_step_prewarmed_on_a_second_thread_matches_one_captured_here(cuda):
+    """StepPrograms.prewarm builds the statistics-off step and the next
+    bucket's on daemon threads, each captured in thread-local mode on a
+    pool stream of its own, while this thread replays the live step on the
+    default stream and reads its loss to the host after each replay: the
+    captures hold (the pool's streams are non-blocking, so the default
+    stream's work never joins them). At the switch the prewarmed program
+    is taken, and its replays follow those of the same key captured on
+    this thread (leaves after one step within GRAD_TOL, losses within
+    LOSS_RTOL: K2's atomics). kernel_runs() counts every warm-up and
+    replay of the four programs, launched from both threads, and none of
+    their captures."""
+    st, step_fn, key, cams, gt, bg = _step_state(cuda)
+    sh = _degree(cuda)
+    graphs.zero_counts()
+    steps = graphs.StepPrograms(step_fn)
+    live = st.to(cuda)
+    steps.run(key, live, cams, gt, bg, sh)
+    first = steps.live.program
+    off = key._replace(track_stats=False)
+    steps.prewarm(off, live, cams, gt, bg)
+    steps.prewarm(key._replace(capacity=2 * key.capacity), live, cams, gt,
+                  bg)
+    overlapped = 0
+    while any(p.building() for p in steps.prewarms):
+        assert np.isfinite(float(steps.run(key, live, cams, gt, bg,
+                                           sh).loss))
+        overlapped += 1
+    assert overlapped > 0
+    assert all(p.built and p.error is None for p in steps.prewarms)
+    built = [p.step.program for p in steps.prewarms]
+    start = live.to(cuda)
+    a, b = start.to(cuda), start.to(cuda)
+    steps_here = graphs.StepPrograms(step_fn)
+    losses = {"prewarmed": [], "here": []}
+    for i in range(5):
+        losses["prewarmed"].append(float(steps.run(off, a, cams, gt, bg,
+                                                   sh).loss))
+        losses["here"].append(float(steps_here.run(off, b, cams, gt, bg,
+                                                   sh).loss))
+        if i == 0:
+            errs = _leaf_errors(a, b)
+            assert max(errs.values()) <= GRAD_TOL, errs
+    # the switch took the statistics-off program; the bigger bucket's
+    # (statistics on) can no longer come, and went with its pool
+    pre, bigger = steps.prewarms
+    assert pre.used and steps.live.program is built[0]
+    assert len(steps.captures) == 1 and not steps_here.prewarms
+    assert bigger.dropped and not bigger.used and bigger.step is None
+    la, lb = np.array(losses["prewarmed"]), np.array(losses["here"])
+    np.testing.assert_allclose(la, lb, rtol=LOSS_RTOL)
+    programs = [first, *built, steps_here.live.program]
+    want = collections.Counter()
+    for prog in programs:
+        assert prog.launches["blend_forward"] == 1
+        for name, n in prog.launches.items():
+            want[name] += (graphs.WARMUP + prog.replays) * n
+    ran = {k: v for k, v in graphs.kernel_runs().items() if v}
+    assert ran == dict(want)
+    steps.close()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -227,19 +312,20 @@ def test_a_replay_makes_no_sync(cuda):
     eager = dataclasses.replace(rend, capture=False)
     cam = look_at_camera(time=0.3, device=cuda)
     st, step_fn, key, cams, gt, bg = _step_state(cuda)
+    sh = _degree(cuda)
     steps = graphs.StepPrograms(step_fn)
     rend.render(cam)
     eager.render(cam)
-    steps.run(key, st, cams, gt, bg)
-    step_fn(key)(st, cams, gt, bg)
+    steps.run(key, st, cams, gt, bg, sh)
+    step_fn(key)(st, cams, gt, bg, sh)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(3):
             rend.render(cam)
-            steps.run(key, st, cams, gt, bg)
+            steps.run(key, st, cams, gt, bg, sh)
         eager.render(cam)
-        step_fn(key)(st, cams, gt, bg)
+        step_fn(key)(st, cams, gt, bg, sh)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -258,9 +344,10 @@ def gpu_scene(cuda, tmp_path):
 def test_captured_stage_follows_the_eager_stage(gpu_scene):
     """tests/test_torch_graphs.py's stage (a densify, a prune, bucket
     changes, the SH ramp, tile_cap growth, the densify statistics' stop
-    and a forced rollback) with the card's graphs: every change of key
-    captures, every surgery rebinds, and the logged losses follow the
-    eager run's."""
+    and a forced rollback) with the card's graphs and prewarms: every
+    change of key captures or takes its prewarmed program, the ramp
+    captures nothing, every surgery rebinds, and the logged losses
+    follow the eager run's."""
     cfg = _stage_cfg()
     eager = _run(cfg, gpu_scene, capture=False)
     captured = _run(cfg, gpu_scene, capture=True)
@@ -274,9 +361,11 @@ def test_captured_stage_follows_the_eager_stage(gpu_scene):
     lb = np.array([h["loss"] for h in eager.history])
     np.testing.assert_allclose(la, lb, rtol=LOSS_RTOL, equal_nan=True)
     rep = captured.graphs
-    assert rep["replays"] == 60
-    keys = [c["key"] for c in rep["captures"]]
-    assert any("sh 1" in k for k in keys)
+    assert rep["replays"] == 60 and rep["prewarms_failed"] == 0
+    keys = ([c["key"] for c in rep["captures"]]
+            + [p["key"] for p in rep["prewarms"] if p["used"]])
+    assert captured.active_sh == 1
+    assert all(970 + c["step"] != 1000 for c in rep["captures"])
     assert any("stats off" in k for k in keys)
     replaced = {i for i, k in kinds
                 if k in ("densify", "prune", "resize", "rollback")} - {1030}

@@ -1,6 +1,7 @@
 """Port parity for the math substrate: ops/transforms.py, ops/sh.py,
 data/camera.py and ops/projection.py against the JAX package, on the same
 numpy inputs."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,6 +89,48 @@ def test_sh(deg):
     _close(tsh.rgb_to_sh(_t(sh[:, 0])), jsh.rgb_to_sh(sh[:, 0]), atol=1e-6)
     _close(tsh.sh_dc_to_rgb(_t(sh[:, 0])), jsh.sh_dc_to_rgb(sh[:, 0]),
            atol=1e-6)
+
+
+def _sh_outputs(fn, sh, d, w):
+    """fn(sh, dirs) and the gradients of sum(fn * w) in sh and dirs."""
+    s = torch.tensor(sh, requires_grad=True)
+    dd = torch.tensor(d, requires_grad=True)
+    out = fn(s, dd)
+    (out * _t(w)).sum().backward()
+    g_dirs = dd.grad if dd.grad is not None else torch.zeros_like(dd)
+    return out.detach().numpy(), s.grad.numpy(), g_dirs.numpy()
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_sh_dynamic(deg):
+    """sh_to_rgb_dynamic at a 0-d int32 degree (the captured step's): its
+    colors and their gradients in sh and dirs equal the static
+    sh_to_rgb's bit for bit (each masked band adds an exact zero), and
+    JAX's sh_to_rgb_dynamic's within 1e-6 (the static test's tolerance;
+    the gradients normalised by their largest magnitude)."""
+    rng = np.random.default_rng(20 + deg)
+    sh = rng.normal(size=(300, 16, 3)).astype(np.float32) * 0.5
+    d = rng.normal(size=(300, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    w = rng.normal(size=(300, 3)).astype(np.float32)
+    degree = torch.tensor(deg, dtype=torch.int32)
+    dyn = _sh_outputs(lambda s, dd: tsh.sh_to_rgb_dynamic(degree, s, dd),
+                      sh, d, w)
+    static = _sh_outputs(lambda s, dd: tsh.sh_to_rgb(deg, s, dd), sh, d, w)
+    for a, b, name in zip(dyn, static, ("rgb", "d/dsh", "d/ddirs")):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert float(dyn[0].min()) == 0.0 or deg == 0   # the clamp is hit
+    # the masked bands take no gradient
+    assert not dyn[1][:, (deg + 1) ** 2:].any()
+
+    def jax_loss(s, dd):
+        return jnp.sum(jsh.sh_to_rgb_dynamic(jnp.int32(deg), s, dd) * w)
+    j_rgb = jsh.sh_to_rgb_dynamic(jnp.int32(deg), sh, d)
+    j_sh, j_dirs = jax.grad(jax_loss, argnums=(0, 1))(sh, d)
+    _close(dyn[0], j_rgb, atol=1e-6)
+    for a, b in ((dyn[1], j_sh), (dyn[2], j_dirs)):
+        scale = max(float(np.abs(np.asarray(b)).max()), 1e-30)
+        _close(a / scale, np.asarray(b) / scale, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -94,9 +94,9 @@ def test_mesh_step_keys_differ_by_shape_tile_and_band():
     odd = tconfig.raster_config_from(_cfg(), SIZE, 48)        # 4 x 3 tiles
 
     def key(mesh, cfg=rc):
-        return graphs.StepKey("fine", 512, cfg, 1, True, 2, 0.0,
+        return graphs.StepKey("fine", 512, cfg, True, 2, 0.0,
                               (0.01, 1e-4, 1e-4), graphs.switches(),
-                              sharded.mesh_key(mesh, cfg))
+                              sharded.mesh_key(mesh, cfg), 1)
 
     k12 = [key(Mesh(1, 2, rank=r)) for r in range(2)]
     assert k12[0].mesh == sharded.MeshKey(1, 2, 0, 0, 8, True)
@@ -109,7 +109,7 @@ def test_mesh_step_keys_differ_by_shape_tile_and_band():
     fallback = key(Mesh(1, 2, rank=1), odd)
     assert fallback.mesh == sharded.MeshKey(1, 2, 1, 6, 6, False)
     keys = [*k12, k21, k14, fallback, key(Mesh(1, 1)),
-            graphs.StepKey(*key(Mesh(1, 1))[:-1])]
+            key(Mesh(1, 1))._replace(mesh=None, active_sh=None)]
     assert len(set(keys)) == len(keys)
     assert keys[-1].mesh is None
     assert "mesh 1x2 tile 1 tiles 8+8 band" in k12[1].label()

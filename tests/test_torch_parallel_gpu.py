@@ -154,12 +154,12 @@ def test_captured_sharded_step_matches_eager_over_nccl(cuda, nccl_mesh):
     gts = torch.from_numpy(np.random.default_rng(4).uniform(
         0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)).to(cuda)
     bg = torch.ones(3, device=cuda)
-    key = graphs.StepKey("fine", st.capacity, rc, 1, True, 2, 0.2, REG,
-                         graphs.switches(), sharded.mesh_key(mesh, rc))
+    key = graphs.StepKey("fine", st.capacity, rc, True, 2, 0.2, REG,
+                         graphs.switches(), sharded.mesh_key(mesh, rc), 1)
     step_fn = sharded.step_of_key(tx, mesh)
     programs = graphs.StepPrograms(step_fn)
-    run = {"eager": lambda s: step_fn(key)(s, cams, gts, bg),
-           "captured": lambda s: programs.run(key, s, cams, gts, bg)}
+    run = {"eager": lambda s: step_fn(key)(s, cams, gts, bg, 1),
+           "captured": lambda s: programs.run(key, s, cams, gts, bg, 1)}
     losses, after_one = {}, {}
     for mode in run:
         state = st.to(cuda)

@@ -8,6 +8,7 @@ and the report holds each stage's timing, capture share and live counts,
 the in-loop and post-hoc test PSNR, the render FPS, the per-view
 comparison with the JAX package's record where it has one, and the
 protocol's fault floor."""
+import dataclasses
 import json
 import os
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from fourdgs_tpu_torch.tools import quality_run
+from fourdgs_tpu_torch.train import config as tconfig
 from fourdgs_tpu_torch.train import graphs
 from tests.test_torch_stage import CLI_CONFIG
 
@@ -106,3 +108,44 @@ def test_protocols_name_their_configs_and_records():
         assert os.path.exists(p["configs"])
         assert os.path.basename(p["reference"]) == want[1]
         assert quality_run.reference_record(p["reference"]) is not None
+
+
+def test_quality_run_alternates_the_prewarmer(tmp_path, monkeypatch):
+    """The prewarmer's off run is the protocol's config included by a
+    two-line file that sets `prewarm=False`, given to --configs: it trains
+    through a config that differs from the included one in `prewarm`
+    alone, and the stage report carries the prewarm figures."""
+    config = tmp_path / "tiny.py"
+    config.write_text(CLI_CONFIG)
+    off_path = tmp_path / "prewarm_off.py"
+    off_path.write_text(f"_base_ = {str(config)!r}\n"
+                        "RasterParams = dict(prewarm=False)\n")
+    on = tconfig.apply_config_file(tconfig.Config(), str(config))
+    off = tconfig.apply_config_file(tconfig.Config(), str(off_path))
+    assert on.raster.prewarm and not off.raster.prewarm
+    off.raster.prewarm = True
+    assert dataclasses.asdict(off) == dataclasses.asdict(on)
+    runs = []
+
+    def run_variant(name, args, scene, dev):
+        runs.append((name, args.configs))
+        return {"variant": name}
+
+    monkeypatch.setattr(quality_run, "run_variant", run_variant)
+    quality_run.main([
+        "--out", str(tmp_path / "run"), "--size", "32", "--n_cams", "3",
+        "--n_times", "2", "--configs", str(off_path), "--device", "cpu"])
+    assert runs == [(name, str(off_path)) for name in quality_run.VARIANTS]
+    stage = {"iterations": 4, "start": 0, "wall_time": 1.0,
+             "history": [{"points": 3, "capacity": 8}], "events": [],
+             "raster_cfg": {"tile_cap": 16}, "peak_bytes": None,
+             "test_psnr": [], "evals": [],
+             "graphs": {"captures": [], "replays": 4, "prewarmed": 1,
+                        "prewarms_used": 1, "prewarms_dropped": 0,
+                        "prewarms_failed": 0, "prewarms_retried": 0,
+                        "prewarms_dropped_for_memory": 0,
+                        "prewarm_wait_s": 0.0, "prewarm_s": 0.5,
+                        "close_wait_s": 0.0, "step_gaps": {}}}
+    rep = quality_run.stage_report(stage)
+    assert rep["prewarms_used"] == 1 and rep["prewarm_s"] == 0.5
+    assert rep["prewarms_retried"] == 0 == rep["prewarms_dropped_for_memory"]

@@ -360,24 +360,31 @@ def _look_at(make, t, theta=0.3):
     return make(r_w2c.T, -r_w2c @ pos, 0.9, 0.9, time=t)
 
 
-# (stage, lambda_dssim, batch): JAX renders a batch of 2 unrolled and a
-# batch of 4 under vmap; the port loops over the cameras. Every camera of
-# a batch shares one ndc_offset, and the densify statistics take the
-# radii's max and the visibility's any over the batch.
-STEP_CASES = [("fine", 0.0, 1), ("fine", 0.2, 1), ("coarse", 0.0, 1),
-              ("coarse", 0.2, 1), ("fine", 0.0, 2), ("fine", 0.0, 4)]
+# (stage, lambda_dssim, batch, the port's SH degree): JAX renders a batch
+# of 2 unrolled and a batch of 4 under vmap; the port loops over the
+# cameras. Every camera of a batch shares one ndc_offset, and the densify
+# statistics take the radii's max and the visibility's any over the batch.
+# JAX's step always takes the degree as a traced int32; the port's takes
+# an int (its eval and serving path) or, as run_stage passes it on a
+# single card, a 0-d int32 tensor (sh_to_rgb_dynamic).
+STEP_CASES = [("fine", 0.0, 1, "int"), ("fine", 0.2, 1, "int"),
+              ("coarse", 0.0, 1, "int"), ("coarse", 0.2, 1, "int"),
+              ("fine", 0.0, 2, "int"), ("fine", 0.0, 4, "int"),
+              ("fine", 0.2, 1, "tensor")]
 # the batch's cameras: (time, angle) around the scene
 BATCH_VIEWS = ((0.4, 0.3), (0.7, 0.8), (0.1, -0.4), (0.9, 1.3))
 
 
 @pytest.fixture(scope="module", params=STEP_CASES,
                 ids=[f"{s}-dssim{l}" + (f"-batch{b}" if b > 1 else "")
-                     for s, l, b in STEP_CASES])
+                     + ("-sh_tensor" if sh == "tensor" else "")
+                     for s, l, b, sh in STEP_CASES])
 def two_steps(request):
     """Two steps (one at batch 2 and 4) of each package from one JAX-built
     state, on a batch of cameras and targets: the JAX step is compiled
     once per case."""
-    stage, lam, batch = request.param
+    stage, lam, batch, sh_kind = request.param
+    degree = 1 if sh_kind == "int" else torch.tensor(1, dtype=torch.int32)
     cfg = tiny_config(cap=256)
     pcfg = _port_cfg(cfg)
     st = _noisy_jax_state(cfg)
@@ -410,7 +417,7 @@ def two_steps(request):
         jax_states.append(jckpt._flatten(st._asdict()))
         jax_aux.append(aux)
         port, aux = tloop.train_step(
-            port, tcams, _t(target), _t(bg), 1, stage=stage,
+            port, tcams, _t(target), _t(bg), degree, stage=stage,
             raster_cfg=trc, tx=tx_t, lambda_dssim=lam, reg_weights=reg)
         port_aux.append(aux)
         port_states.append({
