@@ -127,6 +127,20 @@ Phases, each of which raises on failure (so the exit code is nonzero):
              0.3 dB), where the two test PSNRs must agree within
              RENDER_PSNR_TOL (printed: whether they, the last losses and
              the events are equal bit for bit);
+ 22. standalone: run after phase 21: the train CLI, then the render CLI
+             (--skip_train) and the metrics CLI, in a fresh interpreter
+             under utils/standalone.py's audit hook, which refuses and
+             counts every open of a path under fourdgs_tpu/ and every
+             import of jax, jaxlib or the JAX package: phase 7's scene at
+             the full D-NeRF widths of the port's
+             configs/dnerf/bouncingballs.py (an include of it that cuts
+             the schedule to STANDALONE_ITERS), on the default route (no
+             switch set: K1, K2, the binner and D1, captured); it fails
+             unless the run exits 0 with no refused event, the post-hoc
+             test PSNR reads the last in-loop eval within
+             RENDER_PSNR_TOL, and K1, K2, the binner and D1 ran in it (and
+             K3-K5 did not); its fine ms/iteration, PSNRs, FPS and runs
+             are printed;
  11. nerfies: run after phase 10: a vrig-like HyperNeRF capture of the
              ball scene (write_nerfies_scene: two cameras x 40 timestamps,
              rgb/2x at 536x960, covisible masks, 2,000 random points)
@@ -317,6 +331,7 @@ import numpy as np
 from fourdgs_tpu_torch.tools.profile_blend_split import (BLEND_FP32_INSTR,
                                                          blend_work,
                                                          bwd_work)
+from fourdgs_tpu_torch.train.config import CONFIG_DIR
 from fourdgs_tpu_torch.utils.timing import (FP32_ISSUE_S, HBM_BYTES_S,
                                             HELD_STREAM, MUFU_OP_S,
                                             NoKernelRecords, held_stream_ms,
@@ -382,7 +397,7 @@ BLEND_BWD_FP32_INSTR = {"eval": 12, "exp": 9, "used": 53}
 DRIVER_SIZE = 800              # data/blender.py RESOLUTION
 DRIVER_VIEWS = (60, 10)        # train, test: the JAX scene script's defaults
 RESUME_ITERS = 20
-# fourdgs_tpu/configs/dnerf/dnerf_default.py's values; the schedule is cut
+# configs/dnerf/dnerf_default.py's values; the schedule is cut
 # to the run's length (densify, prune and reset every 100/100/600
 # iterations, densify until 1000, prune above 1000 live points), and the
 # capacity buckets start at 1,024 (of 4,096) so that the cut run's few
@@ -419,6 +434,17 @@ ModelHiddenParams = dict(
 RasterParams = dict(min_bucket=1024)
 """
 RENDER_PSNR_TOL = 0.1          # dB: the snapshot's render vs the run's eval
+# phase 22: the train CLI on phase 7's scene from the port's bouncingballs
+# config (HexPlane [64, 64, 64, 75] x 32 features, multires [1, 2], net
+# width 64, depth 0), its schedule cut to (coarse, fine) iterations with
+# densify and prune from iteration 100 (of 500) so that both stages densify
+STANDALONE_ITERS = (300, 600)
+STANDALONE_CONFIG = """\
+_base_ = {base!r}
+OptimizationParams = dict(coarse_iterations={coarse}, iterations={fine},
+                          densify_from_iter=100, pruning_from_iter=100)
+"""
+STANDALONE_TIMEOUT = 600       # seconds the guarded run may take
 SCATTER_TOL = 1e-5             # K4 vs plain, max |a - b| / max |b|
 # phase 9: D6's four bodies vs plain, max |a - b| / max |b|; the same sums
 # of 768 terms a pixel in another association
@@ -2020,6 +2046,95 @@ def phase_prewarm(torch, device, work: Path, coarse: int, fine: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 22 (after phase 21): train -> render -> metrics with the JAX
+# package out of reach
+# ---------------------------------------------------------------------------
+
+def phase_standalone(torch, work: Path, seed: int):
+    """The train, render and metrics CLIs on phase 7's scene in a fresh
+    interpreter under utils/standalone.py's guard, from an include of the
+    port's configs/dnerf/bouncingballs.py, with no switch set. Returns the
+    kernels' runs in that interpreter and what it measured."""
+    from fourdgs_tpu_torch.tools.bench import card_limit
+    from fourdgs_tpu_torch.train import config as config_mod
+    from fourdgs_tpu_torch.train import graphs
+    from fourdgs_tpu_torch.utils import standalone
+
+    coarse, fine = STANDALONE_ITERS
+    scene, model = work / "scene", work / "standalone"
+    shutil.rmtree(model, ignore_errors=True)
+    config = work / "standalone_smoke.py"
+    config.write_text(STANDALONE_CONFIG.format(
+        base=str(CONFIG_DIR / "dnerf" / "bouncingballs.py"), coarse=coarse,
+        fine=fine))
+    cfg = config_mod.apply_config_file(config_mod.Config(), str(config))
+    steps = [
+        ("fourdgs_tpu_torch.tools.train", [
+            "-s", scene, "-m", model, "--configs", config, "--quiet",
+            "--seed", seed, "--test_iterations", coarse, fine,
+            "--save_iterations", fine]),
+        ("fourdgs_tpu_torch.tools.render", ["-m", model, "-s", scene,
+                                            "--skip_train"]),
+        ("fourdgs_tpu_torch.tools.metrics", ["-m", model])]
+    env = {k: v for k, v in os.environ.items() if k not in graphs.SWITCHES}
+    t0 = time.perf_counter()
+    proc = subprocess.run(standalone.command(ROOT, steps), cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=STANDALONE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    (work / "standalone.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode:
+        print(proc.stdout[-4000:] + proc.stderr[-8000:], flush=True)
+        raise AssertionError(f"standalone phase: the guarded run exited "
+                             f"{proc.returncode}")
+    rec = standalone.parse(proc.stdout)
+    fig = rec["figures"]
+    runs = {name: rec["kernel_runs"][wrapper]
+            for name, wrapper in REPORTED.items()}
+    h = cfg.hidden
+    step_s = [(s["module"], round(s["seconds"], 3)) for s in rec["steps"]]
+    log(f"standalone: {seconds:.2f} s ({card_limit(torch.device('cuda'))}); "
+        f"steps {step_s}; "
+        f"refused {rec['refused']} {rec['events']}; config {config.name} on "
+        f"bouncingballs.py: kplanes {h.kplanes_config['resolution']} x "
+        f"{h.kplanes_config['output_coordinate_dim']}, multires "
+        f"{h.multires}, net_width {h.net_width}, defor_depth "
+        f"{h.defor_depth}; ms/iteration {fig['ms_per_iteration']}; test "
+        f"PSNR in loop {fig['in_loop_test_psnr']:.4f} (SH degree "
+        f"{fig['active_sh']}), post hoc {fig['post_hoc_test_psnr']:.4f} "
+        f"(iteration {fig['iteration']}, tol {RENDER_PSNR_TOL}); render CLI "
+        f"FPS {fig['fps']}; kernel runs {runs}")
+    checks = {
+        "no refused open or import": rec["refused"] == 0,
+        "train, render and metrics ended":
+            [s["module"] for s in rec["steps"]] == list(standalone.CHAIN),
+        "bouncingballs.py's widths":
+            h.kplanes_config["resolution"] == [64, 64, 64, 75]
+            and h.kplanes_config["output_coordinate_dim"] == 32
+            and (h.multires, h.net_width, h.defor_depth) == ([1, 2], 64, 0),
+        "the last iteration rendered": fig["iteration"] == fine,
+        # the deformation leaves the SH rest bands alone: the run's degree
+        # and the render's (the model's) render alike
+        "the SH degrees render alike": fig["active_sh"]
+            == cfg.model.sh_degree or h.no_dshs,
+        "the post-hoc PSNR matches the run's eval":
+            abs(fig["post_hoc_test_psnr"] - fig["in_loop_test_psnr"])
+            <= RENDER_PSNR_TOL,
+        **{f"{k} ran": runs[k] > 0 for k in PATH_KERNELS},
+        "the default route (K3-K5 did not run)":
+            runs["blend_bwd_slots"] == runs["scatter_add_rows"]
+            == runs["scatter_set_scalars"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"standalone checks: {len(checks) - len(failed)}/{len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"standalone phase: {failed}")
+    return runs, {**fig, "seconds": seconds, "steps": rec["steps"],
+                  "refused": rec["refused"]}
+
+
+# ---------------------------------------------------------------------------
 # phases 11-15 (after phase 10): the nerfies (HyperNeRF), DyNeRF,
 # MultipleView, PanopticSports and Colmap layouts
 # ---------------------------------------------------------------------------
@@ -2656,7 +2771,7 @@ def phase_layout(torch, device, work: Path, kind: str, seed: int):
         config = work / f"{kind}_smoke.py"
         base = ""
         if spec["config"]:
-            path = ROOT / "fourdgs_tpu" / "configs" / spec["config"]
+            path = CONFIG_DIR / spec["config"]
             base = f"_base_ = {str(path)!r}\n"
         config.write_text(LAYOUT_CONFIG.format(
             base=base,
@@ -5435,7 +5550,7 @@ def largest_eval_memory(torch, state, cams, bg, sh, rc,
 
     cfg = config_mod.apply_config_file(
         config_mod.Config(),
-        str(ROOT / "fourdgs_tpu" / "configs" / EVAL_MEMORY_CONFIG))
+        str(CONFIG_DIR / EVAL_MEMORY_CONFIG))
     deform = Deformation(config_mod.deform_config_from(cfg),
                          generator=torch.Generator().manual_seed(5))
     gauss, alive = padded(torch, state.params["gauss"], state.alive,
@@ -5838,6 +5953,7 @@ def main(argv=None) -> int:
     k1["eval"] = evaluation
     prewarm_runs, prewarm = phase_prewarm(torch, device, work, args.coarse,
                                           args.fine, args.seed)
+    standalone_runs, standalone = phase_standalone(torch, work, args.seed)
     layouts, layout_runs = {}, {}
     for kind in LAYOUTS:
         layout_runs[kind], layouts[kind] = phase_layout(torch, device, work,
@@ -5885,7 +6001,13 @@ def main(argv=None) -> int:
         name = k["name"].split(" (main path)")[0]
         if name in PREWARM_PATH:
             k["launches_prewarm"] = prewarm_runs[name]
+    # phase 22: the runs of the guarded train -> render -> metrics run
+    for k in kernels:
+        name = k["name"].split(" (main path)")[0]
+        if name in PATH_KERNELS:
+            k["launches_standalone"] = standalone_runs[name]
     k1["prewarm"] = prewarm
+    k1["standalone"] = standalone
     k1["mesh"] = {key: mesh[key] for key in ("nccl", "two_ranks", "eval",
                                              "cli", "cli_nccl", "scaling",
                                              "seconds", "seconds_abcde")}
@@ -5894,7 +6016,7 @@ def main(argv=None) -> int:
                                      for path in ("serve", "step", "eval",
                                                   "bench_fps",
                                                   "eval_programs", "prewarm",
-                                                  *LAYOUTS)):
+                                                  "standalone", *LAYOUTS)):
             raise AssertionError(f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

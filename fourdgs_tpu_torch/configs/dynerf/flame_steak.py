@@ -1,0 +1,4 @@
+_base_ = './default.py'
+OptimizationParams = dict(
+    batch_size=2,
+)

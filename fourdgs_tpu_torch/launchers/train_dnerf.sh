@@ -6,7 +6,7 @@ DATA=${DATA:-data/dnerf}
 OUT=${OUT:-output/dnerf}
 for scene in bouncingballs hellwarrior hook jumpingjacks lego mutant standup trex; do
   python3 -m fourdgs_tpu_torch.tools.train -s "$DATA/$scene" -m "$OUT/$scene" \
-    --configs fourdgs_tpu/configs/dnerf/$scene.py --expname "dnerf/$scene"
+    --configs fourdgs_tpu_torch/configs/dnerf/$scene.py --expname "dnerf/$scene"
   python3 -m fourdgs_tpu_torch.tools.render -m "$OUT/$scene" --skip_train
   python3 -m fourdgs_tpu_torch.tools.metrics -m "$OUT/$scene"
 done

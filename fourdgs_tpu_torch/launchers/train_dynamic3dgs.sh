@@ -5,7 +5,7 @@
 set -e
 DATA=${DATA:-data/dynamic3dgs/data}
 OUT=${OUT:-output/dynamic3dgs}
-CFG=${CFG:-fourdgs_tpu/configs/multipleview/default.py}
+CFG=${CFG:-fourdgs_tpu_torch/configs/multipleview/default.py}
 for scene in basketball boxes football juggle softball tennis; do
   python3 -m fourdgs_tpu_torch.tools.train -s "$DATA/$scene" -m "$OUT/$scene" \
     --configs "$CFG" --expname "dynamic3dgs/$scene"

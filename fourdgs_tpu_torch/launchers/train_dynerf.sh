@@ -6,7 +6,7 @@ DATA=${DATA:-data/dynerf}
 OUT=${OUT:-output/dynerf}
 for scene in coffee_martini cook_spinach cut_roasted_beef flame_salmon_1 flame_steak sear_steak; do
   python3 -m fourdgs_tpu_torch.tools.train -s "$DATA/$scene" -m "$OUT/$scene" \
-    --configs fourdgs_tpu/configs/dynerf/$scene.py --expname "dynerf/$scene"
+    --configs fourdgs_tpu_torch/configs/dynerf/$scene.py --expname "dynerf/$scene"
   python3 -m fourdgs_tpu_torch.tools.render -m "$OUT/$scene" --skip_train
   python3 -m fourdgs_tpu_torch.tools.metrics -m "$OUT/$scene"
 done

@@ -64,11 +64,12 @@ from fourdgs_tpu_torch.tools import render as render_cli
 from fourdgs_tpu_torch.tools import train as train_cli
 from fourdgs_tpu_torch.tools.bench import card_limit
 from fourdgs_tpu_torch.train import graphs
+from fourdgs_tpu_torch.train.config import CONFIG_DIR
 from fourdgs_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-CONFIGS = os.path.join(REPO, "fourdgs_tpu", "configs", "dnerf")
+CONFIGS = str(CONFIG_DIR / "dnerf")
 # each protocol's config, the JAX package's record of its scene and the
 # default output directory; a post hoc below `floor_db` is a fault of the
 # port (ROADMAP Queue 3)

@@ -7,6 +7,8 @@ rasterizer group, as plain dataclasses with the same fields and defaults
   * the two builders of static configs that the JAX package keeps in
     train/state.py (`deform_config_from`) and train/loop.py
     (`raster_config_from`).
+The port's config files are under `CONFIG_DIR` (fourdgs_tpu_torch/configs/,
+byte copies of the JAX package's configs/ tree).
 """
 from __future__ import annotations
 
@@ -15,7 +17,12 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
+
+# the port's config files: one per scene and layout, `_base_` includes
+# relative to the including file
+CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 
 
 @dataclass

@@ -192,7 +192,8 @@ def test_host_library_reads_only_the_ports_sources():
     ids=lambda p: p.name)
 def test_launchers_run_only_the_port(path):
     """A suite launcher runs the port's CLIs as modules under python3 and
-    reads nothing of the JAX package but its config files, by path."""
+    names no path of the JAX package: its config files are the port's
+    (fourdgs_tpu_torch/configs/)."""
     text = "\n".join(line for line in path.read_text().splitlines()
                      if not line.lstrip().startswith("#"))
     runs = re.findall(r"^\s*(python\S*)\s+(\S+)\s+(\S+)", text, re.M)
@@ -201,8 +202,38 @@ def test_launchers_run_only_the_port(path):
                and mod.startswith("fourdgs_tpu_torch.tools.")
                for prog, flag, mod in runs), runs
     assert "scripts/" not in text
-    assert all(ref.startswith("fourdgs_tpu/configs/")
-               for ref in re.findall(r"fourdgs_tpu/\S*", text))
+    assert not re.findall(r"(?<![\w/])fourdgs_tpu/", text)
+    assert re.findall(r"(?<![\w/])fourdgs_tpu_torch/configs/\S+", text)
+
+
+# a file:line or file:function label of a JAX kernel (chip_smoke.py's
+# "replaces" and "tpu_kernel" keys); utils/standalone.py names the JAX
+# package's tree to refuse it
+JAX_LABEL = re.compile(r"fourdgs_tpu/\S+\.py:\w+")
+NAMES_THE_JAX_TREE = ("fourdgs_tpu_torch/utils/standalone.py",)
+
+
+@pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_k2_states.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_package_paths(path):
+    """No string of the port's code (docstrings aside) names a path under
+    fourdgs_tpu/, or the directory `fourdgs_tpu` itself (as an
+    os.path.join part), except a kernel's file:line label; the config
+    files the port reads are its own (CONFIG_DIR)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef,
+                              ast.AsyncFunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    bad = [n.value for n in ast.walk(tree)
+           if isinstance(n, ast.Constant) and isinstance(n.value, str)
+           and id(n) not in docs
+           and (n.value == "fourdgs_tpu" or re.search(
+               r"(?<![\w/])fourdgs_tpu/", JAX_LABEL.sub("", n.value)))]
+    if str(path.relative_to(ROOT)) in NAMES_THE_JAX_TREE:
+        assert bad == ["fourdgs_tpu"] * len(bad) and bad, bad
+    else:
+        assert not bad, bad
 
 
 # the preparation, point and report tools (counterparts of the JAX

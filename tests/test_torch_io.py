@@ -21,7 +21,8 @@ from fourdgs_tpu_torch.train import config as tconfig
 
 torch.set_num_threads(1)
 
-CONFIG_DIR = os.path.join(os.path.dirname(jconfig.__file__), "..", "configs")
+JAX_CONFIG_DIR = os.path.join(os.path.dirname(jconfig.__file__), "..",
+                              "configs")
 CONFIGS = ["dnerf/dnerf_default.py", "dnerf/bouncingballs.py",
            "dnerf/synth_mv.py"]
 
@@ -38,11 +39,13 @@ def _same_fields(port, ref, extra=()):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_file_parity(name, tmp_path):
-    """`_base_` inheritance, the static configs built from the groups, and
-    the cfg_args.json written by the JAX package."""
-    path = os.path.join(CONFIG_DIR, name)
-    a = jconfig.apply_config_file(jconfig.Config(), path)
-    b = tconfig.apply_config_file(tconfig.Config(), path)
+    """`_base_` inheritance (JAX's file through JAX's loader, the port's
+    copy through the port's), the static configs built from the groups,
+    and the cfg_args.json written by the JAX package."""
+    a = jconfig.apply_config_file(jconfig.Config(),
+                                  os.path.join(JAX_CONFIG_DIR, name))
+    b = tconfig.apply_config_file(tconfig.Config(),
+                                  str(tconfig.CONFIG_DIR / name))
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
     jd, td = j_deform_config_from(a), tconfig.deform_config_from(b)

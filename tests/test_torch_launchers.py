@@ -6,7 +6,8 @@ package's (scripts/launchers/*.sh, scripts/read_all_metrics.py):
     stub `python` and `python3` first on PATH that appends its arguments
     to a file and exits 0, with the same DATA and OUT (and for
     dynamic3dgs, once more with CFG set); with `scripts/X.py` read as
-    `-m fourdgs_tpu_torch.tools.X`, the two command sequences are equal;
+    `-m fourdgs_tpu_torch.tools.X` and JAX's config files as the port's
+    copies, the two command sequences are equal;
   * read_all_metrics prints what JAX's script prints on the same
     hand-written results.json files: a scene without the file, a scene
     without the chosen method, --method, and a root with no results.
@@ -51,10 +52,17 @@ def _commands(script: Path, tmp_path: Path, env_extra: dict) -> list:
 
 def _as_module(argv: list) -> list:
     """JAX's `python scripts/X.py ...` as the port's
-    `python3 -m fourdgs_tpu_torch.tools.X ...`."""
+    `python3 -m fourdgs_tpu_torch.tools.X ...`, a config file of JAX's
+    tree (`fourdgs_tpu/configs/Y`) as the port's copy
+    (`fourdgs_tpu_torch/configs/Y`), which must exist."""
     prog, script, *rest = argv
     assert prog == "python" and script.startswith("scripts/"), argv
     name = Path(script).stem
+    jax_tree, port_tree = "fourdgs_tpu/configs/", "fourdgs_tpu_torch/configs/"
+    rest = [port_tree + a[len(jax_tree):] if a.startswith(jax_tree) else a
+            for a in rest]
+    assert all((ROOT / a).is_file() for a in rest
+               if a.startswith(port_tree)), rest
     return ["python3", "-m", f"fourdgs_tpu_torch.tools.{name}", *rest]
 
 

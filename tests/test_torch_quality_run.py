@@ -11,6 +11,7 @@ protocol's fault floor."""
 import dataclasses
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -106,6 +107,8 @@ def test_protocols_name_their_configs_and_records():
         p = quality_run.PROTOCOLS[name]
         assert os.path.basename(p["configs"]) == want[0]
         assert os.path.exists(p["configs"])
+        # the port's own config files, not the JAX package's
+        assert Path(p["configs"]).parent == tconfig.CONFIG_DIR / "dnerf"
         assert os.path.basename(p["reference"]) == want[1]
         assert quality_run.reference_record(p["reference"]) is not None
 

@@ -11,6 +11,7 @@ point clouds, maxtime and images equal. The resampling is held against
 Pillow itself, equal, through the host library and its plain version (the
 `route` fixture, tests/_torch_routes.py).
 """
+import ast
 import dataclasses
 import functools
 import json
@@ -339,26 +340,23 @@ def test_blender_reader_resizes_as_jax(tmp_path, resolution):
                                               3)
 
 
-CONFIGS = sorted(str(p.relative_to(ROOT)) for layout in (
-    "hypernerf", "dynerf", "multipleview", "dycheck")
-    for p in (ROOT / "fourdgs_tpu/configs" / layout).glob("*.py"))
+JAX_CONFIGS = ROOT / "fourdgs_tpu" / "configs"
+CONFIGS = sorted(str(p.relative_to(JAX_CONFIGS))
+                 for p in JAX_CONFIGS.rglob("*.py"))
 
 
 @pytest.mark.parametrize("path", CONFIGS)
 def test_layout_configs_match_jax(path):
-    """configs/hypernerf, dynerf, multipleview and dycheck through
-    apply_config_file: every field equal (chicken.py's
+    """Every config file of the JAX package's configs/ tree through its
+    apply_config_file, and the port's copy under CONFIG_DIR through the
+    port's: the whole Configs equal, all five groups (chicken.py's
     ModelParams.kplanes_config ignored in both, dynerf/default.py's no_do
     and no_dshs False, multipleview/default.py's 16-wide planes at
     multires [1, 2])."""
-    full = str(ROOT / path)
-    a = jconfig.apply_config_file(jconfig.Config(), full)
-    b = tconfig.apply_config_file(tconfig.Config(), full)
-    for group in ("model", "opt", "hidden"):
-        ga, gb = getattr(a, group), getattr(b, group)
-        for f in dataclasses.fields(gb):
-            if hasattr(ga, f.name):
-                assert getattr(gb, f.name) == getattr(ga, f.name), f.name
+    a = jconfig.apply_config_file(jconfig.Config(), str(JAX_CONFIGS / path))
+    b = tconfig.apply_config_file(tconfig.Config(),
+                                  str(tconfig.CONFIG_DIR / path))
+    assert dataclasses.asdict(b) == dataclasses.asdict(a)
     if path.endswith("dynerf/default.py"):
         assert (b.hidden.no_do, b.hidden.no_dshs, b.opt.batch_size) == (
             False, False, 4)
@@ -367,6 +365,35 @@ def test_layout_configs_match_jax(path):
             "output_coordinate_dim"], b.opt.batch_size) == ([1, 2], 16, 1)
     if path.endswith("hypernerf/chicken.py"):
         assert b.hidden.kplanes_config["resolution"] == [64, 64, 64, 150]
+
+
+def _bases(path: Path) -> list:
+    """The `_base_` includes a config file names, as written."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign)
+                and [getattr(t, "id", None) for t in node.targets]
+                == ["_base_"]):
+            base = ast.literal_eval(node.value)
+            return [base] if isinstance(base, str) else list(base)
+    return []
+
+
+def test_config_trees_match():
+    """The port's configs/ tree holds the JAX tree's relative paths, no
+    package marker, and every `_base_` include in it resolves to a file of
+    the port's tree."""
+    port = tconfig.CONFIG_DIR
+    assert sorted(str(p.relative_to(port))
+                  for p in port.rglob("*.py")) == CONFIGS
+    assert not list(port.rglob("__init__.py"))
+    included = 0
+    for path in port.rglob("*.py"):
+        for base in _bases(path):
+            target = (path.parent / base).resolve()
+            assert target.is_file(), (path, base)
+            assert target.is_relative_to(port.resolve()), (path, base)
+            included += 1
+    assert included >= 24
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])
