@@ -755,11 +755,12 @@ def phase_bench_fps(torch, serve: dict) -> dict:
     from fourdgs_tpu_torch.tools import bench_fps
     from fourdgs_tpu_torch.tools.profile_render import profile_calls
     from fourdgs_tpu_torch.train import graphs
+    from fourdgs_tpu_torch.utils import tracing
 
     t_phase = time.perf_counter()
     graphs.zero_counts()
     line, renderer, cams, first = bench_fps.run(device="cuda")
-    replayed = dict(graphs.REPLAYED)
+    replayed = tracing.replayed_kernels()
     host = {w.__name__: w.launches for w in graphs.WRAPPERS}
     print(json.dumps(line), flush=True)
     d = line["detail"]

@@ -31,6 +31,7 @@ from fourdgs_tpu_torch.models.dense_grid import (dense_grid_sample,
 from fourdgs_tpu_torch.models.hexplane import (HexPlaneConfig, HexPlaneField,
                                                normalize_aabb)
 from fourdgs_tpu_torch.ops.transforms import quat_multiply
+from fourdgs_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +133,15 @@ class Deformation(nn.Module):
             feat = torch.cat([xyz, t.expand(n)[:, None]], dim=-1)
         else:
             feat = self.grid(normalize_aabb(xyz, aabb), t)
+        with tracing.span("splats.heads") as sp:
+            return sp.grads(*self._heads(feat, aabb, xyz, scaling, rotation,
+                                         opacity, shs))
+
+    def _heads(self, feat, aabb, xyz, scaling, rotation, opacity, shs):
+        """The MLP heads' deformation of the raw params from the field's
+        features."""
+        cfg = self.cfg
+        n = xyz.shape[0]
         hidden = self._hidden(feat)
         # the mask: the static head, else the empty-voxel grid, else ones
         if self.static is not None:

@@ -27,6 +27,7 @@ from torch import nn
 
 from fourdgs_tpu_torch.ops.gather import gather_rows
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
+from fourdgs_tpu_torch.utils import tracing
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))
 
@@ -163,19 +164,22 @@ class HexPlaneField(nn.Module):
     def forward(self, pts_norm: torch.Tensor,
                 t: torch.Tensor) -> torch.Tensor:
         """(N, feat_dim): per-level product over 6 planes, concat over
-        levels. `t` is a 0-d tensor (one timestamp) or (N,)."""
-        t_scalar = t.dim() == 0
-        coords = pts_norm if t_scalar else torch.cat(
-            [pts_norm, t.expand(pts_norm.shape[0])[:, None]], dim=-1)
-        outs = []
-        for lvl in range(len(self.cfg.multires)):
-            prod = None
-            for ci, (a, b) in enumerate(COO_COMBS):
-                plane = self.planes[f"l{lvl}_p{ci}"]
-                if t_scalar and b == 3:
-                    s = bilinear_sample_const_v(plane, coords[:, a], t)
-                else:
-                    s = bilinear_sample(plane, coords[:, a], coords[:, b])
-                prod = s if prod is None else prod * s
-            outs.append(prod)
-        return torch.cat(outs, dim=-1)
+        levels. `t` is a 0-d tensor (one timestamp) or (N,). The span
+        `splats.hexplane` (utils/tracing.py) bounds it and its backward."""
+        with tracing.span("splats.hexplane") as sp:
+            t_scalar = t.dim() == 0
+            coords = pts_norm if t_scalar else torch.cat(
+                [pts_norm, t.expand(pts_norm.shape[0])[:, None]], dim=-1)
+            outs = []
+            for lvl in range(len(self.cfg.multires)):
+                prod = None
+                for ci, (a, b) in enumerate(COO_COMBS):
+                    plane = self.planes[f"l{lvl}_p{ci}"]
+                    if t_scalar and b == 3:
+                        s = bilinear_sample_const_v(plane, coords[:, a], t)
+                    else:
+                        s = bilinear_sample(plane, coords[:, a],
+                                            coords[:, b])
+                    prod = s if prod is None else prod * s
+                outs.append(prod)
+            return sp.grads(torch.cat(outs, dim=-1))[0]

@@ -140,6 +140,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bin_tiles_launch.restype = i
     lib.blend_variant_launch.argtypes = [i, vp, vp, i, i, i, vp, vp]
     lib.blend_variant_launch.restype = i
+    lib.trace_stamp_launch.argtypes = [vp, vp, i, i, i, i, vp]
+    lib.trace_stamp_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -40,12 +40,12 @@ from __future__ import annotations
 import os
 
 import torch
-from torch.profiler import record_function
 
 from fourdgs_tpu_torch.ops import launches
 from fourdgs_tpu_torch.ops._build import _launch, load_library
 from fourdgs_tpu_torch.ops.rasterize_ref import ALPHA_MAX, ALPHA_MIN, T_MIN
 from fourdgs_tpu_torch.ops.scatter import scatter_add_rows
+from fourdgs_tpu_torch.utils import tracing
 
 ATTR_W = 16
 GRAD_W = 10        # [pix(2), conic(3), color(3), opacity, depth]
@@ -496,7 +496,7 @@ class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gidx, counts, cfg, slots, tile0, pix, conic, color,
                 opacity, depth):
-        with record_function("raster.pack"):
+        with tracing.span("raster.pack"):
             table = pack_attr_table(pix, conic, color, opacity, depth)
         out = blend_forward(gidx, counts, table, cfg, tile0)
         ctx.cfg = cfg
@@ -511,7 +511,7 @@ class _Blend(torch.autograd.Function):
         args = (gidx, counts, table, color, depth, trans,
                 g_color.contiguous(), g_depth.contiguous(), g_t.contiguous(),
                 ctx.cfg)
-        with record_function("raster.blend_backward"):
+        with tracing.span("raster.blend_backward"):
             # The JAX package takes its per-slot kernel (K3) when the fused
             # kernel's lane-packed accumulator would not fit 12 MiB of VMEM
             # (blend.py:578-580) or FOURDGS_PALLAS_NO_FUSED_BWD is set. K2's

@@ -15,7 +15,10 @@
      FOURDGS_PALLAS_GRAD_SCATTER, else by `reassociate_pair_grads` over
      the binner's BlendSlots, as in the JAX package
 
-Blending numerics follow the spec in ops/rasterize_ref.py.
+Blending numerics follow the spec in ops/rasterize_ref.py. Spans
+(utils/tracing.py): `raster.project`, `raster.bin`, `raster.blend`
+(`raster.pack` and K1; in the backward `raster.blend_backward`, K2) and
+`raster.compose`.
 """
 from __future__ import annotations
 
@@ -24,7 +27,6 @@ import os
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.ops import launches
@@ -35,6 +37,7 @@ from fourdgs_tpu_torch.ops.projection import Projected, project_gaussians
 from fourdgs_tpu_torch.ops.rasterize_ref import T_MIN, RenderOutput
 from fourdgs_tpu_torch.ops.scatter import scatter_set_scalars
 from fourdgs_tpu_torch.ops.serial import MAX_TILES
+from fourdgs_tpu_torch.utils import tracing
 
 # corner-cull distance clamp: 2 * 23000^2 stays below the 2^30 no-cull
 # sentinel, as in the JAX binner
@@ -467,12 +470,13 @@ def project_and_bin(
 ) -> tuple[Projected, BinnedTiles]:
     """Projection (differentiable) and binning (on detached values),
     with the BlendSlots where `slots` asks for them."""
-    with record_function("raster.project"):
+    with tracing.span("raster.project") as sp:
         proj = project_gaussians(
             means3d, scales, quats, camera, cfg.img_width, cfg.img_height,
             cfg.tile_size, ndc_offset=ndc_offset, alive=alive,
             scale_modifier=scale_modifier, opacities=opacities)
-    with record_function("raster.bin"), torch.no_grad():
+        proj = Projected(*sp.grads(*proj))
+    with tracing.span("raster.bin"), torch.no_grad():
         binned = bin_gaussians_count(proj, cfg, slots)
     return proj, binned
 
@@ -524,11 +528,11 @@ def rasterize(
     proj, binned = project_and_bin(means3d, scales, quats, opacities, camera,
                                    cfg, ndc_offset, alive, scale_modifier,
                                    slots)
-    with record_function("raster.blend"):
-        color_t, depth_t, t_t = blend(binned.gidx, binned.counts, proj.pix,
-                                      proj.conic, colors, opacities,
-                                      proj.depth, cfg, binned.slots)
-    with record_function("raster.compose"):
+    with tracing.span("raster.blend") as sp:
+        color_t, depth_t, t_t = sp.grads(*blend(
+            binned.gidx, binned.counts, proj.pix, proj.conic, colors,
+            opacities, proj.depth, cfg, binned.slots))
+    with tracing.span("raster.compose") as sp:
         t_img = _untile(t_t, cfg)
         color = _untile(color_t, cfg) + t_img[..., None] * bg
         # Effective tile-cap drops: a tile's excess counts only where some
@@ -538,8 +542,10 @@ def rasterize(
         unsat = (t_t > T_MIN).any(dim=1)
         dropped_tile = (binned.overflow * unsat).sum().to(torch.int32)
         tile_peak = (binned.counts + binned.overflow).max()
-        return RenderOutput(color=color, depth=_untile(depth_t, cfg),
-                            alpha=1.0 - t_img, radii=proj.radius,
+        color, depth, alpha = sp.grads(color, _untile(depth_t, cfg),
+                                       1.0 - t_img)
+        return RenderOutput(color=color, depth=depth,
+                            alpha=alpha, radii=proj.radius,
                             visibility=proj.radius > 0,
                             dropped_pairs=binned.dropped_pairs,
                             dropped_tile=dropped_tile,

@@ -15,13 +15,17 @@ tensor evaluates every band of the coefficients and masks those above it
 (`sh_to_rgb_dynamic`; the single-card training step, whose captured
 program reads the degree from a buffer, so the SH ramp recaptures
 nothing). Bands above the active degree get a zero gradient in both.
+
+Spans (utils/tracing.py): `render.splats` over `splats_at`, inside it
+`splats.hexplane` (models/hexplane.py) and `splats.heads` (the
+deformation's MLP heads, models/deformation.py; the activations and SH
+here).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.models.deformation import Deformation
@@ -30,6 +34,7 @@ from fourdgs_tpu_torch.ops import sh as sh_ops
 from fourdgs_tpu_torch.ops import transforms
 from fourdgs_tpu_torch.ops.rasterize_ref import RenderOutput
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig, rasterize
+from fourdgs_tpu_torch.utils import tracing
 
 
 def splats_at(
@@ -54,23 +59,25 @@ def splats_at(
     else:
         raise NotImplementedError(stage)
 
-    scales = transforms.safe_exp_scales(scaling)
-    quats = transforms.quat_normalize(rotation)
-    opacities = torch.sigmoid(opacity[:, 0])
+    with tracing.span("splats.heads") as sp:
+        scales = transforms.safe_exp_scales(scaling)
+        quats = transforms.quat_normalize(rotation)
+        opacities = torch.sigmoid(opacity[:, 0])
 
-    if override_color is None:
-        dirs = xyz - camera.cam_center
-        dirs = dirs / torch.clamp(
-            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-8)
-        if isinstance(active_sh_degree, torch.Tensor):
-            max_deg = math.isqrt(shs_f.shape[1]) - 1
-            colors = sh_ops.sh_to_rgb_dynamic(active_sh_degree, shs_f, dirs,
-                                              max_deg)
+        if override_color is None:
+            dirs = xyz - camera.cam_center
+            dirs = dirs / torch.clamp(
+                torch.linalg.vector_norm(dirs, dim=-1, keepdim=True),
+                min=1e-8)
+            if isinstance(active_sh_degree, torch.Tensor):
+                max_deg = math.isqrt(shs_f.shape[1]) - 1
+                colors = sh_ops.sh_to_rgb_dynamic(active_sh_degree, shs_f,
+                                                  dirs, max_deg)
+            else:
+                colors = sh_ops.sh_to_rgb(int(active_sh_degree), shs_f, dirs)
         else:
-            colors = sh_ops.sh_to_rgb(int(active_sh_degree), shs_f, dirs)
-    else:
-        colors = override_color
-    return xyz, scales, quats, opacities, colors
+            colors = override_color
+        return sp.grads(xyz, scales, quats, opacities, colors)
 
 
 def render(
@@ -87,7 +94,7 @@ def render(
     scale_modifier: float = 1.0,
     override_color: torch.Tensor | None = None,
 ) -> RenderOutput:
-    with record_function("render.splats"):
+    with tracing.span("render.splats"):
         splats = splats_at(gauss, deform, camera, aabb, active_sh_degree,
                            stage, override_color)
     return rasterize(*splats, camera, bg, raster_cfg, ndc_offset=ndc_offset,

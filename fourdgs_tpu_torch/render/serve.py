@@ -11,7 +11,8 @@ raster config, the stage, the identity of the renderer's tensors, the
 blend's implementation and the switches; `Renderer.replay`, which
 `tools/render.py:MeshRenderer` also captures its sharded frames
 through), replayed with the camera copied into its static buffers.
-`capture=False` renders eagerly; the CPU always does.
+`capture=False` renders eagerly; the CPU always does. A replay's host
+phases are the tracer's `frame.*` spans (utils/tracing.py).
 
 CLI: render a look-at orbit over t in [0, 1] and print frame count,
 seconds and FPS:
@@ -40,6 +41,7 @@ from fourdgs_tpu_torch.render.render import render
 from fourdgs_tpu_torch.train import checkpoint
 from fourdgs_tpu_torch.train import config as config_mod
 from fourdgs_tpu_torch.train import graphs
+from fourdgs_tpu_torch.utils import tracing
 from fourdgs_tpu_torch.utils.device import resolve_device
 
 # cap probe bounds (as in the JAX render CLI)
@@ -171,7 +173,9 @@ class Renderer:
         besides the renderer) with the raster config, the SH degree, the
         identity of the renderer's tensors, the blend's implementation
         and the switches. The `held` frames used last are kept."""
+        host = tracing.HostSpans("frame")
         camera = camera.to(self.device)
+        host.lap(tracing.now())
         inputs = tuple(getattr(self.gauss, f) for f in FIELDS) + (
             self.alive, self.aabb, self.bg, self.deform)
         key = (self.raster_cfg, self.sh_degree, kind,
@@ -190,7 +194,8 @@ class Renderer:
             self.capture_s += frame.program.seconds
         self.frames[key] = frame
         self.replayed += 1
-        return frame(camera)
+        host.lap(tracing.now())
+        return frame(camera, host)
 
     def gui_frame(self, camera: Camera, width: int, height: int,
                   scaling_modifier: float = 1.0) -> torch.Tensor:

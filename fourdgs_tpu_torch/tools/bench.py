@@ -62,6 +62,31 @@ def bench_config(points: int) -> config_mod.Config:
     return cfg
 
 
+def operating_point(points: int, size: int, dev: torch.device):
+    """bench.py's training state, optimizer, raster config, camera,
+    target, background, step key and SH degree on `dev`."""
+    cfg = bench_config(points)
+    pts, cols = synthetic_points(points, SEED)
+    state = create_state(cfg, pts, cols, 1.0,
+                         generator=torch.Generator().manual_seed(SEED),
+                         device=dev)
+    with torch.no_grad():
+        state.params["gauss"].opacity.fill_(math.log(OPACITY
+                                                     / (1.0 - OPACITY)))
+    tx = optim.build_optimizer(cfg.opt, 1.0)
+    state.opt_state = tx.init(state.params)
+    rc = config_mod.raster_config_from(cfg, size, size)
+    cams = [look_at_camera(device=dev)]
+    rng = np.random.default_rng(SEED)
+    gts = torch.from_numpy(rng.uniform(0, 1, (1, size, size, 3))
+                           .astype(np.float32)).to(dev)
+    bg = torch.zeros(3, device=dev)
+    key = graphs.StepKey("fine", state.capacity, rc, True, 1, 0.0,
+                         REG_WEIGHTS, graphs.switches())
+    sh = torch.full((), 3, dtype=torch.int32, device=dev)
+    return state, tx, rc, cams, gts, bg, key, sh
+
+
 def card_limit(dev: torch.device) -> str | None:
     """`nvidia-smi`'s name and power limit of the card, or None off it."""
     if dev.type != "cuda":
@@ -82,25 +107,8 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     captured = dev.type == "cuda"
 
-    cfg = bench_config(args.points)
-    pts, cols = synthetic_points(args.points, SEED)
-    state = create_state(cfg, pts, cols, 1.0,
-                         generator=torch.Generator().manual_seed(SEED),
-                         device=dev)
-    with torch.no_grad():
-        state.params["gauss"].opacity.fill_(math.log(OPACITY
-                                                     / (1.0 - OPACITY)))
-    tx = optim.build_optimizer(cfg.opt, 1.0)
-    state.opt_state = tx.init(state.params)
-    rc = config_mod.raster_config_from(cfg, args.size, args.size)
-    cams = [look_at_camera(device=dev)]
-    rng = np.random.default_rng(SEED)
-    gts = torch.from_numpy(rng.uniform(0, 1, (1, args.size, args.size, 3))
-                           .astype(np.float32)).to(dev)
-    bg = torch.zeros(3, device=dev)
-    key = graphs.StepKey("fine", state.capacity, rc, True, 1, 0.0,
-                         REG_WEIGHTS, graphs.switches())
-    sh = torch.full((), 3, dtype=torch.int32, device=dev)
+    state, tx, rc, cams, gts, bg, key, sh = operating_point(
+        args.points, args.size, dev)
     step_fn = loop.step_of_key(tx)
     if captured:
         programs = graphs.StepPrograms(step_fn)

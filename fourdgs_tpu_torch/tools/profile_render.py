@@ -1,18 +1,20 @@
 """Where a served frame's time goes on the card: render a snapshot's
 look-at orbit once untimed, once timed, and once under torch.profiler,
 and print the device's busy share, the launches and CUDA runtime calls
-per frame, each render span's host and kernel time, and the kernels that
-take the most device time. `profile_calls` does the same for any call
+per frame, each render span's device time, and the kernels that take the
+most device time. `profile_calls` does the same for any call
 (chip_smoke.py profiles training steps with it).
 
     python -m fourdgs_tpu_torch.tools.profile_render -m output/scene \
         --frames 24
 
-The spans are the `record_function` ranges that render/render.py and
-ops/rasterize_tiled.py open. A replayed CUDA graph (the Renderer's default
-on the card) opens none, so the CLI times and profiles the frames both
-ways: replayed (totals) and eager (spans). The last line is the report as
-JSON.
+A replayed frame (the Renderer's default on the card) reports its spans
+as the tracer's segments (utils/tracing.py): device milliseconds a frame
+between the marks its capture holds, each segment's parent, and the
+first-to-last time; and its host spans (`frame.*`). An eager frame opens
+the spans as `record_function` ranges, reported with their host time,
+device range and kernel time as before. The CLI profiles both ways. The
+last line is the report as JSON.
 """
 from __future__ import annotations
 
@@ -27,16 +29,20 @@ import torch
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.render.serve import Renderer, orbit_cameras
+from fourdgs_tpu_torch.utils import tracing
 
 
-# the render path's profiler spans (render/render.py, ops/rasterize_tiled.py;
-# raster.pack opens inside raster.blend, in ops/blend.py)
-SPANS = ("render.splats", "raster.project", "raster.bin", "raster.pack",
-         "raster.blend", "raster.compose")
+# the render path's spans (render/render.py, models/hexplane.py,
+# models/deformation.py, ops/rasterize_tiled.py; raster.pack opens inside
+# raster.blend, in ops/blend.py)
+SPANS = ("render.splats", "splats.hexplane", "splats.heads",
+         "raster.project", "raster.bin", "raster.pack", "raster.blend",
+         "raster.compose")
 # the training step's (train/loop.py; the blend's backward in ops/blend.py
 # runs inside train.backward)
-TRAIN_SPANS = SPANS + ("train.forward", "train.backward",
-                       "raster.blend_backward", "train.adam", "train.stats")
+TRAIN_SPANS = SPANS + ("train.forward", "train.loss", "train.regulariser",
+                       "train.backward", "raster.blend_backward",
+                       "train.adam", "train.stats")
 # CUDA runtime calls counted per frame: a stream synchronize is a host wait
 # on the device (a `.item()`, a copy from the host's pageable memory, a
 # data-dependent size); a captured step or frame is one cudaGraphLaunch
@@ -64,9 +70,11 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
     """Run `fn` n times under torch.profiler on the card and print, per
     call: the device's busy share of the wall time, the kernel launches
     and CUDA runtime calls, each span's host time, device range (first to
-    last kernel, gaps included) and kernel time, and the kernels that take
-    the most device time. The profiler's own cost inflates the host
-    times; compare the unprofiled time of the same calls."""
+    last kernel, gaps included) and kernel time where the calls are eager,
+    the tracer's segments and host spans where they replay programs
+    rooted at `label` ("frame", "step"), and the kernels that take the
+    most device time. The profiler's own cost inflates the host times;
+    compare the unprofiled time of the same calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,6 +110,16 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
             "host_ms": sum(r.elapsed_us() for r in host) / n / 1e3,
             "device_range_ms": sum(r.elapsed_us() for r in rng) / n / 1e3,
             "kernel_ms": sum(map(kernel_us_in, rng)) / n / 1e3}
+    # the replays' segments and host spans, from the tracer's records of
+    # this session (none for eager calls)
+    segments = tracing.segment_ms(label)
+    session = tracing.last_session()
+    host_spans: dict = {}
+    for h in tracing.REG.host_events:
+        if h.session == session and h.root == label:
+            for name, a, b in h.events():
+                host_spans[name] = host_spans.get(name, 0.0) + (b - a) / 1e6
+    host_spans = {k: v / n for k, v in host_spans.items()}
     calls = {c: sum(e.name == c for e in events) / n for c in _RUNTIME_CALLS}
     copies = {k: sum(e.name.startswith("Memcpy") and k in e.name
                      for e in on_dev) / n for k in _COPY_KINDS}
@@ -117,6 +135,9 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
         f"runtime_calls_per_{label}": {c: v for c, v in calls.items() if v},
         f"device_copies_per_{label}": copies,
         "spans": span_report,
+        "segments_ms": segments,
+        "segment_parents": _parents(label, session),
+        "host_spans_ms": host_spans,
         "top_kernels": [
             {"name": name[:90], f"ms_per_{label}": sum(d) / n / 1e3,
              f"calls_per_{label}": len(d) / n}
@@ -131,14 +152,29 @@ def profile_calls(fn, n: int, spans=SPANS, top: int = 12,
           f"calls per {label} {report[f'runtime_calls_per_{label}']}; "
           f"device copies per {label} {copies}")
     for k, v in span_report.items():
-        print(f"  span {k:22s} host {v['host_ms']:8.3f} ms  device range "
-              f"{v['device_range_ms']:8.3f} ms  kernels "
-              f"{v['kernel_ms']:8.3f} ms")
+        if v["host_ms"]:
+            print(f"  span {k:22s} host {v['host_ms']:8.3f} ms  device "
+                  f"range {v['device_range_ms']:8.3f} ms  kernels "
+                  f"{v['kernel_ms']:8.3f} ms")
+    for k, v in sorted(segments.items(), key=lambda kv: -kv[1]):
+        print(f"  segment {str(k):30s} {v:8.4f} ms/{label}")
+    for k, v in host_spans.items():
+        print(f"  host span {k:22s} {v:8.4f} ms/{label}")
     for k in report["top_kernels"]:
         print(f"  kernel {k[f'ms_per_{label}']:8.4f} ms x"
               f"{k[f'calls_per_{label}']:6.1f}  {k['name']}")
     print("profile json: " + json.dumps(report))
     return report
+
+
+def _parents(root: str, session: int) -> dict:
+    """Each segment's parent span, from the records of the session's
+    replays of programs rooted at `root`."""
+    out: dict = {}
+    for row in tracing.rows(session):
+        if row.record.root == root:
+            out.update({str(k): v for k, v in row.record.tree.items()})
+    return out
 
 
 def profile_frames(renderer: Renderer, cams: list[Camera],

@@ -29,9 +29,11 @@ their images' size, divided by `--resolution` where it is above 1 (the JAX
 script's `-r`).
 A split too large for the device trains from a host or lazy image bank,
 its next batch prefetched (a lazy bank decodes on threads, in the host
-library). `--profile` runs the fine
-stage eagerly, so that its spans show (a replayed CUDA graph opens none),
-wraps it in `torch.profiler` and writes a Chrome trace under <out>/trace/.
+library). `--profile` wraps the fine
+stage in `torch.profiler` and writes a Chrome trace under <out>/trace/
+with the tracer's records beside the profiler's (utils/tracing.py:
+`export`): the replayed steps' device segments between their marks and
+the host spans of each step, on the profiler's clock.
 
 Multi-GPU (parallel/): under `python -m torch.distributed.run
 --nproc_per_node N -m fourdgs_tpu_torch.tools.train ... --distributed
@@ -85,6 +87,7 @@ from fourdgs_tpu_torch.render.serve import _full_float32
 from fourdgs_tpu_torch.train import checkpoint, graphs, loop, optim
 from fourdgs_tpu_torch.train import config as config_mod
 from fourdgs_tpu_torch.train import state as state_mod
+from fourdgs_tpu_torch.utils import tracing
 from fourdgs_tpu_torch.utils.device import resolve_device
 from fourdgs_tpu_torch.utils.visualize import render_training_image
 
@@ -501,11 +504,14 @@ def _train(args, cfg) -> dict:
                     epoch_order_fn=None if stage == "coarse" else epoch_order_fn,
                     on_iteration=make_on_iteration(stage),
                     start_iteration=start_it, initial_active_sh=active_sh,
-                    capture=False if profile else None, mesh=mesh)
+                    mesh=mesh)
             if profile and lead:
                 trace_dir = os.path.join(cfg.model.model_path, "trace")
                 os.makedirs(trace_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(trace_dir, "fine.json"))
+                added = tracing.export(prof,
+                                       os.path.join(trace_dir, "fine.json"))
+                print(f"trace: {trace_dir}/fine.json, the program's "
+                      f"{added}")
             st = res.state
             active_sh = res.active_sh
             raster_cfg = res.raster_cfg
@@ -554,6 +560,8 @@ def _train(args, cfg) -> dict:
                                "states")
     if eval_programs is not None:
         summary["eval_programs"] = eval_programs.report()
+    # the captured programs (seconds, pool bytes, replays) and host spans
+    summary["tracer"] = tracing.summary()
     if lead:
         print(f"\nTraining complete in {total_time:.1f}s "
               f"(excl. eval/saving).")

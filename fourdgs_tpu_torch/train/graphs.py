@@ -81,17 +81,21 @@ process group the capture runs in CUDA's thread-local capture mode:
 ProcessGroupNCCL's watchdog thread queries the events of earlier
 collectives, which a global-mode capture forbids in any thread.
 
-The kernel wrappers' `.launches` count the kernels the host launched. A
-capture records the launches made on its stream per wrapper on the
-program (`launches`, through `ops/launches.py:recording`) and not on the
-wrappers, since nothing ran; another thread's launches meanwhile count as
-they run. Each replay adds the program's launches to `REPLAYED`.
-`kernel_runs()` is the sum, by the wrapper's `__name__`: the kernels that
-ran.
+What the programs did is the tracer's (utils/tracing.py). The kernel
+wrappers' `.launches` count the kernels the host launched. A capture
+records the launches made on its stream per wrapper in its program's
+record (`Program.launches`) and not on the wrappers, since nothing ran;
+another thread's launches meanwhile count as they run. `kernel_runs()` is
+the wrappers' launches plus each record's launches times its replays, by
+the wrapper's `__name__`: the kernels that ran. A program's record keeps
+its capture seconds, the reserved bytes its capture added (its pool) and
+its replays, and outlives the program. A captured frame is the tracer's
+root span `frame` and a captured step its `step`: the layers' spans
+inside mark the device's time in the graph, and the host's phases of a
+replay (`frame.*`, `step.*`) are the tracer's host spans.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import copy
 import dataclasses
@@ -107,11 +111,11 @@ import torch.distributed as dist
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.models.gaussians import FIELDS, GaussianParams
-from fourdgs_tpu_torch.ops import (blend, gather, launches,
-                                   rasterize_tiled, scatter)
+from fourdgs_tpu_torch.ops import blend, gather, rasterize_tiled, scatter
 from fourdgs_tpu_torch.ops.rasterize_tiled import RasterConfig
 from fourdgs_tpu_torch.train import optim
 from fourdgs_tpu_torch.train.state import TrainState
+from fourdgs_tpu_torch.utils import tracing
 
 # the environment switches that the step and the frame read at call time,
 # with the values that turn on the per-slot path (K3, K4, K5)
@@ -127,7 +131,6 @@ WRAPPERS = (blend.blend_forward, blend.blend_backward,
             blend.blend_backward_slots, scatter.scatter_add_rows,
             scatter.scatter_set_scalars, rasterize_tiled.bin_tiles,
             gather.gather_rows)
-REPLAYED: collections.Counter = collections.Counter()
 _CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 
@@ -138,13 +141,13 @@ def switches() -> tuple:
 def kernel_runs() -> dict:
     """Kernels that ran, per wrapper name: host launches plus replayed
     ones."""
-    return {w.__name__: w.launches + REPLAYED[w.__name__] for w in WRAPPERS}
+    replayed = tracing.replayed_kernels()
+    return {w.__name__: w.launches + replayed.get(w.__name__, 0)
+            for w in WRAPPERS}
 
 
 def zero_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
-    REPLAYED.clear()
+    tracing.zero_counts(WRAPPERS)
 
 
 def _in_process_group() -> bool:
@@ -203,8 +206,10 @@ def _in_background() -> bool:
 
 class Program:
     """One CUDA graph of `fn` (no arguments; it reads static buffers) in a
-    memory pool of its own, with the outputs its replays write, its
-    launches per kernel wrapper, its replays and its capture seconds.
+    memory pool of its own, with the outputs its replays write and its
+    record in the tracer (`record`: its launches per kernel wrapper, its
+    replays, its capture seconds and pool bytes, its marks under the root
+    span `root`).
 
     The warm-up and the capture run on a stream of its own, after what the
     calling thread's stream holds; then that stream alone is waited on. On
@@ -221,7 +226,7 @@ class Program:
     of memory)."""
 
     def __init__(self, key, fn: Callable[[], Any], label: str,
-                 warmup: int = WARMUP):
+                 warmup: int = WARMUP, root: str = "frame"):
         if not torch.cuda.is_available():
             raise RuntimeError("a captured program needs a CUDA device; "
                                "the CPU path runs eagerly")
@@ -231,38 +236,61 @@ class Program:
         mode = ("thread_local" if ranks or background
                 or _background["threads"] else "global")
         caller = torch.cuda.current_stream()
+        dev = caller.device
         self.graph = torch.cuda.CUDAGraph()
+        self.record = tracing.program(label, root)
         with _own_stream() as side:
             side.wait_stream(caller)
             try:
                 with torch.cuda.stream(side):
                     for _ in range(warmup):
                         fn()
-                    with _CAPTURING, launches.recording(side) as recorded:
+                    with _CAPTURING, tracing.capturing(side, root,
+                                                       dev) as cap:
                         if not background:
                             torch.cuda.empty_cache()
+                        reserved = torch.cuda.memory_reserved(dev)
                         self.graph.capture_begin(capture_error_mode=mode)
                         try:
+                            tracing.begin(cap)
                             self.outputs = fn()
+                            tracing.end(cap, self.record)
                         finally:
                             self.graph.capture_end()
+                        self.record.pool_bytes = (
+                            torch.cuda.memory_reserved(dev) - reserved)
             finally:
                 if not background:
                     caller.wait_stream(side)
                 side.synchronize()
-        self.launches = dict(recorded)
         self.key = key
-        self.replays = 0
-        self.seconds = time.perf_counter() - t0
+        self.record.seconds = time.perf_counter() - t0
         if not ranks or dist.get_rank() == 0:
             print(f"[{'prewarm' if background else 'capture'}] {label} "
                   f"captured in {self.seconds:.2f}s "
                   f"(launches {self.launches})", flush=True)
 
+    @property
+    def launches(self) -> dict:
+        return self.record.launches
+
+    @property
+    def replays(self) -> int:
+        return self.record.replays
+
+    @property
+    def seconds(self) -> float:
+        return self.record.seconds
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.record.pool_bytes
+
     def replay(self):
+        """Launch the graph and return its outputs; `last` is the replay's
+        number on the tracer's ring (-1 without marks)."""
+        self.last = tracing.replayed(self.record)
         self.graph.replay()
-        self.replays += 1
-        REPLAYED.update(self.launches)
         return self.outputs
 
 
@@ -277,9 +305,18 @@ class CapturedFrame:
         self.inputs = inputs
         self.program = Program(key, lambda: render_fn(self.camera), label)
 
-    def __call__(self, camera: Camera):
+    def __call__(self, camera: Camera, host: tracing.HostSpans):
+        """The frame at `camera`; `host` laps the camera's copy in, the
+        launch and the outputs' copies (`frame.inputs`, `frame.launch`,
+        `frame.outputs`)."""
         _copy_camera(self.camera, camera)
-        return _copy_out(self.program.replay())
+        host.lap(tracing.now())
+        out = self.program.replay()
+        host.lap(tracing.now())
+        out = _copy_out(out)
+        host.lap(tracing.now())
+        host.close(self.program.last)
+        return out
 
 
 class StateBuffers:
@@ -361,22 +398,33 @@ class CapturedStep:
                    if key.active_sh is None else key.active_sh)
         self.program = Program(key, lambda: step_fn(
             self.buffers.state, self.cameras, self.gts, self.bg, self.sh),
-            label)
+            label, root="step")
 
     @property
     def key(self):
         return self.program.key
 
     def __call__(self, state: TrainState, cameras: Sequence[Camera],
-                 gts: torch.Tensor, bg: torch.Tensor, active_sh):
+                 gts: torch.Tensor, bg: torch.Tensor, active_sh,
+                 host: tracing.HostSpans):
+        """One replay on `state`; `host` laps the bind, the inputs'
+        copies, the launch and the outputs' copies (`step.bind`,
+        `step.inputs`, `step.launch`, `step.outputs`)."""
         self.buffers.bind(state)
+        host.lap(tracing.now())
         for dst, src in zip(self.cameras, cameras, strict=True):
             _copy_camera(dst, src)
         self.gts.copy_(gts)
         self.bg.copy_(bg)
         if isinstance(self.sh, torch.Tensor):
             self.sh.copy_(active_sh)
-        return _copy_out(self.program.replay())
+        host.lap(tracing.now())
+        out = self.program.replay()
+        host.lap(tracing.now())
+        out = _copy_out(out)
+        host.lap(tracing.now())
+        host.close(self.program.last)
+        return out
 
 
 class StepKey(NamedTuple):
@@ -461,9 +509,9 @@ class StepPrograms:
     gives the step function of a key (`loop.step_of_key`, or
     `parallel.sharded.step_of_key` over a mesh, whose ranks must all run
     the same keys in the same order). `captures` logs each capture on the
-    training thread: its key's label, seconds, the stage's step it came
-    at (1 for the first) and the key's fields that changed; `prewarms`
-    each prewarm. `close` ends the stage's prewarms."""
+    training thread: its key's label, seconds, pool bytes, the stage's
+    step it came at (1 for the first) and the key's fields that changed; `prewarms` each prewarm. `close`
+    ends the stage's prewarms."""
 
     def __init__(self, step_fn: Callable[[StepKey], Callable]):
         self.step_fn = step_fn
@@ -471,7 +519,7 @@ class StepPrograms:
         self.captures: list[dict] = []
         self.prewarms: list[Prewarm] = []
         self._pending: dict[StepKey, Prewarm] = {}
-        self._evicted = {"binds": 0, "replays": 0}
+        self._evicted_binds = 0
         self._runs = 0
         self._close_wait = 0.0
         self._oom_drops = 0   # prewarms dropped for a capture's memory
@@ -543,8 +591,7 @@ class StepPrograms:
     def _switch(self, key: StepKey, state: TrainState, cameras, gts, bg):
         before = None if self.live is None else self.live.key
         if self.live is not None:
-            self._evicted["binds"] += self.live.buffers.binds
-            self._evicted["replays"] += self.live.program.replays
+            self._evicted_binds += self.live.buffers.binds
         self.live = None
         p = self._pending.pop(key, None)
         for other in list(self._pending.values()):
@@ -562,10 +609,10 @@ class StepPrograms:
                 self.live, p.step, p.used = p.step, None, True
         if self.live is None:
             self.live = self._capture(key, state, cameras, gts, bg)
-            self.captures.append(dict(key=key.label(),
-                                      seconds=self.live.program.seconds,
-                                      step=self._runs + 1,
-                                      changed=_changed(before, key)))
+            self.captures.append(dict(
+                key=key.label(), seconds=self.live.program.seconds,
+                pool_bytes=self.live.program.pool_bytes, step=self._runs + 1,
+                changed=_changed(before, key)))
 
     def _capture(self, key: StepKey, state: TrainState, cameras, gts, bg):
         """The step of `key` captured on this thread. If that runs out of
@@ -595,7 +642,9 @@ class StepPrograms:
         """One step of `state` at SH degree `active_sh` (a 0-d int32
         tensor on the state's device; over a mesh the key's int), by the
         program of `key`: the live one, a prewarmed one, or one captured
-        now."""
+        now. The host's phases are the tracer's `step.*` spans (a switch
+        of program falls in `step.bind`)."""
+        host = tracing.HostSpans("step")
         now = time.perf_counter()
         if self._last is not None:
             then, prewarming = self._last
@@ -604,7 +653,7 @@ class StepPrograms:
         if self.live is None or self.live.key != key:
             self._switch(key, state, cameras, gts, bg)
         self._runs += 1
-        out = self.live(state, cameras, gts, bg, active_sh)
+        out = self.live(state, cameras, gts, bg, active_sh, host)
         self._last = (now, any(p.building() for p in self.prewarms))
         return out
 
@@ -621,8 +670,8 @@ class StepPrograms:
 
     def report(self) -> dict:
         """What the stage's programs did: the training thread's captures
-        (each with its key, seconds, step and changed fields), binds that
-        copied state in, replays; each prewarm (its key, whether it was
+        (each with its key, seconds, pool bytes, step and changed fields),
+        binds that copied state in, replays; each prewarm (its key, whether it was
         prewarmed, used, dropped or failed, the switch's wait and the
         thread's seconds, builds again after running out of memory) and
         their sums, and the prewarms dropped because a capture on this
@@ -637,10 +686,9 @@ class StepPrograms:
                     "mean_ms": sum(ms) / len(ms) if ms else None,
                     "median_ms": sorted(ms)[len(ms) // 2] if ms else None}
         return {"captures": self.captures,
-                "rebinds": self._evicted["binds"]
+                "rebinds": self._evicted_binds
                 + sum(s.buffers.binds for s in held),
-                "replays": self._evicted["replays"]
-                + sum(s.program.replays for s in held),
+                "replays": self._runs,
                 "prewarms": pre,
                 "prewarmed": sum(r["prewarmed"] for r in pre),
                 "prewarms_used": sum(r["used"] for r in pre),

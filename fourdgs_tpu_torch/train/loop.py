@@ -26,7 +26,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from fourdgs_tpu_torch.data.camera import Camera
 from fourdgs_tpu_torch.data.scene import ImageBank
@@ -40,6 +39,7 @@ from fourdgs_tpu_torch.train import densify as densify_mod
 from fourdgs_tpu_torch.train import graphs, optim
 from fourdgs_tpu_torch.train.config import Config, raster_config_from
 from fourdgs_tpu_torch.train.state import TrainState, make_trainable
+from fourdgs_tpu_torch.utils import tracing
 
 __all__ = ["StepAux", "StepGrads", "StageResult", "step_gradients",
            "train_step", "step_of_key", "eval_step", "pick_bucket",
@@ -85,21 +85,27 @@ def step_gradients(state: TrainState, cameras: Sequence[Camera],
     leaves = optim.param_leaves(params)
     ndc_offset = torch.zeros((state.capacity, 2), device=state.alive.device,
                              requires_grad=True)
-    with record_function("train.forward"):
+    with tracing.span("train.forward"):
         outs: list[RenderOutput] = [
             render(gauss, deform, cam, bg, raster_cfg, state.aabb,
                    state.alive, active_sh, stage=stage, ndc_offset=ndc_offset)
             for cam in cameras]
-        imgs = torch.stack([o.color for o in outs])
-        l1 = losses.l1_loss(imgs, gts)
+        with tracing.span("train.loss") as sp:
+            imgs = torch.stack([o.color for o in outs])
+            (l1,) = sp.grads(losses.l1_loss(imgs, gts))
         loss = l1
         if stage == "fine" and reg_weights[0] != 0:
             time_w, l1_w, tv_w = reg_weights
-            loss = loss + compute_regulation(deform.grid.planes, time_w,
-                                             l1_w, tv_w)
+            with tracing.span("train.regulariser") as sp:
+                (reg,) = sp.grads(compute_regulation(
+                    deform.grid.planes, time_w, l1_w, tv_w))
+            loss = loss + reg
         if lambda_dssim != 0:
-            loss = loss + lambda_dssim * (1.0 - losses.ssim(imgs, gts))
-    with record_function("train.backward"):
+            with tracing.span("train.loss") as sp:
+                (dssim,) = sp.grads(lambda_dssim
+                                    * (1.0 - losses.ssim(imgs, gts)))
+            loss = loss + dssim
+    with tracing.span("train.backward"):
         *grads, ndc_grad = torch.autograd.grad(loss, leaves + [ndc_offset],
                                                allow_unused=True)
     return StepGrads(loss=loss.detach(), l1=l1.detach(), outs=outs,
@@ -118,10 +124,10 @@ def train_step(state: TrainState, cameras: Sequence[Camera],
     sg = step_gradients(state, cameras, gts, bg, active_sh, stage=stage,
                         raster_cfg=raster_cfg, lambda_dssim=lambda_dssim,
                         reg_weights=reg_weights)
-    with record_function("train.adam"):
+    with tracing.span("train.adam"):
         tx.update(sg.grads, state.opt_state, state.params)
     outs = sg.outs
-    with torch.no_grad(), record_function("train.stats"):
+    with torch.no_grad(), tracing.span("train.stats"):
         radii = torch.stack([o.radii for o in outs]).amax(dim=0)
         visible = torch.stack([o.visibility for o in outs]).any(dim=0)
         if track_stats:

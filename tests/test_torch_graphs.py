@@ -31,11 +31,12 @@ class ReplayEagerly:
     """`graphs.Program` on the CPU: the warm-up runs, the capture runs
     nothing, and each replay runs `fn` on the program's static buffers."""
 
-    def __init__(self, key, fn, label, warmup=graphs.WARMUP):
+    def __init__(self, key, fn, label, warmup=graphs.WARMUP, root="frame"):
         for _ in range(warmup):
             fn()
         self.key, self.fn = key, fn
         self.replays, self.launches, self.seconds = 0, {}, 0.0
+        self.last, self.pool_bytes = -1, 0
 
     def replay(self):
         self.replays += 1

@@ -29,6 +29,7 @@ from fourdgs_tpu_torch.render.serve import Renderer
 from fourdgs_tpu_torch.tools.make_synthetic_scene import write_split
 from fourdgs_tpu_torch.train import config as tconfig
 from fourdgs_tpu_torch.train import graphs, loop, optim
+from fourdgs_tpu_torch.utils import tracing
 # tests/ is on sys.path under pytest (no __init__.py: "prepend" import)
 from test_torch_graphs import _cfg, _run, _stage_cfg, _state, _tensors
 
@@ -73,7 +74,7 @@ def test_captured_frame_equals_the_eager_frame(cuda):
     assert frame.program.launches == FRAME_LAUNCHES
     # the warm-up's renders ran; the capture's did not
     assert blend.blend_forward.launches == graphs.WARMUP
-    assert graphs.REPLAYED["blend_forward"] == len(cams)
+    assert tracing.replayed_kernels()["blend_forward"] == len(cams)
     assert graphs.kernel_runs()["blend_forward"] == (graphs.WARMUP
                                                      + len(cams))
     for c, got in zip(cams, outs):
@@ -474,7 +475,7 @@ def test_off_centre_served_frame_matches_the_cpu_path(cuda):
     cams = [_off_centre_camera(cuda, theta=0.3 * i, time=i / 4)
             for i in range(4)]
     outs = [served.render(c) for c in cams]
-    assert graphs.REPLAYED["blend_forward"] == len(cams)
+    assert tracing.replayed_kernels()["blend_forward"] == len(cams)
     eager = dataclasses.replace(served, capture=False)
     cpu = renderer(torch.device("cpu"), False)
     for i, got in enumerate(outs):

@@ -38,6 +38,7 @@ from fourdgs_tpu_torch.train import config as tconfig
 from fourdgs_tpu_torch.train import graphs
 from fourdgs_tpu_torch.train import loop as tloop
 from fourdgs_tpu_torch.train import optim as toptim
+from fourdgs_tpu_torch.utils import tracing
 from tests.test_torch_graphs import (ReplayEagerly, _assert_same, _run,
                                      _stage_cfg, _state)
 from tests.test_torch_stage import _initial_state
@@ -321,7 +322,8 @@ def test_launch_counts_hold_under_threads(monkeypatch):
     saved = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        with launches.recording(Capture()) as record:
+        with tracing.capturing(Capture()) as cap:
+            record = cap.launches
             threads = [threading.Thread(target=lambda: [
                 launches.count(wrapper) for _ in range(2000)])
                 for _ in range(8)]
@@ -335,9 +337,9 @@ def test_launch_counts_hold_under_threads(monkeypatch):
     assert wrapper.launches == 16000 and not record
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
                         lambda device: 8, raising=False)
-    with launches.recording(Capture()) as record:
+    with tracing.capturing(Capture()) as cap:
         launches.count(wrapper)
-    assert record == {"kernel": 1} and wrapper.launches == 16000
+    assert cap.launches == {"kernel": 1} and wrapper.launches == 16000
     with pytest.raises(RuntimeError, match="two captures"):
-        with launches.recording(Capture()), launches.recording(Capture()):
+        with tracing.capturing(Capture()), tracing.capturing(Capture()):
             pass
